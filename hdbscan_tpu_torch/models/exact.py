@@ -1,0 +1,214 @@
+"""Exact HDBSCAN* at scale on the card — the port of ``models/exact.py``'s
+device route (``fit`` -> ``_fit_device``).
+
+The fit, phase by phase:
+
+1. core distances: one k-best kernel launch (``ops/tiled.knn_core_distances``
+   -> ``ops/cuda_knn``), fetched as float64 like the reference's;
+2. Borůvka rounds on the device (``core/mst_device.boruvka_mst_device``):
+   one segment-min kernel launch plus the scatter-min contraction per
+   round, one (components, edges) scalar read per round to drive the loop;
+3. the union-find event scan (``forest_events_device``: three stable sorts
+   and the ``uf_scan`` kernel);
+4. one bulk device->host fetch of the event stream and the MST, then the
+   vectorized merge-forest reconstruction and the shared finalize tail
+   (condensed tree, EOM, labels, GLOSH) on the host.
+
+Routes of the reference that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP entry.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from hdbscan_tpu_torch.config import HDBSCANParams
+from hdbscan_tpu_torch.models.hdbscan import HDBSCANResult
+from hdbscan_tpu_torch.ops import cuda_build
+
+
+def _resolve_index(params: HDBSCANParams, n: int) -> str:
+    """``knn_index`` as the reference resolves it ("auto" flips to the
+    rp-forest tier at ``knn_index_threshold`` points)."""
+    if params.knn_index == "auto":
+        return "rpforest" if n >= params.knn_index_threshold else "exact"
+    return params.knn_index
+
+
+def _check_ported(params: HDBSCANParams, n: int) -> None:
+    from hdbscan_tpu_torch.core.mst_device import resolve_mst_backend
+
+    if params.dedup_points:
+        raise NotImplementedError(
+            "dedup_points is not ported yet (ROADMAP A3: _fit_dedup, core/dedup.py)"
+        )
+    if resolve_mst_backend(params, n) == "host":
+        raise NotImplementedError(
+            "mst_backend=host (the host-round exact route) is not ported yet (ROADMAP A3)"
+        )
+    if params.fit_sharding == "sharded" or params.scan_backend == "ring":
+        raise NotImplementedError(
+            "multi-device fits (fit_sharding=sharded, scan_backend=ring) are "
+            "not ported yet (ROADMAP A9)"
+        )
+
+
+def fit(
+    data: np.ndarray,
+    params: HDBSCANParams | None = None,
+    *,
+    device=None,
+    row_tile: int = 1024,
+    col_tile: int = 8192,
+    dtype=np.float32,
+    trace=None,
+    num_constraints_satisfied: np.ndarray | None = None,
+) -> HDBSCANResult:
+    """Exact HDBSCAN* of ``data`` ((n, d) array) under ``params``.
+
+    Runs on the card unless ``device`` names another (``"cpu"`` runs every
+    kernel's plain PyTorch version); raises when no card is present and no
+    device is named. ``row_tile``/``col_tile`` are the reference's tiles:
+    they pick the euclidean distance form it would use. ``trace``: optional
+    ``trace(stage, **fields)`` callable receiving the reference's stage
+    events (``core_distances``, ``mst_round``, ``host_sync``,
+    ``boruvka_mst``, ``tree_*``) plus ``forest_events``.
+    """
+    params = params or HDBSCANParams()
+    data = np.asarray(data, np.float64)
+    n = len(data)
+    if n == 0:
+        raise ValueError("empty dataset")
+    _check_ported(params, n)
+    return _fit_device(
+        data, params, device=cuda_build.resolve_device(device),
+        row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+        num_constraints_satisfied=num_constraints_satisfied, trace=trace,
+    )
+
+
+def _fetch(tensors: dict) -> dict:
+    """All 32-bit device tensors to host numpy in ONE transfer."""
+    names = list(tensors)
+    flat = torch.cat([tensors[k].reshape(-1).view(torch.int32) for k in names])
+    host = flat.cpu().numpy()
+    out, off = {}, 0
+    for k in names:
+        t = tensors[k]
+        size = t.numel()
+        np_dtype = np.float32 if t.dtype == torch.float32 else np.int32
+        out[k] = host[off : off + size].view(np_dtype)
+        off += size
+    return out
+
+
+def _fit_device(
+    data: np.ndarray,
+    params: HDBSCANParams,
+    *,
+    device,
+    row_tile: int,
+    col_tile: int,
+    dtype,
+    num_constraints_satisfied,
+    trace,
+) -> HDBSCANResult:
+    from hdbscan_tpu_torch.core.mst_device import (
+        assemble_merge_forest,
+        assert_rounds_converged,
+        boruvka_mst_device,
+        forest_events_device,
+    )
+    from hdbscan_tpu_torch.models._finalize import (
+        finalize_clustering,
+        resolve_tree_backend,
+    )
+    from hdbscan_tpu_torch.ops.tiled import knn_core_distances
+
+    n = len(data)
+    t0 = time.monotonic()
+    core, _ = knn_core_distances(
+        data, params.min_points, params.dist_function,
+        row_tile=row_tile, col_tile=col_tile, dtype=dtype, fetch_knn=False,
+        backend=params.knn_backend, index=_resolve_index(params, n),
+        device=device,
+    )
+    if trace is not None:
+        trace("core_distances", n=n, wall_s=round(time.monotonic() - t0, 6))
+
+    t0 = time.monotonic()
+    res = boruvka_mst_device(
+        data, core, params.dist_function, row_tile=row_tile,
+        col_tile=col_tile, dtype=dtype, device=device, trace=trace,
+    )
+    rounds_wall = time.monotonic() - t0
+    t1 = time.monotonic()
+    # Padded (+inf, self-loop) tail rows pass through the scan as non-merges.
+    events = forest_events_device(res["u"], res["v"], res["w"], n)
+    if trace is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # an honest phase wall when tracing
+        trace("forest_events", edges=int(res["u"].shape[0]),
+              wall_s=round(time.monotonic() - t1, 6))
+    t1 = time.monotonic()
+    fetched = _fetch({
+        "sw": events["sw"], "ra": events["ra"], "rb": events["rb"],
+        "u": res["u"], "v": res["v"], "w": res["w"],
+    })
+    sync_wall = time.monotonic() - t1
+    rounds, count = res["rounds"], res["count"]
+    assert_rounds_converged(
+        rounds, count, n, stat_comp=res["stat_comp"], stat_edges=res["stat_edges"],
+    )
+    if trace is not None:
+        trace(
+            "host_sync",
+            arrays=len(fetched),
+            bytes=int(sum(a.nbytes for a in fetched.values())),
+            wall_s=round(sync_wall, 6),
+        )
+        trace(
+            "boruvka_mst",
+            rounds=rounds,
+            edges=count,
+            round_syncs=res["round_syncs"],
+            rounds_wall_s=round(rounds_wall, 6),
+            wall_s=round(time.monotonic() - t0, 6),
+        )
+    u = np.asarray(fetched["u"][:count], np.int64)
+    v = np.asarray(fetched["v"][:count], np.int64)
+    w = np.asarray(fetched["w"][:count], np.float64)
+
+    t1 = time.monotonic()
+    tree_backend = resolve_tree_backend(params, None)
+    forest = assemble_merge_forest(
+        n,
+        {"sw": fetched["sw"], "ra": fetched["ra"], "rb": fetched["rb"]},
+        build_children=(tree_backend == "reference"),
+    )
+    if trace is not None:
+        trace(
+            "tree_build_device",
+            n=n,
+            edges=count,
+            nodes=-1 if forest is None else len(forest.dist),
+            backend="device",
+            fallback=forest is None,
+            wall_s=round(time.monotonic() - t1, 6),
+        )
+    # forest=None (near-tied unequal weights): finalize builds it on the host.
+    tree, labels, scores, infinite = finalize_clustering(
+        n, u, v, w, core, params, num_constraints_satisfied, trace=trace,
+        forest=forest,
+    )
+    return HDBSCANResult(
+        labels=labels,
+        tree=tree,
+        core_distances=core,
+        mst=(u, v, w),
+        outlier_scores=scores,
+        infinite_stability=infinite,
+    )

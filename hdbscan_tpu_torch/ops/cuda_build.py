@@ -1,0 +1,178 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
+plain C entry point, loaded with ``ctypes``. ``-fmad=false`` keeps every
+``a*b+c`` as two roundings, the arithmetic of the plain PyTorch versions
+(eager PyTorch and XLA on the CPU do not contract), so kernel and plain
+version agree bitwise. The libraries land in the git-ignored
+``<repo>/.torch_build/cuda`` under a name keyed by the sources' content
+hash, so an edited source is rebuilt and a stale library never loads.
+
+A failed build raises: there is no fallback for CUDA tensors.
+
+``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
+launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(__file__))),
+    ".torch_build", "cuda",
+)
+
+#: Kernel name -> (source file, C entry point, ctypes argtypes).
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNELS = {
+    "segmin": ("segmin.cu", "segmin_launch", [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "knn_kbest": ("knn_kbest.cu", "knn_kbest_launch", [_P, _I, _I, _I, _I, _P, _P, _P]),
+    "uf_scan": ("uf_scan.cu", "uf_scan_launch", [_P, _P, _I, _I, _P, _P, _P, _P]),
+}
+_HEADERS = ("distance.cuh",)
+
+#: Metric/form codes of ``csrc/distance.cuh``.
+METRIC_CODES = {
+    ("euclidean", "diff"): 0,
+    ("euclidean", "dot"): 1,
+    ("manhattan", None): 2,
+    ("supremum", None): 3,
+}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_libs: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def metric_code(metric: str, form: str | None) -> int:
+    """The kernels' code for a metric (and euclidean form); raises for the
+    metrics no kernel implements yet (cosine, pearson)."""
+    key = (metric, form if metric == "euclidean" else None)
+    if key not in METRIC_CODES:
+        raise NotImplementedError(
+            f"no CUDA kernel for metric {metric!r} (form {form!r}) yet: "
+            "euclidean, manhattan and supremum are ported"
+        )
+    return METRIC_CODES[key]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _so_path(name: str) -> str:
+    src = KERNELS[name][0]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (src, *_HEADERS):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    """Start the nvcc build of one kernel; None when it is already built."""
+    so = _so_path(name)
+    if os.path.exists(so):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, KERNELS[name][0])]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+    return proc, tmp, so
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, so = job
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{out}{err}")
+    os.replace(tmp, so)
+
+
+def build_all() -> None:
+    """Build every kernel, one nvcc process per source, all at once; every
+    process is waited for before a failure is raised."""
+    jobs = {name: _start(name) for name in KERNELS}
+    errors = []
+    for name, job in jobs.items():
+        try:
+            _finish(name, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def kernel(name: str):
+    """The ctypes entry point of kernel ``name``, building it if needed."""
+    fn = _libs.get(name)
+    if fn is None:
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(_so_path(name))
+        _, sym, argtypes = KERNELS[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = fn
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current CUDA stream and count it;
+    raises on a refused launch (``cudaGetLastError`` != 0)."""
+    import torch
+
+    fn = kernel(name)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def require_cuda(t, name: str) -> None:
+    """Wrappers' guard: a tensor that is on neither the CPU nor a CUDA
+    device is refused (there is no other route)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: the card unless the caller names
+    another (the tests pass ``"cpu"``). Raises when no card is present."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available: the port runs on the card; "
+                "pass device='cpu' to run the plain PyTorch versions"
+            )
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,134 @@
+"""Large-N scans of the exact fit: k-NN core distances and the Borůvka
+per-row min-outgoing reduction — the port of ``ops/tiled.py``.
+
+The reference tiles both scans into (row_tile, col_tile) blocks for XLA and
+picks the euclidean distance form per tile shape. On the card both are
+hand-written kernels that walk every column per row (``ops/cuda_knn``,
+``ops/cuda_segmin``); the tile sizes survive only to choose the distance
+form the reference would use at the caller's tiles (:func:`scan_form`), so
+the port computes the same distances.
+
+:func:`_min_outgoing_scan` is the plain PyTorch version of the segment-min
+kernel; :func:`knn_core_distances` is the core-distance entry point.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hdbscan_tpu_torch.core.distances import euclidean_form, pairwise_distance
+
+#: Plain segment-min: rows per block so one (rows, n) weight block stays
+#: under this many elements.
+_PLAIN_BLOCK_ELEMS = 1 << 26
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _tile_sizes(n: int, row_tile: int, col_tile: int) -> tuple[int, int, int]:
+    """The reference's tile clamp: pow2 tiles (so row_tile | col_tile),
+    minimums 8 x 128, and the n_pad its scans pad to (n rounded up to the
+    column tile). The port's kernels mask the ragged edge and never pad."""
+    row_tile = _next_pow2(max(8, min(row_tile, n)))
+    col_tile = _next_pow2(max(128, min(col_tile, n)))
+    col_tile = max(col_tile, row_tile)
+    return row_tile, col_tile, _round_up(n, col_tile)
+
+
+def scan_form(n: int, d: int, metric: str, row_tile: int, col_tile: int):
+    """Euclidean form the reference's XLA scans take for n points at the
+    caller's tiles (after :func:`_tile_sizes` clamps them); None for the
+    other metrics."""
+    if metric != "euclidean":
+        return None
+    rt, ct, _ = _tile_sizes(n, row_tile, col_tile)
+    return euclidean_form(rt, ct, d)
+
+
+def knn_core_distances(
+    data: np.ndarray,
+    min_pts: int,
+    metric: str = "euclidean",
+    k: int | None = None,
+    row_tile: int = 1024,
+    col_tile: int = 8192,
+    dtype=np.float32,
+    return_indices: bool = False,
+    backend: str = "auto",
+    fetch_knn: bool = True,
+    index: str = "exact",
+    device=None,
+):
+    """Exact core distances (and the k-NN list) via the k-best kernel.
+
+    Same return contract as the reference: ``(core, knn)``; ``(core, None)``
+    with ``fetch_knn=False``; ``(core, knn, idx)`` with ``return_indices``.
+    ``core[i]`` is the ``min_pts``-th smallest distance from i, self
+    included, as float64.
+
+    ``backend``: "auto"/"xla" run the kernel in the distance form the
+    reference's XLA scan takes at these tiles; "fused" runs it in the fused
+    TPU kernel's dot form. "pallas" (the no-ids TPU kernel) and
+    ``index="rpforest"`` are not ported yet.
+    """
+    if index == "rpforest":
+        raise NotImplementedError(
+            "knn_index=rpforest is not ported yet (ROADMAP A8, kernels B5-B7)"
+        )
+    if index != "exact":
+        raise ValueError(f"unknown index {index!r}: exact | rpforest")
+    if backend not in ("auto", "xla", "pallas", "fused"):
+        raise ValueError(f"unknown backend {backend!r}: auto | xla | pallas | fused")
+    if backend == "pallas":
+        raise NotImplementedError(
+            "knn_backend=pallas (kernel B3, knn_smallest_pallas) is not ported yet"
+        )
+    if np.dtype(dtype) != np.float32:
+        raise ValueError(f"the k-best kernel computes in float32, got dtype {dtype}")
+    from hdbscan_tpu_torch.ops.cuda_knn import kbest_core_distances
+
+    n, d = np.shape(data)
+    k = max(k or 0, max(min_pts - 1, 1))
+    # Like the reference, "fused" with a metric the fused kernel does not
+    # take runs the XLA scan's contract.
+    if backend == "fused" and metric == "euclidean":
+        form = "dot"
+    else:
+        form = scan_form(n, d, metric, row_tile, col_tile)
+    return kbest_core_distances(
+        data, min_pts, k, metric, form, fetch_knn, return_indices, device
+    )
+
+
+def _min_outgoing_scan(data, core, comp, valid, metric: str, form: str | None):
+    """Plain PyTorch Borůvka scan: per row, the minimum mutual-reachability
+    edge to a valid column in another component.
+
+    ``data`` (n, d) float32, ``core`` (n,) float32, ``comp`` (n,) int32
+    labels, ``valid`` (n,) bool. Returns ((n,) best_w, (n,) int32 best_j):
+    ``best_j`` is the lowest column reaching the row minimum
+    (``torch.argmin`` returns the first minimal index), (+inf, -1) where
+    no outgoing edge exists or the row is not valid.
+    """
+    n = data.shape[0]
+    best_w = torch.empty(n, dtype=data.dtype, device=data.device)
+    best_j = torch.empty(n, dtype=torch.int32, device=data.device)
+    block = max(1, _PLAIN_BLOCK_ELEMS // max(n, 1))
+    inf = torch.tensor(float("inf"), dtype=data.dtype, device=data.device)
+    for a in range(0, n, block):
+        b = min(a + block, n)
+        dist = pairwise_distance(data[a:b], data, metric, form)
+        w = torch.maximum(dist, torch.maximum(core[a:b, None], core[None, :]))
+        out = (comp[a:b, None] != comp[None, :]) & valid[None, :] & valid[a:b, None]
+        w = torch.where(out, w, inf)
+        tw, tj = torch.min(w, dim=1)
+        best_w[a:b] = tw
+        best_j[a:b] = torch.where(torch.isfinite(tw), tj.to(torch.int32), -1)
+    return best_w, best_j

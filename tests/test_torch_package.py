@@ -1,0 +1,192 @@
+"""The PyTorch port as a package: it imports with JAX absent, never imports
+the JAX package, carries the reference's configuration across unchanged,
+and refuses what it has not ported instead of falling back.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hdbscan_tpu.config import HDBSCANParams as RefParams
+from hdbscan_tpu_torch.config import HDBSCANParams as PortParams
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "hdbscan_tpu_torch")
+
+_PORT_MODULES = [
+    "hdbscan_tpu_torch",
+    "hdbscan_tpu_torch.config",
+    "hdbscan_tpu_torch.core.constraints",
+    "hdbscan_tpu_torch.core.distances",
+    "hdbscan_tpu_torch.core.mst_device",
+    "hdbscan_tpu_torch.core.tree",
+    "hdbscan_tpu_torch.core.tree_vec",
+    "hdbscan_tpu_torch.models._finalize",
+    "hdbscan_tpu_torch.models.exact",
+    "hdbscan_tpu_torch.models.hdbscan",
+    "hdbscan_tpu_torch.native",
+    "hdbscan_tpu_torch.ops.cuda_build",
+    "hdbscan_tpu_torch.ops.cuda_knn",
+    "hdbscan_tpu_torch.ops.cuda_segmin",
+    "hdbscan_tpu_torch.ops.lexmerge",
+    "hdbscan_tpu_torch.ops.tiled",
+    "hdbscan_tpu_torch.utils.io",
+    "hdbscan_tpu_torch.utils.unionfind",
+]
+
+
+def test_imports_with_jax_blocked():
+    """Every module of the port imports in a fresh interpreter where
+    ``import jax`` fails, and no module of the JAX package gets loaded."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for m in {_PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'hdbscan_tpu' or m.startswith('hdbscan_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert sys.modules['jax'] is None\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+hdbscan_tpu\b(?!_torch)"
+    r"|from\s+hdbscan_tpu(\.|\s)(?!_torch))",
+    re.M,
+)
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_import(path):
+    with open(path) as f:
+        src = f.read()
+    assert not _FORBIDDEN.search(src), f"{path} imports jax or hdbscan_tpu"
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        {},
+        {"min_points": 16, "min_cluster_size": 3000},
+        {"dist_function": "manhattan", "knn_backend": "fused", "mst_backend": "device",
+         "tree_backend": "reference", "compact_hierarchy": True, "input_file": "x.csv",
+         "out_dir": "/tmp/o", "fault_spec": "predict_dispatch:p=0.5,count=2"},
+    ],
+)
+def test_from_dict_round_trips_reference_params(overrides):
+    ref = RefParams(**overrides)
+    port = PortParams.from_dict(dataclasses.asdict(ref))
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.output_path("partition") == ref.output_path("partition")
+
+
+def test_from_dict_rejects_unknown_fields():
+    with pytest.raises(ValueError, match="bogus"):
+        PortParams.from_dict({"bogus": 1})
+
+
+def test_flag_vocabulary_matches_reference():
+    argv = ["file=a/b.txt", "minPts=7", "minClSize=9", "compact=true",
+            "dist_function=supremum", "knn_backend=xla", "mst_backend=device"]
+    assert dataclasses.asdict(PortParams.from_args(argv)) == dataclasses.asdict(
+        RefParams.from_args(argv)
+    )
+
+
+# The bad values tests/unit/test_config.py holds the reference to, plus the
+# range and fault-spec checks: the port must refuse each one too.
+_BAD = [
+    ("knn_backend", "cuda"), ("scan_backend", "nccl"), ("tree_backend", "gpu"),
+    ("predict_backend", "onnx"), ("knn_index", "annoy"),
+    ("stream_drift_stat", "chi2"), ("stream_reload", "eager"),
+    ("knn_index_threshold", 0), ("rpf_trees", 0), ("rpf_leaf_size", 3),
+    ("rpf_rescan_rounds", -1), ("stream_absorb_eps_frac", -0.1),
+    ("stream_drift_threshold", 0.0), ("stream_refit_budget", 0),
+    ("trace_max_events", -1), ("fleet_policy", "random"),
+    ("stream_maintain", "lazy"), ("maintain_budget_ms", -1.0),
+    ("maintain_dirty_max_frac", 0.0), ("dist_function", "hamming"),
+    ("min_points", 0), ("mst_backend", "gpu"), ("fit_sharding", "x"),
+    ("fault_spec", "nosuchsite"), ("fault_spec", "predict_dispatch:p=2"),
+    ("fault_spec", "predict_dispatch:bogus=1"),
+]
+
+
+@pytest.mark.parametrize("field,bad", _BAD, ids=lambda v: str(v))
+def test_rejects_the_reference_bad_values(field, bad):
+    with pytest.raises(ValueError):
+        RefParams(**{field: bad})
+    with pytest.raises(ValueError):
+        PortParams(**{field: bad})
+
+
+def test_fit_without_a_card_raises():
+    """The entry point runs on the card unless told otherwise; with no card
+    it raises instead of continuing on the CPU."""
+    from hdbscan_tpu_torch.models import exact
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the fit would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        exact.fit(np.zeros((4, 2)), PortParams(min_points=2, min_cluster_size=2))
+
+
+def test_wrappers_refuse_non_cpu_non_cuda_tensors():
+    """A kernel wrapper takes its plain version only for CPU tensors; any
+    other device must reach the kernel or raise."""
+    from hdbscan_tpu_torch.core.mst_device import uf_scan
+    from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest
+    from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows
+
+    x = torch.zeros((8, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        knn_kbest(x, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        min_outgoing_all_rows(
+            x, torch.zeros(8, device="meta"),
+            torch.zeros(8, dtype=torch.int32, device="meta"),
+            torch.ones(8, dtype=torch.bool, device="meta"), "euclidean", 8, 128,
+        )
+    with pytest.raises(ValueError, match="CUDA"):
+        uf_scan(torch.zeros(4, dtype=torch.int32, device="meta"),
+                torch.zeros(4, dtype=torch.int32, device="meta"), 8)
+
+
+@pytest.mark.parametrize(
+    "overrides,entry",
+    [
+        ({"mst_backend": "host"}, "A3"),
+        ({"dedup_points": True}, "A3"),
+        ({"fit_sharding": "sharded"}, "A9"),
+        ({"scan_backend": "ring"}, "A9"),
+        ({"knn_backend": "pallas"}, "B3"),
+        ({"knn_index": "rpforest"}, "A8"),
+    ],
+)
+def test_unported_routes_raise(overrides, entry):
+    from hdbscan_tpu_torch.models import exact
+
+    data = np.random.default_rng(0).normal(size=(40, 2))
+    with pytest.raises(NotImplementedError, match=entry):
+        exact.fit(data, PortParams(min_points=3, min_cluster_size=3, **overrides),
+                  device="cpu")
