@@ -13,18 +13,37 @@ Phases (any failure exits non-zero):
    plain versions' operation order): the segment-min (K1) and k-best (K2)
    kernels at 16,384 x 3 integer-grid points in both euclidean forms (K2 at
    min_pts 2, 16 and 129, i.e. k = 1, 15, 128) and at 8,192 x 7 continuous
-   points, the union-find scan (K3) on a 16k-edge pool;
+   points, the union-find scan (K3) on a 16k-edge pool; and the four
+   rp-forest kernels (B5 leaf top-k, B6 cross-tree merge, B7 rescan top-k,
+   B8 candidate segment-min) at f32 on 16,384 x 3 integer-grid points,
+   8,192 x 7 continuous points and 5,003 x 3 grid points with duplicates
+   (uneven leaves), k = 1, 15 and 128, B5 and B7 in bf16 as well;
 3. run the exact fit (``hdbscan_tpu_torch.models.exact.fit``) on a seeded
    Skin-shaped set — 245,057 x 3 integer RGB values in [0, 255] — with
    min_points=16, min_cluster_size=3000: first check that the fit on the
    card equals the fit on the CPU (plain versions) on a 4,096-point subset,
    then run the full fit with the launch counters zeroed just before and
    read just after; check n - 1 MST edges under the round cap, finite core
-   distances, and that every kernel ran;
+   distances, and that every kernel of the path ran;
+3b. the same data through the rp-forest tier (``knn_index=rpforest``,
+   ``knn_backend=fused``, 4 trees, leaf 1024, one rescan round, f32 — the
+   reference benchmark's forest config): the card's fit equals the CPU fit
+   on a 4,096-point subset, then the full fit with counters must give n - 1
+   edges, finite values and launches of B5, B6, B7 and B1; it prints the
+   trace walls, ``recall_at_k`` (the query's, before the rescan) and the
+   recall of the final lists, the share of rows whose core distance equals
+   the exact tier's (and within 1e-4 relative: the exact tier may take the
+   dot form) and the ARI of the labels against the exact fit;
+3c. 1,048,576 x 8 blobs (6 centres x 6.0, unit normal, seed 0) with
+   ``knn_index=auto``, which must resolve to the forest, min_points=16,
+   min_cluster_size=5000: the same checks and lines, against the exact
+   tier's core distances and the exact fit of the same data;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
-   TFLOP/s).
+   TFLOP/s): the exact tier's kernels at the exact fit's shapes, the forest kernels
+   at the 3b fit's (one leaf batch, the merge, one rescan chunk, B8 on that
+   chunk's panel with round-1 components).
 
 The second line before the last is the card's name and power limit, the
 line before the last the ``kernels`` JSON, the last line the device JSON.
@@ -42,6 +61,14 @@ N_SKIN = 245_057
 MIN_PTS = 16
 MIN_CL_SIZE = 3000
 SEED = 0
+N_BLOBS = 1 << 20
+BLOBS_MIN_CL_SIZE = 5000
+#: The reference benchmark's forest configuration (bench.py rpforest leg).
+FOREST = dict(knn_index="rpforest", knn_backend="fused", rpf_trees=4,
+              rpf_leaf_size=1024, rpf_rescan_rounds=1)
+EXACT_KERNELS = ("knn_kbest", "segmin", "uf_scan")
+FOREST_FIT_KERNELS = ("forest_leaf_topk", "forest_merge", "forest_rescan_topk",
+                      "segmin", "uf_scan")
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 
@@ -147,6 +174,292 @@ def parity() -> list[str]:
     return errors
 
 
+def _same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def parity_forest() -> list[str]:
+    """The four rp-forest kernels against their plain versions on the card,
+    bitwise; returns failure messages."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import euclidean_form
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.ops import rpforest
+
+    errors = []
+
+    def check(label, a, b):
+        torch.cuda.synchronize()
+        ok = _same(a, b)
+        print(f"parity {label}: {'bitwise' if ok else 'MISMATCH'}")
+        if not ok:
+            errors.append(label)
+
+    rng = np.random.default_rng(SEED + 1)
+    dup = rng.integers(0, 64, size=(2501, 3)).astype(np.float32)
+    cases = [
+        ("grid 16384x3", rng.integers(0, 256, size=(16384, 3)).astype(np.float32)),
+        ("continuous 8192x7", rng.normal(size=(8192, 7)).astype(np.float32)),
+        ("grid 5003x3 duplicates, uneven leaves", np.concatenate([dup, dup, dup[:1]])),
+    ]
+    for label, x in cases:
+        n, d = x.shape
+        xg = torch.as_tensor(x, device="cuda")
+        forest = rpforest.build_forest(x, trees=3, leaf_size=300, seed=SEED)
+        members = torch.as_tensor(forest.members, device="cuda")
+        mask = torch.as_tensor(forest.leaf_mask, device="cuda")
+        lmax = forest.max_leaf
+        form = euclidean_form(lmax, lmax, d)
+        core = torch.as_tensor(rng.integers(0, 40, n).astype(np.float32), device="cuda")
+        comp = torch.as_tensor(rng.integers(0, 64, n).astype(np.int32), device="cuda")
+        for k in (1, 15, 128):
+            kk = min(k, lmax)
+            for prec in ("f32", "bf16"):
+                args = (xg, members[0], mask, kk, "euclidean", form, prec, n)
+                check(f"B5 forest_leaf_topk {label} k={kk} {prec}",
+                      cf.forest_leaf_topk(*args), cf.forest_leaf_topk_plain(*args))
+            stack = [cf.forest_leaf_topk_plain(xg, members[t], mask, kk, "euclidean", form,
+                                               "f32", n) for t in range(forest.trees)]
+            sd = torch.full((forest.trees, n, kk), float("inf"), device="cuda")
+            si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device="cuda")
+            real = mask.reshape(-1)
+            for t, (nd, ni) in enumerate(stack):
+                rows = members[t].reshape(-1)[real].long()
+                sd[t, rows] = nd.reshape(-1, kk)[real]
+                si[t, rows] = ni.reshape(-1, kk)[real]
+            check(f"B6 forest_merge {label} k={kk}",
+                  cf.forest_merge(sd, si, kk, n), cf.forest_merge_plain(sd, si, kk, n))
+            _, best_i = cf.forest_merge_plain(sd, si, kk, n)
+            m = n if kk < 128 else 2048  # the k=128 panel is 16,384 wide
+            cand = rpforest._expand(best_i, best_i[:m], kk, n)
+            for prec in ("f32", "bf16"):
+                args = (xg[:m], xg, cand, kk, "euclidean", prec, n)
+                check(f"B7 forest_rescan_topk {label} k={kk} {prec}",
+                      cf.forest_rescan_topk(*args), cf.forest_rescan_topk_plain(*args))
+            args = (xg[:m], xg, cand, core[:m], core, comp[:m], comp, "euclidean", n)
+            check(f"B8 forest_min_outgoing {label} k={kk}",
+                  cf.forest_min_outgoing(*args), cf.forest_min_outgoing_plain(*args))
+    return errors
+
+
+def blobs(n: int, seed: int, d: int = 8):
+    """The rp-forest tier's test blobs: 6 centres x 6.0, unit normal."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(6, d)) * 6.0
+    per = n // 6 + 1
+    return np.concatenate([c + rng.normal(size=(per, d)) for c in centers])[:n]
+
+
+def ari(a, b) -> float:
+    """Adjusted Rand index of two labelings."""
+    import numpy as np
+
+    _, ia = np.unique(a, return_inverse=True)
+    _, ib = np.unique(b, return_inverse=True)
+    table = np.zeros((ia.max() + 1, ib.max() + 1), np.int64)
+    np.add.at(table, (ia, ib), 1)
+
+    def comb(x):
+        return (x * (x - 1) / 2.0).sum()
+
+    s, sa, sb = comb(table), comb(table.sum(1)), comb(table.sum(0))
+    expected = sa * sb / comb(np.array([len(a)]))
+    return float((s - expected) / (0.5 * (sa + sb) - expected))
+
+
+def fits_equal(a, b) -> bool:
+    """Two fit results with bitwise-equal labels, core distances, MST and
+    outlier scores."""
+    import numpy as np
+
+    return (
+        np.array_equal(a.labels, b.labels)
+        and np.array_equal(a.core_distances, b.core_distances)
+        and all(np.array_equal(x, y) for x, y in zip(a.mst, b.mst))
+        and np.array_equal(a.outlier_scores, b.outlier_scores)
+    )
+
+
+def run_fit(data, params):
+    """One fit on the card with the launch counters zeroed just before and
+    read just after: (result, launches, events by stage, wall s)."""
+    import torch
+
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.ops import cuda_build
+
+    events = []
+    cuda_build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = exact.fit(data, params, trace=lambda stage, **kw: events.append((stage, kw)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(cuda_build.LAUNCHES)
+    ev = {}
+    for stage, kw in events:
+        ev.setdefault(stage, []).append(kw)
+    return res, launches, ev, wall
+
+
+def check_fit(label, res, launches, ev, n, kernels) -> str | None:
+    """The checks every fit passes; a failure message or None."""
+    import numpy as np
+
+    from hdbscan_tpu_torch.core import mst_device
+
+    mst = ev["boruvka_mst"][0]
+    u, v, w = res.mst
+    if mst["edges"] != n - 1 or len(u) != n - 1:
+        return f"{label}: MST has {len(u)} edges, expected {n - 1}"
+    if mst["rounds"] >= mst_device.DEFAULT_MAX_ROUNDS:
+        return f"{label}: Borůvka hit the round cap ({mst['rounds']})"
+    if not (np.all(np.isfinite(res.core_distances)) and np.all(np.isfinite(w))):
+        return f"{label}: non-finite core distances or MST weights"
+    if res.labels.shape != (n,) or res.outlier_scores.shape != (n,):
+        return f"{label}: result arrays have the wrong shape"
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        return f"{label}: kernels of the path never launched: {missing} ({launches})"
+    return None
+
+
+def report_forest_fit(label, data, params, res, launches, ev, wall, exact_core,
+                      exact_labels) -> None:
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.knn import resolve_index_for
+    from hdbscan_tpu_torch.ops import rpforest
+
+    mst = ev["boruvka_mst"][0]
+    walls = {s: round(sum(e["wall_s"] for e in ev[s]), 6) for s in (
+        "knn_index_build", "knn_index_query", "knn_index_rescan", "knn_fused_forest",
+        "core_distances", "forest_events", "host_sync")}
+    walls["boruvka_rounds"] = mst["rounds_wall_s"]
+    walls["host_finalize"] = round(sum(e[0]["wall_s"] for s, e in ev.items()
+                                       if s.startswith("tree_")), 6)
+    print(f"{label} fit walls (s): {walls}, total {wall:.3f}")
+    q = ev["knn_index_query"][0]
+    print(f"{label} recall_at_k {q['recall_at_k']} over {q['recall_rows']} rows (k={q['k']}); "
+          f"rescan improved {[e['improved'] for e in ev['knn_index_rescan']]}")
+    # The final lists (after the rescan rounds), recomputed outside the
+    # counted fit: the fit keeps only the core distances.
+    _, opts = resolve_index_for(params, len(data))
+    _, _, idx = rpforest.rpforest_core_distances(data, params.min_points, k=q["k"],
+                                                 return_indices=True, **opts)
+    final, rows = rpforest._sampled_recall(
+        torch.as_tensor(data.astype(np.float32), device="cuda"),
+        torch.as_tensor(idx, device="cuda"), q["k"], "euclidean", 256)
+    print(f"{label} recall@{q['k']} of the final lists {final} over {rows} rows")
+    same = float(np.mean(res.core_distances == exact_core))
+    near = float(np.mean(np.isclose(res.core_distances, exact_core, rtol=1e-4, atol=0)))
+    print(f"{label} core distance equal to the exact tier's on {same:.6f} of rows, within "
+          f"1e-4 relative on {near:.6f}; ARI vs the exact fit {ari(res.labels, exact_labels):.6f}")
+    counts = np.bincount(res.labels)
+    print(f"{label} rounds {mst['rounds']}, edges {mst['edges']}, labels: {len(counts) - 1} "
+          f"clusters, histogram {dict((int(i), int(c)) for i, c in enumerate(counts) if c)}")
+    print(f"{label} launches on the fit: {launches}")
+
+
+def max_err(a, b, ia=None, ib=None) -> float:
+    """Largest absolute difference of two value tensors (equal infinities
+    count as 0); +inf when the id tensors differ."""
+    import torch
+
+    if ia is not None and not torch.equal(ia, ib):
+        return float("inf")
+    diff = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def forest_times(data, fres, launches) -> list[dict]:
+    """The forest kernels timed at the 3b fit's shapes beside their plain
+    versions and bounds: B5 on the first leaf batch, B6 on the four trees'
+    lists, B7 on the first rescan chunk, B8 on that chunk's panel with the
+    fit's core distances and round-1 components."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import euclidean_form
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.ops import rpforest
+
+    n, d, k = N_SKIN, 3, MIN_PTS - 1
+    x = torch.as_tensor(data.astype(np.float32), device="cuda")
+    forest = rpforest.build_forest(data, trees=FOREST["rpf_trees"],
+                                   leaf_size=FOREST["rpf_leaf_size"], seed=SEED)
+    lmax = forest.max_leaf
+    kk = min(k, lmax)
+    form = euclidean_form(lmax, lmax, d)
+    members = torch.as_tensor(forest.members, device="cuda")
+    mask = torch.as_tensor(forest.leaf_mask, device="cuda")
+    batches = rpforest.leaf_batches(forest, "cuda")
+    rows = []
+
+    def row(name, source, replaces, launch, args, kernel, plain, nbytes, ops):
+        ms = cuda_ms(lambda: kernel(*args), 5)
+        plain_ms = host_ms(lambda: plain(*args))
+        a, b = kernel(*args), plain(*args)
+        b_ms, by = bound_ms(nbytes, ops)
+        rows.append(dict(
+            name=name, route="cuda", source=f"hdbscan_tpu_torch/csrc/{source}",
+            replaces=f"hdbscan_tpu/ops/pallas_forest.py:{replaces}", launches=launches[launch],
+            max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=by, library_ms=None,
+        ))
+
+    a0, b0, _ = batches[0]
+    widths = forest.leaf_mask[a0:b0].sum(axis=1).astype(np.float64)
+    nb, ell = b0 - a0, lmax
+    row("forest_leaf_topk", "forest_leaf_topk.cu", 273, "forest_leaf_topk",
+        (x, members[0, a0:b0], mask[a0:b0], kk, "euclidean", form, "f32", n),
+        cf.forest_leaf_topk, cf.forest_leaf_topk_plain,
+        nb * ell * (4 + 1 + d * 4) + nb * ell * kk * 8,
+        float(ell * widths.sum()) * pair_ops(d, form))
+
+    sd = torch.full((forest.trees, n, kk), float("inf"), device="cuda")
+    si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device="cuda")
+    for t in range(forest.trees):
+        for a, b, real in batches:
+            nd, ni = cf.forest_leaf_topk(x, members[t, a:b], mask[a:b], kk, "euclidean",
+                                         form, "f32", n)
+            idx = members[t, a:b].reshape(-1)[real].long()
+            sd[t, idx] = nd.reshape(-1, kk)[real]
+            si[t, idx] = ni.reshape(-1, kk)[real]
+    row("forest_merge", "forest_merge.cu", 344, "forest_merge", (sd, si, kk, n),
+        cf.forest_merge, cf.forest_merge_plain,
+        forest.trees * n * kk * 8 + n * kk * 8, 0.0)
+
+    best_d, best_i = cf.forest_merge(sd, si, kk, n)
+    chunk = min(n, max(64, rpforest._RESCAN_ELEM_BUDGET // (kk * kk * d)))
+    cand = rpforest._expand(best_i, best_i[:chunk], kk, n)
+    live = cand[cand != n]
+    cands, uniq = float(live.numel()), int(torch.unique(live).numel())
+    row("forest_rescan_topk", "forest_rescan.cu", 411, "forest_rescan_topk",
+        (x[:chunk], x, cand, kk, "euclidean", "f32", n),
+        cf.forest_rescan_topk, cf.forest_rescan_topk_plain,
+        chunk * d * 4 + chunk * kk * kk * 4 + uniq * d * 4 + chunk * kk * 8,
+        cands * pair_ops(d, "diff"))
+
+    core = torch.as_tensor(fres.core_distances.astype(np.float32), device="cuda")
+    comp = torch.arange(n, dtype=torch.int32, device="cuda")
+    row("forest_min_outgoing", "forest_rescan.cu", 476, "forest_min_outgoing",
+        (x[:chunk], x, cand, core[:chunk], core, comp[:chunk], comp, "euclidean", n),
+        cf.forest_min_outgoing, cf.forest_min_outgoing_plain,
+        chunk * (d * 4 + 8) + chunk * kk * kk * 4 + uniq * (d * 4 + 8) + chunk * 8,
+        cands * (pair_ops(d, "diff") + 2))
+    print(f"forest kernel shapes: leaf batch {nb} x {ell}, kk {kk}; merge {forest.trees} x {n} "
+          f"x {kk}; rescan chunk {chunk} rows x {kk * kk} candidates ({uniq} distinct)")
+    return rows
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "hdbscan_tpu_torch")):
@@ -168,7 +481,7 @@ def main() -> int:
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
 
-    errors = parity()
+    errors = parity() + parity_forest()
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 
@@ -180,29 +493,12 @@ def main() -> int:
     # warms PyTorch's own CUDA kernels before the timed fit).
     sub = data[rng.choice(N_SKIN, 4096, replace=False)]
     small = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=50)
-    a = exact.fit(sub, small)
-    b = exact.fit(sub, small, device="cpu")
-    same = (
-        np.array_equal(a.labels, b.labels)
-        and np.array_equal(a.core_distances, b.core_distances)
-        and all(np.array_equal(x, y) for x, y in zip(a.mst, b.mst))
-        and np.array_equal(a.outlier_scores, b.outlier_scores)
-    )
+    same = fits_equal(exact.fit(sub, small), exact.fit(sub, small, device="cpu"))
     print(f"card fit vs CPU fit on 4096 points: {'identical' if same else 'DIFFERENT'}")
     if not same:
         return fail("the card's fit differs from the plain versions' fit")
 
-    events = []
-    cuda_build.reset_launches()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    res = exact.fit(data, params, trace=lambda stage, **kw: events.append((stage, kw)))
-    torch.cuda.synchronize()
-    fit_wall = time.perf_counter() - t
-    launches = dict(cuda_build.LAUNCHES)
-    ev = {}
-    for stage, kw in events:
-        ev.setdefault(stage, []).append(kw)
+    res, launches, ev, fit_wall = run_fit(data, params)
     mst = ev["boruvka_mst"][0]
     finalize_s = sum(e[0]["wall_s"] for s, e in ev.items() if s.startswith("tree_"))
     print(
@@ -219,17 +515,43 @@ def main() -> int:
     print(f"labels: {len(counts) - 1} clusters, histogram (label 0 = noise) "
           f"{dict((int(i), int(c)) for i, c in enumerate(counts) if c)}")
     print(f"launches on the fit: {launches}")
-    u, v, w = res.mst
-    if mst["edges"] != N_SKIN - 1 or len(u) != N_SKIN - 1:
-        return fail(f"MST has {len(u)} edges, expected {N_SKIN - 1}")
-    if mst["rounds"] >= mst_device.DEFAULT_MAX_ROUNDS:
-        return fail(f"Borůvka hit the round cap ({mst['rounds']})")
-    if not (np.all(np.isfinite(res.core_distances)) and np.all(np.isfinite(w))):
-        return fail("non-finite core distances or MST weights")
-    if res.labels.shape != (N_SKIN,) or res.outlier_scores.shape != (N_SKIN,):
-        return fail("result arrays have the wrong shape")
-    if any(c == 0 for c in launches.values()):
-        return fail(f"a kernel of the path never launched: {launches}")
+    msg = check_fit("exact", res, launches, ev, N_SKIN, EXACT_KERNELS)
+    if msg:
+        return fail(msg)
+
+    # --- 3b: the rp-forest tier on the same data --------------------------
+    fparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **FOREST)
+    fsmall = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=50, **FOREST)
+    same = fits_equal(exact.fit(sub, fsmall), exact.fit(sub, fsmall, device="cpu"))
+    print(f"rp-forest card fit vs CPU fit on 4096 points: {'identical' if same else 'DIFFERENT'}")
+    if not same:
+        return fail("the card's rp-forest fit differs from the plain versions' fit")
+    fres, flaunches, fev, fwall = run_fit(data, fparams)
+    report_forest_fit("3b skin rp-forest", data, fparams, fres, flaunches, fev, fwall,
+                      res.core_distances, res.labels)
+    msg = check_fit("3b skin rp-forest", fres, flaunches, fev, N_SKIN, FOREST_FIT_KERNELS)
+    if msg:
+        return fail(msg)
+
+    # --- 3c: the tier where knn_index=auto picks it -----------------------
+    from hdbscan_tpu_torch.core.knn import resolve_index_for
+
+    blob = blobs(N_BLOBS, SEED)
+    bparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=BLOBS_MIN_CL_SIZE,
+                            knn_index="auto", knn_backend="fused")
+    if resolve_index_for(bparams, N_BLOBS)[0] != "rpforest":
+        return fail("knn_index=auto does not resolve to the forest at 1,048,576 points")
+    bres, blaunches, bev, bwall = run_fit(blob, bparams)
+    eres, _, eev, ewall = run_fit(blob, HDBSCANParams(
+        min_points=MIN_PTS, min_cluster_size=BLOBS_MIN_CL_SIZE, knn_index="exact"))
+    print(f"3c blobs exact fit: total {ewall:.3f} s, core_distances "
+          f"{eev['core_distances'][0]['wall_s']}, boruvka_rounds "
+          f"{eev['boruvka_mst'][0]['rounds_wall_s']} ({eev['boruvka_mst'][0]['rounds']} rounds)")
+    report_forest_fit("3c blobs rp-forest (auto)", blob, bparams, bres, blaunches, bev, bwall,
+                      eres.core_distances, eres.labels)
+    msg = check_fit("3c blobs rp-forest", bres, blaunches, bev, N_BLOBS, FOREST_FIT_KERNELS)
+    if msg:
+        return fail(msg)
 
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
@@ -267,6 +589,7 @@ def main() -> int:
         library_ms=None,
     ))
 
+    u, v, w = res.mst
     order = np.lexsort((v, u, w))  # the (w, u, v) order the fit scans in
     eu = torch.as_tensor(u[order].astype(np.int32), device="cuda")
     evv = torch.as_tensor(v[order].astype(np.int32), device="cuda")
@@ -283,6 +606,7 @@ def main() -> int:
         launches=launches["uf_scan"], max_abs_err=uf_err, ms=uf_ms, plain_ms=uf_plain,
         bound_ms=b, bound_by=by, library_ms=None,
     ))
+    rows += forest_times(data, fres, flaunches)
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")

@@ -43,24 +43,24 @@ def euclidean_form(rows: int, cols: int, d: int) -> str:
 
 def _sq_euclidean(x: torch.Tensor, y: torch.Tensor, form: str) -> torch.Tensor:
     """Squared euclidean distances, accumulated feature by feature."""
-    d = x.shape[1]
+    d = x.shape[-1]
     if form == "diff":
-        t = x[:, None, 0] - y[None, :, 0]
+        t = x[..., :, None, 0] - y[..., None, :, 0]
         acc = t * t
         for f in range(1, d):
-            t = x[:, None, f] - y[None, :, f]
+            t = x[..., :, None, f] - y[..., None, :, f]
             acc = acc + t * t
         return acc
     if form != "dot":
         raise ValueError(f"unknown euclidean form {form!r}: diff | dot")
-    x_sq = x[:, 0] * x[:, 0]
-    y_sq = y[:, 0] * y[:, 0]
-    cross = x[:, None, 0] * y[None, :, 0]
+    x_sq = x[..., 0] * x[..., 0]
+    y_sq = y[..., 0] * y[..., 0]
+    cross = x[..., :, None, 0] * y[..., None, :, 0]
     for f in range(1, d):
-        x_sq = x_sq + x[:, f] * x[:, f]
-        y_sq = y_sq + y[:, f] * y[:, f]
-        cross = cross + x[:, None, f] * y[None, :, f]
-    d2 = (x_sq[:, None] + y_sq[None, :]) - 2.0 * cross
+        x_sq = x_sq + x[..., f] * x[..., f]
+        y_sq = y_sq + y[..., f] * y[..., f]
+        cross = cross + x[..., :, None, f] * y[..., None, :, f]
+    d2 = (x_sq[..., :, None] + y_sq[..., None, :]) - 2.0 * cross
     return torch.clamp_min(d2, 0.0)
 
 
@@ -82,36 +82,33 @@ def _cross_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x @ y.T at full input precision: TF32 is switched off for the product,
     the analog of the reference's ``Precision.HIGHEST``."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    return x @ y.T
+    return x @ y.transpose(-1, -2)
 
 
 def _cosine(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     cross = _cross_f32(x, y)
     nx = torch.sqrt(torch.sum(x * x, dim=-1))
     ny = torch.sqrt(torch.sum(y * y, dim=-1))
-    return 1.0 - cross / (nx[:, None] * ny[None, :])
+    return 1.0 - cross / (nx[..., :, None] * ny[..., None, :])
 
 
 def pairwise_distance(
     x: torch.Tensor, y: torch.Tensor, metric: str = DEFAULT_METRIC,
     form: str | None = None,
 ) -> torch.Tensor:
-    """Full (n, m) distance matrix between row sets ``x`` and ``y``.
+    """Full (n, m) distance matrix between row sets ``x`` and ``y``; leading
+    batch dimensions of ``x`` (..., n, d) and ``y`` (..., m, d) broadcast.
 
     ``form`` ("diff" or "dot") selects the euclidean form — the one the
     reference picks at the caller's tile shape (:func:`euclidean_form`).
     """
     if metric == "euclidean":
         return sqrt_rn(_sq_euclidean(x, y, form))
-    if metric == "manhattan":
-        acc = torch.abs(x[:, None, 0] - y[None, :, 0])
-        for f in range(1, x.shape[1]):
-            acc = acc + torch.abs(x[:, None, f] - y[None, :, f])
-        return acc
-    if metric == "supremum":
-        acc = torch.abs(x[:, None, 0] - y[None, :, 0])
-        for f in range(1, x.shape[1]):
-            acc = torch.maximum(acc, torch.abs(x[:, None, f] - y[None, :, f]))
+    if metric in ("manhattan", "supremum"):
+        acc = torch.abs(x[..., :, None, 0] - y[..., None, :, 0])
+        for f in range(1, x.shape[-1]):
+            a = torch.abs(x[..., :, None, f] - y[..., None, :, f])
+            acc = acc + a if metric == "manhattan" else torch.maximum(acc, a)
         return acc
     if metric == "cosine":
         return _cosine(x, y)

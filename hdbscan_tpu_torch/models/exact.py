@@ -3,8 +3,11 @@ device route (``fit`` -> ``_fit_device``).
 
 The fit, phase by phase:
 
-1. core distances: one k-best kernel launch (``ops/tiled.knn_core_distances``
-   -> ``ops/cuda_knn``), fetched as float64 like the reference's;
+1. core distances (``ops/tiled.knn_core_distances``), fetched as float64
+   like the reference's: the exact tier is one k-best kernel launch
+   (``ops/cuda_knn``); the rp-forest tier (``knn_index=rpforest``, or
+   ``auto`` from ``knn_index_threshold`` points on) builds the forest and
+   runs the forest kernels (``ops/rpforest`` -> ``ops/cuda_forest``);
 2. Borůvka rounds on the device (``core/mst_device.boruvka_mst_device``):
    one segment-min kernel launch plus the scatter-min contraction per
    round, one (components, edges) scalar read per round to drive the loop;
@@ -28,14 +31,6 @@ import torch
 from hdbscan_tpu_torch.config import HDBSCANParams
 from hdbscan_tpu_torch.models.hdbscan import HDBSCANResult
 from hdbscan_tpu_torch.ops import cuda_build
-
-
-def _resolve_index(params: HDBSCANParams, n: int) -> str:
-    """``knn_index`` as the reference resolves it ("auto" flips to the
-    rp-forest tier at ``knn_index_threshold`` points)."""
-    if params.knn_index == "auto":
-        return "rpforest" if n >= params.knn_index_threshold else "exact"
-    return params.knn_index
 
 
 def _check_ported(params: HDBSCANParams, n: int) -> None:
@@ -75,7 +70,9 @@ def fit(
     they pick the euclidean distance form it would use. ``trace``: optional
     ``trace(stage, **fields)`` callable receiving the reference's stage
     events (``core_distances``, ``mst_round``, ``host_sync``,
-    ``boruvka_mst``, ``tree_*``) plus ``forest_events``.
+    ``boruvka_mst``, ``tree_*``) plus ``forest_events``, and on the
+    rp-forest tier ``knn_index_build``, ``knn_index_query``,
+    ``knn_index_rescan`` and ``knn_fused_forest``.
     """
     params = params or HDBSCANParams()
     data = np.asarray(data, np.float64)
@@ -122,6 +119,7 @@ def _fit_device(
         boruvka_mst_device,
         forest_events_device,
     )
+    from hdbscan_tpu_torch.core.knn import resolve_index_for
     from hdbscan_tpu_torch.models._finalize import (
         finalize_clustering,
         resolve_tree_backend,
@@ -129,12 +127,13 @@ def _fit_device(
     from hdbscan_tpu_torch.ops.tiled import knn_core_distances
 
     n = len(data)
+    index, index_opts = resolve_index_for(params, n)
     t0 = time.monotonic()
     core, _ = knn_core_distances(
         data, params.min_points, params.dist_function,
         row_tile=row_tile, col_tile=col_tile, dtype=dtype, fetch_knn=False,
-        backend=params.knn_backend, index=_resolve_index(params, n),
-        device=device,
+        backend=params.knn_backend, index=index, index_opts=index_opts,
+        trace=trace, device=device,
     )
     if trace is not None:
         trace("core_distances", n=n, wall_s=round(time.monotonic() - t0, 6))

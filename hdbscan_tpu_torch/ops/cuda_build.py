@@ -29,14 +29,29 @@ BUILD_DIR = os.path.join(
     ".torch_build", "cuda",
 )
 
-#: Kernel name -> (source file, C entry point, ctypes argtypes).
+#: Kernel name -> (source file, C entry point, ctypes argtypes; the last
+#: argument is the stream). Kernels that share a source share its library.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "segmin": ("segmin.cu", "segmin_launch", [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
     "knn_kbest": ("knn_kbest.cu", "knn_kbest_launch", [_P, _I, _I, _I, _I, _P, _P, _P]),
     "uf_scan": ("uf_scan.cu", "uf_scan_launch", [_P, _P, _I, _I, _P, _P, _P, _P]),
+    "forest_leaf_topk": (
+        "forest_leaf_topk.cu", "forest_leaf_topk_launch",
+        [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    "forest_merge": ("forest_merge.cu", "forest_merge_launch", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "forest_rescan_topk": (
+        "forest_rescan.cu", "forest_rescan_topk_launch",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    "forest_min_outgoing": (
+        "forest_rescan.cu", "forest_min_outgoing_launch",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    ),
 }
-_HEADERS = ("distance.cuh",)
+_HEADERS = ("distance.cuh", "lexlist.cuh")
+SOURCES = sorted({src for src, _, _ in KERNELS.values()})
 
 #: Metric/form codes of ``csrc/distance.cuh``.
 METRIC_CODES = {
@@ -53,7 +68,8 @@ NVCC_FLAGS = [
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
-_libs: dict = {}
+_libs: dict = {}  # source -> loaded library
+_fns: dict = {}  # kernel name -> ctypes entry point
 
 
 def reset_launches() -> None:
@@ -67,8 +83,8 @@ def metric_code(metric: str, form: str | None) -> int:
     key = (metric, form if metric == "euclidean" else None)
     if key not in METRIC_CODES:
         raise NotImplementedError(
-            f"no CUDA kernel for metric {metric!r} (form {form!r}) yet: "
-            "euclidean, manhattan and supremum are ported"
+            f"no CUDA kernel for metric {metric!r} (form {form!r}) yet "
+            "(ROADMAP A2): euclidean, manhattan and supremum are ported"
         )
     return METRIC_CODES[key]
 
@@ -80,30 +96,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _so_path(name: str) -> str:
-    src = KERNELS[name][0]
+def _so_path(src: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (src, *_HEADERS):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{src[:-3]}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
-    """Start the nvcc build of one kernel; None when it is already built."""
-    so = _so_path(name)
+def _start(src: str):
+    """Start the nvcc build of one source; None when it is already built."""
+    so = _so_path(src)
     if os.path.exists(so):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, KERNELS[name][0])]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
     )
     return proc, tmp, so
 
 
-def _finish(name: str, job) -> None:
+def _finish(src: str, job) -> None:
     if job is None:
         return
     proc, tmp, so = job
@@ -111,18 +126,18 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{out}{err}")
+        raise RuntimeError(f"nvcc failed for {src} ({proc.returncode}):\n{out}{err}")
     os.replace(tmp, so)
 
 
 def build_all() -> None:
     """Build every kernel, one nvcc process per source, all at once; every
     process is waited for before a failure is raised."""
-    jobs = {name: _start(name) for name in KERNELS}
+    jobs = {src: _start(src) for src in SOURCES}
     errors = []
-    for name, job in jobs.items():
+    for src, job in jobs.items():
         try:
-            _finish(name, job)
+            _finish(src, job)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
@@ -131,15 +146,17 @@ def build_all() -> None:
 
 def kernel(name: str):
     """The ctypes entry point of kernel ``name``, building it if needed."""
-    fn = _libs.get(name)
+    fn = _fns.get(name)
     if fn is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(_so_path(name))
-        _, sym, argtypes = KERNELS[name]
+        src, sym, argtypes = KERNELS[name]
+        lib = _libs.get(src)
+        if lib is None:
+            _finish(src, _start(src))
+            lib = _libs[src] = ctypes.CDLL(_so_path(src))
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = fn
+        _fns[name] = fn
     return fn
 
 

@@ -64,9 +64,12 @@ def knn_core_distances(
     backend: str = "auto",
     fetch_knn: bool = True,
     index: str = "exact",
+    index_opts: dict | None = None,
+    trace=None,
     device=None,
 ):
-    """Exact core distances (and the k-NN list) via the k-best kernel.
+    """Core distances (and the k-NN list): the exact tier through the k-best
+    kernel, or the rp-forest tier.
 
     Same return contract as the reference: ``(core, knn)``; ``(core, None)``
     with ``fetch_knn=False``; ``(core, knn, idx)`` with ``return_indices``.
@@ -75,12 +78,21 @@ def knn_core_distances(
 
     ``backend``: "auto"/"xla" run the kernel in the distance form the
     reference's XLA scan takes at these tiles; "fused" runs it in the fused
-    TPU kernel's dot form. "pallas" (the no-ids TPU kernel) and
-    ``index="rpforest"`` are not ported yet.
+    TPU kernel's dot form. "pallas" (the no-ids TPU kernel) is not ported
+    yet.
+
+    ``index`` is the resolved tier (``core/knn.resolve_index_for``):
+    "rpforest" runs ``ops/rpforest.rpforest_core_distances`` with
+    ``index_opts`` (trees, leaf_size, rescan_rounds, seed, knn_backend,
+    knn_precision) and ``trace``, in the same return contract; ``backend``
+    and the tiles govern the exact tier only.
     """
     if index == "rpforest":
-        raise NotImplementedError(
-            "knn_index=rpforest is not ported yet (ROADMAP A8, kernels B5-B7)"
+        from hdbscan_tpu_torch.ops.rpforest import rpforest_core_distances
+
+        return rpforest_core_distances(
+            data, min_pts, metric, k, dtype=dtype, return_indices=return_indices,
+            fetch_knn=fetch_knn, trace=trace, device=device, **(index_opts or {}),
         )
     if index != "exact":
         raise ValueError(f"unknown index {index!r}: exact | rpforest")

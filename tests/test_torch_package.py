@@ -24,6 +24,7 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.config",
     "hdbscan_tpu_torch.core.constraints",
     "hdbscan_tpu_torch.core.distances",
+    "hdbscan_tpu_torch.core.knn",
     "hdbscan_tpu_torch.core.mst_device",
     "hdbscan_tpu_torch.core.tree",
     "hdbscan_tpu_torch.core.tree_vec",
@@ -32,9 +33,11 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.models.hdbscan",
     "hdbscan_tpu_torch.native",
     "hdbscan_tpu_torch.ops.cuda_build",
+    "hdbscan_tpu_torch.ops.cuda_forest",
     "hdbscan_tpu_torch.ops.cuda_knn",
     "hdbscan_tpu_torch.ops.cuda_segmin",
     "hdbscan_tpu_torch.ops.lexmerge",
+    "hdbscan_tpu_torch.ops.rpforest",
     "hdbscan_tpu_torch.ops.tiled",
     "hdbscan_tpu_torch.utils.io",
     "hdbscan_tpu_torch.utils.unionfind",
@@ -180,7 +183,6 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         ({"fit_sharding": "sharded"}, "A9"),
         ({"scan_backend": "ring"}, "A9"),
         ({"knn_backend": "pallas"}, "B3"),
-        ({"knn_index": "rpforest"}, "A8"),
     ],
 )
 def test_unported_routes_raise(overrides, entry):
