@@ -38,12 +38,32 @@ Phases (any failure exits non-zero):
    ``knn_index=auto``, which must resolve to the forest, min_points=16,
    min_cluster_size=5000: the same checks and lines, against the exact
    tier's core distances and the exact fit of the same data;
+3d. the MR-HDBSCAN* pipeline (``hdbscan_tpu_torch.models.mr_hdbscan.fit``,
+   data bubbles) in boundary mode, the reference's own boundary benchmark
+   (``benchmarks/boundary_eval.py`` mode ``bound05``): the B4 window kernel
+   against its plain version on the card first, bitwise, at 16,384 x 3
+   integer-grid and 8,192 x 10 continuous points, k = 1, 7, 15 and 128, in
+   the fused contract's dot form, the XLA contract's form and manhattan,
+   with infinite and finite priming bounds; then the MR fit on 6,000
+   ``make_gauss`` points (processing_units=1,024) on the card equal to the
+   same fit on the CPU, in the default mode and in boundary mode; then
+   ``make_gauss(1,000,000, dims=10, n_clusters=30, separation=9.0, seed=2)``
+   with min_points=8, min_cluster_size=n/200, processing_units=16,384,
+   k=0.01, seed 0, boundary_quality=0.05, knn_backend=fused, the launch
+   counters zeroed just before and read just after: B4 must have launched,
+   every core distance must be finite and the ARI against the truth and
+   against the port's exact fit of the same data must reach 0.99; it
+   prints the fit wall, each level's stats and the boundary phases' walls;
+3e. the default mode (global core distances, per-level glue, one refine
+   round) at 200,000 points of the same generator: K2 and B1 must have
+   launched; the same lines;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
    TFLOP/s): the exact tier's kernels at the exact fit's shapes, the forest kernels
    at the 3b fit's (one leaf batch, the merge, one rescan chunk, B8 on that
-   chunk's panel with round-1 components).
+   chunk's panel with round-1 components), B4 at the largest main-phase
+   rescan chunk of the 3d fit.
 
 The second line before the last is the card's name and power limit, the
 line before the last the ``kernels`` JSON, the last line the device JSON.
@@ -69,6 +89,12 @@ FOREST = dict(knn_index="rpforest", knn_backend="fused", rpf_trees=4,
 EXACT_KERNELS = ("knn_kbest", "segmin", "uf_scan")
 FOREST_FIT_KERNELS = ("forest_leaf_topk", "forest_merge", "forest_rescan_topk",
                       "segmin", "uf_scan")
+#: The boundary benchmark's data and parameters (benchmarks/boundary_eval.py).
+N_MR = 1_000_000
+N_FULLQ = 200_000
+MR_DATA = dict(dims=10, n_clusters=30, separation=9.0, seed=2)
+MR_PARAMS = dict(min_points=8, processing_units=16384, k=0.01, seed=0)
+BOUND05 = dict(boundary_quality=0.05, knn_backend="fused")
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 
@@ -460,6 +486,216 @@ def forest_times(data, fres, launches) -> list[dict]:
     return rows
 
 
+def parity_window() -> list[str]:
+    """B4 against its plain version on the card, bitwise; returns failure
+    messages. 32 row tiles of 512 rows, windows of 4 column tiles of 2,048
+    (the last tile's window at the last column tile), the last 123 columns
+    masked."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import euclidean_form
+    from hdbscan_tpu_torch.ops import cuda_knn_window as cw
+
+    errors = []
+    rng = np.random.default_rng(SEED + 2)
+    cases = [
+        ("grid 16384x3", rng.integers(0, 256, size=(16384, 3)).astype(np.float32), 20.0),
+        ("continuous 8192x10", rng.normal(size=(8192, 10)).astype(np.float32), 4.0),
+    ]
+    col_tile, n_win, tiles, rt = 2048, 4, 32, 512
+    for label, x, bnd_hi in cases:
+        n_all, d = x.shape
+        n = n_all - 123
+        xg = torch.as_tensor(x, device="cuda")
+        ids = torch.as_tensor(rng.integers(0, n, size=(tiles, rt)).astype(np.int32), device="cuda")
+        ws = rng.integers(0, n_all // col_tile - n_win + 1, size=tiles)
+        ws[-1] = n_all // col_tile - n_win
+        wst = torch.as_tensor(ws.astype(np.int32), device="cuda")
+        bounds = {
+            "bnd inf": torch.full((tiles, rt), float("inf"), device="cuda"),
+            "bnd finite": torch.as_tensor(
+                rng.uniform(1.0, bnd_hi, size=(tiles, rt)).astype(np.float32), device="cuda"),
+        }
+        contracts = (("fused", "euclidean", "dot"),
+                     ("xla", "euclidean", euclidean_form(512, 8192, d)),
+                     ("manhattan", "manhattan", None))
+        for bname, bnd in bounds.items():
+            for cname, metric, form in contracts:
+                for k in (1, 7, 15, 128):
+                    args = (xg, n, ids, wst, bnd, k, col_tile, n_win, metric, form)
+                    a = cw.knn_window(*args)
+                    torch.cuda.synchronize()
+                    ok = _same(a, cw.knn_window_plain(*args))
+                    tag = f"B4 knn_window {label} {cname} k={k} {bname}"
+                    print(f"parity {tag}: {'bitwise' if ok else 'MISMATCH'}")
+                    if not ok:
+                        errors.append(tag)
+    return errors
+
+
+def mr_fits_equal(a, b) -> bool:
+    """Two MR fit results with equal labels, level stats, core distances,
+    outlier scores and condensed-tree fields (bitwise)."""
+    import dataclasses
+
+    import numpy as np
+
+    def stats(r):
+        return [{k: v for k, v in dataclasses.asdict(lv).items() if k != "wall_s"}
+                for lv in r.levels]
+
+    trees = all(
+        np.array_equal(getattr(a.tree, f.name), getattr(b.tree, f.name))
+        for f in dataclasses.fields(a.tree)
+    )
+    return (
+        a.n_levels == b.n_levels and stats(a) == stats(b) and trees
+        and np.array_equal(a.labels, b.labels)
+        and np.array_equal(a.core_distances, b.core_distances)
+        and np.array_equal(a.outlier_scores, b.outlier_scores)
+    )
+
+
+def run_mr(data, params):
+    """One MR fit on the card with the launch counters zeroed just before
+    and read just after: (result, launches, events by stage, wall s, peak
+    device bytes)."""
+    import torch
+
+    from hdbscan_tpu_torch.models import mr_hdbscan
+    from hdbscan_tpu_torch.ops import cuda_build
+
+    events = []
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = mr_hdbscan.fit(data, params, trace=lambda stage, **kw: events.append((stage, kw)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(cuda_build.LAUNCHES)
+    ev = {}
+    for stage, kw in events:
+        ev.setdefault(stage, []).append(kw)
+    return res, launches, ev, wall, torch.cuda.max_memory_allocated()
+
+
+def report_mr(label, res, launches, ev, wall, peak) -> None:
+    def walls(stage):
+        return [e["wall_s"] for e in ev.get(stage, [])]
+
+    print(f"{label} fit wall {wall:.3f} s, levels {res.n_levels}, edges {res.n_edges}, "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    for lv, st in zip(res.levels, ev["level_stages"]):
+        print(f"{label} level {lv.level}: active {lv.n_active}, small {lv.n_small_subsets}, "
+              f"large {lv.n_large_subsets}, processed {lv.n_processed}, bubbles {lv.n_bubbles}, "
+              f"inter edges {lv.n_inter_edges}, forced {lv.forced_splits}, wall {lv.wall_s:.3f} s "
+              f"{ {k: v for k, v in st.items() if k != 'level'} }")
+    totals = {k: round(sum(st[k] for st in ev["level_stages"]), 6)
+              for k in ev["level_stages"][0] if k != "level"}
+    print(f"{label} level stages summed over levels (s): {totals}")
+    for stage in ("global_cores", "boundary_select", "boundary_cores", "knn_probe_scan",
+                  "knn_window_scan", "boundary_reweight", "boundary_phase", "refine",
+                  "refine_flat"):
+        if stage in ev:
+            extra = {k: v for k, v in ev[stage][0].items() if k in (
+                "m", "m_glue", "chunks", "tiles", "pad_tiles", "edges", "new_edges", "n_blocks")}
+            print(f"{label} {stage} wall_s {walls(stage)} {extra}")
+    for e in ev.get("glue_round", []):
+        print(f"{label} glue_round {e['round']}: components {e['n_comp']}, pairs {e['pairs']}, "
+              f"dense {e['dense']}, wall {e['wall_s']} s")
+    blocks = sum(walls("block_fit"))
+    finalize = sum(sum(walls(s)) for s in ev if s.startswith("tree_"))
+    print(f"{label} block fits {blocks:.3f} s in {len(walls('block_fit'))} calls; "
+          f"host finalize {finalize:.3f} s over {len(walls('tree_condense'))} tree builds")
+    print(f"{label} launches on the fit: {launches}")
+
+
+def mr_card_vs_cpu() -> list[str]:
+    """The MR fit on 6,000 points on the card equals the CPU fit, in the
+    default mode and in boundary mode; returns failure messages."""
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import mr_hdbscan
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    data, _ = make_gauss(6000, **MR_DATA)
+    errors = []
+    base = dict(MR_PARAMS, min_cluster_size=30, processing_units=1024)
+    for label, extra in (("default", {}), ("boundary fused", BOUND05)):
+        p = HDBSCANParams(**base, **extra)
+        same = mr_fits_equal(mr_hdbscan.fit(data, p), mr_hdbscan.fit(data, p, device="cpu"))
+        print(f"MR card fit vs CPU fit on 6000 points, {label}: "
+              f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            errors.append(f"MR {label}")
+    return errors
+
+
+class WindowRecorder:
+    """Wraps the B4 wrapper during a fit to keep the arguments of every
+    call; the wrapped call launches and counts as before."""
+
+    def __init__(self):
+        from hdbscan_tpu_torch.ops import cuda_knn_window
+
+        self.mod = cuda_knn_window
+        self.orig = cuda_knn_window.knn_window
+        self.calls = []
+
+    def main_chunk(self, ev):
+        """The largest (most row tiles) chunk of the rescan's main phase:
+        its calls are the last ``chunks`` of the ``knn_window_scan`` event."""
+        main = self.calls[-ev["knn_window_scan"][0]["chunks"]:]
+        return max(main, key=lambda args: args[2].shape[0])
+
+    def __enter__(self):
+        def rec(*args):
+            self.calls.append(args)
+            return self.orig(*args)
+
+        self.mod.knn_window = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.knn_window = self.orig
+
+
+def window_time(args, launches) -> dict:
+    """B4 timed on one recorded rescan chunk beside its plain version and
+    its bound: the pairs it must scan (each slot against its window's
+    unmasked columns) times the dot form's operations, or the bytes (ids,
+    bounds and window origins read, the scanned columns read once, the lists
+    written), whichever is larger."""
+    import numpy as np
+
+    from hdbscan_tpu_torch.ops import cuda_knn_window as cw
+
+    x, n, ids, wst, bnd, k, col_tile, n_win, metric, form = args
+    tiles, rt = ids.shape
+    d = x.shape[1]
+    ms = cuda_ms(lambda: cw.knn_window(*args), 3)
+    plain = host_ms(lambda: cw.knn_window_plain(*args))
+    a, b = cw.knn_window(*args), cw.knn_window_plain(*args)
+    lo = wst.cpu().numpy().astype(np.int64) * col_tile
+    hi = np.minimum(lo + n_win * col_tile, n)
+    pairs = float(rt * np.maximum(hi - lo, 0).sum())
+    cols = np.zeros(n + 1, np.int64)
+    np.add.at(cols, np.minimum(lo, n), 1)
+    np.add.at(cols, hi, -1)
+    scanned = int((np.cumsum(cols)[:n] > 0).sum())
+    nbytes = tiles * rt * 8 + tiles * 4 + scanned * d * 4 + tiles * rt * k * 8
+    b_ms, by = bound_ms(nbytes, pairs * pair_ops(d, form))
+    print(f"B4 timing chunk: {tiles} row tiles of {rt}, k {k}, windows of {n_win} x {col_tile} "
+          f"columns, {pairs:.0f} pairs, {scanned} distinct columns")
+    return dict(
+        name="knn_window", route="cuda", source="hdbscan_tpu_torch/csrc/knn_window.cu",
+        replaces="hdbscan_tpu/ops/pallas_knn.py:640", launches=launches["knn_window"],
+        max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=by, library_ms=None,
+    )
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "hdbscan_tpu_torch")):
@@ -481,7 +717,7 @@ def main() -> int:
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
 
-    errors = parity() + parity_forest()
+    errors = parity() + parity_forest() + parity_window()
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 
@@ -553,6 +789,47 @@ def main() -> int:
     if msg:
         return fail(msg)
 
+    # --- 3d: the MR pipeline in boundary mode at the benchmark's size ----
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+    from hdbscan_tpu_torch.utils.evaluation import adjusted_rand_index
+
+    errors = mr_card_vs_cpu()
+    if errors:
+        return fail(f"the card's MR fits differ from the CPU fits: {errors}")
+    mdata, truth = make_gauss(N_MR, **MR_DATA)
+    mcs = max(64, N_MR // 200)
+    mparams = HDBSCANParams(**MR_PARAMS, min_cluster_size=mcs, **BOUND05)
+    with WindowRecorder() as recorder:
+        mres, mlaunches, mev, mwall, mpeak = run_mr(mdata, mparams)
+    report_mr("3d boundary", mres, mlaunches, mev, mwall, mpeak)
+    xres, _, xev, xwall = run_fit(mdata, HDBSCANParams(
+        min_points=MR_PARAMS["min_points"], min_cluster_size=mcs, knn_index="exact"))
+    ari_truth = adjusted_rand_index(mres.labels, truth)
+    ari_exact = adjusted_rand_index(mres.labels, xres.labels)
+    xmst = xev["boruvka_mst"][0]
+    print(f"3d exact fit of the same data: {xwall:.3f} s (core_distances "
+          f"{xev['core_distances'][0]['wall_s']}, boruvka_rounds {xmst['rounds_wall_s']} in "
+          f"{xmst['rounds']} rounds), ARI vs truth {adjusted_rand_index(xres.labels, truth):.6f}")
+    print(f"3d boundary ARI vs truth {ari_truth:.6f}, vs the exact fit {ari_exact:.6f}")
+    if mlaunches["knn_window"] == 0:
+        return fail("3d: the B4 window kernel never launched in the boundary fit")
+    if not np.all(np.isfinite(mres.core_distances)):
+        return fail("3d: non-finite core distances")
+    if min(ari_truth, ari_exact) < 0.99:
+        return fail(f"3d: ARI below 0.99 (truth {ari_truth}, exact {ari_exact})")
+
+    # --- 3e: the default mode at 200,000 points ---------------------------
+    fdata, ftruth = make_gauss(N_FULLQ, **MR_DATA)
+    fq = HDBSCANParams(**MR_PARAMS, min_cluster_size=max(64, N_FULLQ // 200))
+    qres, qlaunches, qev, qwall, qpeak = run_mr(fdata, fq)
+    report_mr("3e default", qres, qlaunches, qev, qwall, qpeak)
+    print(f"3e default ARI vs truth {adjusted_rand_index(qres.labels, ftruth):.6f}")
+    if not np.all(np.isfinite(qres.core_distances)):
+        return fail("3e: non-finite core distances")
+    missing = [k for k in ("knn_kbest", "segmin") if qlaunches[k] == 0]
+    if missing:
+        return fail(f"3e: kernels of the path never launched: {missing}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -607,6 +884,7 @@ def main() -> int:
         bound_ms=b, bound_by=by, library_ms=None,
     ))
     rows += forest_times(data, fres, flaunches)
+    rows.append(window_time(recorder.main_chunk(mev), mlaunches))
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")

@@ -21,6 +21,7 @@ correctly rounded).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: The metric vocabulary of the reference CLI flag ``dist_function``
@@ -65,14 +66,17 @@ def _sq_euclidean(x: torch.Tensor, y: torch.Tensor, form: str) -> torch.Tensor:
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root.
+    """Correctly rounded square root, float32 or float64.
 
-    PyTorch's vectorized CPU ``sqrt`` is not correctly rounded (it misses on
-    a fraction of a percent of integers), while ``sqrtf`` in the CUDA
-    kernels and the reference's scans on integer grids are. The square root
-    taken in float64 and rounded once to float32 is correctly rounded (53 >=
-    2*24 + 2 bits), on every device.
+    PyTorch's vectorized CPU ``sqrt`` is not correctly rounded in either
+    type (it misses on a fraction of a percent of integers, sqrt(2) among
+    them in float64), while ``sqrtf`` in the CUDA kernels, CUDA's ``sqrt``
+    and the reference's scans on integer grids are. On the CPU the root is
+    numpy's (IEEE); on the card float32 takes it in float64 and rounds once,
+    which is correctly rounded (53 >= 2*24 + 2 bits).
     """
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.double().numpy())).to(x.dtype)
     if x.dtype == torch.float32:
         return torch.sqrt(x.double()).float()
     return torch.sqrt(x)
@@ -116,4 +120,38 @@ def pairwise_distance(
         return _cosine(
             x - x.mean(dim=-1, keepdim=True), y - y.mean(dim=-1, keepdim=True)
         )
+    raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
+
+
+def self_distance_matrix(x: torch.Tensor, metric: str = DEFAULT_METRIC) -> torch.Tensor:
+    """(..., n, n) distance matrix of a point block (..., n, d) against
+    itself with an exact-zero diagonal, in the euclidean form the reference
+    picks for an (n, n, d) block."""
+    n, d = x.shape[-2], x.shape[-1]
+    dist = pairwise_distance(x, x, metric, euclidean_form(n, n, d))
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    return torch.where(eye, torch.zeros((), dtype=dist.dtype, device=x.device), dist)
+
+
+def rowwise_distance_np(a, b, metric: str = DEFAULT_METRIC):
+    """Distance between corresponding rows of two host arrays, in float64
+    (numpy; a copy of the reference's helper for edge re-weighting)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if metric == "euclidean":
+        return np.sqrt(np.sum((a - b) ** 2, axis=-1))
+    if metric == "manhattan":
+        return np.sum(np.abs(a - b), axis=-1)
+    if metric == "supremum":
+        return np.max(np.abs(a - b), axis=-1)
+    if metric == "cosine":
+        num = np.sum(a * b, axis=-1)
+        den = np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1)
+        return 1.0 - num / den
+    if metric == "pearson":
+        ac = a - a.mean(axis=-1, keepdims=True)
+        bc = b - b.mean(axis=-1, keepdims=True)
+        num = np.sum(ac * bc, axis=-1)
+        den = np.linalg.norm(ac, axis=-1) * np.linalg.norm(bc, axis=-1)
+        return 1.0 - num / den
     raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")

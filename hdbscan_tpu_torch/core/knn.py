@@ -1,6 +1,14 @@
-"""Neighbor-graph tier resolution — the port of ``core/knn.resolve_index_for``."""
+"""Neighbor-graph tier resolution and the dense-block core distances — the
+port of ``core/knn.py``.
+
+Core distance semantics are the reference's: the largest of a point's
+``min_pts - 1`` smallest distances over its row of the self-distance
+matrix, self (distance 0) included; ``min_pts <= 1`` gives zeros.
+"""
 
 from __future__ import annotations
+
+import torch
 
 
 def resolve_index_for(params, n: int) -> tuple[str, dict]:
@@ -25,3 +33,35 @@ def resolve_index_for(params, n: int) -> tuple[str, dict]:
         "knn_backend": params.knn_backend,
         "knn_precision": params.knn_precision,
     }
+
+
+def core_distances_from_matrix(
+    dist: torch.Tensor, min_pts: int, valid: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Core distance per row of a dense (..., n, n) self-distance matrix.
+
+    ``valid``: optional (..., n) mask of real points in a padded block —
+    invalid columns never count as neighbours, invalid rows get +inf. A
+    padded block with fewer than ``min_pts - 1`` valid columns clamps to
+    the farthest valid distance, as an unpadded block's ``min(k, n)`` does.
+    """
+    n = dist.shape[-1]
+    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
+    if valid is not None:
+        dist = torch.where(valid[..., None, :], dist, inf)
+    if min_pts <= 1:
+        core = torch.zeros(dist.shape[:-1], dtype=dist.dtype, device=dist.device)
+    else:
+        k = min(min_pts - 1, n)
+        core = torch.topk(dist, k, dim=-1, largest=False, sorted=True).values[..., k - 1]
+        if valid is not None:
+            row_max = torch.amax(torch.where(valid[..., None, :], dist, -inf), dim=-1)
+            core = torch.where(torch.isinf(core), row_max, core)
+    if valid is not None:
+        core = torch.where(valid, core, inf)
+    return core
+
+
+def mutual_reachability(dist: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
+    """MRD[i, j] = max(dist[i, j], core[i], core[j]) over (..., n, n)."""
+    return torch.maximum(dist, torch.maximum(core[..., :, None], core[..., None, :]))

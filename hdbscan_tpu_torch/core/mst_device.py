@@ -36,6 +36,7 @@ __all__ = [
     "resolve_mst_backend",
     "forest_events_device",
     "assemble_merge_forest",
+    "build_merge_forest_device",
     "boruvka_mst_device",
     "assert_rounds_converged",
 ]
@@ -312,6 +313,74 @@ def assemble_merge_forest(
         sizes=sizes,
         kids_csr=(kid_flat, kid_count),
     )
+
+
+def build_merge_forest_device(
+    n: int,
+    u,
+    v,
+    w,
+    point_weights=None,
+    trace=None,
+    build_children: bool = True,
+    *,
+    device=None,
+) -> MergeForest | None:
+    """Device twin of ``core/tree.build_merge_forest`` for a host edge pool:
+    the (w, u, v) sort and the union-find scan (kernel K3) on ``device``,
+    one fetch, then :func:`assemble_merge_forest` on the host.
+
+    Returns ``None`` — the caller then builds the forest on the host — for
+    a trivial pool, for non-integral point weights, when the weights fail
+    the exact-tie gate, and for a float64 pool whose weights are not
+    exactly float32-representable: the card sorts and carries float32
+    weights, and a rounded weight would no longer give the host builder's
+    forest. Emits ``host_sync`` and ``tree_build_device``.
+    """
+    import time
+
+    m = int(np.shape(u)[0])
+    if m == 0 or n == 0:
+        return None
+    if point_weights is not None and not supports_inputs([], point_weights):
+        return None
+    w = np.asarray(w)
+    if w.dtype == np.float64 and not np.array_equal(w, w.astype(np.float32).astype(np.float64)):
+        return None
+    dev = cuda_build.resolve_device(device)
+    t0 = time.monotonic()
+    out = forest_events_device(
+        torch.as_tensor(np.asarray(u, np.int32), device=dev),
+        torch.as_tensor(np.asarray(v, np.int32), device=dev),
+        torch.as_tensor(w.astype(np.float32), device=dev),
+        n,
+    )
+    build_wall = time.monotonic() - t0
+    t0 = time.monotonic()
+    fetched = {k: t.cpu().numpy() for k, t in out.items()}
+    sync_wall = time.monotonic() - t0
+    if trace is not None:
+        trace(
+            "host_sync",
+            arrays=len(fetched),
+            bytes=int(sum(a.nbytes for a in fetched.values())),
+            wall_s=round(sync_wall, 6),
+        )
+    t0 = time.monotonic()
+    forest = assemble_merge_forest(
+        n, fetched, point_weights=point_weights, build_children=build_children
+    )
+    if trace is not None:
+        trace(
+            "tree_build_device",
+            n=n,
+            edges=m,
+            nodes=-1 if forest is None else len(forest.dist),
+            backend="device",
+            fallback=forest is None,
+            wall_s=round(build_wall + (time.monotonic() - t0), 6),
+        )
+    return forest
 
 
 # ---------------------------------------------------------------------------

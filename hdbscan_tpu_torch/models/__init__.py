@@ -1,1 +1,1 @@
-from hdbscan_tpu_torch.models import exact, hdbscan  # noqa: F401
+from hdbscan_tpu_torch.models import exact, hdbscan, mr_hdbscan  # noqa: F401

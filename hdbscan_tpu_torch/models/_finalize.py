@@ -16,10 +16,12 @@ otherwise (non-integral point weights). Every ``tree_*`` trace event carries
 the backend that actually ran (``native``/``python``/``device`` for the
 merge forest).
 
-The port's exact fit builds the merge forest on the device
-(``core/mst_device.py``) and passes it in; when that forest declines a pool
-(near-tied unequal weights) or no forest is given, the host builder
-(``core/tree.build_merge_forest``, C fast path) runs here.
+``params.mst_backend`` selects the merge-forest builder upstream of that,
+as in the reference: ``auto``/``device`` build the forest from one device
+union-find scan (``core/mst_device.build_merge_forest_device``) when the
+pool passes its gate, otherwise — and for ``host`` — the host builder
+(``core/tree.build_merge_forest``, C fast path) runs. The exact fit builds
+its forest on the device itself and passes it in.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ def finalize_clustering(
     constraint_index_map: np.ndarray | None = None,
     trace=None,
     forest: tree_mod.MergeForest | None = None,
+    device=None,
 ) -> tuple[tree_mod.CondensedTree, np.ndarray, np.ndarray, bool]:
     """Edge pool + core distances -> (tree, labels, outlier_scores, infinite).
 
@@ -67,7 +70,8 @@ def finalize_clustering(
     layers (merge forest / condense / propagate / labels / GLOSH) so the
     multi-M-row runs can tell scan wall from tree wall.
     ``forest``: pre-built merge forest (the device-resident exact fit builds
-    it after its single bulk fetch); when omitted, the host builder runs.
+    it after its single bulk fetch); when omitted, ``params.mst_backend``
+    picks the builder, the device one running on ``device``.
     """
     import time as _time
 
@@ -76,6 +80,16 @@ def finalize_clustering(
     backend = resolve_tree_backend(params, point_weights)
     eng = tree_vec if backend == "vectorized" else tree_mod
 
+    if forest is None:
+        from hdbscan_tpu_torch.core import mst_device
+
+        if mst_device.resolve_mst_backend(params, n) == "device" and mst_device.supports_inputs(
+            w, point_weights
+        ):
+            forest = mst_device.build_merge_forest_device(
+                n, u, v, w, point_weights=point_weights, trace=trace,
+                build_children=(backend == "reference"), device=device,
+            )
     if forest is None:
         t0 = _time.monotonic()
         forest = tree_mod.build_merge_forest(

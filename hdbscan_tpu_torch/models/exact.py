@@ -201,7 +201,7 @@ def _fit_device(
     # forest=None (near-tied unequal weights): finalize builds it on the host.
     tree, labels, scores, infinite = finalize_clustering(
         n, u, v, w, core, params, num_constraints_satisfied, trace=trace,
-        forest=forest,
+        forest=forest, device=device,
     )
     return HDBSCANResult(
         labels=labels,

@@ -49,6 +49,10 @@ KERNELS = {
         "forest_rescan.cu", "forest_min_outgoing_launch",
         [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     ),
+    "knn_window": (
+        "knn_window.cu", "knn_window_launch",
+        [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    ),
 }
 _HEADERS = ("distance.cuh", "lexlist.cuh")
 SOURCES = sorted({src for src, _, _ in KERNELS.values()})

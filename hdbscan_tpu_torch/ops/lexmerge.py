@@ -78,6 +78,59 @@ def lex_kbest(dist: torch.Tensor, k: int):
     return out_d, out_i
 
 
+def topk_lex(values: torch.Tensor, k: int):
+    """The k smallest entries of every row (last dim) in (value, position)
+    lex order — ``jax.lax.top_k(-values, k)`` with its lower-index-first
+    tie order, infinities included: ((..., k) values, (..., k) int64
+    positions).
+
+    float32 rows rank by one int64 key per entry (the value's order-
+    preserving bit pattern above the position), so the selection is a
+    single ``torch.topk`` with no ties and no host read; other dtypes take
+    a stable sort.
+    """
+    if values.dtype != torch.float32:
+        v, i = torch.sort(values, dim=-1, stable=True)
+        return v[..., :k], i[..., :k]
+    bits = (values + 0.0).view(torch.int32)  # + 0.0 folds -0.0 into +0.0
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    pos = torch.arange(values.shape[-1], dtype=torch.int64, device=values.device)
+    key = (bits.to(torch.int64) << 32) | pos
+    _, idx = torch.topk(key, k, dim=-1, largest=False, sorted=True)
+    return torch.gather(values, -1, idx), idx
+
+
+def merge_sorted_k(best, bidx, tile_d, tile_i, k: int):
+    """Merge two (r, k) ascending lists (+ id companions) into one: a
+    stable sort of the 2k concatenation by distance, the first list ahead
+    on ties (the reference's ``ops/tiled._merge_sorted_k``)."""
+    cat_d = torch.cat([best, tile_d], dim=-1)
+    cat_i = torch.cat([bidx, tile_i], dim=-1)
+    order = torch.sort(cat_d, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(cat_d, -1, order), torch.gather(cat_i, -1, order)
+
+
+def merge_sorted_dedup(cur_d, cur_i, new_d, new_i, k: int):
+    """Rowwise dedup-merge of two (r, k) ascending neighbor lists, negative-
+    id convention (the reference's ``ops/lexmerge.merge_sorted_dedup``).
+
+    The concatenation is stably sorted by id; a repeated id >= 0 keeps its
+    first copy and the later copy's distance becomes +inf (its id stays).
+    The k smallest distances then win, ties to the earlier position of the
+    id-sorted order — ``top_k``'s order, so ties go to the lower id.
+    """
+    cat_d = torch.cat([cur_d, new_d], dim=-1)
+    cat_i = torch.cat([cur_i, new_i], dim=-1)
+    order = torch.sort(cat_i, dim=-1, stable=True).indices
+    ci = torch.gather(cat_i, -1, order)
+    cd = torch.gather(cat_d, -1, order)
+    dup = (ci[..., 1:] == ci[..., :-1]) & (ci[..., 1:] >= 0)
+    inf = torch.tensor(float("inf"), dtype=cd.dtype, device=cd.device)
+    cd = torch.cat([cd[..., :1], torch.where(dup, inf, cd[..., 1:])], dim=-1)
+    sel = torch.sort(cd, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(cd, -1, sel), torch.gather(ci, -1, sel)
+
+
 def shift_insert(best, t: int, new_t, take):
     """Merged slot t gets ``new_t``; where the tile won, old slots past t
     shift right. ``best``: (rows, k); ``take``: (rows,) bool."""

@@ -9,7 +9,10 @@ form the reference would use at the caller's tiles (:func:`scan_form`), so
 the port computes the same distances.
 
 :func:`_min_outgoing_scan` is the plain PyTorch version of the segment-min
-kernel; :func:`knn_core_distances` is the core-distance entry point.
+kernel; :func:`knn_core_distances` is the core-distance entry point;
+:class:`BoruvkaScanner` and :func:`boruvka_glue_edges` run host-contracted
+Borůvka rounds over that kernel (the MR pipeline's glue and refine
+harvests).
 """
 
 from __future__ import annotations
@@ -116,6 +119,98 @@ def knn_core_distances(
         form = scan_form(n, d, metric, row_tile, col_tile)
     return kbest_core_distances(
         data, min_pts, k, metric, form, fetch_knn, return_indices, device
+    )
+
+
+class BoruvkaScanner:
+    """Device-resident state for repeated Borůvka rounds over one dataset
+    (the reference's ``BoruvkaScanner`` without a mesh): the points and
+    core distances stay on the device in float32, only the (n,) component
+    labels go up and the per-row winners come back each round. Every
+    round is one launch of the segment-min kernel (``ops/cuda_segmin``; its
+    plain version on the CPU), in the distance form the reference's tiles
+    pick."""
+
+    def __init__(self, data: np.ndarray, core: np.ndarray, metric: str = "euclidean",
+                 row_tile: int = 1024, col_tile: int = 8192, *, device):
+        self.n, self.d = np.shape(data)
+        self.metric = metric
+        self.row_tile, self.col_tile = row_tile, col_tile
+        self.device = device
+        self._data = torch.as_tensor(np.asarray(data, np.float32), device=device)
+        self._core = torch.as_tensor(np.asarray(core, np.float32), device=device)
+        self._valid = torch.ones(self.n, dtype=torch.bool, device=device)
+
+    def min_outgoing(self, comp: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(best_w float64, best_j int64) per point: the lightest edge
+        leaving the point's component, (+inf, -1) where none."""
+        from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows
+        from hdbscan_tpu_torch.utils.flops import counter as _flops
+
+        _, _, n_pad = _tile_sizes(self.n, self.row_tile, self.col_tile)
+        _flops.add_scan(n_pad, n_pad, self.d, row_tile=self.row_tile)
+        comp_t = torch.as_tensor(np.asarray(comp, np.int32), device=self.device)
+        bw, bj = min_outgoing_all_rows(
+            self._data, self._core, comp_t, self._valid, self.metric,
+            self.row_tile, self.col_tile,
+        )
+        return bw.cpu().numpy().astype(np.float64), bj.cpu().numpy().astype(np.int64)
+
+
+def boruvka_glue_edges(
+    data: np.ndarray,
+    groups: np.ndarray,
+    metric: str = "euclidean",
+    core: np.ndarray | None = None,
+    row_tile: int = 1024,
+    col_tile: int = 8192,
+    max_rounds: int = 64,
+    scan_backend: str = "host",
+    fit_sharding: str = "replicated",
+    trace=None,
+    *,
+    device,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Exact inter-group MST "glue" edges: Borůvka rounds seeded with
+    ``groups`` as components, run to connectivity (the reference's
+    ``boruvka_glue_edges``). Every harvested edge is a true MST edge of
+    ``data`` under mutual reachability (plain distance when ``core`` is
+    None). Returns (u, v, w) in local indices of ``data``, tie-broken by
+    (w, u, v) through ``utils/unionfind.contract_min_edges``."""
+    from hdbscan_tpu_torch.utils.unionfind import contract_min_edges
+
+    if scan_backend == "ring" or fit_sharding == "sharded":
+        raise NotImplementedError(
+            "the ring and sharded Borůvka scanners (scan_backend=ring, "
+            "fit_sharding=sharded) are not ported yet (ROADMAP A9)"
+        )
+    n = len(data)
+    if core is None:
+        core = np.zeros(n)
+    dense = np.unique(np.asarray(groups, np.int64), return_inverse=True)[1]
+    n_comp = int(dense.max()) + 1
+    if n_comp == 1:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float64)
+    scanner = BoruvkaScanner(data, core, metric, row_tile, col_tile, device=device)
+    # Seed components with the groups (first member = representative).
+    order0 = np.argsort(dense, kind="stable")
+    firsts = np.concatenate([[True], np.diff(dense[order0]) != 0])
+    comp = order0[firsts][dense]
+    eu, ev, ew = [], [], []
+    for _ in range(max_rounds):
+        if n_comp <= 1:
+            break
+        bw, bj = scanner.min_outgoing(comp)
+        emit, comp, n_comp = contract_min_edges(comp, bj, bw)
+        if len(emit) == 0:
+            break
+        eu.append(emit)
+        ev.append(bj[emit])
+        ew.append(bw[emit])
+    return (
+        np.concatenate(eu) if eu else np.zeros(0, np.int64),
+        np.concatenate(ev) if ev else np.zeros(0, np.int64),
+        np.concatenate(ew) if ew else np.zeros(0, np.float64),
     )
 
 

@@ -22,26 +22,47 @@ PORT = os.path.join(REPO, "hdbscan_tpu_torch")
 _PORT_MODULES = [
     "hdbscan_tpu_torch",
     "hdbscan_tpu_torch.config",
+    "hdbscan_tpu_torch.core.bubbles",
     "hdbscan_tpu_torch.core.constraints",
     "hdbscan_tpu_torch.core.distances",
     "hdbscan_tpu_torch.core.knn",
+    "hdbscan_tpu_torch.core.mst",
     "hdbscan_tpu_torch.core.mst_device",
     "hdbscan_tpu_torch.core.tree",
     "hdbscan_tpu_torch.core.tree_vec",
     "hdbscan_tpu_torch.models._finalize",
+    "hdbscan_tpu_torch.models.bubble_hdbscan",
     "hdbscan_tpu_torch.models.exact",
     "hdbscan_tpu_torch.models.hdbscan",
+    "hdbscan_tpu_torch.models.mr_hdbscan",
     "hdbscan_tpu_torch.native",
+    "hdbscan_tpu_torch.ops.blockscan",
     "hdbscan_tpu_torch.ops.cuda_build",
     "hdbscan_tpu_torch.ops.cuda_forest",
     "hdbscan_tpu_torch.ops.cuda_knn",
+    "hdbscan_tpu_torch.ops.cuda_knn_window",
     "hdbscan_tpu_torch.ops.cuda_segmin",
     "hdbscan_tpu_torch.ops.lexmerge",
     "hdbscan_tpu_torch.ops.rpforest",
     "hdbscan_tpu_torch.ops.tiled",
+    "hdbscan_tpu_torch.parallel.blocks",
+    "hdbscan_tpu_torch.utils.datasets",
+    "hdbscan_tpu_torch.utils.evaluation",
+    "hdbscan_tpu_torch.utils.flops",
     "hdbscan_tpu_torch.utils.io",
     "hdbscan_tpu_torch.utils.unionfind",
 ]
+
+
+def test_module_list_covers_the_package():
+    """Every module file of the port is in the JAX-blocked import list."""
+    found = set()
+    for root, _, names in os.walk(PORT):
+        for name in names:
+            if name.endswith(".py") and name != "__init__.py":
+                rel = os.path.relpath(os.path.join(root, name[:-3]), REPO)
+                found.add(rel.replace(os.sep, "."))
+    assert found <= set(_PORT_MODULES), sorted(found - set(_PORT_MODULES))
 
 
 def test_imports_with_jax_blocked():
