@@ -57,13 +57,33 @@ Phases (any failure exits non-zero):
 3e. the default mode (global core distances, per-level glue, one refine
    round) at 200,000 points of the same generator: K2 and B1 must have
    launched; the same lines;
+3f. the high-dimension exact fit, the reference's own high-d leg
+   (``benchmarks/highdim_eval.py``): B3 (the no-ids k-smallest kernel,
+   which ``knn_backend=auto`` takes on the card for euclidean d >= 24)
+   against its plain version first, bitwise, in both forms at d = 24, 28,
+   90 and 128 and k = 1, 7, 15 and 128; then a 4,096 x 28 card fit with
+   ``auto`` equal to the CPU fit with ``knn_backend=pallas``; then
+   ``make_gauss(500,000, dims=28, n_clusters=8, separation=3 sqrt(28),
+   seed=4)`` with min_points=8, min_cluster_size=2500: B3, B1 and K3 must
+   launch; it prints the stage walls, the ARI against the truth and the core
+   distances' error against a float64 oracle on 512 rows, and the same
+   error for B3's core distances alone at 500,000 x 90;
+3g. the sharded exact fit (``fit_sharding=sharded``) over a mesh of four
+   shards (one per card from four cards on, else four on the first card):
+   B9 (the panel segment-min) and the rectangular B2 against their plain
+   versions first, bitwise; an 8,000-point sharded card fit equal to the
+   same fit over four CPU shards; then the 245,057 x 3 Skin-shaped fit,
+   whose labels, core distances, MST, outlier scores and condensed tree
+   must equal the single-device fit of phase 3, with one host sync, 16 ring
+   B2 launches and 16 B9 launches per Borůvka round;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
    TFLOP/s): the exact tier's kernels at the exact fit's shapes, the forest kernels
    at the 3b fit's (one leaf batch, the merge, one rescan chunk, B8 on that
    chunk's panel with round-1 components), B4 at the largest main-phase
-   rescan chunk of the 3d fit.
+   rescan chunk of the 3d fit, B3 at the 3f fit's launch, B9 and the
+   rectangular B2 at one panel launch of the 3g fit's first round.
 
 The second line before the last is the card's name and power limit, the
 line before the last the ``kernels`` JSON, the last line the device JSON.
@@ -87,6 +107,8 @@ BLOBS_MIN_CL_SIZE = 5000
 FOREST = dict(knn_index="rpforest", knn_backend="fused", rpf_trees=4,
               rpf_leaf_size=1024, rpf_rescan_rounds=1)
 EXACT_KERNELS = ("knn_kbest", "segmin", "uf_scan")
+HIGHD_KERNELS = ("knn_smallest", "segmin", "uf_scan")
+SHARDED_KERNELS = ("knn_kbest_panel", "segmin_panel", "uf_scan")
 FOREST_FIT_KERNELS = ("forest_leaf_topk", "forest_merge", "forest_rescan_topk",
                       "segmin", "uf_scan")
 #: The boundary benchmark's data and parameters (benchmarks/boundary_eval.py).
@@ -95,6 +117,16 @@ N_FULLQ = 200_000
 MR_DATA = dict(dims=10, n_clusters=30, separation=9.0, seed=2)
 MR_PARAMS = dict(min_points=8, processing_units=16384, k=0.01, seed=0)
 BOUND05 = dict(boundary_quality=0.05, knn_backend="fused")
+#: The reference's high-d leg (benchmarks/highdim_eval.py): d = 28 is the
+#: HEPMASS/HIGGS width, d = 90 YearPrediction's.
+N_HIGHD = 500_000
+HIGHD_DIMS = (24, 28, 90, 128)
+HIGHD_PARAMS = dict(min_points=8, min_cluster_size=2500, processing_units=16384, seed=0,
+                    k=0.01)
+#: Shards of the sharded fit: one per card from four cards on, else four on
+#: the first card.
+N_SHARDS = 4
+SHARDED = dict(fit_sharding="sharded", mst_backend="device", knn_index="exact")
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 
@@ -312,9 +344,10 @@ def fits_equal(a, b) -> bool:
     )
 
 
-def run_fit(data, params):
+def run_fit(data, params, **kw):
     """One fit on the card with the launch counters zeroed just before and
-    read just after: (result, launches, events by stage, wall s)."""
+    read just after: (result, launches, events by stage, wall s); ``kw``
+    goes to ``exact.fit`` (the sharded fit's ``mesh``)."""
     import torch
 
     from hdbscan_tpu_torch.models import exact
@@ -324,14 +357,51 @@ def run_fit(data, params):
     cuda_build.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    res = exact.fit(data, params, trace=lambda stage, **kw: events.append((stage, kw)))
+    res = exact.fit(data, params, trace=lambda stage, **f: events.append((stage, f)), **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(cuda_build.LAUNCHES)
     ev = {}
-    for stage, kw in events:
-        ev.setdefault(stage, []).append(kw)
+    for stage, f in events:
+        ev.setdefault(stage, []).append(f)
     return res, launches, ev, wall
+
+
+def fit_walls(ev, wall) -> str:
+    """The stage walls of one exact fit, as one line."""
+    mst = ev["boruvka_mst"][0]
+    finalize_s = sum(e[0]["wall_s"] for s, e in ev.items() if s.startswith("tree_"))
+    return (f"core_distances {ev['core_distances'][0]['wall_s']}, boruvka_rounds "
+            f"{mst['rounds_wall_s']} ({mst['rounds']} rounds), forest_events "
+            f"{ev['forest_events'][0]['wall_s']}, fetch {ev['host_sync'][0]['wall_s']}, "
+            f"host_finalize {finalize_s:.6f}, total {wall:.3f}")
+
+
+def oracle_core_err(data, core, min_pts: int, sample: int = 512, seed: int = 0):
+    """Max abs and rel error of core distances against a float64 oracle on
+    ``sample`` rows, as the reference's ``oracle_core_check``
+    (``benchmarks/highdim_eval.py``) computes it; the oracle's products run
+    on the card in float64."""
+    import numpy as np
+    import torch
+
+    rows = np.random.default_rng(seed).choice(len(data), min(sample, len(data)), replace=False)
+    x = torch.as_tensor(np.asarray(data, np.float64), device="cuda")
+    xr = x[torch.as_tensor(rows, device="cuda")]
+    d2 = (xr * xr).sum(1)[:, None] + (x * x).sum(1)[None, :] - 2.0 * (xr @ x.T)
+    kth = torch.kthvalue(d2, min_pts - 1, dim=1).values
+    want = torch.sqrt(torch.clamp_min(kth, 0.0)).cpu().numpy()
+    err = np.abs(np.asarray(core)[rows] - want)
+    return float(err.max()), float((err / np.maximum(want, 1e-30)).max())
+
+
+def highd_data(dims: int):
+    """The reference's high-d leg data: 8 clusters, separation 3 sqrt(d)."""
+    import numpy as np
+
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    return make_gauss(N_HIGHD, dims=dims, n_clusters=8, separation=3 * np.sqrt(dims), seed=4)
 
 
 def check_fit(label, res, launches, ev, n, kernels) -> str | None:
@@ -534,6 +604,144 @@ def parity_window() -> list[str]:
     return errors
 
 
+def parity_highd() -> list[str]:
+    """B3 against its plain version on the card, bitwise: both forms, d =
+    24, 28, 90 and 128, k = 1, 7, 15 and 128, on 4,099 continuous points
+    (a ragged count) and at d = 28 on 4,099 integer-grid points."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_knn_smallest as ks
+
+    errors = []
+    rng = np.random.default_rng(SEED + 3)
+    cases = [(f"continuous 4099x{d}", rng.normal(size=(4099, d))) for d in HIGHD_DIMS]
+    cases.append(("grid 4099x28", rng.integers(0, 16, size=(4099, 28))))
+    for label, x in cases:
+        xg = torch.as_tensor(x.astype(np.float32), device="cuda")
+        for form in ("diff", "dot"):
+            for k in (1, 7, 15, 128):
+                a = ks.knn_smallest(xg, k, form)
+                torch.cuda.synchronize()
+                ok = torch.equal(a, ks.knn_smallest_plain(xg, k, form))
+                tag = f"B3 knn_smallest {label} {form} k={k}"
+                print(f"parity {tag}: {'bitwise' if ok else 'MISMATCH'}")
+                if not ok:
+                    errors.append(tag)
+    return errors
+
+
+def parity_panels() -> list[str]:
+    """B9 and the rectangular B2 against their plain versions on the card,
+    bitwise: 5,000 resident rows against a 3,001-column panel at a global
+    offset, random components and validity, every metric the kernels take
+    (euclidean in both forms), k = 1, 15 and 128, the panel's last columns
+    masked as padding."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_knn, cuda_segmin
+
+    errors = []
+
+    def check(tag, a, b):
+        torch.cuda.synchronize()
+        ok = _same(a, b)
+        print(f"parity {tag}: {'bitwise' if ok else 'MISMATCH'}")
+        if not ok:
+            errors.append(tag)
+
+    rng = np.random.default_rng(SEED + 4)
+    r, c, off = 5000, 3001, 12_345
+    cases = [
+        ("grid", rng.integers(0, 64, size=(r + c, 3)).astype(np.float32)),
+        ("continuous", rng.normal(size=(r + c, 7)).astype(np.float32)),
+    ]
+    for label, x in cases:
+        xg = torch.as_tensor(x, device="cuda")
+        rows, panel = xg[:r], xg[r:]
+        core = torch.as_tensor(rng.integers(0, 8, r + c).astype(np.float32), device="cuda")
+        comp = torch.as_tensor(rng.integers(0, 50, r + c).astype(np.int32), device="cuda")
+        valid = torch.as_tensor(rng.random(r + c) < 0.95, device="cuda")
+        args = (rows, core[:r], comp[:r], valid[:r], panel, core[r:], comp[r:], valid[r:])
+        for metric, form in (("euclidean", "diff"), ("euclidean", "dot"),
+                             ("manhattan", None), ("supremum", None)):
+            check(f"B9 segmin_panel {label} {r}x{c} {metric} {form}",
+                  cuda_segmin.min_outgoing_panel(*args, metric, form=form),
+                  cuda_segmin.min_outgoing_panel_plain(*args, metric, form))
+            for k in (1, 15, 128):
+                kw = dict(metric=metric, form=form, id_offset=off)
+                check(f"B2 knn_kbest_panel {label} {r}x{c} {metric} {form} k={k}",
+                      cuda_knn.knn_kbest_panel(rows, panel, k, n_cols=off + c - 37, **kw),
+                      cuda_knn.knn_kbest_panel_plain(rows, panel[: c - 37], k, **kw))
+    return errors
+
+
+def trees_equal(a, b) -> bool:
+    """Two condensed trees with bitwise-equal fields."""
+    import dataclasses
+
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def highd_card_vs_cpu() -> list[str]:
+    """The high-d fit on 4,096 points of the path's generator: the card's
+    fit with ``knn_backend=auto`` (which must take B3) equals the CPU fit
+    with ``knn_backend=pallas`` (B3's plain version); failure messages."""
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.ops import cuda_build
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    data, _ = make_gauss(4096, dims=28, n_clusters=8, separation=3 * np.sqrt(28), seed=4)
+    small = dict(HIGHD_PARAMS, min_cluster_size=50)
+    cuda_build.reset_launches()
+    card = exact.fit(data, HDBSCANParams(**small))
+    b3 = cuda_build.LAUNCHES["knn_smallest"]
+    cpu = exact.fit(data, HDBSCANParams(**small, knn_backend="pallas"), device="cpu")
+    same = fits_equal(card, cpu) and trees_equal(card.tree, cpu.tree)
+    print(f"high-d card fit (auto, B3 launches {b3}) vs CPU fit (pallas) on 4096 x 28: "
+          f"{'identical' if same else 'DIFFERENT'}")
+    return [] if same and b3 > 0 else ["high-d 4096 card vs CPU"]
+
+
+def shard_mesh():
+    """The sharded fit's mesh: one shard per card from four cards on, else
+    four shards on the first card."""
+    import torch
+
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    if torch.cuda.device_count() >= N_SHARDS:
+        return get_mesh([torch.device("cuda", i) for i in range(N_SHARDS)])
+    return get_mesh([torch.device("cuda", 0)] * N_SHARDS)
+
+
+def sharded_card_vs_cpu(mesh) -> list[str]:
+    """The sharded fit on 8,000 Skin-shaped points (all four shards hold
+    rows) over ``mesh`` equals the same fit over four CPU shards."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    data = np.random.default_rng(SEED + 5).integers(0, 256, size=(8000, 3)).astype(np.float64)
+    p = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=50, **SHARDED)
+    card = exact.fit(data, p, mesh=mesh)
+    cpu = exact.fit(data, p, mesh=get_mesh([torch.device("cpu")] * N_SHARDS))
+    same = fits_equal(card, cpu) and trees_equal(card.tree, cpu.tree)
+    print(f"sharded card fit vs sharded CPU fit on 8000 points, {N_SHARDS} shards: "
+          f"{'identical' if same else 'DIFFERENT'}")
+    return [] if same else ["sharded 8000 card vs CPU"]
+
+
 def mr_fits_equal(a, b) -> bool:
     """Two MR fit results with equal labels, level stats, core distances,
     outlier scores and condensed-tree fields (bitwise)."""
@@ -545,12 +753,8 @@ def mr_fits_equal(a, b) -> bool:
         return [{k: v for k, v in dataclasses.asdict(lv).items() if k != "wall_s"}
                 for lv in r.levels]
 
-    trees = all(
-        np.array_equal(getattr(a.tree, f.name), getattr(b.tree, f.name))
-        for f in dataclasses.fields(a.tree)
-    )
     return (
-        a.n_levels == b.n_levels and stats(a) == stats(b) and trees
+        a.n_levels == b.n_levels and stats(a) == stats(b) and trees_equal(a.tree, b.tree)
         and np.array_equal(a.labels, b.labels)
         and np.array_equal(a.core_distances, b.core_distances)
         and np.array_equal(a.outlier_scores, b.outlier_scores)
@@ -696,6 +900,92 @@ def window_time(args, launches) -> dict:
     )
 
 
+def timed_plain(fn):
+    """(host ms of one synchronised call, its result): the plain versions
+    are too slow at full size to run twice."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, out
+
+
+def highd_times(hdata, launches) -> list[dict]:
+    """B3 timed at the 3f fit's launch — all 500,000 Morton-ordered rows,
+    k = 7, dot form — beside its plain version and its bound (n^2 pairs at
+    the dot form's operations less the root; each point read once, the
+    (n, k) values written once)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_knn_smallest as ks
+
+    k = HIGHD_PARAMS["min_points"] - 1
+    x = torch.as_tensor(hdata[ks.morton_order(hdata)].astype(np.float32), device="cuda")
+    n, d = x.shape
+    ms = cuda_ms(lambda: ks.knn_smallest(x, k, "dot"), 2)
+    a = ks.knn_smallest(x, k, "dot")
+    plain_ms, b = timed_plain(lambda: ks.knn_smallest_plain(x, k, "dot"))
+    b_ms, by = bound_ms(n * d * 4 + n * k * 4, float(n) * n * (pair_ops(d, "dot") - 1))
+    return [dict(
+        name="knn_smallest", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
+        replaces="hdbscan_tpu/ops/pallas_knn.py:198", launches=launches["knn_smallest"],
+        max_abs_err=max_err(a, b), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+        library_ms=None,
+    )]
+
+
+def panel_times(data, sres, launches, mesh) -> list[dict]:
+    """B9 and the ring's rectangular B2 timed at one launch of the 3g fit's
+    first round: shard 0's rows against shard 1's panel, round-1
+    components, the ring tiles' form; bounds from the pairs and the bytes
+    of both sides."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import euclidean_form
+    from hdbscan_tpu_torch.ops import cuda_knn, cuda_segmin
+    from hdbscan_tpu_torch.parallel.ring import _ring_geometry
+
+    rt, ct, shard, _ = _ring_geometry(N_SKIN, N_SHARDS, 1024, 8192)
+    d, k = data.shape[1], MIN_PTS - 1
+    form = euclidean_form(rt, ct, d)
+    x = torch.as_tensor(data.astype(np.float32), device="cuda")
+    core = torch.as_tensor(sres.core_distances.astype(np.float32), device="cuda")
+    comp = torch.arange(N_SKIN, dtype=torch.int32, device="cuda")
+    valid = torch.ones(N_SKIN, dtype=torch.bool, device="cuda")
+    r, c = slice(0, shard), slice(shard, 2 * shard)
+    args = (x[r], core[r], comp[r], valid[r], x[c], core[c], comp[c], valid[c])
+    rows = []
+
+    def row(name, replaces, kernel, plain, nbytes, ops):
+        ms = cuda_ms(kernel, 3)
+        a = kernel()
+        plain_ms, b = timed_plain(plain)
+        b_ms, by = bound_ms(nbytes, ops)
+        rows.append(dict(
+            name=name, route="cuda", source=f"hdbscan_tpu_torch/csrc/{replaces[0]}",
+            replaces=replaces[1], launches=launches[name],
+            max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=by, library_ms=None,
+        ))
+
+    pairs = float(shard) * shard
+    row("segmin_panel", ("segmin.cu", "hdbscan_tpu/ops/pallas_segmin.py:127"),
+        lambda: cuda_segmin.min_outgoing_panel(*args, "euclidean", form=form),
+        lambda: cuda_segmin.min_outgoing_panel_plain(*args, "euclidean", form),
+        2 * shard * (d * 4 + 4 + 4 + 1) + shard * 8, pairs * (pair_ops(d, form) + 2))
+    row("knn_kbest_panel", ("knn_kbest.cu", "hdbscan_tpu/ops/pallas_knn.py:453"),
+        lambda: cuda_knn.knn_kbest_panel(x[r], x[c], k, "euclidean", form, id_offset=shard),
+        lambda: cuda_knn.knn_kbest_panel_plain(x[r], x[c], k, "euclidean", form, shard),
+        2 * shard * d * 4 + shard * k * 8, pairs * pair_ops(d, form))
+    print(f"panel kernel shapes: {shard} resident rows x {shard}-column panel, k {k}, "
+          f"form {form}, mesh {[str(dev) for dev in mesh.devices]}")
+    return rows
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "hdbscan_tpu_torch")):
@@ -710,6 +1000,7 @@ def main() -> int:
     from hdbscan_tpu_torch.core import mst_device
     from hdbscan_tpu_torch.models import exact
     from hdbscan_tpu_torch.ops import cuda_build, cuda_knn, cuda_segmin, tiled
+    from hdbscan_tpu_torch.utils.evaluation import adjusted_rand_index
 
     card = gpu_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -717,7 +1008,7 @@ def main() -> int:
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
 
-    errors = parity() + parity_forest() + parity_window()
+    errors = parity() + parity_forest() + parity_window() + parity_highd() + parity_panels()
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 
@@ -791,7 +1082,6 @@ def main() -> int:
 
     # --- 3d: the MR pipeline in boundary mode at the benchmark's size ----
     from hdbscan_tpu_torch.utils.datasets import make_gauss
-    from hdbscan_tpu_torch.utils.evaluation import adjusted_rand_index
 
     errors = mr_card_vs_cpu()
     if errors:
@@ -829,6 +1119,64 @@ def main() -> int:
     missing = [k for k in ("knn_kbest", "segmin") if qlaunches[k] == 0]
     if missing:
         return fail(f"3e: kernels of the path never launched: {missing}")
+
+    # --- 3f: the high-dimension exact fit, B3 in the core distances -------
+    errors = highd_card_vs_cpu()
+    if errors:
+        return fail(f"the card's high-d fit differs from the CPU fit: {errors}")
+    hdata, htruth = highd_data(28)
+    hres, hlaunches, hev, hwall = run_fit(hdata, HDBSCANParams(**HIGHD_PARAMS))
+    print(f"3f high-d {N_HIGHD} x 28 fit walls (s): {fit_walls(hev, hwall)}")
+    print(f"3f high-d ARI vs truth {adjusted_rand_index(hres.labels, htruth):.6f}, "
+          f"{len(np.unique(hres.labels)) - 1} clusters")
+    print(f"3f high-d launches on the fit: {hlaunches}")
+    msg = check_fit("3f high-d", hres, hlaunches, hev, N_HIGHD, HIGHD_KERNELS)
+    if msg:
+        return fail(msg)
+    abs28, rel28 = oracle_core_err(hdata, hres.core_distances, HIGHD_PARAMS["min_points"])
+    print(f"3f core distances vs a float64 oracle on 512 rows, d=28: max abs {abs28:.3e}, "
+          f"max rel {rel28:.3e}")
+    x90, _ = highd_data(90)
+    cuda_build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    core90, _ = tiled.knn_core_distances(x90, HIGHD_PARAMS["min_points"], fetch_knn=False)
+    wall90 = time.perf_counter() - t
+    abs90, rel90 = oracle_core_err(x90, core90, HIGHD_PARAMS["min_points"])
+    print(f"3f B3 core distances alone at {N_HIGHD} x 90: {wall90:.3f} s "
+          f"(B3 launches {cuda_build.LAUNCHES['knn_smallest']}); vs a float64 oracle on 512 "
+          f"rows: max abs {abs90:.3e}, max rel {rel90:.3e}")
+    if cuda_build.LAUNCHES["knn_smallest"] != 1 or not np.all(np.isfinite(core90)):
+        return fail("3f: the d=90 core distances did not run B3 once or are not finite")
+    del x90, core90
+
+    # --- 3g: the sharded exact fit, B9 and the ring's rectangular B2 ------
+    mesh = shard_mesh()
+    errors = sharded_card_vs_cpu(mesh)
+    if errors:
+        return fail(f"the card's sharded fit differs from the CPU's: {errors}")
+    sparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **SHARDED)
+    sres, slaunches, sev, swall = run_fit(data, sparams, mesh=mesh)
+    devices = [str(dev) for dev in mesh.devices]
+    print(f"3g sharded fit on {devices}: walls (s): {fit_walls(sev, swall)}")
+    print(f"3g ring_knn_scan {sev['ring_knn_scan'][0]['wall_s']} s, shard_mst_device "
+          f"{sev['shard_mst_device'][0]['wall_s']} s, host syncs {len(sev['host_sync'])}")
+    print(f"3g launches on the fit: {slaunches}")
+    msg = check_fit("3g sharded", sres, slaunches, sev, N_SKIN, SHARDED_KERNELS)
+    if msg:
+        return fail(msg)
+    rounds = sev["boruvka_mst"][0]["rounds"]
+    same = (fits_equal(sres, res) and trees_equal(sres.tree, res.tree))
+    print(f"3g sharded fit vs the single-device fit of the same data: "
+          f"{'identical' if same else 'DIFFERENT'}; ring B2 launches "
+          f"{slaunches['knn_kbest_panel']} (expect {N_SHARDS ** 2}), B9 launches "
+          f"{slaunches['segmin_panel']} (expect {N_SHARDS ** 2} x {rounds} rounds)")
+    if not same:
+        return fail("3g: the sharded fit differs from the single-device fit")
+    if (len(sev["host_sync"]) != 1 or slaunches["knn_kbest_panel"] != N_SHARDS ** 2
+            or slaunches["segmin_panel"] != N_SHARDS ** 2 * rounds
+            or slaunches["knn_kbest"] or slaunches["segmin"]):
+        return fail(f"3g: unexpected host syncs or launches {slaunches}")
 
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
@@ -885,6 +1233,8 @@ def main() -> int:
     ))
     rows += forest_times(data, fres, flaunches)
     rows.append(window_time(recorder.main_chunk(mev), mlaunches))
+    rows += highd_times(hdata, hlaunches)
+    rows += panel_times(data, sres, slaunches, mesh)
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")

@@ -128,7 +128,7 @@ def uf_scan(su: torch.Tensor, sv: torch.Tensor, n: int):
     kernel for CUDA tensors, the plain version for CPU tensors."""
     if su.device.type == "cpu":
         return uf_scan_plain(su, sv, n)
-    cuda_build.require_cuda(su, "uf_scan")
+    dev = cuda_build.launch_device("uf_scan", su, sv)
     if su.dtype != torch.int32 or sv.dtype != torch.int32 or su.shape != sv.shape:
         raise ValueError("uf_scan: endpoints must be int32 vectors of one length")
     su, sv = su.contiguous(), sv.contiguous()
@@ -137,7 +137,7 @@ def uf_scan(su: torch.Tensor, sv: torch.Tensor, n: int):
     ra = torch.empty(m, dtype=torch.int32, device=su.device)
     rb = torch.empty(m, dtype=torch.int32, device=su.device)
     cuda_build.launch(
-        "uf_scan", su.data_ptr(), sv.data_ptr(), m, n, par.data_ptr(),
+        "uf_scan", dev, su.data_ptr(), sv.data_ptr(), m, n, par.data_ptr(),
         ra.data_ptr(), rb.data_ptr(),
     )
     return ra, rb

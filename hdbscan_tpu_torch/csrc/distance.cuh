@@ -16,7 +16,14 @@ enum : int {
   METRIC_EUCLID_DOT = 1,   // sqrt(max((|x|^2 + |y|^2) - 2 x.y, 0))
   METRIC_MANHATTAN = 2,    // sum |x_f - y_f|
   METRIC_SUPREMUM = 3,     // max |x_f - y_f|
+  METRIC_EUCLID_DIFF_SQ = 4,  // sum (x_f - y_f)^2, no root (B3)
+  METRIC_EUCLID_DOT_SQ = 5,   // max((|x|^2 + |y|^2) - 2 x.y, 0), no root (B3)
 };
+
+// Whether a metric code takes the dot form's per-column norms.
+__host__ __device__ __forceinline__ bool dot_form(int metric) {
+  return metric == METRIC_EUCLID_DOT || metric == METRIC_EUCLID_DOT_SQ;
+}
 
 // Squared norm in the dot form's order.
 template <int DMAX>
@@ -35,7 +42,7 @@ template <int DMAX>
 __device__ __forceinline__ float pair_distance(
     const float (&xr)[DMAX], float xr_sq, const float* xc, float xc_sq, int d,
     int metric) {
-  if (metric == METRIC_EUCLID_DIFF) {
+  if (metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DIFF_SQ) {
     float t = xr[0] - xc[0];
     float acc = t * t;
 #pragma unroll
@@ -45,16 +52,16 @@ __device__ __forceinline__ float pair_distance(
         acc = acc + t * t;
       }
     }
-    return sqrtf(acc);
+    return metric == METRIC_EUCLID_DIFF ? sqrtf(acc) : acc;
   }
-  if (metric == METRIC_EUCLID_DOT) {
+  if (dot_form(metric)) {
     float cross = xr[0] * xc[0];
 #pragma unroll
     for (int f = 1; f < DMAX; ++f) {
       if (f < d) cross = cross + xr[f] * xc[f];
     }
-    float d2 = (xr_sq + xc_sq) - 2.0f * cross;
-    return sqrtf(fmaxf(d2, 0.0f));
+    const float d2 = fmaxf((xr_sq + xc_sq) - 2.0f * cross, 0.0f);
+    return metric == METRIC_EUCLID_DOT ? sqrtf(d2) : d2;
   }
   float acc = fabsf(xr[0] - xc[0]);
 #pragma unroll

@@ -1,32 +1,45 @@
-// K2 knn_kbest: the k nearest columns of every row, as (distance, id) in
-// lexicographic order (ascending distance, ties to the lower id), self
-// included.
+// K2 knn_kbest: the k nearest columns of every query row, as (distance, id)
+// in lexicographic order (ascending distance, ties to the lower id); and B3
+// knn_smallest, the same selection on squared euclidean distances with no
+// ids written.
 //
-// Replaces the TPU kernel hdbscan_tpu/ops/pallas_knn.py knn_fused_pallas
-// (_fused_knn_kernel, merge in ops/lexmerge.merge_tile_contiguous), and the
-// XLA scan ops/tiled._knn_core_scan that computes the same k-best with the
-// tile-shape-selected distance form.
+// Replaces the TPU kernels hdbscan_tpu/ops/pallas_knn.py knn_fused_pallas
+// (_fused_knn_kernel, merge in ops/lexmerge.merge_tile_contiguous) and
+// knn_smallest_pallas (_knn_kernel), and the XLA scan ops/tiled._knn_core_scan
+// that computes the same k-best with the tile-shape-selected distance form.
 //
-// Design: one thread per row keeps its sorted k-list in registers (k is
-// bucketed to a compile-time KB in {16, 32, 128}; only the first k slots
+// One kernel, three entry points:
+//   knn_kbest_launch        square: every row of x against every row of x;
+//   knn_kbest_panel_launch  rectangular: queries q against a column panel x
+//                           whose ids start at id_offset (the ring scan of
+//                           parallel/ring.py runs one per visiting panel);
+//   knn_smallest_launch     square, metric codes 4/5 (no root), no ids.
+// B3 is a mode of this kernel and not a second body: inserting a candidate
+// only when it is strictly closer than the current k-th and after every
+// entry of equal value keeps exactly the k smallest values with their
+// multiplicity, which is all B3 returns, whatever the column order.
+//
+// Design: one thread per query row keeps its sorted k-list in registers (k
+// is bucketed to a compile-time KB in {16, 32, 128}; only the first k slots
 // are used; at KB = 128 the list spills to local memory) and walks the
-// columns in ascending tiles staged through shared memory. A
-// candidate enters only if its distance is strictly below the current k-th
-// distance; inserted after every entry of equal distance. Because ids
-// arrive in ascending order, that is exactly the (distance, id) lex k-best,
-// whatever the tiling. Slots never filled stay (+inf, -1).
+// columns in ascending tiles staged through shared memory. A candidate
+// enters only if its distance is strictly below the current k-th distance;
+// inserted after every entry of equal distance. Because ids arrive in
+// ascending order, that is exactly the (distance, id) lex k-best, whatever
+// the tiling. Slots never filled stay (+inf, -1).
 //
-// Bound on this card: operations. All n^2 pair distances are evaluated on
-// the FP32 pipes (about 3d + 3 operations and one sqrt each); insertions
-// are rare once the lists have tightened. Device-memory traffic is O(n d)
-// per block plus the (n, k) output.
+// Bound on this card: operations. All query x column pair distances are
+// evaluated on the FP32 pipes (about 3d + 3 operations each, plus a sqrt
+// unless squared); insertions are rare once the lists have tightened.
+// Device-memory traffic is O(columns d) per block plus the (rows, k) output.
 #include <cstdint>
 
 #include "distance.cuh"
 
 template <int DMAX, int KB>
-__global__ void knn_kbest_kernel(const float* __restrict__ x, int n, int d,
-                                 int k, int metric, int tile,
+__global__ void knn_kbest_kernel(const float* __restrict__ q, int nq,
+                                 const float* __restrict__ x, int nx, int d,
+                                 int k, int metric, int id_offset, int tile,
                                  float* __restrict__ out_d,
                                  int32_t* __restrict__ out_i) {
   extern __shared__ float smem[];
@@ -34,10 +47,10 @@ __global__ void knn_kbest_kernel(const float* __restrict__ x, int n, int d,
   float* ns = xs + tile * d;  // tile norms (dot form)
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool row_ok = i < n;
+  const bool row_ok = i < nq;
   float xr[DMAX];
 #pragma unroll
-  for (int f = 0; f < DMAX; ++f) xr[f] = (row_ok && f < d) ? x[(int64_t)i * d + f] : 0.0f;
+  for (int f = 0; f < DMAX; ++f) xr[f] = (row_ok && f < d) ? q[(int64_t)i * d + f] : 0.0f;
   const float xr_sq = sq_norm<DMAX>(xr, d);
 
   float bd[KB];
@@ -49,13 +62,13 @@ __global__ void knn_kbest_kernel(const float* __restrict__ x, int n, int d,
   }
   float worst = CUDART_INF_F;  // bd[k - 1]
 
-  for (int c0 = 0; c0 < n; c0 += tile) {
-    const int len = min(tile, n - c0);
+  for (int c0 = 0; c0 < nx; c0 += tile) {
+    const int len = min(tile, nx - c0);
     for (int t = threadIdx.x; t < len * d; t += blockDim.x) {
       xs[t] = x[(int64_t)c0 * d + t];
     }
     __syncthreads();
-    if (metric == METRIC_EUCLID_DOT) {
+    if (dot_form(metric)) {
       for (int t = threadIdx.x; t < len; t += blockDim.x) {
         const float* xc = xs + t * d;
         float acc = xc[0] * xc[0];
@@ -68,7 +81,7 @@ __global__ void knn_kbest_kernel(const float* __restrict__ x, int n, int d,
       for (int t = 0; t < len; ++t) {
         const float dist = pair_distance<DMAX>(xr, xr_sq, xs + t * d, ns[t], d, metric);
         if (!(dist < worst)) continue;
-        const int32_t id = c0 + t;
+        const int32_t id = id_offset + c0 + t;
         // Insert after every entry <= dist; slots at or past k are ignored.
 #pragma unroll
         for (int s = KB - 1; s >= 0; --s) {
@@ -93,44 +106,67 @@ __global__ void knn_kbest_kernel(const float* __restrict__ x, int n, int d,
     for (int s = 0; s < KB; ++s) {
       if (s < k) {
         out_d[(int64_t)i * k + s] = bd[s];
-        out_i[(int64_t)i * k + s] = bi[s];
+        if (out_i != nullptr) out_i[(int64_t)i * k + s] = bi[s];
       }
     }
   }
 }
 
 template <int DMAX, int KB>
-static cudaError_t launch(const float* x, int n, int d, int k, int metric,
-                          float* out_d, int32_t* out_i, cudaStream_t stream) {
+static cudaError_t launch(const float* q, int nq, const float* x, int nx, int d,
+                          int k, int metric, int id_offset, float* out_d,
+                          int32_t* out_i, cudaStream_t stream) {
   const int threads = KB > 32 ? 128 : 256;
   const int tile = column_tile(d, 0);
   const size_t smem = (size_t)tile * (d + 1) * sizeof(float);
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = (nq + threads - 1) / threads;
   knn_kbest_kernel<DMAX, KB><<<blocks, threads, smem, stream>>>(
-      x, n, d, k, metric, tile, out_d, out_i);
+      q, nq, x, nx, d, k, metric, id_offset, tile, out_d, out_i);
   return cudaGetLastError();
 }
 
 template <int DMAX>
-static cudaError_t launch_k(const float* x, int n, int d, int k, int metric,
-                            float* out_d, int32_t* out_i, cudaStream_t s) {
-  if (k <= 16) return launch<DMAX, 16>(x, n, d, k, metric, out_d, out_i, s);
-  if (k <= 32) return launch<DMAX, 32>(x, n, d, k, metric, out_d, out_i, s);
-  if (k <= 128) return launch<DMAX, 128>(x, n, d, k, metric, out_d, out_i, s);
+static cudaError_t launch_k(const float* q, int nq, const float* x, int nx, int d,
+                            int k, int metric, int off, float* out_d,
+                            int32_t* out_i, cudaStream_t s) {
+  if (k <= 16) return launch<DMAX, 16>(q, nq, x, nx, d, k, metric, off, out_d, out_i, s);
+  if (k <= 32) return launch<DMAX, 32>(q, nq, x, nx, d, k, metric, off, out_d, out_i, s);
+  if (k <= 128) return launch<DMAX, 128>(q, nq, x, nx, d, k, metric, off, out_d, out_i, s);
   return cudaErrorInvalidValue;
 }
 
-extern "C" int knn_kbest_launch(const void* x, int n, int d, int k, int metric,
-                                void* out_d, void* out_i, void* stream) {
+static int dispatch(const void* q, int nq, const void* x, int nx, int d, int k,
+                    int metric, int id_offset, void* out_d, void* out_i,
+                    void* stream) {
+  auto* qf = (const float*)q;
   auto* xf = (const float*)x;
   auto* od = (float*)out_d;
   auto* oi = (int32_t*)out_i;
   auto s = (cudaStream_t)stream;
-  if (n <= 0) return 0;
-  if (k < 1) return (int)cudaErrorInvalidValue;
-  if (d <= 4) return launch_k<4>(xf, n, d, k, metric, od, oi, s);
-  if (d <= 8) return launch_k<8>(xf, n, d, k, metric, od, oi, s);
-  if (d <= 32) return launch_k<32>(xf, n, d, k, metric, od, oi, s);
-  if (d <= 128) return launch_k<128>(xf, n, d, k, metric, od, oi, s);
+  if (nq <= 0) return 0;
+  if (k < 1 || nx < 0) return (int)cudaErrorInvalidValue;
+  if (d <= 4) return launch_k<4>(qf, nq, xf, nx, d, k, metric, id_offset, od, oi, s);
+  if (d <= 8) return launch_k<8>(qf, nq, xf, nx, d, k, metric, id_offset, od, oi, s);
+  if (d <= 32) return launch_k<32>(qf, nq, xf, nx, d, k, metric, id_offset, od, oi, s);
+  if (d <= 128) return launch_k<128>(qf, nq, xf, nx, d, k, metric, id_offset, od, oi, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int knn_kbest_launch(const void* x, int n, int d, int k, int metric,
+                                void* out_d, void* out_i, void* stream) {
+  return dispatch(x, n, x, n, d, k, metric, 0, out_d, out_i, stream);
+}
+
+extern "C" int knn_kbest_panel_launch(const void* q, int nq, const void* x, int nx,
+                                      int d, int k, int metric, int id_offset,
+                                      void* out_d, void* out_i, void* stream) {
+  return dispatch(q, nq, x, nx, d, k, metric, id_offset, out_d, out_i, stream);
+}
+
+extern "C" int knn_smallest_launch(const void* x, int n, int d, int k, int metric,
+                                   void* out_d, void* stream) {
+  if (metric != METRIC_EUCLID_DIFF_SQ && metric != METRIC_EUCLID_DOT_SQ) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dispatch(x, n, x, n, d, k, metric, 0, out_d, nullptr, stream);
 }

@@ -17,6 +17,13 @@ The fit, phase by phase:
    vectorized merge-forest reconstruction and the shared finalize tail
    (condensed tree, EOM, labels, GLOSH) on the host.
 
+``fit_sharding=sharded`` runs the same contract over a mesh of shards
+(``parallel/mesh.Mesh``): ring core distances (``parallel/shard.
+shard_core_distances``), the sharded Borůvka rounds (``parallel/shard.
+shard_boruvka_mst``, the panel segment-min kernel per shard and visiting
+panel), then the shard edge buffers gathered onto the first shard's device
+in global order for one union-find event scan, and one bulk fetch.
+
 Routes of the reference that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP entry.
 """
@@ -33,7 +40,8 @@ from hdbscan_tpu_torch.models.hdbscan import HDBSCANResult
 from hdbscan_tpu_torch.ops import cuda_build
 
 
-def _check_ported(params: HDBSCANParams, n: int) -> None:
+def _check_ported(params: HDBSCANParams, n: int, sharded: bool) -> None:
+    from hdbscan_tpu_torch.core.knn import resolve_index_for
     from hdbscan_tpu_torch.core.mst_device import resolve_mst_backend
 
     if params.dedup_points:
@@ -44,10 +52,15 @@ def _check_ported(params: HDBSCANParams, n: int) -> None:
         raise NotImplementedError(
             "mst_backend=host (the host-round exact route) is not ported yet (ROADMAP A3)"
         )
-    if params.fit_sharding == "sharded" or params.scan_backend == "ring":
+    if sharded and resolve_index_for(params, n)[0] == "rpforest":
         raise NotImplementedError(
-            "multi-device fits (fit_sharding=sharded, scan_backend=ring) are "
-            "not ported yet (ROADMAP A9)"
+            "the sharded fit's rp-forest tier (fit_sharding=sharded with "
+            "knn_index=rpforest) is not ported yet (ROADMAP A9)"
+        )
+    if not sharded and params.scan_backend == "ring":
+        raise NotImplementedError(
+            "scan_backend=ring (ring scans with host-round Borůvka contraction) "
+            "is not ported yet (ROADMAP A3, A9)"
         )
 
 
@@ -56,6 +69,7 @@ def fit(
     params: HDBSCANParams | None = None,
     *,
     device=None,
+    mesh=None,
     row_tile: int = 1024,
     col_tile: int = 8192,
     dtype=np.float32,
@@ -73,17 +87,33 @@ def fit(
     ``boruvka_mst``, ``tree_*``) plus ``forest_events``, and on the
     rp-forest tier ``knn_index_build``, ``knn_index_query``,
     ``knn_index_rescan`` and ``knn_fused_forest``.
+
+    ``mesh`` (``parallel/mesh.get_mesh``) is the mesh of the sharded fit:
+    ``fit_sharding=sharded`` runs on it (default: every visible card, or
+    one shard on ``device`` when that is not a card), ``auto`` picks it on
+    a mesh of two or more cards. The sharded fit adds ``ring_knn_scan``,
+    ``ring_device_wall`` and ``shard_mst_device`` events, and its
+    ``mst_round`` events carry ``sharded: true``.
     """
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+    from hdbscan_tpu_torch.parallel.shard import resolve_fit_sharding
+
     params = params or HDBSCANParams()
     data = np.asarray(data, np.float64)
     n = len(data)
     if n == 0:
         raise ValueError("empty dataset")
-    _check_ported(params, n)
+    if device is None and mesh is not None:
+        device = mesh.root
+    device = cuda_build.resolve_device(device)
+    sharded = resolve_fit_sharding(params.fit_sharding, mesh) == "sharded"
+    _check_ported(params, n, sharded)
+    if sharded and mesh is None:
+        mesh = get_mesh() if device.type == "cuda" else get_mesh([device])
     return _fit_device(
-        data, params, device=cuda_build.resolve_device(device),
-        row_tile=row_tile, col_tile=col_tile, dtype=dtype,
-        num_constraints_satisfied=num_constraints_satisfied, trace=trace,
+        data, params, device=mesh.root if sharded else device,
+        mesh=mesh if sharded else None, row_tile=row_tile, col_tile=col_tile,
+        dtype=dtype, num_constraints_satisfied=num_constraints_satisfied, trace=trace,
     )
 
 
@@ -107,6 +137,7 @@ def _fit_device(
     params: HDBSCANParams,
     *,
     device,
+    mesh=None,
     row_tile: int,
     col_tile: int,
     dtype,
@@ -129,20 +160,49 @@ def _fit_device(
     n = len(data)
     index, index_opts = resolve_index_for(params, n)
     t0 = time.monotonic()
-    core, _ = knn_core_distances(
-        data, params.min_points, params.dist_function,
-        row_tile=row_tile, col_tile=col_tile, dtype=dtype, fetch_knn=False,
-        backend=params.knn_backend, index=index, index_opts=index_opts,
-        trace=trace, device=device,
-    )
+    if mesh is not None:
+        from hdbscan_tpu_torch.parallel.shard import shard_core_distances
+
+        core = shard_core_distances(
+            data, params.min_points, params.dist_function, row_tile=row_tile,
+            col_tile=col_tile, dtype=dtype, mesh=mesh, trace=trace,
+            knn_backend=params.knn_backend, index=index, index_opts=index_opts,
+        )
+    else:
+        core, _ = knn_core_distances(
+            data, params.min_points, params.dist_function,
+            row_tile=row_tile, col_tile=col_tile, dtype=dtype, fetch_knn=False,
+            backend=params.knn_backend, index=index, index_opts=index_opts,
+            trace=trace, device=device,
+        )
     if trace is not None:
         trace("core_distances", n=n, wall_s=round(time.monotonic() - t0, 6))
 
     t0 = time.monotonic()
-    res = boruvka_mst_device(
-        data, core, params.dist_function, row_tile=row_tile,
-        col_tile=col_tile, dtype=dtype, device=device, trace=trace,
-    )
+    if mesh is not None:
+        from hdbscan_tpu_torch.parallel.mesh import device_count
+        from hdbscan_tpu_torch.parallel.ring import _emit_ring_trace, _per_device_walls
+        from hdbscan_tpu_torch.parallel.shard import shard_boruvka_mst
+
+        res = shard_boruvka_mst(
+            data, core, params.dist_function, row_tile=row_tile, col_tile=col_tile,
+            dtype=dtype, mesh=mesh, trace=trace,
+        )
+        walls = _per_device_walls(mesh, t0)
+        _emit_ring_trace(
+            trace, "shard_mst_device", time.monotonic() - t0, walls, device_count(mesh),
+            0, rounds=res["rounds"], n=n, shard=res["shard"],
+        )
+        # The union-find scan is sequential over the global edge order: the
+        # shard edge buffers gather onto the first shard's device, in shard
+        # order, for one scan there.
+        for key in ("u", "v", "w"):
+            res[key] = torch.cat([t.to(device) for t in res[key]])
+    else:
+        res = boruvka_mst_device(
+            data, core, params.dist_function, row_tile=row_tile,
+            col_tile=col_tile, dtype=dtype, device=device, trace=trace,
+        )
     rounds_wall = time.monotonic() - t0
     t1 = time.monotonic()
     # Padded (+inf, self-loop) tail rows pass through the scan as non-merges.
@@ -161,6 +221,7 @@ def _fit_device(
     rounds, count = res["rounds"], res["count"]
     assert_rounds_converged(
         rounds, count, n, stat_comp=res["stat_comp"], stat_edges=res["stat_edges"],
+        where="shard_boruvka_mst" if mesh is not None else "boruvka_mst_device",
     )
     if trace is not None:
         trace(

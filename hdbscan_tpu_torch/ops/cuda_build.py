@@ -34,7 +34,16 @@ BUILD_DIR = os.path.join(
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "segmin": ("segmin.cu", "segmin_launch", [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "segmin_panel": (
+        "segmin.cu", "segmin_panel_launch",
+        [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    ),
     "knn_kbest": ("knn_kbest.cu", "knn_kbest_launch", [_P, _I, _I, _I, _I, _P, _P, _P]),
+    "knn_kbest_panel": (
+        "knn_kbest.cu", "knn_kbest_panel_launch",
+        [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    ),
+    "knn_smallest": ("knn_kbest.cu", "knn_smallest_launch", [_P, _I, _I, _I, _I, _P, _P]),
     "uf_scan": ("uf_scan.cu", "uf_scan_launch", [_P, _P, _I, _I, _P, _P, _P, _P]),
     "forest_leaf_topk": (
         "forest_leaf_topk.cu", "forest_leaf_topk_launch",
@@ -64,6 +73,9 @@ METRIC_CODES = {
     ("manhattan", None): 2,
     ("supremum", None): 3,
 }
+
+#: Codes of the squared euclidean distance (no root) by form: B3's selection.
+SQ_EUCLID_CODES = {"diff": 4, "dot": 5}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -164,24 +176,32 @@ def kernel(name: str):
     return fn
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current CUDA stream and count it;
-    raises on a refused launch (``cudaGetLastError`` != 0)."""
+def launch(name: str, device, *args) -> None:
+    """Launch kernel ``name`` on ``device`` (the device its tensors lie on,
+    from :func:`launch_device`), on that device's current stream, and count
+    it; raises on a refused launch (``cudaGetLastError`` != 0)."""
     import torch
 
     fn = kernel(name)
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     LAUNCHES[name] += 1
 
 
-def require_cuda(t, name: str) -> None:
-    """Wrappers' guard: a tensor that is on neither the CPU nor a CUDA
-    device is refused (there is no other route)."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+def launch_device(name: str, *tensors):
+    """Wrappers' guard: the one CUDA device all of a launch's tensors lie
+    on. A tensor on another kind of device is refused (there is no other
+    route), and so are tensors on two different cards."""
+    devices = {t.device for t in tensors}
+    for dev in devices:
+        if dev.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors, got one on {dev}")
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors lie on several devices {sorted(map(str, devices))}")
+    return devices.pop()
 
 
 def resolve_device(device=None):

@@ -259,8 +259,7 @@ def forest_leaf_topk(data, members, mask, kk: int, metric: str = "euclidean",
     columns."""
     if data.device.type == "cpu":
         return forest_leaf_topk_plain(data, members, mask, kk, metric, form, precision, sentinel)
-    for t, name in ((data, "data"), (members, "members"), (mask, "mask")):
-        cuda_build.require_cuda(t, f"forest_leaf_topk {name}")
+    dev = cuda_build.launch_device("forest_leaf_topk", data, members, mask)
     b, ell = members.shape
     d = data.shape[1]
     check_card_shape(d, kk, metric, np.float32)
@@ -282,7 +281,7 @@ def forest_leaf_topk(data, members, mask, kk: int, metric: str = "euclidean",
     out_d = torch.empty((b, ell, kk), dtype=torch.float32, device=data.device)
     out_i = torch.empty((b, ell, kk), dtype=torch.int32, device=data.device)
     cuda_build.launch(
-        "forest_leaf_topk", data.data_ptr(), d, members.data_ptr(), mask_u8.data_ptr(),
+        "forest_leaf_topk", dev, data.data_ptr(), d, members.data_ptr(), mask_u8.data_ptr(),
         b, ell, kk, code, sentinel, 0 if mu is None else mu.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(),
     )
@@ -305,8 +304,7 @@ def forest_merge(stack_d, stack_i, kk: int, sentinel: int):
     (+inf, ``sentinel``) tails -> (n, kk) merged, duplicate ids dropped."""
     if stack_d.device.type == "cpu":
         return forest_merge_plain(stack_d, stack_i, kk, sentinel)
-    cuda_build.require_cuda(stack_d, "forest_merge stack_d")
-    cuda_build.require_cuda(stack_i, "forest_merge stack_i")
+    dev = cuda_build.launch_device("forest_merge", stack_d, stack_i)
     trees, n, width = stack_d.shape
     if stack_i.shape != stack_d.shape or width != kk:
         raise ValueError(f"forest_merge: stacks must be (T, n, {kk}), got {tuple(stack_d.shape)}")
@@ -320,7 +318,7 @@ def forest_merge(stack_d, stack_i, kk: int, sentinel: int):
     out_d = torch.empty((n, kk), dtype=torch.float32, device=stack_d.device)
     out_i = torch.empty((n, kk), dtype=torch.int32, device=stack_d.device)
     cuda_build.launch(
-        "forest_merge", stack_d.data_ptr(), stack_i.data_ptr(), trees, n, kk, sentinel,
+        "forest_merge", dev, stack_d.data_ptr(), stack_i.data_ptr(), trees, n, kk, sentinel,
         out_d.data_ptr(), out_i.data_ptr(),
     )
     return out_d, out_i
@@ -348,8 +346,7 @@ def forest_rescan_topk(q, data, cids, k: int, metric: str = "euclidean",
     unused slots."""
     if q.device.type == "cpu":
         return forest_rescan_topk_plain(q, data, cids, k, metric, precision, sentinel)
-    for t, name in ((q, "q"), (data, "data"), (cids, "cids")):
-        cuda_build.require_cuda(t, f"forest_rescan_topk {name}")
+    dev = cuda_build.launch_device("forest_rescan_topk", q, data, cids)
     m, d = q.shape
     c = cids.shape[1]
     check_card_shape(d, k, metric, np.float32)
@@ -368,7 +365,7 @@ def forest_rescan_topk(q, data, cids, k: int, metric: str = "euclidean",
     out_d = torch.empty((m, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=q.device)
     cuda_build.launch(
-        "forest_rescan_topk", q.data_ptr(), data.data_ptr(), cids.data_ptr(), m, c, d, k,
+        "forest_rescan_topk", dev, q.data_ptr(), data.data_ptr(), cids.data_ptr(), m, c, d, k,
         code, sentinel, 0 if mu is None else mu.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(),
     )
@@ -394,8 +391,7 @@ def forest_min_outgoing(q, data, cids, core_q, core, comp_q, comp,
         return forest_min_outgoing_plain(q, data, cids, core_q, core, comp_q, comp,
                                          metric, sentinel)
     args = (q, data, cids, core_q, core, comp_q, comp)
-    for t, name in zip(args, ("q", "data", "cids", "core_q", "core", "comp_q", "comp")):
-        cuda_build.require_cuda(t, f"forest_min_outgoing {name}")
+    dev = cuda_build.launch_device("forest_min_outgoing", *args)
     m, d = q.shape
     c = cids.shape[1]
     check_card_shape(d, 1, metric, np.float32)
@@ -415,7 +411,7 @@ def forest_min_outgoing(q, data, cids, core_q, core, comp_q, comp,
     out_w = torch.empty(m, dtype=torch.float32, device=q.device)
     out_j = torch.empty(m, dtype=torch.int32, device=q.device)
     cuda_build.launch(
-        "forest_min_outgoing", args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+        "forest_min_outgoing", dev, args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
         m, c, d, code, sentinel, args[3].data_ptr(), args[4].data_ptr(), args[5].data_ptr(),
         args[6].data_ptr(), out_w.data_ptr(), out_j.data_ptr(),
     )

@@ -1,15 +1,21 @@
-"""K2 ``knn_kbest``: the fused k-NN scan on the card, and its plain version.
+"""K2 ``knn_kbest``: the fused k-NN scan on the card, square and
+rectangular, and its plain version.
 
 The port of the TPU kernel ``hdbscan_tpu/ops/pallas_knn.py``
 ``knn_fused_pallas`` and of the XLA scan ``ops/tiled._knn_core_scan``:
-every row's k nearest columns as (distance, id), ascending in the
-(distance, id) lexicographic order of ``ops/lexmerge``, self included. The
-kernel is ``csrc/knn_kbest.cu`` (one thread per row, a sorted k-list in
-registers, columns in ascending tiles through shared memory; see its header
-for the design and what bounds it).
+every query row's k nearest columns as (distance, id), ascending in the
+(distance, id) lexicographic order of ``ops/lexmerge``. The kernel is
+``csrc/knn_kbest.cu`` (one thread per row, a sorted k-list in registers,
+columns in ascending tiles through shared memory; see its header for the
+design and what bounds it).
 
-:func:`knn_kbest` launches the kernel for a CUDA tensor and runs
-:func:`knn_kbest_plain` for a CPU tensor; nothing else picks the route.
+:func:`knn_kbest` scans every row of a point set against all of them, self
+included; :func:`knn_kbest_panel` scans query rows against one column panel
+whose ids start at an offset — what the ring k-NN scan
+(``parallel/ring.py``) runs for every visiting panel, the port of the
+reference's per-panel ``knn_fused_pallas(q, xt, colmask)`` launch. Each
+launches the kernel for a CUDA tensor and runs its plain version for a CPU
+tensor; nothing else picks the route.
 """
 
 from __future__ import annotations
@@ -26,23 +32,45 @@ from hdbscan_tpu_torch.ops.lexmerge import lex_kbest
 MAX_K = 128
 MAX_D = 128
 
-#: Plain version: rows per block so one (rows, n) distance block stays
-#: under this many elements.
+#: Plain version: rows per block so one (rows, columns) distance block
+#: stays under this many elements.
 _PLAIN_BLOCK_ELEMS = 1 << 26
+
+
+def knn_kbest_panel_plain(q: torch.Tensor, x: torch.Tensor, k: int,
+                          metric: str = "euclidean", form: str | None = "diff",
+                          id_offset: int = 0):
+    """Plain PyTorch k-best of query rows ``q`` against the columns ``x``:
+    row blocks against all columns, exact lex selection
+    (``ops/lexmerge.lex_kbest``), column ids shifted by ``id_offset``."""
+    n, m = q.shape[0], x.shape[0]
+    out_d = torch.empty((n, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((n, k), dtype=torch.int32, device=q.device)
+    block = max(1, _PLAIN_BLOCK_ELEMS // max(m, 1))
+    for a in range(0, n, block):
+        dist = pairwise_distance(q[a : a + block], x, metric, form)
+        bd, bi = lex_kbest(dist, k)
+        out_d[a : a + block] = bd
+        out_i[a : a + block] = torch.where(bi >= 0, bi + id_offset, bi)
+    return out_d, out_i
 
 
 def knn_kbest_plain(x: torch.Tensor, k: int, metric: str = "euclidean",
                     form: str | None = "diff"):
-    """Plain PyTorch k-best: row blocks against all columns, exact lex
-    selection (``ops/lexmerge.lex_kbest``)."""
-    n = x.shape[0]
-    out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=x.device)
-    block = max(1, _PLAIN_BLOCK_ELEMS // max(n, 1))
-    for a in range(0, n, block):
-        dist = pairwise_distance(x[a : a + block], x, metric, form)
-        out_d[a : a + block], out_i[a : a + block] = lex_kbest(dist, k)
-    return out_d, out_i
+    """Plain PyTorch k-best of every row of ``x`` against all of ``x``."""
+    return knn_kbest_panel_plain(x, x, k, metric, form)
+
+
+def _check(name: str, q: torch.Tensor, x: torch.Tensor, k: int) -> None:
+    for t in (q, x):
+        if t.dim() != 2 or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected (n, d) float32, got {tuple(t.shape)} {t.dtype}")
+    if q.shape[1] != x.shape[1]:
+        raise ValueError(f"{name}: queries and columns differ in d")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{name} supports 1 <= k <= {MAX_K}, got {k}")
+    if not 1 <= q.shape[1] <= MAX_D:
+        raise ValueError(f"{name} supports 1 <= d <= {MAX_D}, got {q.shape[1]}")
 
 
 def knn_kbest(x: torch.Tensor, k: int, metric: str = "euclidean",
@@ -54,22 +82,43 @@ def knn_kbest(x: torch.Tensor, k: int, metric: str = "euclidean",
     the other metrics. A CPU tensor runs the plain version; a CUDA tensor
     launches the kernel (and raises if it cannot).
     """
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(f"knn_kbest: expected (n, d) float32, got {tuple(x.shape)} {x.dtype}")
-    n, d = x.shape
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_kbest supports 1 <= k <= {MAX_K}, got {k}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"knn_kbest supports 1 <= d <= {MAX_D}, got {d}")
+    _check("knn_kbest", x, x, k)
     if x.device.type == "cpu":
         return knn_kbest_plain(x, k, metric, form)
-    cuda_build.require_cuda(x, "knn_kbest")
+    dev = cuda_build.launch_device("knn_kbest", x)
+    n, d = x.shape
     code = cuda_build.metric_code(metric, form)
     x = x.contiguous()
-    out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=x.device)
+    out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
     cuda_build.launch(
-        "knn_kbest", x.data_ptr(), n, d, k, code, out_d.data_ptr(), out_i.data_ptr()
+        "knn_kbest", dev, x.data_ptr(), n, d, k, code, out_d.data_ptr(), out_i.data_ptr()
+    )
+    return out_d, out_i
+
+
+def knn_kbest_panel(q: torch.Tensor, x: torch.Tensor, k: int, metric: str = "euclidean",
+                    form: str | None = "diff", id_offset: int = 0,
+                    n_cols: int | None = None):
+    """Query rows ``q`` (r, d) against a column panel ``x`` (c, d) whose
+    column t has the global id ``id_offset + t``; ids at or past ``n_cols``
+    (padding) are not scanned. Returns ((r, k) float32 distances, (r, k)
+    int32 global ids), each row's k nearest panel columns by (distance, id),
+    (+inf, -1) in slots the panel cannot fill."""
+    _check("knn_kbest_panel", q, x, k)
+    if n_cols is not None:
+        x = x[: max(0, min(x.shape[0], n_cols - id_offset))]
+    if q.device.type == "cpu":
+        return knn_kbest_panel_plain(q, x, k, metric, form, id_offset)
+    dev = cuda_build.launch_device("knn_kbest_panel", q, x)
+    (r, d), c = q.shape, x.shape[0]
+    code = cuda_build.metric_code(metric, form)
+    q, x = q.contiguous(), x.contiguous()
+    out_d = torch.empty((r, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((r, k), dtype=torch.int32, device=dev)
+    cuda_build.launch(
+        "knn_kbest_panel", dev, q.data_ptr(), r, x.data_ptr(), c, d, k, code, id_offset,
+        out_d.data_ptr(), out_i.data_ptr(),
     )
     return out_d, out_i
 

@@ -103,8 +103,7 @@ def knn_window(x, n: int, ids, wstart, bnd, k: int, col_tile: int, n_win_tiles: 
         raise ValueError(f"knn_window: n={n} must be in [1, {x.shape[0]}]")
     if x.device.type == "cpu":
         return knn_window_plain(x, n, ids, wstart, bnd, k, col_tile, n_win_tiles, metric, form)
-    for t, name in ((x, "x"), (ids, "ids"), (wstart, "wstart"), (bnd, "bnd")):
-        cuda_build.require_cuda(t, f"knn_window {name}")
+    dev = cuda_build.launch_device("knn_window", x, ids, wstart, bnd)
     if rt > MAX_ROW_TILE:
         raise ValueError(f"knn_window supports row tiles up to {MAX_ROW_TILE}, got {rt}")
     code = cuda_build.metric_code(metric, form)
@@ -112,7 +111,7 @@ def knn_window(x, n: int, ids, wstart, bnd, k: int, col_tile: int, n_win_tiles: 
     out_d = torch.empty((tiles, rt, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((tiles, rt, k), dtype=torch.int32, device=x.device)
     cuda_build.launch(
-        "knn_window", x.data_ptr(), n, d, ids.data_ptr(), wstart.data_ptr(),
+        "knn_window", dev, x.data_ptr(), n, d, ids.data_ptr(), wstart.data_ptr(),
         bnd.data_ptr(), tiles, rt, k, code, col_tile, n_win_tiles,
         out_d.data_ptr(), out_i.data_ptr(),
     )

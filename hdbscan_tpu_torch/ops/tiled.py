@@ -26,6 +26,11 @@ from hdbscan_tpu_torch.core.distances import euclidean_form, pairwise_distance
 #: under this many elements.
 _PLAIN_BLOCK_ELEMS = 1 << 26
 
+#: Dimensionality from which ``backend="auto"`` takes the k-smallest kernel
+#: B3 for euclidean data on the card (the reference's ``_PALLAS_MIN_D``,
+#: its TPU crossover).
+_PALLAS_MIN_D = 24
+
 
 def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
@@ -79,10 +84,15 @@ def knn_core_distances(
     ``core[i]`` is the ``min_pts``-th smallest distance from i, self
     included, as float64.
 
-    ``backend``: "auto"/"xla" run the kernel in the distance form the
+    ``backend``: "xla" runs the k-best kernel in the distance form the
     reference's XLA scan takes at these tiles; "fused" runs it in the fused
-    TPU kernel's dot form. "pallas" (the no-ids TPU kernel) is not ported
-    yet.
+    TPU kernel's dot form; "pallas" runs the no-ids k-smallest kernel B3 in
+    its dot form (``ops/cuda_knn_smallest.knn_core_distances_pallas``, on
+    the CPU its plain version), which needs euclidean, d <= 128, k <= 128
+    and no ids. "auto" takes B3 where the reference's ``auto`` takes it on
+    a TPU — euclidean data of d >= 24 at the default tiles and dtype, no
+    ids — when the points go to a CUDA device, and the XLA scan's form
+    everywhere else (the CPU included, as the reference off-TPU).
 
     ``index`` is the resolved tier (``core/knn.resolve_index_for``):
     "rpforest" runs ``ops/rpforest.rpforest_core_distances`` with
@@ -101,16 +111,28 @@ def knn_core_distances(
         raise ValueError(f"unknown index {index!r}: exact | rpforest")
     if backend not in ("auto", "xla", "pallas", "fused"):
         raise ValueError(f"unknown backend {backend!r}: auto | xla | pallas | fused")
-    if backend == "pallas":
-        raise NotImplementedError(
-            "knn_backend=pallas (kernel B3, knn_smallest_pallas) is not ported yet"
-        )
     if np.dtype(dtype) != np.float32:
         raise ValueError(f"the k-best kernel computes in float32, got dtype {dtype}")
+    from hdbscan_tpu_torch.ops import cuda_build
     from hdbscan_tpu_torch.ops.cuda_knn import kbest_core_distances
+    from hdbscan_tpu_torch.ops.cuda_knn_smallest import LANES, knn_core_distances_pallas
 
     n, d = np.shape(data)
     k = max(k or 0, max(min_pts - 1, 1))
+    eligible = metric == "euclidean" and not return_indices and k <= LANES and d <= LANES
+    if backend == "pallas" and not eligible:
+        raise ValueError(
+            "backend='pallas' needs euclidean metric, d <= 128, k <= 128 and "
+            "return_indices=False"
+        )
+    if backend == "pallas" or (
+        backend == "auto" and eligible and d >= _PALLAS_MIN_D
+        and (row_tile, col_tile) == (1024, 8192)
+        and cuda_build.resolve_device(device).type == "cuda"
+    ):
+        return knn_core_distances_pallas(
+            data, min_pts, k=k, form="dot", fetch_knn=fetch_knn, device=device
+        )
     # Like the reference, "fused" with a metric the fused kernel does not
     # take runs the XLA scan's contract.
     if backend == "fused" and metric == "euclidean":
@@ -181,8 +203,9 @@ def boruvka_glue_edges(
 
     if scan_backend == "ring" or fit_sharding == "sharded":
         raise NotImplementedError(
-            "the ring and sharded Borůvka scanners (scan_backend=ring, "
-            "fit_sharding=sharded) are not ported yet (ROADMAP A9)"
+            "the host-round ring and sharded Borůvka glue scanners "
+            "(RingBoruvkaScanner, ShardBoruvkaScanner) are not ported yet "
+            "(ROADMAP A3, A9)"
         )
     n = len(data)
     if core is None:
@@ -214,28 +237,42 @@ def boruvka_glue_edges(
     )
 
 
-def _min_outgoing_scan(data, core, comp, valid, metric: str, form: str | None):
-    """Plain PyTorch Borůvka scan: per row, the minimum mutual-reachability
-    edge to a valid column in another component.
+def _min_outgoing_panel_scan(rows, core_r, comp_r, valid_r, panel, core_c, comp_c,
+                             valid_c, metric: str, form: str | None):
+    """Plain PyTorch Borůvka scan of resident ``rows`` against a column
+    ``panel``: per row, the minimum mutual-reachability edge to a valid
+    panel column in another component.
 
-    ``data`` (n, d) float32, ``core`` (n,) float32, ``comp`` (n,) int32
-    labels, ``valid`` (n,) bool. Returns ((n,) best_w, (n,) int32 best_j):
-    ``best_j`` is the lowest column reaching the row minimum
-    (``torch.argmin`` returns the first minimal index), (+inf, -1) where
-    no outgoing edge exists or the row is not valid.
+    ``rows`` (r, d) / ``panel`` (c, d) float32 with their (core float32,
+    comp int32, valid bool) vectors. Returns ((r,) best_w, (r,) int32
+    best_j): ``best_j`` is the lowest panel column reaching the row minimum
+    (``torch.min`` returns the first minimal index), (+inf, -1) where no
+    outgoing edge exists or the row is not valid.
     """
-    n = data.shape[0]
-    best_w = torch.empty(n, dtype=data.dtype, device=data.device)
-    best_j = torch.empty(n, dtype=torch.int32, device=data.device)
-    block = max(1, _PLAIN_BLOCK_ELEMS // max(n, 1))
-    inf = torch.tensor(float("inf"), dtype=data.dtype, device=data.device)
-    for a in range(0, n, block):
-        b = min(a + block, n)
-        dist = pairwise_distance(data[a:b], data, metric, form)
-        w = torch.maximum(dist, torch.maximum(core[a:b, None], core[None, :]))
-        out = (comp[a:b, None] != comp[None, :]) & valid[None, :] & valid[a:b, None]
+    r, c = rows.shape[0], panel.shape[0]
+    best_w = torch.full((r,), float("inf"), dtype=rows.dtype, device=rows.device)
+    best_j = torch.full((r,), -1, dtype=torch.int32, device=rows.device)
+    if c == 0:
+        return best_w, best_j
+    block = max(1, _PLAIN_BLOCK_ELEMS // c)
+    inf = torch.tensor(float("inf"), dtype=rows.dtype, device=rows.device)
+    for a in range(0, r, block):
+        b = min(a + block, r)
+        dist = pairwise_distance(rows[a:b], panel, metric, form)
+        w = torch.maximum(dist, torch.maximum(core_r[a:b, None], core_c[None, :]))
+        out = (comp_r[a:b, None] != comp_c[None, :]) & valid_c[None, :] & valid_r[a:b, None]
         w = torch.where(out, w, inf)
         tw, tj = torch.min(w, dim=1)
         best_w[a:b] = tw
         best_j[a:b] = torch.where(torch.isfinite(tw), tj.to(torch.int32), -1)
     return best_w, best_j
+
+
+def _min_outgoing_scan(data, core, comp, valid, metric: str, form: str | None):
+    """Plain PyTorch Borůvka scan over all rows (the square case of
+    :func:`_min_outgoing_panel_scan`): ``data`` (n, d) float32, ``core``
+    (n,) float32, ``comp`` (n,) int32 labels, ``valid`` (n,) bool; returns
+    ((n,) best_w, (n,) int32 best_j)."""
+    return _min_outgoing_panel_scan(
+        data, core, comp, valid, data, core, comp, valid, metric, form
+    )

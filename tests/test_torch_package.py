@@ -40,12 +40,16 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.ops.cuda_build",
     "hdbscan_tpu_torch.ops.cuda_forest",
     "hdbscan_tpu_torch.ops.cuda_knn",
+    "hdbscan_tpu_torch.ops.cuda_knn_smallest",
     "hdbscan_tpu_torch.ops.cuda_knn_window",
     "hdbscan_tpu_torch.ops.cuda_segmin",
     "hdbscan_tpu_torch.ops.lexmerge",
     "hdbscan_tpu_torch.ops.rpforest",
     "hdbscan_tpu_torch.ops.tiled",
     "hdbscan_tpu_torch.parallel.blocks",
+    "hdbscan_tpu_torch.parallel.mesh",
+    "hdbscan_tpu_torch.parallel.ring",
+    "hdbscan_tpu_torch.parallel.shard",
     "hdbscan_tpu_torch.utils.datasets",
     "hdbscan_tpu_torch.utils.evaluation",
     "hdbscan_tpu_torch.utils.flops",
@@ -179,21 +183,30 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     """A kernel wrapper takes its plain version only for CPU tensors; any
     other device must reach the kernel or raise."""
     from hdbscan_tpu_torch.core.mst_device import uf_scan
-    from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest
-    from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows
+    from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest, knn_kbest_panel
+    from hdbscan_tpu_torch.ops.cuda_knn_smallest import knn_smallest
+    from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows, min_outgoing_panel
 
     x = torch.zeros((8, 3), device="meta")
+    side = (x, torch.zeros(8, device="meta"), torch.zeros(8, dtype=torch.int32, device="meta"),
+            torch.ones(8, dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         knn_kbest(x, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        min_outgoing_all_rows(
-            x, torch.zeros(8, device="meta"),
-            torch.zeros(8, dtype=torch.int32, device="meta"),
-            torch.ones(8, dtype=torch.bool, device="meta"), "euclidean", 8, 128,
-        )
+        knn_kbest_panel(x, x, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        knn_smallest(x, 3, "dot")
+    with pytest.raises(ValueError, match="CUDA"):
+        min_outgoing_all_rows(*side, "euclidean", 8, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        min_outgoing_panel(*side, *side)
     with pytest.raises(ValueError, match="CUDA"):
         uf_scan(torch.zeros(4, dtype=torch.int32, device="meta"),
                 torch.zeros(4, dtype=torch.int32, device="meta"), 8)
+    # One launch never mixes devices: a CPU tensor beside the others is
+    # refused as well.
+    with pytest.raises(ValueError, match="CUDA"):
+        min_outgoing_panel(*side, torch.zeros((8, 3)), *side[1:])
 
 
 @pytest.mark.parametrize(
@@ -201,9 +214,8 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     [
         ({"mst_backend": "host"}, "A3"),
         ({"dedup_points": True}, "A3"),
-        ({"fit_sharding": "sharded"}, "A9"),
+        ({"fit_sharding": "sharded", "knn_index": "rpforest"}, "A9"),
         ({"scan_backend": "ring"}, "A9"),
-        ({"knn_backend": "pallas"}, "B3"),
     ],
 )
 def test_unported_routes_raise(overrides, entry):
