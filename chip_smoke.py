@@ -17,7 +17,13 @@ Phases (any failure exits non-zero):
    rp-forest kernels (B5 leaf top-k, B6 cross-tree merge, B7 rescan top-k,
    B8 candidate segment-min) at f32 on 16,384 x 3 integer-grid points,
    8,192 x 7 continuous points and 5,003 x 3 grid points with duplicates
-   (uneven leaves), k = 1, 15 and 128, B5 and B7 in bf16 as well;
+   (uneven leaves), k = 1, 15 and 128, B5 and B7 in bf16 as well; the
+   segment-min compared bit for bit (weights as int32 patterns): equal
+   weights on both sides of a column-split boundary, all-zero cores on a
+   grid with duplicates, d from 1 to 200 in every metric, square and panel;
+   every wide mode (K2, B2, B4 in both contracts, B5-B8) at d = 129 and 200
+   and k = 129 and 200 on grids with duplicate ties and continuous points,
+   and B3's refusal past 128;
 3. run the exact fit (``hdbscan_tpu_torch.models.exact.fit``) on a seeded
    Skin-shaped set — 245,057 x 3 integer RGB values in [0, 255] — with
    min_points=16, min_cluster_size=3000: first check that the fit on the
@@ -76,14 +82,28 @@ Phases (any failure exits non-zero):
    whose labels, core distances, MST, outlier scores and condensed tree
    must equal the single-device fit of phase 3, with one host sync, 16 ring
    B2 launches and 16 B9 launches per Borůvka round;
+3h. past k or d = 128, where every kernel but B3 runs its wide mode
+   (features in chunks, lists in device memory): fits on the card equal to
+   the same fits on the CPU -- exact at 2,000 x 129 and at min_points=200,
+   the rp-forest tier at k = 129, the sharded fit at 4,000 x 129, the MR
+   boundary fit at 3,000 x 130 -- with the launch counters zeroed just
+   before the first and read just after the last; every wide mode a fit
+   path runs must have launched;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
-   TFLOP/s): the exact tier's kernels at the exact fit's shapes, the forest kernels
-   at the 3b fit's (one leaf batch, the merge, one rescan chunk, B8 on that
-   chunk's panel with round-1 components), B4 at the largest main-phase
-   rescan chunk of the 3d fit, B3 at the 3f fit's launch, B9 and the
-   rectangular B2 at one panel launch of the 3g fit's first round.
+   TFLOP/s; the segment-min rows add ``bound_separate_ms``, the operations
+   at half that rate, since -fmad=false issues multiplies and adds
+   separately): the exact tier's kernels at the exact fit's shapes, B1 also
+   at one round of the 3f fit (``segmin_3f``), the forest kernels at the 3b
+   fit's (one leaf batch, the merge, one rescan chunk, B8 on that chunk's
+   panel with round-1 components), B4 at the largest main-phase rescan
+   chunk of the 3d fit, B3 at the 3f fit's launch (its plain version on
+   16,384 rows, scaled), B9 and the rectangular B2 at one panel launch of
+   the 3g fit's first round, and every wide mode at the 3h fits' shapes
+   (rows named ``<kernel>_wide``). It also prints the share of segment-min
+   tiles whose rows and columns lie in one component, at round 1 and the
+   last round of the Skin-shaped fit.
 
 The second line before the last is the card's name and power limit, the
 line before the last the ``kernels`` JSON, the last line the device JSON.
@@ -127,8 +147,13 @@ HIGHD_PARAMS = dict(min_points=8, min_cluster_size=2500, processing_units=16384,
 #: the first card.
 N_SHARDS = 4
 SHARDED = dict(fit_sharding="sharded", mst_backend="device", knn_index="exact")
+#: Rows on which the slowest plain versions are timed, scaled to all rows.
+PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
+#: Separate FP32 multiplies and adds (-fmad=false, the bitwise rule) issue
+#: as one instruction each: half the FMA pipe's 67 TFLOP/s.
+H100_FP32_INSTR_PER_S = H100_FP32_PER_S / 2
 
 
 def fail(msg: str) -> int:
@@ -475,22 +500,26 @@ def max_err(a, b, ia=None, ib=None) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def forest_times(data, fres, launches) -> list[dict]:
-    """The forest kernels timed at the 3b fit's shapes beside their plain
-    versions and bounds: B5 on the first leaf batch, B6 on the four trees'
-    lists, B7 on the first rescan chunk, B8 on that chunk's panel with the
-    fit's core distances and round-1 components."""
+def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
+                 leaf_size=FOREST["rpf_leaf_size"], suffix="") -> list[dict]:
+    """The forest kernels timed at a forest fit's shapes (the 3b fit's by
+    default) beside their plain versions and bounds: B5 on the first leaf
+    batch, B6 on the trees' lists, B7 on the first rescan chunk, B8 on that
+    chunk's panel with the fit's core distances and round-1 components.
+    ``suffix`` names the rows (and their launch counts) "_wide" for the
+    wide fit's."""
     import numpy as np
     import torch
 
     from hdbscan_tpu_torch.core.distances import euclidean_form
+    from hdbscan_tpu_torch.ops import cuda_build
     from hdbscan_tpu_torch.ops import cuda_forest as cf
     from hdbscan_tpu_torch.ops import rpforest
 
-    n, d, k = N_SKIN, 3, MIN_PTS - 1
+    n, d = data.shape
     x = torch.as_tensor(data.astype(np.float32), device="cuda")
-    forest = rpforest.build_forest(data, trees=FOREST["rpf_trees"],
-                                   leaf_size=FOREST["rpf_leaf_size"], seed=SEED)
+    forest = rpforest.build_forest(data, trees=trees, leaf_size=max(leaf_size, 2 * k + 2),
+                                   seed=SEED)
     lmax = forest.max_leaf
     kk = min(k, lmax)
     form = euclidean_form(lmax, lmax, d)
@@ -505,10 +534,10 @@ def forest_times(data, fres, launches) -> list[dict]:
         a, b = kernel(*args), plain(*args)
         b_ms, by = bound_ms(nbytes, ops)
         rows.append(dict(
-            name=name, route="cuda", source=f"hdbscan_tpu_torch/csrc/{source}",
-            replaces=f"hdbscan_tpu/ops/pallas_forest.py:{replaces}", launches=launches[launch],
-            max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=by, library_ms=None,
+            name=name + suffix, route="cuda", source=f"hdbscan_tpu_torch/csrc/{source}",
+            replaces=f"hdbscan_tpu/ops/pallas_forest.py:{replaces}",
+            launches=launches[launch + suffix], max_abs_err=max_err(a[0], b[0], a[1], b[1]),
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
         ))
 
     a0, b0, _ = batches[0]
@@ -544,15 +573,17 @@ def forest_times(data, fres, launches) -> list[dict]:
         chunk * d * 4 + chunk * kk * kk * 4 + uniq * d * 4 + chunk * kk * 8,
         cands * pair_ops(d, "diff"))
 
-    core = torch.as_tensor(fres.core_distances.astype(np.float32), device="cuda")
-    comp = torch.arange(n, dtype=torch.int32, device="cuda")
-    row("forest_min_outgoing", "forest_rescan.cu", 476, "forest_min_outgoing",
-        (x[:chunk], x, cand, core[:chunk], core, comp[:chunk], comp, "euclidean", n),
-        cf.forest_min_outgoing, cf.forest_min_outgoing_plain,
-        chunk * (d * 4 + 8) + chunk * kk * kk * 4 + uniq * (d * 4 + 8) + chunk * 8,
-        cands * (pair_ops(d, "diff") + 2))
-    print(f"forest kernel shapes: leaf batch {nb} x {ell}, kk {kk}; merge {forest.trees} x {n} "
-          f"x {kk}; rescan chunk {chunk} rows x {kk * kk} candidates ({uniq} distinct)")
+    if not suffix or d > cuda_build.WIDE:  # B8's wide mode is d past 128 only
+        core = torch.as_tensor(fres.core_distances.astype(np.float32), device="cuda")
+        comp = torch.arange(n, dtype=torch.int32, device="cuda")
+        row("forest_min_outgoing", "forest_rescan.cu", 476, "forest_min_outgoing",
+            (x[:chunk], x, cand, core[:chunk], core, comp[:chunk], comp, "euclidean", n),
+            cf.forest_min_outgoing, cf.forest_min_outgoing_plain,
+            chunk * (d * 4 + 8) + chunk * kk * kk * 4 + uniq * (d * 4 + 8) + chunk * 8,
+            cands * (pair_ops(d, "diff") + 2))
+    print(f"forest kernel{suffix} shapes: {n} x {d}, leaf batch {nb} x {ell}, kk {kk}; merge "
+          f"{forest.trees} x {n} x {kk}; rescan chunk {chunk} rows x {kk * kk} candidates "
+          f"({uniq} distinct)")
     return rows
 
 
@@ -674,6 +705,203 @@ def parity_panels() -> list[str]:
                 check(f"B2 knn_kbest_panel {label} {r}x{c} {metric} {form} k={k}",
                       cuda_knn.knn_kbest_panel(rows, panel, k, n_cols=off + c - 37, **kw),
                       cuda_knn.knn_kbest_panel_plain(rows, panel[: c - 37], k, **kw))
+    return errors
+
+
+def _bits(t):
+    """A tensor's bits: float32 as int32 patterns (so +0.0 and -0.0 differ)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _bits_same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+def parity_segmin() -> list[str]:
+    """The redesigned segment-min (K1/B1, B9) against its plain version,
+    bit for bit (weights as int32 patterns): equal-weight winners on both
+    sides of a column-split boundary, all-zero cores on a grid with
+    duplicates, every register instantiation's d and the wide mode (d =
+    129, 200), every metric, square and panel launches."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_segmin
+
+    errors = []
+
+    def check(tag, a, b):
+        torch.cuda.synchronize()
+        ok = _bits_same(a, b)
+        print(f"parity {tag}: {'bitwise' if ok else 'MISMATCH'}")
+        if not ok:
+            errors.append(tag)
+
+    rng = np.random.default_rng(SEED + 6)
+    splits_of = cuda_build.function("segmin.cu", "segmin_splits", [ctypes.c_int] * 3)
+    # Ties across a split boundary: identical points, zero cores, and only
+    # the columns just before and after the boundary in another component.
+    n = 1 << 16
+    splits = splits_of(n, n, 3)
+    span = -(-n // splits)
+    x = torch.zeros((n, 3), device="cuda")
+    zero = torch.zeros(n, device="cuda")
+    comp = torch.zeros(n, dtype=torch.int32, device="cuda")
+    comp[span - 1: span + 1] = 1
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    for form in ("diff", "dot"):
+        a = cuda_segmin.segmin(x, zero, comp, valid, "euclidean", form)
+        check(f"K1 segmin split-boundary ties ({splits} splits, span {span}) {form}", a,
+              cuda_segmin.min_outgoing_plain(x, zero, comp, valid, "euclidean", form))
+        if int(a[1][0]) != span - 1:
+            errors.append(f"K1 split-boundary tie went to column {int(a[1][0])}")
+    side = (x, zero, comp, valid)
+    check("B9 segmin_panel split-boundary ties",
+          cuda_segmin.min_outgoing_panel(*side, *side, "euclidean", form="diff"),
+          cuda_segmin.min_outgoing_panel_plain(*side, *side, "euclidean", "diff"))
+    # All-zero cores on a small grid: many zero weights, many exact ties.
+    g = torch.as_tensor(rng.integers(0, 4, size=(20000, 3)).astype(np.float32), device="cuda")
+    z = torch.zeros(20000, device="cuda")
+    gc = torch.as_tensor(rng.integers(0, 50, 20000).astype(np.int32), device="cuda")
+    gv = torch.as_tensor(rng.random(20000) < 0.9, device="cuda")
+    for metric, form in (("euclidean", "diff"), ("euclidean", "dot"), ("manhattan", None),
+                         ("supremum", None)):
+        check(f"K1 segmin zero cores grid 20000x3 {metric} {form}",
+              cuda_segmin.segmin(g, z, gc, gv, metric, form),
+              cuda_segmin.min_outgoing_plain(g, z, gc, gv, metric, form))
+    # Every instantiation's d, and the wide mode.
+    for d in (1, 2, 4, 5, 8, 9, 28, 32, 33, 128, 129, 200):
+        grid = d in (28, 129, 200)
+        n = 3000 if d > 128 else 5000
+        xs = rng.integers(0, 3, size=(n, d)) if grid else rng.normal(size=(n, d))
+        xg = torch.as_tensor(xs.astype(np.float32), device="cuda")
+        core = torch.as_tensor(rng.integers(0, 6, n).astype(np.float32), device="cuda")
+        comp = torch.as_tensor(rng.integers(0, 40, n).astype(np.int32), device="cuda")
+        valid = torch.as_tensor(rng.random(n) < 0.95, device="cuda")
+        r = n // 2
+        args = (xg[:r], core[:r], comp[:r], valid[:r], xg[r:], core[r:], comp[r:], valid[r:])
+        for metric, form in (("euclidean", "diff"), ("euclidean", "dot"), ("manhattan", None),
+                             ("supremum", None)):
+            tag = f"{'grid' if grid else 'continuous'} {n}x{d} {metric} {form}"
+            check(f"K1 segmin {tag}", cuda_segmin.segmin(xg, core, comp, valid, metric, form),
+                  cuda_segmin.min_outgoing_plain(xg, core, comp, valid, metric, form))
+            check(f"B9 segmin_panel {tag}",
+                  cuda_segmin.min_outgoing_panel(*args, metric, form=form),
+                  cuda_segmin.min_outgoing_panel_plain(*args, metric, form))
+    return errors
+
+
+def parity_wide() -> list[str]:
+    """Every wide mode (k or d past 128) against its plain version on the
+    card, bit for bit: the k-best kernel square and rectangular (K2, B2),
+    the window kernel (B4) in both contracts, the forest kernels (B5-B8),
+    at d = 129 and 200 and k = 129 and 200, on integer grids with
+    duplicate ties and on continuous points; and B3's refusal past 128."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import euclidean_form
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.ops import cuda_knn
+    from hdbscan_tpu_torch.ops import cuda_knn_smallest as ks
+    from hdbscan_tpu_torch.ops import cuda_knn_window as cw
+    from hdbscan_tpu_torch.ops import rpforest
+
+    errors = []
+
+    def check(tag, a, b):
+        torch.cuda.synchronize()
+        ok = _bits_same(a, b)
+        print(f"parity {tag}: {'bitwise' if ok else 'MISMATCH'}")
+        if not ok:
+            errors.append(tag)
+
+    rng = np.random.default_rng(SEED + 7)
+    dup = rng.integers(0, 8, size=(1500, 3))
+    cases = [
+        ("grid 3000x129", rng.integers(0, 3, size=(3000, 129)), (15, 129, 200)),
+        ("grid 3000x200", rng.integers(0, 3, size=(3000, 200)), (15, 200)),
+        ("continuous 2500x129", rng.normal(size=(2500, 129)), (15, 129)),
+        ("grid 3000x3 duplicates", np.concatenate([dup, dup]), (129, 200)),
+    ]
+    for label, xs, kvals in cases:
+        x = torch.as_tensor(xs.astype(np.float32), device="cuda")
+        n, d = x.shape
+        for k in kvals:
+            for form in ("diff", "dot"):
+                check(f"K2 knn_kbest wide {label} {form} k={k}",
+                      cuda_knn.knn_kbest(x, k, "euclidean", form),
+                      cuda_knn.knn_kbest_plain(x, k, "euclidean", form))
+            kw = dict(metric="manhattan", form=None, id_offset=777)
+            check(f"B2 knn_kbest_panel wide {label} manhattan k={k}",
+                  cuda_knn.knn_kbest_panel(x[:1000], x[1000:], k, n_cols=777 + n - 1000 - 5,
+                                           **kw),
+                  cuda_knn.knn_kbest_panel_plain(x[:1000], x[1000: n - 5], k, **kw))
+            # B4: 8 row tiles of 256 slots, windows of 2 column tiles of 512.
+            tiles, rt, col_tile, n_win = 8, 256, 512, 2
+            ids = torch.as_tensor(rng.integers(0, n, size=(tiles, rt)).astype(np.int32),
+                                  device="cuda")
+            last = (n - 1) // col_tile
+            ws = rng.integers(0, last, size=tiles)
+            ws[-1] = last - 1
+            wst = torch.as_tensor(ws.astype(np.int32), device="cuda")
+            for bname, bnd in (("bnd inf", torch.full((tiles, rt), float("inf"), device="cuda")),
+                               ("bnd finite", torch.as_tensor(rng.uniform(
+                                   1.0, 12.0, size=(tiles, rt)).astype(np.float32),
+                                   device="cuda"))):
+                for cname, form in (("fused", "dot"),
+                                    ("xla", euclidean_form(rt, col_tile, d))):
+                    args = (x, n - 3, ids, wst, bnd, k, col_tile, n_win, "euclidean", form)
+                    check(f"B4 knn_window wide {label} {cname} k={k} {bname}",
+                          cw.knn_window(*args), cw.knn_window_plain(*args))
+        # The forest kernels: one tree's leaves, its merge, a rescan panel.
+        forest = rpforest.build_forest(xs.astype(np.float32), trees=2, leaf_size=450,
+                                       seed=SEED)
+        members = torch.as_tensor(forest.members, device="cuda")
+        mask = torch.as_tensor(forest.leaf_mask, device="cuda")
+        lmax = forest.max_leaf
+        form = euclidean_form(lmax, lmax, d)
+        core = torch.as_tensor(rng.integers(0, 6, n).astype(np.float32), device="cuda")
+        comp = torch.as_tensor(rng.integers(0, 40, n).astype(np.int32), device="cuda")
+        for k in kvals:
+            kk = min(k, lmax)
+            args = (x, members[0], mask, kk, "euclidean", form, "f32", n)
+            check(f"B5 forest_leaf_topk wide {label} k={kk}",
+                  cf.forest_leaf_topk(*args), cf.forest_leaf_topk_plain(*args))
+            stack = [cf.forest_leaf_topk_plain(x, members[t], mask, kk, "euclidean", form,
+                                               "f32", n) for t in range(forest.trees)]
+            sd = torch.full((forest.trees, n, kk), float("inf"), device="cuda")
+            si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device="cuda")
+            real = mask.reshape(-1)
+            for t, (nd, ni) in enumerate(stack):
+                rows = members[t].reshape(-1)[real].long()
+                sd[t, rows] = nd.reshape(-1, kk)[real]
+                si[t, rows] = ni.reshape(-1, kk)[real]
+            check(f"B6 forest_merge wide {label} k={kk}",
+                  cf.forest_merge(sd, si, kk, n), cf.forest_merge_plain(sd, si, kk, n))
+            _, best_i = cf.forest_merge_plain(sd, si, kk, n)
+            m = 32
+            cand = rpforest._expand(best_i, best_i[:m], kk, n)
+            args = (x[:m], x, cand, kk, "euclidean", "f32", n)
+            check(f"B7 forest_rescan_topk wide {label} k={kk}",
+                  cf.forest_rescan_topk(*args), cf.forest_rescan_topk_plain(*args))
+            if d > 128:
+                args = (x[:m], x, cand, core[:m], core, comp[:m], comp, "euclidean", n)
+                check(f"B8 forest_min_outgoing wide {label} k={kk}",
+                      cf.forest_min_outgoing(*args), cf.forest_min_outgoing_plain(*args))
+    x = torch.zeros((300, 129), device="cuda")
+    for k, xx in ((15, x), (129, x[:, :3].contiguous())):
+        try:
+            ks.knn_smallest(xx, k, "dot")
+            errors.append(f"B3 ran past 128 lanes (k={k}, d={xx.shape[1]})")
+        except ValueError as e:
+            print(f"B3 knn_smallest refuses k={k}, d={xx.shape[1]}: {e}")
     return errors
 
 
@@ -865,7 +1093,7 @@ class WindowRecorder:
         self.mod.knn_window = self.orig
 
 
-def window_time(args, launches) -> dict:
+def window_time(args, launches, name="knn_window") -> dict:
     """B4 timed on one recorded rescan chunk beside its plain version and
     its bound: the pairs it must scan (each slot against its window's
     unmasked columns) times the dot form's operations, or the bytes (ids,
@@ -890,11 +1118,11 @@ def window_time(args, launches) -> dict:
     scanned = int((np.cumsum(cols)[:n] > 0).sum())
     nbytes = tiles * rt * 8 + tiles * 4 + scanned * d * 4 + tiles * rt * k * 8
     b_ms, by = bound_ms(nbytes, pairs * pair_ops(d, form))
-    print(f"B4 timing chunk: {tiles} row tiles of {rt}, k {k}, windows of {n_win} x {col_tile} "
-          f"columns, {pairs:.0f} pairs, {scanned} distinct columns")
+    print(f"{name} timing chunk: {tiles} row tiles of {rt}, d {d}, k {k}, windows of {n_win} x "
+          f"{col_tile} columns, {pairs:.0f} pairs, {scanned} distinct columns")
     return dict(
-        name="knn_window", route="cuda", source="hdbscan_tpu_torch/csrc/knn_window.cu",
-        replaces="hdbscan_tpu/ops/pallas_knn.py:640", launches=launches["knn_window"],
+        name=name, route="cuda", source="hdbscan_tpu_torch/csrc/knn_window.cu",
+        replaces="hdbscan_tpu/ops/pallas_knn.py:640", launches=launches[name],
         max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=by, library_ms=None,
     )
@@ -927,21 +1155,25 @@ def highd_times(hdata, launches) -> list[dict]:
     n, d = x.shape
     ms = cuda_ms(lambda: ks.knn_smallest(x, k, "dot"), 2)
     a = ks.knn_smallest(x, k, "dot")
-    plain_ms, b = timed_plain(lambda: ks.knn_smallest_plain(x, k, "dot"))
+    # The plain version on all rows takes ~3 minutes: it runs on the first
+    # PLAIN_ROWS query rows against all columns (the same per-row work),
+    # scaled to all rows, and its values are held against those rows.
+    plain_ms, b = timed_plain(lambda: ks.knn_smallest_plain(x, k, "dot", q=x[:PLAIN_ROWS]))
     b_ms, by = bound_ms(n * d * 4 + n * k * 4, float(n) * n * (pair_ops(d, "dot") - 1))
     return [dict(
         name="knn_smallest", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
         replaces="hdbscan_tpu/ops/pallas_knn.py:198", launches=launches["knn_smallest"],
-        max_abs_err=max_err(a, b), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-        library_ms=None,
+        max_abs_err=max_err(a[:PLAIN_ROWS], b), ms=ms, plain_ms=plain_ms * n / PLAIN_ROWS,
+        plain_ms_scaled_from_rows=PLAIN_ROWS, bound_ms=b_ms, bound_by=by, library_ms=None,
     )]
 
 
-def panel_times(data, sres, launches, mesh) -> list[dict]:
-    """B9 and the ring's rectangular B2 timed at one launch of the 3g fit's
-    first round: shard 0's rows against shard 1's panel, round-1
-    components, the ring tiles' form; bounds from the pairs and the bytes
-    of both sides."""
+def panel_times(data, sres, launches, mesh, k=MIN_PTS - 1, suffix="") -> list[dict]:
+    """B9 and the ring's rectangular B2 timed at one launch of a sharded
+    fit's first round (the 3g fit's by default): shard 0's rows against
+    shard 1's panel, round-1 components, the ring tiles' form; bounds from
+    the pairs and the bytes of both sides. ``suffix`` as in
+    :func:`forest_times`."""
     import numpy as np
     import torch
 
@@ -949,41 +1181,246 @@ def panel_times(data, sres, launches, mesh) -> list[dict]:
     from hdbscan_tpu_torch.ops import cuda_knn, cuda_segmin
     from hdbscan_tpu_torch.parallel.ring import _ring_geometry
 
-    rt, ct, shard, _ = _ring_geometry(N_SKIN, N_SHARDS, 1024, 8192)
-    d, k = data.shape[1], MIN_PTS - 1
+    n, d = data.shape
+    rt, ct, shard, _ = _ring_geometry(n, N_SHARDS, 1024, 8192)
     form = euclidean_form(rt, ct, d)
     x = torch.as_tensor(data.astype(np.float32), device="cuda")
     core = torch.as_tensor(sres.core_distances.astype(np.float32), device="cuda")
-    comp = torch.arange(N_SKIN, dtype=torch.int32, device="cuda")
-    valid = torch.ones(N_SKIN, dtype=torch.bool, device="cuda")
+    comp = torch.arange(n, dtype=torch.int32, device="cuda")
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
     r, c = slice(0, shard), slice(shard, 2 * shard)
     args = (x[r], core[r], comp[r], valid[r], x[c], core[c], comp[c], valid[c])
     rows = []
 
-    def row(name, replaces, kernel, plain, nbytes, ops):
+    def row(name, replaces, kernel, plain, nbytes, ops, **extra):
         ms = cuda_ms(kernel, 3)
         a = kernel()
         plain_ms, b = timed_plain(plain)
         b_ms, by = bound_ms(nbytes, ops)
         rows.append(dict(
-            name=name, route="cuda", source=f"hdbscan_tpu_torch/csrc/{replaces[0]}",
-            replaces=replaces[1], launches=launches[name],
+            name=name + suffix, route="cuda", source=f"hdbscan_tpu_torch/csrc/{replaces[0]}",
+            replaces=replaces[1], launches=launches[name + suffix],
             max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=by, library_ms=None,
+            bound_ms=b_ms, bound_by=by, library_ms=None, **extra,
         ))
 
     pairs = float(shard) * shard
+    ops = pairs * (pair_ops(d, form) + 2)
     row("segmin_panel", ("segmin.cu", "hdbscan_tpu/ops/pallas_segmin.py:127"),
         lambda: cuda_segmin.min_outgoing_panel(*args, "euclidean", form=form),
         lambda: cuda_segmin.min_outgoing_panel_plain(*args, "euclidean", form),
-        2 * shard * (d * 4 + 4 + 4 + 1) + shard * 8, pairs * (pair_ops(d, form) + 2))
+        2 * shard * (d * 4 + 4 + 4 + 1) + shard * 8, ops,
+        bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3)
     row("knn_kbest_panel", ("knn_kbest.cu", "hdbscan_tpu/ops/pallas_knn.py:453"),
         lambda: cuda_knn.knn_kbest_panel(x[r], x[c], k, "euclidean", form, id_offset=shard),
         lambda: cuda_knn.knn_kbest_panel_plain(x[r], x[c], k, "euclidean", form, shard),
         2 * shard * d * 4 + shard * k * 8, pairs * pair_ops(d, form))
-    print(f"panel kernel shapes: {shard} resident rows x {shard}-column panel, k {k}, "
-          f"form {form}, mesh {[str(dev) for dev in mesh.devices]}")
+    print(f"panel kernel{suffix} shapes: {shard} resident rows x {shard}-column panel, d {d}, "
+          f"k {k}, form {form}, mesh {[str(dev) for dev in mesh.devices]}")
     return rows
+
+
+def tile_shares(data, core_np, form) -> tuple[float, float, int]:
+    """The share of (row block x column tile) pairs of the segment-min's
+    launch (1,024 rows x 512 columns at d = 3) whose rows and columns all
+    lie in one component -- the tiles ROADMAP R1 direction (c) could skip
+    -- at round 1 and at the last round of a replay of the fit's Borůvka
+    rounds (the kernel, then the host contraction the device rounds
+    mirror). Returns (round-1 share, last-round share, rounds)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_segmin
+    from hdbscan_tpu_torch.utils.unionfind import contract_min_edges
+
+    n = len(data)
+    x = torch.as_tensor(data.astype(np.float32), device="cuda")
+    core = torch.as_tensor(core_np.astype(np.float32), device="cuda")
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+
+    def share(comp):
+        c = torch.as_tensor(comp, device="cuda")
+
+        def extent(width):
+            pad = (-n) % width
+            blocks = torch.cat([c, c[-1:].expand(pad)]).view(-1, width)
+            return blocks.amin(1), blocks.amax(1)
+
+        rmin, rmax = extent(1024)
+        cmin, cmax = extent(512)
+        one = ((rmin == rmax)[:, None] & (cmin == cmax)[None, :]
+               & (rmin[:, None] == cmin[None, :]))
+        return float(one.float().mean())
+
+    comp = np.arange(n)
+    n_comp, shares = n, []
+    while n_comp > 1:
+        shares.append(share(comp))
+        bw, bj = cuda_segmin.segmin(x, core, torch.as_tensor(comp.astype(np.int32),
+                                                             device="cuda"), valid,
+                                    "euclidean", form)
+        _, comp, n_comp = contract_min_edges(comp, bj.cpu().numpy().astype(np.int64),
+                                             bw.cpu().numpy().astype(np.float64))
+    return shares[0], shares[-1], len(shares)
+
+
+def segmin_row(name, x, core, comp, valid, form, launches, plain_rows=None, kernel=None,
+               **extra) -> dict:
+    """The segment-min kernel timed on one round's inputs beside its plain
+    version and its bounds (every pair of the round crosses components:
+    round 1). ``plain_rows`` times (and checks) the plain version on that
+    many leading rows only, scaled to all rows, where the whole would take
+    minutes; the row then says so. ``kernel`` is the launch counter's name
+    where the row's name differs."""
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_segmin
+
+    n, d = x.shape
+    ms = cuda_ms(lambda: cuda_segmin.segmin(x, core, comp, valid, "euclidean", form), 3)
+    a = cuda_segmin.segmin(x, core, comp, valid, "euclidean", form)
+    r = slice(0, plain_rows or n)
+    plain_ms, b = timed_plain(lambda: cuda_segmin.min_outgoing_panel_plain(
+        x[r], core[r], comp[r], valid[r], x, core, comp, valid, "euclidean", form))
+    if plain_rows:
+        plain_ms *= n / plain_rows
+        extra["plain_ms_scaled_from_rows"] = plain_rows
+    err = max_err(a[0][r], b[0], a[1][r], b[1])
+    if not _bits_same((a[0][r], a[1][r]), b):
+        err = float("inf")
+    ops = float(n) * (n - 1) * (pair_ops(d, form) + 2)
+    b_ms, by = bound_ms(n * (d * 4 + 4 + 4 + 1) + n * 8, ops)
+    return dict(
+        name=name, route="cuda", source="hdbscan_tpu_torch/csrc/segmin.cu",
+        replaces="hdbscan_tpu/ops/pallas_segmin.py:79", launches=launches[kernel or name],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+        library_ms=None, bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
+        shape=f"{n} x {d}, {form} form, round 1", **extra,
+    )
+
+
+def wide_phase(launches_out: dict) -> tuple[list[str], list[dict]]:
+    """3h: the fits past k or d = 128, where every kernel runs its wide mode.
+    Each fit on the card equals the same fit on the CPU (plain versions):
+    exact at 2,000 x 129 and at min_points=200, the rp-forest tier at
+    k = 129, the sharded exact fit at 4,000 x 129 over four shards, and the
+    MR fit in boundary mode at 3,000 x 130 (its window rescan takes the XLA
+    chunk's contract past the fused gate). The launch counters are zeroed
+    just before the first card fit and read just after the last; every wide
+    mode a fit path runs must have launched. Then each wide kernel is timed
+    at those fits' shapes. Returns (failures, kernel rows)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact, mr_hdbscan
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_knn, rpforest, tiled
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    def lattice(n, dims, seed):  # Gaussian clusters rounded to a grid: exact ties
+        return np.round(make_gauss(n, dims=dims, n_clusters=6, separation=8.0, seed=seed)[0])
+
+    g129, g3, f3 = lattice(2000, 129, 1), lattice(2000, 3, 2), lattice(3000, 3, 3)
+    s129, m130 = lattice(4000, 129, 4), make_gauss(3000, dims=130, n_clusters=6,
+                                                   separation=8.0, seed=5)[0]
+    forest_kw = dict(knn_index="rpforest", knn_backend="fused", rpf_trees=2,
+                     rpf_leaf_size=300, rpf_rescan_rounds=1)
+    mesh = shard_mesh()
+    fits = [
+        ("exact 2000x129", g129, dict(min_points=16, min_cluster_size=40), {}),
+        ("exact 2000x3 min_points=200", g3, dict(min_points=200, min_cluster_size=40), {}),
+        ("rp-forest 3000x3 k=129", f3, dict(min_points=130, min_cluster_size=40, **forest_kw),
+         {}),
+        ("sharded 4000x129", s129, dict(min_points=16, min_cluster_size=40, **SHARDED),
+         {"mesh": mesh}),
+    ]
+    errors, cards = [], {}
+    cuda_build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for label, data, kw, extra in fits:
+        cards[label] = exact.fit(data, HDBSCANParams(**kw), **extra)
+    mparams = HDBSCANParams(**dict(MR_PARAMS, processing_units=1024), min_cluster_size=30,
+                            **BOUND05)
+    with WindowRecorder() as recorder:
+        mcard = mr_hdbscan.fit(m130, mparams)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(cuda_build.LAUNCHES)
+    launches_out.update(launches)
+    print(f"3h wide fits on the card: {wall:.3f} s; launches {launches}")
+    for label, data, kw, extra in fits:
+        cpu_extra = {"mesh": get_mesh([torch.device("cpu")] * N_SHARDS)} if extra else {
+            "device": "cpu"}
+        cpu = exact.fit(data, HDBSCANParams(**kw), **cpu_extra)
+        same = fits_equal(cards[label], cpu) and trees_equal(cards[label].tree, cpu.tree)
+        print(f"3h {label}: card fit vs CPU fit {'identical' if same else 'DIFFERENT'}, "
+              f"{len(np.unique(cpu.labels)) - 1} clusters")
+        if not same:
+            errors.append(f"3h {label}")
+    same = mr_fits_equal(mcard, mr_hdbscan.fit(m130, mparams, device="cpu"))
+    print(f"3h MR boundary 3000x130: card fit vs CPU fit {'identical' if same else 'DIFFERENT'}")
+    if not same:
+        errors.append("3h MR boundary 3000x130")
+    ran = [k for k in cuda_build.WIDE_KERNELS if k != "forest_min_outgoing"]
+    missing = [k for k in ran if launches[f"{k}_wide"] == 0]
+    if missing:
+        errors.append(f"3h: wide modes never launched: {missing}")
+    if errors:
+        return errors, []
+
+    # Timings at the fits' shapes.
+    rows = []
+    k = 15
+    x = torch.as_tensor(g129.astype(np.float32), device="cuda")
+    n, d = x.shape
+    form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
+    ms = cuda_ms(lambda: cuda_knn.knn_kbest(x, k, "euclidean", form), 3)
+    a = cuda_knn.knn_kbest(x, k, "euclidean", form)
+    plain_ms, b = timed_plain(lambda: cuda_knn.knn_kbest_plain(x, k, "euclidean", form))
+    b_ms, by = bound_ms(n * d * 4 + n * k * 8, float(n) * n * pair_ops(d, form))
+    rows.append(dict(
+        name="knn_kbest_wide", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
+        replaces="hdbscan_tpu/ops/pallas_knn.py:453", launches=launches["knn_kbest_wide"],
+        max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=by, library_ms=None, shape=f"{n} x {d}, k {k}, {form} form",
+    ))
+    core = torch.as_tensor(cards["exact 2000x129"].core_distances.astype(np.float32),
+                           device="cuda")
+    rows.append(segmin_row("segmin_wide", x, core, torch.arange(n, dtype=torch.int32,
+                                                                  device="cuda"),
+                           torch.ones(n, dtype=torch.bool, device="cuda"), form, launches))
+    rows += forest_times(f3, cards["rp-forest 3000x3 k=129"], launches, k=129, trees=2,
+                         leaf_size=300, suffix="_wide")
+    # B8's wide mode is d past 128 and no fit path calls B8: the 2,000 x 129
+    # fit's points, each row's candidates the 15 nearest of its 15 nearest
+    # (the rescan's k^2 panel), the fit's cores, round-1 components.
+    nn = cuda_knn.knn_kbest(x, k, "euclidean", form)[1]
+    cand = rpforest._expand(nn, nn, k, n)
+    live = cand[cand != n]
+    uniq = int(torch.unique(live).numel())
+    comp = torch.arange(n, dtype=torch.int32, device="cuda")
+    args = (x, x, cand, core, core, comp, comp, "euclidean", n)
+    ms = cuda_ms(lambda: cf.forest_min_outgoing(*args), 3)
+    a, (plain_ms, b) = cf.forest_min_outgoing(*args), timed_plain(
+        lambda: cf.forest_min_outgoing_plain(*args))
+    b_ms, by = bound_ms(n * (d * 4 + 8) + cand.numel() * 4 + uniq * (d * 4 + 8) + n * 8,
+                        float(live.numel()) * (pair_ops(d, "diff") + 2))
+    rows.append(dict(
+        name="forest_min_outgoing_wide", route="cuda",
+        source="hdbscan_tpu_torch/csrc/forest_rescan.cu",
+        replaces="hdbscan_tpu/ops/pallas_forest.py:476",
+        launches=launches["forest_min_outgoing_wide"],
+        max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=by, library_ms=None, shape=f"{n} rows x {cand.shape[1]} candidates, d {d}",
+    ))
+    rows += panel_times(s129, cards["sharded 4000x129"], launches, mesh, k=15, suffix="_wide")
+    # The largest recorded window call (at this size the probe phase's).
+    rows.append(window_time(max(recorder.calls, key=lambda args: args[2].shape[0]), launches,
+                            "knn_window_wide"))
+    return errors, rows
 
 
 def main() -> int:
@@ -1008,7 +1445,8 @@ def main() -> int:
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
 
-    errors = parity() + parity_forest() + parity_window() + parity_highd() + parity_panels()
+    errors = (parity() + parity_forest() + parity_window() + parity_highd() + parity_panels()
+              + parity_segmin() + parity_wide())
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 
@@ -1178,6 +1616,12 @@ def main() -> int:
             or slaunches["knn_kbest"] or slaunches["segmin"]):
         return fail(f"3g: unexpected host syncs or launches {slaunches}")
 
+    # --- 3h: past k or d = 128, every kernel's wide mode ------------------
+    wlaunches = {}
+    errors, wide_rows = wide_phase(wlaunches)
+    if errors:
+        return fail(f"the wide fits failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -1200,19 +1644,21 @@ def main() -> int:
         library_ms=None,
     ))
 
-    seg_ms = cuda_ms(lambda: cuda_segmin.segmin(x, core, comp, valid, "euclidean", form), 3)
-    seg_plain = host_ms(lambda: tiled._min_outgoing_scan(x, core, comp, valid, "euclidean", form))
-    sw, sj = cuda_segmin.segmin(x, core, comp, valid, "euclidean", form)
-    pw, pj = tiled._min_outgoing_scan(x, core, comp, valid, "euclidean", form)
-    seg_err = float((sw - pw).abs().max()) if torch.equal(sj, pj) else float("inf")
-    pairs = float(n) * (n - 1)  # round 1: every pair but self crosses components
-    b, by = bound_ms(n * (d * 4 + 4 + 4 + 1) + n * 8, pairs * (pair_ops(d, form) + 2))
-    rows.append(dict(
-        name="segmin", route="cuda", source="hdbscan_tpu_torch/csrc/segmin.cu",
-        replaces="hdbscan_tpu/ops/pallas_segmin.py:79", launches=launches["segmin"],
-        max_abs_err=seg_err, ms=seg_ms, plain_ms=seg_plain, bound_ms=b, bound_by=by,
-        library_ms=None,
-    ))
+    rows.append(segmin_row("segmin", x, core, comp, valid, form, launches))
+    first, last, replay = tile_shares(data, res.core_distances, form)
+    print(f"segmin single-component (1024-row x 512-column) tiles at the skin shape: round 1 "
+          f"{first:.6f}, last round {last:.6f} ({replay} rounds replayed)")
+    # B1 at one 3f round: the 3f fit's Morton-free input order, its cores,
+    # round-1 components, the dot form; the plain version on 4,096 rows.
+    hx = torch.as_tensor(hdata.astype(np.float32), device="cuda")
+    hn = len(hdata)
+    rows.append(segmin_row(
+        "segmin_3f", hx, torch.as_tensor(hres.core_distances.astype(np.float32), device="cuda"),
+        torch.arange(hn, dtype=torch.int32, device="cuda"),
+        torch.ones(hn, dtype=torch.bool, device="cuda"),
+        tiled.scan_form(hn, 28, "euclidean", 1024, 8192), hlaunches, plain_rows=4096,
+        kernel="segmin"))
+    del hx
 
     u, v, w = res.mst
     order = np.lexsort((v, u, w))  # the (w, u, v) order the fit scans in
@@ -1235,6 +1681,7 @@ def main() -> int:
     rows.append(window_time(recorder.main_chunk(mev), mlaunches))
     rows += highd_times(hdata, hlaunches)
     rows += panel_times(data, sres, slaunches, mesh)
+    rows += wide_rows
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")

@@ -4,7 +4,9 @@
 // (hdbscan_tpu_torch/core/distances.py): features accumulate one at a time
 // in ascending order, with separate multiplies and adds. Built with
 // -fmad=false, nvcc keeps every a*b+c as two roundings, so kernel and plain
-// version agree bitwise; sqrtf stays IEEE-rounded (no fast math).
+// version agree bitwise; sqrtf stays IEEE-rounded (no fast math). The
+// register forms below take d <= DMAX <= 128; the wide mode (further down)
+// takes any d in chunks, with the same sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,6 +74,153 @@ __device__ __forceinline__ float pair_distance(
     }
   }
   return acc;
+}
+
+// The same distances with both points behind pointers, for any d (a
+// runtime loop in the same order): the wide mode of the gather kernels
+// (B7, B8), whose columns are each thread's own candidates.
+__device__ __forceinline__ float sq_norm_ptr(const float* x, int d) {
+  float acc = x[0] * x[0];
+  for (int f = 1; f < d; ++f) acc = acc + x[f] * x[f];
+  return acc;
+}
+
+__device__ __forceinline__ float pair_distance_ptr(const float* xr, float xr_sq,
+                                                   const float* xc, float xc_sq,
+                                                   int d, int metric) {
+  if (metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DIFF_SQ) {
+    float t = xr[0] - xc[0];
+    float acc = t * t;
+    for (int f = 1; f < d; ++f) {
+      t = xr[f] - xc[f];
+      acc = acc + t * t;
+    }
+    return metric == METRIC_EUCLID_DIFF ? sqrtf(acc) : acc;
+  }
+  if (dot_form(metric)) {
+    float cross = xr[0] * xc[0];
+    for (int f = 1; f < d; ++f) cross = cross + xr[f] * xc[f];
+    const float d2 = fmaxf((xr_sq + xc_sq) - 2.0f * cross, 0.0f);
+    return metric == METRIC_EUCLID_DOT ? sqrtf(d2) : d2;
+  }
+  float acc = fabsf(xr[0] - xc[0]);
+  for (int f = 1; f < d; ++f) {
+    const float a = fabsf(xr[f] - xc[f]);
+    acc = metric == METRIC_MANHATTAN ? acc + a : fmaxf(acc, a);
+  }
+  return acc;
+}
+
+// ---- Wide mode: any d, features in chunks ---------------------------------
+//
+// The register kernels hold a row in DMAX <= 128 registers and a column
+// tile with all its features in shared memory. Past d = 128 (and past
+// k = 128, whose lists leave registers; lexlist.cuh) the tile kernels run
+// their wide mode: the distances of a block's rows to a sub-tile of
+// WIDE_COLS columns go through in chunks of WIDE_CHUNK features. The block
+// stages each thread's row chunk and the columns' chunk in shared memory,
+// and each thread carries one accumulator per column across the chunks.
+// Features still accumulate one at a time in ascending order with separate
+// multiplies and adds, and the dot form's norms come from the same chunks in
+// the same order, so every sum is the plain version's, bitwise, whatever d.
+constexpr int WIDE_COLS = 32;   // columns per sub-tile (accumulators a thread carries)
+constexpr int WIDE_CHUNK = 16;  // features per chunk
+constexpr int WIDE_STRIDE = WIDE_CHUNK + 1;  // padded rows: no bank conflicts
+
+// Shared-memory floats wide_distances uses for a block of `threads` rows:
+// the columns' chunk, their norms, and the rows' chunks.
+__host__ __device__ constexpr int wide_smem_floats(int threads) {
+  return WIDE_COLS * WIDE_STRIDE + WIDE_COLS + threads * WIDE_STRIDE;
+}
+
+enum : int { WIDE_DIFF = 0, WIDE_DOT = 1, WIDE_MANHATTAN = 2, WIDE_SUPREMUM = 3 };
+
+template <int FAMILY>
+__device__ __forceinline__ float wide_term(float x, float c) {
+  if (FAMILY == WIDE_DIFF) {
+    const float u = x - c;
+    return u * u;
+  }
+  if (FAMILY == WIDE_DOT) return x * c;
+  return fabsf(x - c);
+}
+
+// One chunk's contribution to the WIDE_COLS accumulators (columns past the
+// sub-tile's length hold zeros and are ignored by the caller). `first`: the
+// chunk holds feature 0, whose term starts each sum.
+template <int FAMILY>
+__device__ __forceinline__ void wide_chunk(float (&acc)[WIDE_COLS], const float* rs,
+                                           const float* cs, int fl, bool first) {
+  int f = 0;
+  if (first) {
+    const float x = rs[0];
+#pragma unroll
+    for (int t = 0; t < WIDE_COLS; ++t) acc[t] = wide_term<FAMILY>(x, cs[t * WIDE_STRIDE]);
+    f = 1;
+  }
+  for (; f < fl; ++f) {
+    const float x = rs[f];
+#pragma unroll
+    for (int t = 0; t < WIDE_COLS; ++t) {
+      const float term = wide_term<FAMILY>(x, cs[t * WIDE_STRIDE + f]);
+      acc[t] = FAMILY == WIDE_SUPREMUM ? fmaxf(acc[t], term) : acc[t] + term;
+    }
+  }
+}
+
+// Distances (by metric code, roots included for codes 0/1) of the calling
+// thread's row `row` (nullptr: a padding thread; its values are unused) to
+// the columns col(0), ..., col(len - 1), len <= WIDE_COLS, into dist[0..len).
+// Every thread of the block must call it (it synchronises); `smem` holds
+// wide_smem_floats(blockDim.x) floats. `row_sq` is the row's norm (dot
+// form; from sq_norm_ptr).
+template <class ColPtr>
+__device__ __forceinline__ void wide_distances(const float* row, float row_sq,
+                                               ColPtr col, int len, int d,
+                                               int metric, float* smem,
+                                               float (&dist)[WIDE_COLS]) {
+  float* cs = smem;                            // WIDE_COLS x WIDE_STRIDE
+  float* ns = cs + WIDE_COLS * WIDE_STRIDE;    // WIDE_COLS norms
+  float* rs = ns + WIDE_COLS + threadIdx.x * WIDE_STRIDE;  // this thread's row chunk
+  const bool dot = dot_form(metric);
+  const int family = (metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DIFF_SQ)
+                         ? WIDE_DIFF
+                         : dot ? WIDE_DOT
+                               : metric == METRIC_MANHATTAN ? WIDE_MANHATTAN
+                                                            : WIDE_SUPREMUM;
+  float cnorm = 0.0f;  // thread t < len: column t's norm
+  for (int f0 = 0; f0 < d; f0 += WIDE_CHUNK) {
+    const int fl = min(WIDE_CHUNK, d - f0);
+    __syncthreads();  // the previous chunk (or call) is consumed
+    for (int e = threadIdx.x; e < WIDE_COLS * WIDE_CHUNK; e += blockDim.x) {
+      const int t = e / WIDE_CHUNK, f = e - t * WIDE_CHUNK;
+      cs[t * WIDE_STRIDE + f] = (t < len && f < fl) ? col(t)[f0 + f] : 0.0f;
+    }
+    for (int f = 0; f < fl; ++f) rs[f] = row != nullptr ? row[f0 + f] : 0.0f;
+    __syncthreads();
+    if (dot && threadIdx.x < len) {
+      const float* c = cs + threadIdx.x * WIDE_STRIDE;
+      for (int f = 0; f < fl; ++f) {
+        cnorm = (f0 == 0 && f == 0) ? c[0] * c[0] : cnorm + c[f] * c[f];
+      }
+    }
+    const bool first = f0 == 0;
+    switch (family) {
+      case WIDE_DIFF: wide_chunk<WIDE_DIFF>(dist, rs, cs, fl, first); break;
+      case WIDE_DOT: wide_chunk<WIDE_DOT>(dist, rs, cs, fl, first); break;
+      case WIDE_MANHATTAN: wide_chunk<WIDE_MANHATTAN>(dist, rs, cs, fl, first); break;
+      default: wide_chunk<WIDE_SUPREMUM>(dist, rs, cs, fl, first); break;
+    }
+  }
+  if (dot && threadIdx.x < len) ns[threadIdx.x] = cnorm;
+  __syncthreads();
+  const bool root = metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DOT;
+#pragma unroll
+  for (int t = 0; t < WIDE_COLS; ++t) {
+    float v = dist[t];
+    if (dot) v = fmaxf((row_sq + (t < len ? ns[t] : 0.0f)) - 2.0f * v, 0.0f);
+    dist[t] = root ? sqrtf(v) : v;
+  }
 }
 
 // Column tile width for a feature count: the tile (features, norm, and the

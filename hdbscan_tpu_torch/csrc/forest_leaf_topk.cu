@@ -28,6 +28,11 @@
 // Bound on this card: operations. L^2 pair distances per leaf (about 3d
 // float operations and one sqrt each) against B L (d + kk) words of
 // device-memory traffic.
+//
+// Wide mode (kk or d past 128; f32 only, as bf16 runs inside the
+// reference's fused gate): the leaf's columns in sub-tiles of WIDE_COLS
+// through distance.cuh's chunked feature loop, the (distance, position)
+// list in the slot's output row (lexlist.cuh), the same epilogue there.
 #include <cstdint>
 
 #include "distance.cuh"
@@ -141,6 +146,51 @@ __global__ void leaf_topk_kernel(const float* __restrict__ data, int d,
   }
 }
 
+__global__ void leaf_topk_wide_kernel(const float* __restrict__ data, int d,
+                                      const int32_t* __restrict__ members,
+                                      const uint8_t* __restrict__ mask, int L, int kk,
+                                      int metric, int sentinel, float* __restrict__ out_d,
+                                      int32_t* __restrict__ out_i) {
+  extern __shared__ float smem[];  // wide_smem_floats(blockDim.x)
+  const int b = blockIdx.x;
+  const int r = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool row_ok = r < L;
+  const int32_t* mem = members + (int64_t)b * L;
+  const uint8_t* msk = mask + (int64_t)b * L;
+  const float* row = row_ok ? data + (int64_t)mem[r] * d : nullptr;
+  const float row_sq = (row_ok && dot_form(metric)) ? sq_norm_ptr(row, d) : 0.0f;
+  const int64_t o = ((int64_t)b * L + (row_ok ? r : 0)) * kk;
+  float* bd = out_d + o;
+  int32_t* bp = out_i + o;  // column positions while scanning
+  if (row_ok) {
+    for (int s = 0; s < kk; ++s) {
+      bd[s] = CUDART_INF_F;
+      bp[s] = -1;
+    }
+  }
+  float worst = CUDART_INF_F;
+  for (int c0 = 0; c0 < L; c0 += WIDE_COLS) {
+    const int len = min(WIDE_COLS, L - c0);
+    float dist[WIDE_COLS];
+    wide_distances(row, row_sq, [=](int t) { return data + (int64_t)mem[c0 + t] * d; }, len,
+                   d, metric, smem, dist);
+    if (!row_ok) continue;
+#pragma unroll
+    for (int t = 0; t < WIDE_COLS; ++t) {
+      if (t < len && msk[c0 + t] && dist[t] < worst) {
+        lex_insert_mem(bd, bp, kk, dist[t], c0 + t);
+        worst = bd[kk - 1];
+      }
+    }
+  }
+  if (!row_ok) return;
+  // Epilogue: positions -> global ids, +inf -> sentinel, then (d, id) order.
+  for (int s = 0; s < kk; ++s) {
+    bp[s] = (bp[s] >= 0 && bd[s] < CUDART_INF_F) ? mem[bp[s]] : sentinel;
+  }
+  lex_sort_mem(bd, bp, kk);
+}
+
 template <int DMAX, int KB>
 static cudaError_t launch(const float* data, int d, const int32_t* members,
                           const uint8_t* mask, int B, int L, int kk, int metric,
@@ -180,7 +230,16 @@ extern "C" int forest_leaf_topk_launch(const void* data, int d, const void* memb
   auto* oi = (int32_t*)out_i;
   auto s = (cudaStream_t)stream;
   if (B <= 0 || L <= 0) return 0;
-  if (kk < 1 || kk > L || (L + LEAF_ROWS - 1) / LEAF_ROWS > 65535) return (int)cudaErrorInvalidValue;
+  if (kk < 1 || kk > L || d < 1 || (L + LEAF_ROWS - 1) / LEAF_ROWS > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (kk > 128 || d > 128) {
+    if (m != nullptr) return (int)cudaErrorInvalidValue;  // bf16 stays within 128
+    const dim3 grid(B, (L + LEAF_ROWS - 1) / LEAF_ROWS);
+    const size_t smem = wide_smem_floats(LEAF_ROWS) * sizeof(float);
+    leaf_topk_wide_kernel<<<grid, LEAF_ROWS, smem, s>>>(
+        x, d, mem, msk, L, kk, metric, sentinel, od, oi);
+    return (int)cudaGetLastError();
+  }
   if (d <= 4) return launch_k<4>(x, d, mem, msk, B, L, kk, metric, sentinel, m, od, oi, s);
   if (d <= 8) return launch_k<8>(x, d, mem, msk, B, L, kk, metric, sentinel, m, od, oi, s);
   if (d <= 32) return launch_k<32>(x, d, mem, msk, B, L, kk, metric, sentinel, m, od, oi, s);

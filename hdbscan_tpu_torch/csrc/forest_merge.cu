@@ -12,7 +12,8 @@
 //
 // Design: one thread per row runs a T-way merge of the sorted lists: it
 // emits the lex-smallest head, skips an id it has already emitted (a scan
-// of its own output row, kk <= 128), and stops after kk emissions.
+// of its own output row), and stops after kk emissions. Nothing in it is
+// sized by kk, so the same kernel takes every kk (no separate wide mode).
 //
 // Bound on this card: bytes. It reads T n kk entries and writes n kk,
 // with a few comparisons per entry.

@@ -31,6 +31,11 @@
 // Bound on this card: bytes. Each candidate costs a 4-byte id and d
 // scattered 4-byte coordinate reads (mostly L2 hits: neighbors of
 // neighbors are few distinct points) for about 3d float operations.
+//
+// Wide mode (B7 past k = 128 or d = 128, f32 only, as bf16 runs inside the
+// reference's fused gate; B8 past d = 128): the same walk with both points
+// read through pointers in the same feature order (distance.cuh's
+// pair_distance_ptr), B7's k-list in the row's output (lexlist.cuh).
 #include <cstdint>
 
 #include "distance.cuh"
@@ -146,6 +151,78 @@ __global__ void min_outgoing_kernel(const float* __restrict__ q,
   out_j[row] = bw < CUDART_INF_F ? bj : -1;
 }
 
+__global__ void rescan_topk_wide_kernel(const float* __restrict__ q,
+                                        const float* __restrict__ data,
+                                        const int32_t* __restrict__ cids, int m, int C,
+                                        int d, int k, int metric, int sentinel,
+                                        float* __restrict__ out_d,
+                                        int32_t* __restrict__ out_i) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= m) return;
+  const float* xr = q + (int64_t)row * d;
+  const bool dot = dot_form(metric);
+  const float xr_sq = dot ? sq_norm_ptr(xr, d) : 0.0f;
+  float* bd = out_d + (int64_t)row * k;
+  int32_t* bi = out_i + (int64_t)row * k;
+  for (int s = 0; s < k; ++s) {
+    bd[s] = CUDART_INF_F;
+    bi[s] = LEX_ID_MAX;
+  }
+  float wd = CUDART_INF_F;  // slot k - 1
+  int32_t wi = LEX_ID_MAX;
+  const int32_t* ids = cids + (int64_t)row * C;
+  for (int c = 0; c < C; ++c) {
+    const int32_t cid = ids[c];
+    if (cid == sentinel) continue;
+    const float* xc = data + (int64_t)cid * d;
+    const float dist = pair_distance_ptr(xr, xr_sq, xc, dot ? sq_norm_ptr(xc, d) : 0.0f, d,
+                                         metric);
+    if (!(dist < CUDART_INF_F) || !lex_less(dist, cid, wd, wi)) continue;
+    bool dup = false;
+    for (int s = 0; s < k && !dup; ++s) dup = bi[s] == cid && bd[s] == dist;
+    if (dup) continue;
+    lex_insert_mem(bd, bi, k, dist, cid);
+    wd = bd[k - 1];
+    wi = bi[k - 1];
+  }
+}
+
+__global__ void min_outgoing_wide_kernel(const float* __restrict__ q,
+                                         const float* __restrict__ data,
+                                         const int32_t* __restrict__ cids, int m, int C,
+                                         int d, int metric, int sentinel,
+                                         const float* __restrict__ core_q,
+                                         const float* __restrict__ core,
+                                         const int32_t* __restrict__ comp_q,
+                                         const int32_t* __restrict__ comp,
+                                         float* __restrict__ out_w,
+                                         int32_t* __restrict__ out_j) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= m) return;
+  const float* xr = q + (int64_t)row * d;
+  const bool dot = dot_form(metric);
+  const float xr_sq = dot ? sq_norm_ptr(xr, d) : 0.0f;
+  const float cq = core_q[row];
+  const int32_t gq = comp_q[row];
+  float bw = CUDART_INF_F;
+  int32_t bj = -1;
+  const int32_t* ids = cids + (int64_t)row * C;
+  for (int c = 0; c < C; ++c) {
+    const int32_t cid = ids[c];
+    if (cid == sentinel || comp[cid] == gq) continue;
+    const float* xc = data + (int64_t)cid * d;
+    const float dist = pair_distance_ptr(xr, xr_sq, xc, dot ? sq_norm_ptr(xc, d) : 0.0f, d,
+                                         metric);
+    const float w = fmaxf(dist, fmaxf(cq, core[cid]));
+    if (w < bw) {
+      bw = w;
+      bj = cid;
+    }
+  }
+  out_w[row] = bw;
+  out_j[row] = bw < CUDART_INF_F ? bj : -1;
+}
+
 template <int DMAX, int KB>
 static cudaError_t launch_topk(const float* q, const float* data, const int32_t* cids,
                                int m, int C, int d, int k, int metric, int sentinel,
@@ -178,7 +255,13 @@ extern "C" int forest_rescan_topk_launch(const void* q, const void* data, const 
   auto* oi = (int32_t*)out_i;
   auto s = (cudaStream_t)stream;
   if (m <= 0) return 0;
-  if (k < 1 || C < 0) return (int)cudaErrorInvalidValue;
+  if (k < 1 || C < 0 || d < 1) return (int)cudaErrorInvalidValue;
+  if (k > 128 || d > 128) {
+    if (mm != nullptr) return (int)cudaErrorInvalidValue;  // bf16 stays within 128
+    rescan_topk_wide_kernel<<<(m + RESCAN_ROWS - 1) / RESCAN_ROWS, RESCAN_ROWS, 0, s>>>(
+        qq, x, ids, m, C, d, k, metric, sentinel, od, oi);
+    return (int)cudaGetLastError();
+  }
   if (d <= 4) return launch_topk_k<4>(qq, x, ids, m, C, d, k, metric, sentinel, mm, od, oi, s);
   if (d <= 8) return launch_topk_k<8>(qq, x, ids, m, C, d, k, metric, sentinel, mm, od, oi, s);
   if (d <= 32) return launch_topk_k<32>(qq, x, ids, m, C, d, k, metric, sentinel, mm, od, oi, s);
@@ -214,7 +297,12 @@ extern "C" int forest_min_outgoing_launch(const void* q, const void* data, const
   auto* oj = (int32_t*)out_j;
   auto s = (cudaStream_t)stream;
   if (m <= 0) return 0;
-  if (C < 0) return (int)cudaErrorInvalidValue;
+  if (C < 0 || d < 1) return (int)cudaErrorInvalidValue;
+  if (d > 128) {
+    min_outgoing_wide_kernel<<<(m + RESCAN_ROWS - 1) / RESCAN_ROWS, RESCAN_ROWS, 0, s>>>(
+        qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj);
+    return (int)cudaGetLastError();
+  }
   if (d <= 4) return launch_minout<4>(qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj, s);
   if (d <= 8) return launch_minout<8>(qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj, s);
   if (d <= 32) return launch_minout<32>(qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj, s);

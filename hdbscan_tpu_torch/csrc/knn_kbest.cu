@@ -32,9 +32,18 @@
 // evaluated on the FP32 pipes (about 3d + 3 operations each, plus a sqrt
 // unless squared); insertions are rare once the lists have tightened.
 // Device-memory traffic is O(columns d) per block plus the (rows, k) output.
+//
+// Wide mode (K2 and the rectangular entry only; B3 keeps the reference's
+// k, d <= 128): past k = 128 or d = 128 one kernel takes over whose
+// distances go through distance.cuh's chunked feature loop and whose k-list
+// lives in the row's output (lexlist.cuh's lex_insert_mem), with the same
+// admission and insert, so the lists are the same.
 #include <cstdint>
 
 #include "distance.cuh"
+#include "lexlist.cuh"
+
+constexpr int WIDE_THREADS = 128;
 
 template <int DMAX, int KB>
 __global__ void knn_kbest_kernel(const float* __restrict__ q, int nq,
@@ -112,6 +121,40 @@ __global__ void knn_kbest_kernel(const float* __restrict__ q, int nq,
   }
 }
 
+__global__ void __launch_bounds__(WIDE_THREADS)
+knn_kbest_wide_kernel(const float* __restrict__ q, int nq, const float* __restrict__ x,
+                      int nx, int d, int k, int metric, int id_offset,
+                      float* __restrict__ out_d, int32_t* __restrict__ out_i) {
+  extern __shared__ float smem[];  // wide_smem_floats(blockDim.x)
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool row_ok = i < nq;
+  const float* row = row_ok ? q + (int64_t)i * d : nullptr;
+  const float row_sq = (row_ok && dot_form(metric)) ? sq_norm_ptr(row, d) : 0.0f;
+  float* bd = out_d + (int64_t)(row_ok ? i : 0) * k;
+  int32_t* bi = out_i + (int64_t)(row_ok ? i : 0) * k;
+  if (row_ok) {
+    for (int s = 0; s < k; ++s) {
+      bd[s] = CUDART_INF_F;
+      bi[s] = -1;
+    }
+  }
+  float worst = CUDART_INF_F;  // bd[k - 1]
+  for (int c0 = 0; c0 < nx; c0 += WIDE_COLS) {
+    const int len = min(WIDE_COLS, nx - c0);
+    float dist[WIDE_COLS];
+    wide_distances(row, row_sq, [=](int t) { return x + (int64_t)(c0 + t) * d; }, len, d,
+                   metric, smem, dist);
+    if (!row_ok) continue;
+#pragma unroll
+    for (int t = 0; t < WIDE_COLS; ++t) {
+      if (t < len && dist[t] < worst) {
+        lex_insert_mem(bd, bi, k, dist[t], id_offset + c0 + t);
+        worst = bd[k - 1];
+      }
+    }
+  }
+}
+
 template <int DMAX, int KB>
 static cudaError_t launch(const float* q, int nq, const float* x, int nx, int d,
                           int k, int metric, int id_offset, float* out_d,
@@ -144,7 +187,15 @@ static int dispatch(const void* q, int nq, const void* x, int nx, int d, int k,
   auto* oi = (int32_t*)out_i;
   auto s = (cudaStream_t)stream;
   if (nq <= 0) return 0;
-  if (k < 1 || nx < 0) return (int)cudaErrorInvalidValue;
+  if (k < 1 || nx < 0 || d < 1) return (int)cudaErrorInvalidValue;
+  if (k > 128 || d > 128) {
+    if (oi == nullptr) return (int)cudaErrorInvalidValue;  // B3 has no wide mode
+    const int blocks = (nq + WIDE_THREADS - 1) / WIDE_THREADS;
+    const size_t smem = wide_smem_floats(WIDE_THREADS) * sizeof(float);
+    knn_kbest_wide_kernel<<<blocks, WIDE_THREADS, smem, s>>>(
+        qf, nq, xf, nx, d, k, metric, id_offset, od, oi);
+    return (int)cudaGetLastError();
+  }
   if (d <= 4) return launch_k<4>(qf, nq, xf, nx, d, k, metric, id_offset, od, oi, s);
   if (d <= 8) return launch_k<8>(qf, nq, xf, nx, d, k, metric, id_offset, od, oi, s);
   if (d <= 32) return launch_k<32>(qf, nq, xf, nx, d, k, metric, id_offset, od, oi, s);

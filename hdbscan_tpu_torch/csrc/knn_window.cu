@@ -30,9 +30,15 @@
 // (about 3d + 3 FP32 operations and a sqrt), twice for column tiles that
 // merge; device-memory traffic is one read of each window's columns per
 // row tile (L2-resident at these widths) plus the (rows, k) output.
+//
+// Wide mode (k or d past 128, both contracts): the same two passes over
+// sub-tiles of WIDE_COLS columns whose distances go through distance.cuh's
+// chunked feature loop, the k-list in the slot's output row (lexlist.cuh's
+// lex_insert_mem) with the same admission, so the lists are the same.
 #include <cstdint>
 
 #include "distance.cuh"
+#include "lexlist.cuh"
 
 #define WINDOW_MAX_THREADS 512
 
@@ -128,6 +134,61 @@ knn_window_kernel(const float* __restrict__ x, int n, int d,
   }
 }
 
+__global__ void __launch_bounds__(WINDOW_MAX_THREADS)
+knn_window_wide_kernel(const float* __restrict__ x, int n, int d,
+                       const int32_t* __restrict__ ids,
+                       const int32_t* __restrict__ wstart,
+                       const float* __restrict__ bnd, int k, int metric,
+                       int col_tile, int n_win_tiles, float* __restrict__ out_d,
+                       int32_t* __restrict__ out_i) {
+  extern __shared__ float smem[];  // wide_smem_floats(blockDim.x)
+  const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const float* row = x + (int64_t)ids[slot] * d;
+  const float row_sq = dot_form(metric) ? sq_norm_ptr(row, d) : 0.0f;
+  const float bound = bnd[slot];
+  float* bd = out_d + slot * k;
+  int32_t* bi = out_i + slot * k;
+  for (int s = 0; s < k; ++s) {
+    bd[s] = CUDART_INF_F;
+    bi[s] = -1;
+  }
+  float worst = CUDART_INF_F;  // bd[k - 1]
+  const auto col = [=](int64_t c0) {
+    return [=](int t) { return x + (c0 + t) * d; };
+  };
+  const int64_t win0 = (int64_t)wstart[blockIdx.x] * col_tile;
+  for (int j = 0; j < n_win_tiles; ++j) {
+    const int64_t base = win0 + (int64_t)j * col_tile;
+    const int64_t stop = min(base + col_tile, (int64_t)n);  // masked past n
+    // Pass 1: does any row of the tile hold a candidate?
+    const float thr = fminf(worst, bound);
+    bool any = false;
+    for (int64_t c0 = base; c0 < stop && !any; c0 += WIDE_COLS) {
+      const int len = (int)min((int64_t)WIDE_COLS, stop - c0);
+      float dist[WIDE_COLS];
+      wide_distances(row, row_sq, col(c0), len, d, metric, smem, dist);
+      bool mine = false;
+#pragma unroll
+      for (int t = 0; t < WIDE_COLS; ++t) mine |= t < len && dist[t] < thr;
+      any = __syncthreads_or(mine);
+    }
+    if (!any) continue;
+    // Pass 2: every row merges the whole column tile.
+    for (int64_t c0 = base; c0 < stop; c0 += WIDE_COLS) {
+      const int len = (int)min((int64_t)WIDE_COLS, stop - c0);
+      float dist[WIDE_COLS];
+      wide_distances(row, row_sq, col(c0), len, d, metric, smem, dist);
+#pragma unroll
+      for (int t = 0; t < WIDE_COLS; ++t) {
+        if (t < len && dist[t] < worst) {
+          lex_insert_mem(bd, bi, k, dist[t], (int32_t)(c0 + t));
+          worst = bd[k - 1];
+        }
+      }
+    }
+  }
+}
+
 template <int DMAX, int KB>
 static cudaError_t launch(const float* x, int n, int d, const int32_t* ids,
                           const int32_t* wstart, const float* bnd, int tiles,
@@ -175,8 +236,13 @@ extern "C" int knn_window_launch(const void* x, int n, int d, const void* ids,
   auto s = (cudaStream_t)stream;
   if (tiles <= 0) return 0;
   if (k < 1 || row_tile < 1 || row_tile > WINDOW_MAX_THREADS || col_tile < 1 ||
-      n_win_tiles < 1)
+      n_win_tiles < 1 || d < 1)
     return (int)cudaErrorInvalidValue;
+  if (k > 128 || d > 128) {
+    knn_window_wide_kernel<<<tiles, row_tile, wide_smem_floats(row_tile) * sizeof(float), s>>>(
+        xf, n, d, idp, wsp, bp, k, metric, col_tile, n_win_tiles, od, oi);
+    return (int)cudaGetLastError();
+  }
   if (d <= 4)
     return launch_k<4>(xf, n, d, idp, wsp, bp, tiles, row_tile, k, metric, col_tile,
                        n_win_tiles, od, oi, s);

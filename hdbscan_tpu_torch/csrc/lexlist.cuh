@@ -4,6 +4,9 @@
 // lexmerge.py): ascending distance, ties to the lower id. Lists live in
 // arrays of a compile-time size KB whose loops are fully unrolled, so the
 // entries stay in registers at small KB; only the first `k` slots are used.
+// A list wider than the register kernels' KB = 128 (the kernels' wide mode)
+// lives in device memory instead: in the kernel's own output row, which the
+// wrapper allocates, with the same admission and insert (lex_insert_mem).
 #pragma once
 
 #include <cstdint>
@@ -73,5 +76,43 @@ __device__ __forceinline__ void lex_sort(float (&bd)[KB], int32_t (&bi)[KB]) {
         bi[s + 1] = ti;
       }
     }
+  }
+}
+
+// ---- Lists past 128 slots, in device memory ------------------------------
+
+// lex_insert on a k-slot list at (bd, bi) in device memory (each thread its
+// own row): insert (dist, id) after every entry that lex-precedes it, the
+// last slot falls off. The caller has checked that (dist, id) lex-precedes
+// slot k - 1.
+__device__ __forceinline__ void lex_insert_mem(float* bd, int32_t* bi, int k,
+                                               float dist, int32_t id) {
+  int s = k - 1;
+  while (s > 0) {
+    const float pd = bd[s - 1];
+    const int32_t pi = bi[s - 1];
+    if (!lex_less(dist, id, pd, pi)) break;
+    bd[s] = pd;
+    bi[s] = pi;
+    --s;
+  }
+  bd[s] = dist;
+  bi[s] = id;
+}
+
+// Sort a k-slot list in device memory into lex order (insertion sort: the
+// wide lists come in distance order, so only runs of equal distance move).
+__device__ __forceinline__ void lex_sort_mem(float* bd, int32_t* bi, int k) {
+  for (int s = 1; s < k; ++s) {
+    const float dv = bd[s];
+    const int32_t iv = bi[s];
+    int t = s;
+    while (t > 0 && lex_less(dv, iv, bd[t - 1], bi[t - 1])) {
+      bd[t] = bd[t - 1];
+      bi[t] = bi[t - 1];
+      --t;
+    }
+    bd[t] = dv;
+    bi[t] = iv;
   }
 }

@@ -12,7 +12,8 @@ hash, so an edited source is rebuilt and a stale library never loads.
 A failed build raises: there is no fallback for CUDA tensors.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else. A launch past k or d = 128 (a
+kernel's wide mode) counts under ``<name>_wide`` instead.
 """
 
 from __future__ import annotations
@@ -33,10 +34,12 @@ BUILD_DIR = os.path.join(
 #: argument is the stream). Kernels that share a source share its library.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
-    "segmin": ("segmin.cu", "segmin_launch", [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "segmin": (
+        "segmin.cu", "segmin_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
     "segmin_panel": (
         "segmin.cu", "segmin_panel_launch",
-        [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
     "knn_kbest": ("knn_kbest.cu", "knn_kbest_launch", [_P, _I, _I, _I, _I, _P, _P, _P]),
     "knn_kbest_panel": (
@@ -82,10 +85,19 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES = {name: 0 for name in KERNELS}
+#: Past this k or d a kernel runs its wide mode (csrc/distance.cuh).
+WIDE = 128
+
+#: The kernels with a wide mode (B3, knn_smallest, keeps the reference's
+#: limit; K3 has no k or d).
+WIDE_KERNELS = ("segmin", "segmin_panel", "knn_kbest", "knn_kbest_panel", "knn_window",
+                "forest_leaf_topk", "forest_merge", "forest_rescan_topk",
+                "forest_min_outgoing")
+
+LAUNCHES = {name: 0 for name in (*KERNELS, *(f"{k}_wide" for k in WIDE_KERNELS))}
 
 _libs: dict = {}  # source -> loaded library
-_fns: dict = {}  # kernel name -> ctypes entry point
+_fns: dict = {}  # (source, symbol) -> ctypes function
 
 
 def reset_launches() -> None:
@@ -160,11 +172,12 @@ def build_all() -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def kernel(name: str):
-    """The ctypes entry point of kernel ``name``, building it if needed."""
-    fn = _fns.get(name)
+def function(src: str, sym: str, argtypes):
+    """The C function ``sym`` of ``csrc/<src>`` (returning int) through
+    ctypes, building the source if needed."""
+    key = (src, sym)
+    fn = _fns.get(key)
     if fn is None:
-        src, sym, argtypes = KERNELS[name]
         lib = _libs.get(src)
         if lib is None:
             _finish(src, _start(src))
@@ -172,14 +185,21 @@ def kernel(name: str):
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[key] = fn
     return fn
 
 
-def launch(name: str, device, *args) -> None:
+def kernel(name: str):
+    """The ctypes entry point of kernel ``name``, building it if needed."""
+    src, sym, argtypes = KERNELS[name]
+    return function(src, sym, argtypes)
+
+
+def launch(name: str, device, *args, wide: bool = False) -> None:
     """Launch kernel ``name`` on ``device`` (the device its tensors lie on,
     from :func:`launch_device`), on that device's current stream, and count
-    it; raises on a refused launch (``cudaGetLastError`` != 0)."""
+    it (under ``<name>_wide`` when ``wide``: the launch's k or d is past
+    :data:`WIDE`); raises on a refused launch (``cudaGetLastError`` != 0)."""
     import torch
 
     fn = kernel(name)
@@ -188,7 +208,7 @@ def launch(name: str, device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}_wide" if wide else name] += 1
 
 
 def launch_device(name: str, *tensors):

@@ -18,6 +18,8 @@ Four kernels (``csrc/forest_leaf_topk.cu``, ``csrc/forest_merge.cu``,
 Each wrapper runs its plain PyTorch version (``*_plain``, same signature
 and output) for a CPU tensor and launches its kernel for a CUDA tensor,
 raising on what the kernel does not take; nothing else picks the route.
+The kernels take every k and d: past 128 (the reference's fused gate)
+B5, B7 and B8 run their wide mode (f32), B6 the same kernel.
 At f32 the plain versions repeat the kernels' arithmetic (features one at
 a time, no FMA, correctly rounded roots), so the two agree bitwise.
 
@@ -57,9 +59,10 @@ from hdbscan_tpu_torch.ops.lexmerge import (
 #: (``cuda_build.metric_code``).
 FUSED_METRICS = ("euclidean", "manhattan", "supremum", "cosine")
 
-#: Largest k (list width) and feature count the kernels are built for.
-MAX_K = 128
-MAX_D = 128
+#: The reference's fused forest gate: k and d within its 128 lanes. The
+#: kernels take every k and d (past 128 in their wide mode, f32 only); bf16
+#: runs only inside the gate, so its over-provisioned width stays within it.
+LANES = 128
 #: Largest tree count of the merge kernel.
 MAX_TREES = 64
 
@@ -80,22 +83,27 @@ def fused_forest_eligible(n: int, d: int, k: int, metric: str, dtype) -> bool:
     reference's gate without its TPU and interpreter clauses)."""
     return (
         metric in FUSED_METRICS
-        and k <= MAX_K
-        and d <= MAX_D
+        and k <= LANES
+        and d <= LANES
         and np.dtype(dtype) == np.float32
     )
 
 
 def check_card_shape(d: int, k: int, metric: str, dtype) -> None:
-    """What the kernels take on the card; raises naming the limit. The
-    card has no unfused path to fall back to."""
+    """What the kernels take on the card (any k >= 1 and d >= 1, float32,
+    the ported metrics); raises naming the limit. The card has no unfused
+    path to fall back to."""
     cuda_build.metric_code(metric, "diff")
     if np.dtype(dtype) != np.float32:
         raise ValueError(f"the forest kernels compute in float32, got dtype {dtype}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the forest kernels support 1 <= k <= {MAX_K}, got {k}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"the forest kernels support 1 <= d <= {MAX_D}, got {d}")
+    if k < 1 or d < 1:
+        raise ValueError(f"the forest kernels need k >= 1 and d >= 1, got k={k}, d={d}")
+
+
+def _check_bf16_width(name: str, k: int, d: int) -> None:
+    """bf16 tiles exist only inside the fused gate (the wide modes are f32)."""
+    if k > LANES or d > LANES:
+        raise ValueError(f"{name}: bf16 tiles need k and d <= {LANES}, got k={k}, d={d}")
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +282,7 @@ def forest_leaf_topk(data, members, mask, kk: int, metric: str = "euclidean",
     if precision == "bf16":
         if metric != "euclidean":
             raise ValueError("bf16 distance tiles support euclidean only")
+        _check_bf16_width("forest_leaf_topk", kk, d)
         mu = leaf_centres(data[members.long()], mask).contiguous()
     code = cuda_build.metric_code(metric, form)
     data, members = data.contiguous(), members.contiguous()
@@ -283,7 +292,7 @@ def forest_leaf_topk(data, members, mask, kk: int, metric: str = "euclidean",
     cuda_build.launch(
         "forest_leaf_topk", dev, data.data_ptr(), d, members.data_ptr(), mask_u8.data_ptr(),
         b, ell, kk, code, sentinel, 0 if mu is None else mu.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), wide=max(kk, d) > cuda_build.WIDE,
     )
     return out_d, out_i
 
@@ -312,14 +321,14 @@ def forest_merge(stack_d, stack_i, kk: int, sentinel: int):
         raise ValueError("forest_merge: float32 distances, int32 ids")
     if not 1 <= trees <= MAX_TREES:
         raise ValueError(f"forest_merge supports 1 <= trees <= {MAX_TREES}, got {trees}")
-    if not 1 <= kk <= MAX_K:
-        raise ValueError(f"forest_merge supports 1 <= kk <= {MAX_K}, got {kk}")
+    if kk < 1:
+        raise ValueError(f"forest_merge needs kk >= 1, got {kk}")
     stack_d, stack_i = stack_d.contiguous(), stack_i.contiguous()
     out_d = torch.empty((n, kk), dtype=torch.float32, device=stack_d.device)
     out_i = torch.empty((n, kk), dtype=torch.int32, device=stack_d.device)
     cuda_build.launch(
         "forest_merge", dev, stack_d.data_ptr(), stack_i.data_ptr(), trees, n, kk, sentinel,
-        out_d.data_ptr(), out_i.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), wide=kk > cuda_build.WIDE,
     )
     return out_d, out_i
 
@@ -359,6 +368,7 @@ def forest_rescan_topk(q, data, cids, k: int, metric: str = "euclidean",
     if precision == "bf16":
         if metric != "euclidean":
             raise ValueError("bf16 distance tiles support euclidean only")
+        _check_bf16_width("forest_rescan_topk", k, d)
         mu = row_tile_centres(q).contiguous()
     code = cuda_build.metric_code(metric, euclid_form(1, c, d) if metric == "euclidean" else None)
     q, data, cids = q.contiguous(), data.contiguous(), cids.contiguous()
@@ -367,7 +377,7 @@ def forest_rescan_topk(q, data, cids, k: int, metric: str = "euclidean",
     cuda_build.launch(
         "forest_rescan_topk", dev, q.data_ptr(), data.data_ptr(), cids.data_ptr(), m, c, d, k,
         code, sentinel, 0 if mu is None else mu.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(),
+        out_i.data_ptr(), wide=max(k, d) > cuda_build.WIDE,
     )
     return _to_sentinel(out_d, out_i, sentinel)
 
@@ -413,7 +423,7 @@ def forest_min_outgoing(q, data, cids, core_q, core, comp_q, comp,
     cuda_build.launch(
         "forest_min_outgoing", dev, args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
         m, c, d, code, sentinel, args[3].data_ptr(), args[4].data_ptr(), args[5].data_ptr(),
-        args[6].data_ptr(), out_w.data_ptr(), out_j.data_ptr(),
+        args[6].data_ptr(), out_w.data_ptr(), out_j.data_ptr(), wide=d > cuda_build.WIDE,
     )
     return out_w, out_j
 

@@ -6,8 +6,9 @@ The port of the TPU kernel ``hdbscan_tpu/ops/pallas_knn.py``
 every query row's k nearest columns as (distance, id), ascending in the
 (distance, id) lexicographic order of ``ops/lexmerge``. The kernel is
 ``csrc/knn_kbest.cu`` (one thread per row, a sorted k-list in registers,
-columns in ascending tiles through shared memory; see its header for the
-design and what bounds it).
+columns in ascending tiles through shared memory; past k or d = 128 its
+wide mode, features in chunks and the list in the output row; see its
+header for the design and what bounds it). Every k >= 1 and d >= 1.
 
 :func:`knn_kbest` scans every row of a point set against all of them, self
 included; :func:`knn_kbest_panel` scans query rows against one column panel
@@ -26,11 +27,6 @@ import torch
 from hdbscan_tpu_torch.core.distances import pairwise_distance
 from hdbscan_tpu_torch.ops import cuda_build
 from hdbscan_tpu_torch.ops.lexmerge import lex_kbest
-
-#: Largest k and feature count the kernel is built for (the reference's
-#: 128-lane limit of the fused TPU kernel).
-MAX_K = 128
-MAX_D = 128
 
 #: Plain version: rows per block so one (rows, columns) distance block
 #: stays under this many elements.
@@ -67,10 +63,8 @@ def _check(name: str, q: torch.Tensor, x: torch.Tensor, k: int) -> None:
             raise ValueError(f"{name}: expected (n, d) float32, got {tuple(t.shape)} {t.dtype}")
     if q.shape[1] != x.shape[1]:
         raise ValueError(f"{name}: queries and columns differ in d")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{name} supports 1 <= k <= {MAX_K}, got {k}")
-    if not 1 <= q.shape[1] <= MAX_D:
-        raise ValueError(f"{name} supports 1 <= d <= {MAX_D}, got {q.shape[1]}")
+    if k < 1 or q.shape[1] < 1:
+        raise ValueError(f"{name}: needs k >= 1 and d >= 1, got k={k}, d={q.shape[1]}")
 
 
 def knn_kbest(x: torch.Tensor, k: int, metric: str = "euclidean",
@@ -92,7 +86,8 @@ def knn_kbest(x: torch.Tensor, k: int, metric: str = "euclidean",
     out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
     cuda_build.launch(
-        "knn_kbest", dev, x.data_ptr(), n, d, k, code, out_d.data_ptr(), out_i.data_ptr()
+        "knn_kbest", dev, x.data_ptr(), n, d, k, code, out_d.data_ptr(), out_i.data_ptr(),
+        wide=max(k, d) > cuda_build.WIDE,
     )
     return out_d, out_i
 
@@ -118,7 +113,7 @@ def knn_kbest_panel(q: torch.Tensor, x: torch.Tensor, k: int, metric: str = "euc
     out_i = torch.empty((r, k), dtype=torch.int32, device=dev)
     cuda_build.launch(
         "knn_kbest_panel", dev, q.data_ptr(), r, x.data_ptr(), c, d, k, code, id_offset,
-        out_d.data_ptr(), out_i.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), wide=max(k, d) > cuda_build.WIDE,
     )
     return out_d, out_i
 

@@ -69,16 +69,19 @@ def morton_order(data: np.ndarray, max_dims: int = 21) -> np.ndarray:
     return np.argsort(code, kind="stable")
 
 
-def knn_smallest_plain(x: torch.Tensor, k: int, form: str = "diff") -> torch.Tensor:
+def knn_smallest_plain(x: torch.Tensor, k: int, form: str = "diff",
+                       q: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch B3: row blocks of squared distances against all rows
     (``core/distances._sq_euclidean``, the kernel's arithmetic), the k
-    smallest values per row ascending, +inf past n."""
+    smallest values per row ascending, +inf past n. ``q`` takes those rows
+    only (leading rows of ``x``, by default all of them)."""
     n = x.shape[0]
-    out = torch.full((n, k), float("inf"), dtype=torch.float32, device=x.device)
+    q = x if q is None else q
+    out = torch.full((q.shape[0], k), float("inf"), dtype=torch.float32, device=x.device)
     kk = min(k, n)
     block = max(1, _PLAIN_BLOCK_ELEMS // max(n, 1))
-    for a in range(0, n, block):
-        d2 = _sq_euclidean(x[a : a + block], x, form)
+    for a in range(0, q.shape[0], block):
+        d2 = _sq_euclidean(q[a : a + block], x, form)
         out[a : a + block, :kk] = torch.topk(d2, kk, dim=1, largest=False, sorted=True).values
     return out
 

@@ -13,10 +13,11 @@ which id wins an exact tie at the k-th slot. Empty slots are (+inf, -1);
 columns at or past ``n`` are masked.
 
 The kernel is ``csrc/knn_window.cu`` (one block per row tile, one thread
-per row; see its header). :func:`knn_window` launches it for CUDA tensors
-and runs :func:`knn_window_plain` for CPU tensors; nothing else picks the
-route. The distance form is the caller's: the fused contract's dot form,
-or the form the reference's XLA tile (row_tile x col_tile) takes.
+per row; past k or d = 128 its wide mode; see its header).
+:func:`knn_window` launches it for CUDA tensors and runs
+:func:`knn_window_plain` for CPU tensors; nothing else picks the route.
+The distance form is the caller's: the fused contract's dot form, or the
+form the reference's XLA tile (row_tile x col_tile) takes.
 """
 
 from __future__ import annotations
@@ -27,9 +28,6 @@ from hdbscan_tpu_torch.core.distances import pairwise_distance
 from hdbscan_tpu_torch.ops import cuda_build
 from hdbscan_tpu_torch.ops.lexmerge import topk_lex
 
-#: Largest k and feature count the kernel is built for.
-MAX_K = 128
-MAX_D = 128
 #: Largest row tile: one thread per row, one block per row tile.
 MAX_ROW_TILE = 512
 
@@ -95,10 +93,8 @@ def knn_window(x, n: int, ids, wstart, bnd, k: int, col_tile: int, n_win_tiles: 
         raise ValueError("knn_window: ids (T, row_tile) and wstart (T,) must be int32")
     if bnd.shape != (tiles, rt) or bnd.dtype != torch.float32:
         raise ValueError("knn_window: bnd must be (T, row_tile) float32")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_window supports 1 <= k <= {MAX_K}, got {k}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"knn_window supports 1 <= d <= {MAX_D}, got {d}")
+    if k < 1 or d < 1:
+        raise ValueError(f"knn_window: needs k >= 1 and d >= 1, got k={k}, d={d}")
     if not 0 < n <= x.shape[0]:
         raise ValueError(f"knn_window: n={n} must be in [1, {x.shape[0]}]")
     if x.device.type == "cpu":
@@ -113,6 +109,6 @@ def knn_window(x, n: int, ids, wstart, bnd, k: int, col_tile: int, n_win_tiles: 
     cuda_build.launch(
         "knn_window", dev, x.data_ptr(), n, d, ids.data_ptr(), wstart.data_ptr(),
         bnd.data_ptr(), tiles, rt, k, code, col_tile, n_win_tiles,
-        out_d.data_ptr(), out_i.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), wide=max(k, d) > cuda_build.WIDE,
     )
     return out_d, out_i

@@ -5,14 +5,15 @@ The port of the TPU kernels ``hdbscan_tpu/ops/pallas_segmin.py``
 ``min_outgoing_pallas`` and ``min_outgoing_panel`` (one ``_segmin_kernel``,
 launched on a square and on a rectangle): per row i, the minimum over valid
 columns j in another component of ``max(d(i, j), core_i, core_j)``, the
-lowest such j on ties, ``(+inf, -1)`` where none exists. The kernel is
-``csrc/segmin.cu`` (one thread per row, columns in ascending tiles through
-shared memory, strict ``<`` update; see its header for the design and what
-bounds it). The square launch passes the same arrays as rows and columns;
-the panel launch takes a resident row set and a visiting column panel, each
-with its own core, label and validity vectors, and returns panel-local
-column ids. The plain PyTorch versions are
-``ops/tiled._min_outgoing_scan`` and ``ops/tiled._min_outgoing_panel_scan``,
+lowest such j on ties, ``(+inf, -1)`` where none exists, for any d. The
+kernel is ``csrc/segmin.cu`` (column spans over a second grid axis combined
+in a second pass, several rows a thread against columns through shared
+memory, roots only for winners, a chunked feature loop past d = 128; see
+its header for the design and what bounds it). The square launch passes
+the same arrays as rows and columns; the panel launch takes a resident row
+set and a visiting column panel, each with its own core, label and
+validity vectors, and returns panel-local column ids. The plain PyTorch
+versions are ``ops/tiled._min_outgoing_scan`` and ``ops/tiled._min_outgoing_panel_scan``,
 re-exported here.
 
 :func:`min_outgoing_all_rows` is what every single-device Borůvka round
@@ -22,6 +23,8 @@ for CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -36,9 +39,6 @@ from hdbscan_tpu_torch.ops.tiled import (
 #: The plain versions of the kernel, square and rectangular.
 min_outgoing_plain = _min_outgoing_scan
 min_outgoing_panel_plain = _min_outgoing_panel_scan
-
-#: Largest feature count the kernel is built for.
-MAX_D = 128
 
 #: The reference kernel's feature padding: operands are zero-padded to a
 #: multiple of the TPU's 128 lanes before the distance tile is formed.
@@ -55,8 +55,29 @@ def _check(name, x, core, comp, valid) -> None:
         raise ValueError(f"{name}: points and core must be float32")
     if comp.dtype != torch.int32 or valid.dtype != torch.bool:
         raise ValueError(f"{name}: comp must be int32 and valid bool")
-    if not 1 <= x.shape[1] <= MAX_D:
-        raise ValueError(f"{name} supports 1 <= d <= {MAX_D}, got {x.shape[1]}")
+    if x.shape[1] < 1:
+        raise ValueError(f"{name}: points need d >= 1")
+
+
+def _launch(name, dev, rows, cols, code):
+    """One launch of the kernel: ``rows`` and ``cols`` are (points, core,
+    comp, valid as uint8) on ``dev``, ``cols`` None for the square launch.
+    The partials of the kernel's column spans go to scratch allocated here
+    when it splits the columns."""
+    r, d = rows[0].shape
+    c = r if cols is None else cols[0].shape[0]
+    splits = cuda_build.function("segmin.cu", "segmin_splits", [ctypes.c_int] * 3)(r, c, d)
+    best_w = torch.empty(r, dtype=torch.float32, device=dev)
+    best_j = torch.empty(r, dtype=torch.int32, device=dev)
+    scratch = [torch.empty(splits * r if splits > 1 else 0, dtype=dt, device=dev)
+               for dt in (torch.float32, torch.int32)]
+    args = [t.data_ptr() for t in rows] + [r]
+    if cols is not None:
+        args += [t.data_ptr() for t in cols] + [c]
+    args += [d, code, splits, *(t.data_ptr() if splits > 1 else 0 for t in scratch),
+             best_w.data_ptr(), best_j.data_ptr()]
+    cuda_build.launch(name, dev, *args, wide=d > cuda_build.WIDE)
+    return best_w, best_j
 
 
 def segmin(data, core, comp, valid, metric: str = "euclidean",
@@ -69,17 +90,10 @@ def segmin(data, core, comp, valid, metric: str = "euclidean",
     """
     dev = cuda_build.launch_device("segmin", data, core, comp, valid)
     _check("segmin", data, core, comp, valid)
-    n, d = data.shape
     code = cuda_build.metric_code(metric, form)
     data, core, comp = data.contiguous(), core.contiguous(), comp.contiguous()
     valid_u8 = valid.to(torch.uint8).contiguous()
-    best_w = torch.empty(n, dtype=torch.float32, device=dev)
-    best_j = torch.empty(n, dtype=torch.int32, device=dev)
-    cuda_build.launch(
-        "segmin", dev, data.data_ptr(), core.data_ptr(), comp.data_ptr(),
-        valid_u8.data_ptr(), n, d, code, best_w.data_ptr(), best_j.data_ptr(),
-    )
-    return best_w, best_j
+    return _launch("segmin", dev, (data, core, comp, valid_u8), None, code)
 
 
 def min_outgoing_all_rows(data, core, comp, valid, metric: str,
@@ -126,18 +140,10 @@ def min_outgoing_panel(rows, core_r, comp_r, valid_r, panel, core_c, comp_c,
         return min_outgoing_panel_plain(*args, metric, form)
     dev = cuda_build.launch_device("segmin_panel", *args)
     code = cuda_build.metric_code(metric, form)
-    r, d = rows.shape
-    c = panel.shape[0]
     rows, core_r, comp_r, panel, core_c, comp_c = (
         t.contiguous() for t in (rows, core_r, comp_r, panel, core_c, comp_c)
     )
     vr = valid_r.to(torch.uint8).contiguous()
     vc = valid_c.to(torch.uint8).contiguous()
-    best_w = torch.empty(r, dtype=torch.float32, device=dev)
-    best_j = torch.empty(r, dtype=torch.int32, device=dev)
-    cuda_build.launch(
-        "segmin_panel", dev, rows.data_ptr(), core_r.data_ptr(), comp_r.data_ptr(),
-        vr.data_ptr(), r, panel.data_ptr(), core_c.data_ptr(), comp_c.data_ptr(),
-        vc.data_ptr(), c, d, code, best_w.data_ptr(), best_j.data_ptr(),
-    )
-    return best_w, best_j
+    return _launch("segmin_panel", dev, (rows, core_r, comp_r, vr),
+                   (panel, core_c, comp_c, vc), code)

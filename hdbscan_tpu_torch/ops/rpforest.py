@@ -435,12 +435,14 @@ def rpforest_core_distances(
     candidates including self. ``forest`` reuses a built forest (e.g. the
     reference's, through :func:`forest_from_numpy`).
 
-    Routes: on the card the kernels run at every ``knn_backend`` (and the
-    call raises where they cannot: cosine or pearson, k or d > 128, not
-    float32). Off the card ``knn_backend="fused"`` takes the fused route's
-    plain versions where ``cuda_forest.fused_forest_eligible``, else the
-    unfused route; both agree bitwise at f32. ``knn_precision="bf16"``
-    (euclidean, ``knn_backend="fused"``) runs the query and the rescans at
+    Routes: on the card the kernels run at every ``knn_backend``, past
+    k or d = 128 in their wide mode (and the call raises where they cannot:
+    cosine or pearson, not float32). Off the card ``knn_backend="fused"``
+    takes the fused route's plain versions where
+    ``cuda_forest.fused_forest_eligible``, else the unfused route; both
+    agree bitwise at f32. ``knn_precision="bf16"`` (euclidean,
+    ``knn_backend="fused"``, inside the fused gate; f32 past it, as the
+    reference's unfused route) runs the query and the rescans at
     an over-provisioned width ``min(2k, 128, n)`` with bf16 distance tiles,
     then one exact float32 refine keeps the best k. One
     ``knn_fused_forest`` event records a fused run (``interpret`` is True
@@ -456,18 +458,21 @@ def rpforest_core_distances(
     if knn_precision == "bf16" and metric != "euclidean":
         raise ValueError("knn_precision='bf16' supports euclidean only (bf16 distance tiles)")
     on_card = device.type == "cuda"
+    eligible = cf.fused_forest_eligible(n, d, k_eff, metric, dtype)
     if on_card:
         cf.check_card_shape(d, k_eff, metric, dtype)
         use_fused = True
     else:
-        use_fused = knn_backend == "fused" and cf.fused_forest_eligible(n, d, k_eff, metric, dtype)
-    precision = knn_precision if use_fused and knn_backend == "fused" else "f32"
+        use_fused = knn_backend == "fused" and eligible
+    # bf16 tiles only inside the fused gate; past it the f32 kernels compute
+    # the reference's unfused route (the two routes agree bitwise at f32).
+    precision = knn_precision if knn_backend == "fused" and eligible else "f32"
     backend = "fused" if use_fused else "xla"
     if forest is None:
         forest = build_forest(data, trees=trees, leaf_size=leaf_size, seed=seed, dtype=dtype,
                               trace=trace, device=device)
     data_dev = torch.as_tensor(data.astype(dtype), device=device)
-    k_run = min(2 * k_eff, cf.MAX_K, n) if precision == "bf16" else k_eff
+    k_run = min(2 * k_eff, cf.LANES, n) if precision == "bf16" else k_eff
     t_fused = time.monotonic()
     best_d, best_i = forest_knn(data_dev, forest, k_run, metric, trace=trace,
                                 recall_sample=recall_sample, backend=backend,

@@ -86,7 +86,9 @@ def knn_core_distances(
 
     ``backend``: "xla" runs the k-best kernel in the distance form the
     reference's XLA scan takes at these tiles; "fused" runs it in the fused
-    TPU kernel's dot form; "pallas" runs the no-ids k-smallest kernel B3 in
+    TPU kernel's dot form within that kernel's gate (euclidean, k and d <=
+    128) and in the XLA scan's form past it, as the reference falls back;
+    "pallas" runs the no-ids k-smallest kernel B3 in
     its dot form (``ops/cuda_knn_smallest.knn_core_distances_pallas``, on
     the CPU its plain version), which needs euclidean, d <= 128, k <= 128
     and no ids. "auto" takes B3 where the reference's ``auto`` takes it on
@@ -133,9 +135,11 @@ def knn_core_distances(
         return knn_core_distances_pallas(
             data, min_pts, k=k, form="dot", fetch_knn=fetch_knn, device=device
         )
-    # Like the reference, "fused" with a metric the fused kernel does not
-    # take runs the XLA scan's contract.
-    if backend == "fused" and metric == "euclidean":
+    # Like the reference, "fused" runs the fused kernel's dot form only
+    # within its gate (euclidean, k and d within the 128 lanes) and the XLA
+    # scan's contract elsewhere; the k-best kernel takes both, past 128 in
+    # its wide mode.
+    if backend == "fused" and metric == "euclidean" and k <= LANES and d <= LANES:
         form = "dot"
     else:
         form = scan_form(n, d, metric, row_tile, col_tile)

@@ -112,7 +112,8 @@ def ring_knn_core_distances(
     (only the k-th column leaves the shards).
 
     The euclidean form is the one the reference's ring tiles take
-    (:func:`_ring_geometry`), or the dot form for ``knn_backend="fused"``.
+    (:func:`_ring_geometry`), or the dot form for ``knn_backend="fused"``
+    within the fused kernel's gate (k and d <= 128).
     Emits one ``ring_knn_scan`` event with per-shard walls.
     """
     from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest_panel
@@ -134,7 +135,7 @@ def ring_knn_core_distances(
     row_tile, col_tile, shard, n_pad = _ring_geometry(n, n_dev, row_tile, col_tile)
     if metric != "euclidean":
         form = None
-    elif knn_backend == "fused":
+    elif knn_backend == "fused" and k <= 128 and d <= 128:  # the fused kernel's lanes
         form = "dot"
     else:
         form = euclidean_form(row_tile, col_tile, d)

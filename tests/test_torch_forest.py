@@ -291,11 +291,35 @@ def test_eligibility_and_card_limits():
         cf.check_card_shape(8, 16, "cosine", np.float32)
     with pytest.raises(NotImplementedError, match="pearson"):
         cf.check_card_shape(8, 16, "pearson", np.float32)
-    for args, limit in (((8, 129), "k <= 128"), ((129, 8), "d <= 128")):
-        with pytest.raises(ValueError, match=limit):
-            cf.check_card_shape(*args, "euclidean", np.float32)
+    # Past the fused gate the kernels run their wide mode: the card takes
+    # every k and d, but bf16 tiles stay within the gate.
+    for d, k in ((8, 129), (129, 8), (200, 200)):
+        cf.check_card_shape(d, k, "euclidean", np.float32)
+        with pytest.raises(ValueError, match="bf16 tiles need k and d <= 128"):
+            cf._check_bf16_width("forest_leaf_topk", k, d)
+    with pytest.raises(ValueError, match="k >= 1"):
+        cf.check_card_shape(8, 0, "euclidean", np.float32)
     with pytest.raises(ValueError, match="float32"):
         cf.check_card_shape(8, 16, "euclidean", np.float64)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "manhattan"])
+@pytest.mark.parametrize("d,kk", [(3, 129), (129, 15), (200, 200)])
+def test_leaf_topk_wide_matches_xla_chain(d, kk, metric):
+    """Past 128 (the wide kernels' shapes) B5's plain version against the
+    XLA chain the reference's unfused route runs, on an integer grid."""
+    data = np.random.default_rng(d + kk).integers(0, 4, size=(2 * kk + 60, d)).astype(np.float32)
+    forest = rpf.build_forest(data, trees=1, leaf_size=2 * kk + 2, seed=0)
+    n, lmax = forest.n, forest.max_leaf
+    kk = min(kk, lmax)
+    ref = rpf._leaf_scan(jnp.asarray(data), jnp.asarray(forest.members[0]),
+                         jnp.asarray(forest.leaf_mask), kk, metric, n)
+    got = cf.forest_leaf_topk(
+        torch.as_tensor(data), torch.as_tensor(forest.members[0]),
+        torch.as_tensor(forest.leaf_mask), kk, metric,
+        euclidean_form(lmax, lmax, d) if metric == "euclidean" else None, "f32", n,
+    )
+    _assert_lists(*got, *ref, integer=True)
 
 
 def test_ineligible_fused_runs_the_unfused_route():

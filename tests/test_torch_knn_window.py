@@ -114,15 +114,35 @@ def test_guard_is_per_row_tile():
     assert ii.tolist() == [[[-1, -1], [-1, -1]]] and torch.isinf(dd).all()
 
 
-def test_rejects_k_and_d_past_128():
-    x = torch.zeros((8, 3))
-    ids = torch.zeros((1, 4), dtype=torch.int32)
-    w = torch.zeros(1, dtype=torch.int32)
-    b = torch.zeros((1, 4))
-    with pytest.raises(ValueError, match="k <= 128"):
-        knn_window(x, 8, ids, w, b, 129, 128, 1)
-    with pytest.raises(ValueError, match="d <= 128"):
-        knn_window(torch.zeros((8, 129)), 8, ids, w, b, 3, 128, 1)
+@pytest.mark.parametrize("d,k", [(3, 129), (129, 7), (200, 200)])
+def test_rejects_k_and_d_past_128(d, k):
+    """Past 128 the window scan no longer refuses (the kernel's wide mode):
+    with infinite bounds every tile merges, so each slot holds the exact
+    (distance, id) k-best of its window's unmasked columns, which a numpy
+    lexsort gives on an integer grid. k < 1 and d < 1 are still refused."""
+    rng = np.random.default_rng(d + k)
+    n_all, n, col_tile, n_win = 768, 700, 256, 2
+    x = rng.integers(0, 4, size=(n_all, d)).astype(np.float32)
+    ids = rng.integers(0, n, size=(3, 16)).astype(np.int32)
+    wstart = np.array([0, 1, 1], np.int32)
+    bnd = np.full((3, 16), np.inf, np.float32)
+    dd, ii = knn_window(torch.as_tensor(x), n, torch.as_tensor(ids), torch.as_tensor(wstart),
+                        torch.as_tensor(bnd), k, col_tile, n_win, "euclidean", "diff")
+    for t in range(3):
+        cols = np.arange(wstart[t] * col_tile, min((wstart[t] + n_win) * col_tile, n))
+        for s in range(16):
+            dist = np.sqrt(((x[cols] - x[ids[t, s]]) ** 2).sum(-1, dtype=np.float64))
+            order = np.lexsort((cols, dist))[:k]
+            want_d = np.full(k, np.inf, np.float32)
+            want_i = np.full(k, -1, np.int32)
+            want_d[: len(order)] = dist[order].astype(np.float32)
+            want_i[: len(order)] = cols[order]
+            np.testing.assert_array_equal(dd[t, s].numpy(), want_d)
+            np.testing.assert_array_equal(ii[t, s].numpy(), want_i)
+    z = torch.zeros((1, 4))
+    with pytest.raises(ValueError, match="k >= 1"):
+        knn_window(torch.zeros((8, 3)), 8, torch.zeros((1, 4), dtype=torch.int32),
+                   torch.zeros(1, dtype=torch.int32), z, 0, 128, 1)
 
 
 def test_cuda_only_route_for_non_cpu_tensors():

@@ -122,3 +122,42 @@ def test_min_outgoing_all_rows_picks_the_reference_form():
     rw, rj = _ref(x, core, comp, valid, row_tile, col_tile)
     np.testing.assert_array_equal(bw.numpy(), rw[:n])
     np.testing.assert_array_equal(bj.numpy(), rj[:n])
+
+
+@pytest.mark.parametrize("form,row_tile,col_tile", [("diff", 64, 128), ("dot", 512, 512)])
+@pytest.mark.parametrize("case", ["all_equal", "zero_cores_duplicates"])
+def test_ties_and_zero_weights_pin_the_contract(case, form, row_tile, col_tile):
+    """The contract the kernel's split combine must keep: among equal
+    weights the lowest column wins, and a zero weight keeps its bits (the
+    sign included, compared as int32 patterns). All-equal weights: every
+    point identical, equal cores. Zero cores with duplicate rows: every
+    duplicate in another component is a zero-weight edge."""
+    rng = np.random.default_rng(11)
+    n = 500
+    if case == "all_equal":
+        x = np.zeros((n, 3), np.float32)
+        core = np.full(n, 2.0, np.float32)
+    else:
+        x = np.repeat(rng.integers(0, 6, size=(n // 5, 3)), 5, axis=0).astype(np.float32)
+        core = np.zeros(n, np.float32)
+    comp = rng.integers(0, 9, size=n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    n_pad = 512
+    xp, cp, kp = (np.zeros((n_pad, 3), np.float32), np.zeros(n_pad, np.float32),
+                  np.zeros(n_pad, np.int32))
+    xp[:n], cp[:n], kp[:n] = x, core, comp
+    vp = np.arange(n_pad) < n
+    vp[:n] &= valid
+    bw, bj = _port(xp, cp, kp, vp, form)
+    rw, rj = _ref(xp, cp, kp, vp, row_tile, col_tile)
+    np.testing.assert_array_equal(bw.view(np.int32), np.asarray(rw, np.float32).view(np.int32))
+    np.testing.assert_array_equal(bj, rj)
+    ok = vp & (bj >= 0)
+    # The lowest valid column in another component wins every tie.
+    for i in np.flatnonzero(ok)[:50]:
+        others = np.flatnonzero(vp & (kp != kp[i]))
+        w = np.maximum(np.sqrt(((xp[others] - xp[i]) ** 2).sum(-1)),
+                       np.maximum(cp[i], cp[others]))
+        assert bj[i] == others[np.argmin(w)]
+    if case == "zero_cores_duplicates":
+        assert np.any(bw[ok] == 0.0) and not np.any(np.signbit(bw[ok]))
