@@ -21,6 +21,11 @@ Phases (any failure exits non-zero):
    segment-min compared bit for bit (weights as int32 patterns): equal
    weights on both sides of a column-split boundary, all-zero cores on a
    grid with duplicates, d from 1 to 200 in every metric, square and panel;
+   the k-best body (K2, the rectangular B2, B3) bit for bit: equal
+   distances on both sides of a column-split boundary, points duplicated
+   more than k times, a split with fewer than k admissible columns, nx < k,
+   nq below one block, every d instantiation boundary (1 to 128) at k = 1,
+   7, 8, 9, 15, 16, 17, 32, 33 and 128 on every metric and form;
    every wide mode (K2, B2, B4 in both contracts, B5-B8) at d = 129 and 200
    and k = 129 and 200 on grids with duplicate ties and continuous points,
    and B3's refusal past 128;
@@ -92,10 +97,12 @@ Phases (any failure exits non-zero):
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
-   TFLOP/s; the segment-min rows add ``bound_separate_ms``, the operations
-   at half that rate, since -fmad=false issues multiplies and adds
-   separately): the exact tier's kernels at the exact fit's shapes, B1 also
-   at one round of the 3f fit (``segmin_3f``), the forest kernels at the 3b
+   TFLOP/s; the segment-min and k-best rows add ``bound_separate_ms``, the
+   operations at half that rate, since -fmad=false issues multiplies and
+   adds separately, and the k-best rows their grid): the exact tier's
+   kernels at the exact fit's shapes, B1 also at one round of the 3f fit
+   (``segmin_3f``), K2 also at the 3c exact twin's launch (``knn_kbest_3c``,
+   its plain version on 16,384 rows, scaled), the forest kernels at the 3b
    fit's (one leaf batch, the merge, one rescan chunk, B8 on that chunk's
    panel with round-1 components), B4 at the largest main-phase rescan
    chunk of the 3d fit, B3 at the 3f fit's launch (its plain version on
@@ -199,11 +206,13 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def pair_ops(d: int, form: str) -> int:
+def pair_ops(d: int, form: str, root: bool = True) -> int:
     """Float operations of one pair distance: diff form d sub + d mul +
     (d - 1) add + sqrt; dot form d mul + (d - 1) add + 3 (norm sums,
-    doubling, subtract) + max + sqrt."""
-    return 3 * d if form == "diff" else 2 * d + 4
+    doubling, subtract) + max + sqrt. ``root=False`` leaves the sqrt out,
+    for a k-best: it needs a root only for the about k (1 + ln(n / k))
+    candidates a row admits, as csrc/knn_kbest.cu takes them."""
+    return (3 * d if form == "diff" else 2 * d + 4) - (0 if root else 1)
 
 
 def parity() -> list[str]:
@@ -797,6 +806,130 @@ def parity_segmin() -> list[str]:
     return errors
 
 
+def parity_kbest() -> list[str]:
+    """The k-best body (K2, the rectangular B2, B3) against its plain
+    versions, bit for bit (distances as int32 patterns, ids): equal
+    distances on both sides of a column-split boundary (the lower ids must
+    win) among points duplicated more than k times; a split with fewer than
+    k columns it can admit (the others infinitely far; a span is never
+    shorter than 1,024 columns); nx < k; nq below one block; every d
+    instantiation boundary at every k bucket boundary, on every metric and
+    form, B3's codes 4/5 and the rectangular entry with ``id_offset`` and
+    ``n_cols`` padding. One line per group; each mismatch on its own."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_knn
+    from hdbscan_tpu_torch.ops import cuda_knn_smallest as ks
+
+    errors = []
+    counts = {}
+
+    def check(group, tag, a, b):
+        torch.cuda.synchronize()
+        ok = _bits_same(a, b)
+        counts[group] = counts.get(group, 0) + 1
+        if not ok:
+            print(f"parity kbest {tag}: MISMATCH")
+            errors.append(tag)
+
+    def k2(group, tag, x, k, metric, form):
+        check(group, f"K2 {tag} {metric} {form} k={k}", cuda_knn.knn_kbest(x, k, metric, form),
+              cuda_knn.knn_kbest_plain(x, k, metric, form))
+
+    def b3(group, tag, x, k, form):
+        check(group, f"B3 {tag} {form} k={k}", (ks.knn_smallest(x, k, form),),
+              (ks.knn_smallest_plain(x, k, form),))
+
+    def b2(group, tag, q, panel, k, metric, form, off, pad):
+        kw = dict(metric=metric, form=form, id_offset=off)
+        check(group, f"B2 {tag} {metric} {form} k={k}",
+              cuda_knn.knn_kbest_panel(q, panel, k, n_cols=off + len(panel) - pad, **kw),
+              cuda_knn.knn_kbest_panel_plain(q, panel[: len(panel) - pad], k, **kw))
+
+    forms = (("euclidean", "diff"), ("euclidean", "dot"), ("manhattan", None),
+             ("supremum", None))
+    splits_of = cuda_build.function("knn_kbest.cu", "knn_kbest_splits", [ctypes.c_int] * 5)
+    rng = np.random.default_rng(SEED + 8)
+
+    # Ties across a split boundary: eight points at the origin around the
+    # first boundary, every other point duplicated at (0, 0, 3).
+    n, k = 6000, 6
+    span = -(-n // splits_of(n, n, 3, k, 1))
+    x = torch.zeros((n, 3), device="cuda")
+    x[:, 2] = 3.0
+    x[span - 4: span + 4] = 0.0
+    for metric, form in forms:
+        k2("split-boundary ties", f"ties at {span}", x, k, metric, form)
+        ids = cuda_knn.knn_kbest(x, k, metric, form)[1][span - 4]
+        if ids.tolist() != list(range(span - 4, span + 2)):
+            errors.append(f"K2 split-boundary tie {metric} {form}: ids {ids.tolist()}")
+    for form in ("diff", "dot"):
+        b3("split-boundary ties", f"ties at {span}", x, k, form)
+    q = torch.zeros((300, 3), device="cuda")
+    span = -(-n // splits_of(300, n, 3, k, 1))
+    panel = torch.full((n, 3), 3.0, device="cuda")
+    panel[span - 4: span + 4] = 0.0
+    for metric, form in forms:
+        b2("split-boundary ties", f"ties at {span} of a panel", q, panel, k, metric, form,
+           50_000, 0)
+        ids = cuda_knn.knn_kbest_panel(q, panel, k, metric, form, id_offset=50_000)[1][0]
+        if ids.tolist() != list(range(50_000 + span - 4, 50_000 + span + 2)):
+            errors.append(f"B2 split-boundary tie {metric} {form}: ids {ids.tolist()}")
+
+    # A split with fewer than k columns it can admit: split 1's columns lie
+    # infinitely far (3e38 overflows the diff form and manhattan), but 3.
+    n = 4096
+    span = -(-n // splits_of(n, n, 3, 15, 1))
+    x = rng.integers(0, 8, size=(n, 3)).astype(np.float32)
+    x[span: 2 * span] = 3e38
+    x[span + 100: span + 103] = 2.0
+    xg = torch.as_tensor(x, device="cuda")
+    for metric, form in (("euclidean", "diff"), ("manhattan", None)):
+        k2("short split", "3 admissible columns in split 1", xg, 15, metric, form)
+    b3("short split", "3 admissible columns in split 1", xg, 15, "diff")
+
+    # nx < k, and nq below one block.
+    tiny = torch.as_tensor(rng.integers(0, 4, size=(5, 3)).astype(np.float32), device="cuda")
+    small = torch.as_tensor(rng.integers(0, 4, size=(50, 3)).astype(np.float32), device="cuda")
+    for k in (15, 128):
+        for metric, form in forms:
+            k2("nx < k, small nq", "5 points", tiny, k, metric, form)
+            k2("nx < k, small nq", "50 points", small, k, metric, form)
+            b2("nx < k, small nq", "5 rows x 5 columns", tiny, tiny, k, metric, form, 9, 0)
+        for form in ("diff", "dot"):
+            b3("nx < k, small nq", "5 points", tiny, k, form)
+
+    # Every d boundary at every k bucket boundary: 2,500 points (two splits)
+    # on an integer grid with duplicate ties; the rectangular entry at 100
+    # query rows (below one block) against the other 2,400, 37 padding.
+    for d in (1, 3, 4, 5, 8, 9, 24, 28, 32, 33, 64, 90, 128):
+        x = torch.as_tensor(rng.integers(0, 3, size=(2500, d)).astype(np.float32),
+                            device="cuda")
+        group = f"d={d}"
+        for k in (1, 7, 8, 9, 15, 16, 17, 32, 33, 128):
+            for metric, form in forms:
+                k2(group, f"grid 2500x{d}", x, k, metric, form)
+            for form in ("diff", "dot"):
+                b3(group, f"grid 2500x{d}", x, k, form)
+            if k in (7, 16, 33):
+                for metric, form in (("euclidean", "diff"), ("manhattan", None)):
+                    b2(group, f"grid 100x2400x{d}", x[:100], x[100:], k, metric, form,
+                       12_345, 37)
+    for d in (3, 8, 28):
+        x = torch.as_tensor(rng.normal(size=(3000, d)).astype(np.float32), device="cuda")
+        for metric, form in forms:
+            k2("continuous", f"continuous 3000x{d}", x, 15, metric, form)
+        b3("continuous", f"continuous 3000x{d}", x, 7, "dot")
+    for group, c in counts.items():
+        print(f"parity kbest {group}: {c} checks")
+    print(f"parity kbest: {sum(counts.values())} checks, "
+          f"{'all bitwise' if not errors else f'{len(errors)} MISMATCHES'}")
+    return errors
+
+
 def parity_wide() -> list[str]:
     """Every wide mode (k or d past 128) against its plain version on the
     card, bit for bit: the k-best kernel square and rectangular (K2, B2),
@@ -1159,12 +1292,14 @@ def highd_times(hdata, launches) -> list[dict]:
     # PLAIN_ROWS query rows against all columns (the same per-row work),
     # scaled to all rows, and its values are held against those rows.
     plain_ms, b = timed_plain(lambda: ks.knn_smallest_plain(x, k, "dot", q=x[:PLAIN_ROWS]))
-    b_ms, by = bound_ms(n * d * 4 + n * k * 4, float(n) * n * (pair_ops(d, "dot") - 1))
+    ops = float(n) * n * pair_ops(d, "dot", root=False)
+    b_ms, by = bound_ms(n * d * 4 + n * k * 4, ops)
     return [dict(
         name="knn_smallest", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
         replaces="hdbscan_tpu/ops/pallas_knn.py:198", launches=launches["knn_smallest"],
         max_abs_err=max_err(a[:PLAIN_ROWS], b), ms=ms, plain_ms=plain_ms * n / PLAIN_ROWS,
         plain_ms_scaled_from_rows=PLAIN_ROWS, bound_ms=b_ms, bound_by=by, library_ms=None,
+        bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
     )]
 
 
@@ -1211,13 +1346,60 @@ def panel_times(data, sres, launches, mesh, k=MIN_PTS - 1, suffix="") -> list[di
         lambda: cuda_segmin.min_outgoing_panel_plain(*args, "euclidean", form),
         2 * shard * (d * 4 + 4 + 4 + 1) + shard * 8, ops,
         bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3)
+    ops = pairs * pair_ops(d, form, root=False)
     row("knn_kbest_panel", ("knn_kbest.cu", "hdbscan_tpu/ops/pallas_knn.py:453"),
         lambda: cuda_knn.knn_kbest_panel(x[r], x[c], k, "euclidean", form, id_offset=shard),
         lambda: cuda_knn.knn_kbest_panel_plain(x[r], x[c], k, "euclidean", form, shard),
-        2 * shard * d * 4 + shard * k * 8, pairs * pair_ops(d, form))
+        2 * shard * d * 4 + shard * k * 8, ops,
+        bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
+        blocks=kbest_blocks(shard, shard, d, k))
     print(f"panel kernel{suffix} shapes: {shard} resident rows x {shard}-column panel, d {d}, "
           f"k {k}, form {form}, mesh {[str(dev) for dev in mesh.devices]}")
     return rows
+
+
+def kbest_blocks(nq: int, nx: int, d: int, k: int) -> str:
+    """A k-best launch's grid: row blocks x column splits, and blocks per SM
+    on the card's 132 SMs."""
+    import ctypes
+
+    from hdbscan_tpu_torch.ops import cuda_build
+
+    args = [ctypes.c_int] * 5
+    blocks = cuda_build.function("knn_kbest.cu", "knn_kbest_row_blocks", args)(nq, nx, d, k, 1)
+    splits = cuda_build.function("knn_kbest.cu", "knn_kbest_splits", args)(nq, nx, d, k, 1)
+    return (f"{blocks} row blocks x {splits} splits = {blocks * splits} "
+            f"({blocks * splits / 132:.2f} an SM)")
+
+
+def kbest_3c_row(blob, launches) -> dict:
+    """K2 at the 1M x 8 exact twin's launch (3c): all rows, k = 15, the
+    form the exact tier takes there, beside its plain version on the first
+    PLAIN_ROWS rows (scaled) and its bounds."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_knn, tiled
+
+    n, d = blob.shape
+    k = MIN_PTS - 1
+    form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
+    x = torch.as_tensor(blob.astype(np.float32), device="cuda")
+    ms = cuda_ms(lambda: cuda_knn.knn_kbest(x, k, "euclidean", form), 2)
+    a = cuda_knn.knn_kbest(x, k, "euclidean", form)
+    plain_ms, b = timed_plain(lambda: cuda_knn.knn_kbest_panel_plain(
+        x[:PLAIN_ROWS], x, k, "euclidean", form))
+    err = max_err(a[0][:PLAIN_ROWS], b[0], a[1][:PLAIN_ROWS], b[1])
+    ops = float(n) * n * pair_ops(d, form, root=False)
+    b_ms, by = bound_ms(n * d * 4 + n * k * 8, ops)
+    return dict(
+        name="knn_kbest_3c", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
+        replaces="hdbscan_tpu/ops/pallas_knn.py:453", launches=launches["knn_kbest"],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms * n / PLAIN_ROWS,
+        plain_ms_scaled_from_rows=PLAIN_ROWS, bound_ms=b_ms, bound_by=by, library_ms=None,
+        bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
+        blocks=kbest_blocks(n, n, d, k), shape=f"{n} x {d}, k {k}, {form} form",
+    )
 
 
 def tile_shares(data, core_np, form) -> tuple[float, float, int]:
@@ -1380,7 +1562,7 @@ def wide_phase(launches_out: dict) -> tuple[list[str], list[dict]]:
     ms = cuda_ms(lambda: cuda_knn.knn_kbest(x, k, "euclidean", form), 3)
     a = cuda_knn.knn_kbest(x, k, "euclidean", form)
     plain_ms, b = timed_plain(lambda: cuda_knn.knn_kbest_plain(x, k, "euclidean", form))
-    b_ms, by = bound_ms(n * d * 4 + n * k * 8, float(n) * n * pair_ops(d, form))
+    b_ms, by = bound_ms(n * d * 4 + n * k * 8, float(n) * n * pair_ops(d, form, root=False))
     rows.append(dict(
         name="knn_kbest_wide", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
         replaces="hdbscan_tpu/ops/pallas_knn.py:453", launches=launches["knn_kbest_wide"],
@@ -1446,7 +1628,7 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
 
     errors = (parity() + parity_forest() + parity_window() + parity_highd() + parity_panels()
-              + parity_segmin() + parity_wide())
+              + parity_segmin() + parity_kbest() + parity_wide())
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 
@@ -1507,7 +1689,7 @@ def main() -> int:
     if resolve_index_for(bparams, N_BLOBS)[0] != "rpforest":
         return fail("knn_index=auto does not resolve to the forest at 1,048,576 points")
     bres, blaunches, bev, bwall = run_fit(blob, bparams)
-    eres, _, eev, ewall = run_fit(blob, HDBSCANParams(
+    eres, elaunches, eev, ewall = run_fit(blob, HDBSCANParams(
         min_points=MIN_PTS, min_cluster_size=BLOBS_MIN_CL_SIZE, knn_index="exact"))
     print(f"3c blobs exact fit: total {ewall:.3f} s, core_distances "
           f"{eev['core_distances'][0]['wall_s']}, boruvka_rounds "
@@ -1636,13 +1818,16 @@ def main() -> int:
     kd, ki = cuda_knn.knn_kbest(x, k, "euclidean", form)
     pd, pi = cuda_knn.knn_kbest_plain(x, k, "euclidean", form)
     knn_err = float((kd - pd).abs().max()) if torch.equal(ki, pi) else float("inf")
-    b, by = bound_ms(n * d * 4 + n * k * 8, float(n) * n * pair_ops(d, form))
+    ops = float(n) * n * pair_ops(d, form, root=False)
+    b, by = bound_ms(n * d * 4 + n * k * 8, ops)
     rows.append(dict(
         name="knn_kbest", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
         replaces="hdbscan_tpu/ops/pallas_knn.py:453", launches=launches["knn_kbest"],
         max_abs_err=knn_err, ms=knn_ms, plain_ms=knn_plain, bound_ms=b, bound_by=by,
-        library_ms=None,
+        library_ms=None, bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
+        blocks=kbest_blocks(n, n, d, k),
     ))
+    rows.append(kbest_3c_row(blob, elaunches))
 
     rows.append(segmin_row("segmin", x, core, comp, valid, form, launches))
     first, last, replay = tile_shares(data, res.core_distances, form)

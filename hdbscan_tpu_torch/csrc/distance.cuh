@@ -76,6 +76,63 @@ __device__ __forceinline__ float pair_distance(
   return acc;
 }
 
+// ---- Register micro-tiles: RB rows a thread against one column ----------
+//
+// The segment-min and k-best bodies hold RB rows of a thread in registers
+// and read each column's features once from shared memory for all RB
+// rows. The euclidean codes run on squared distances (codes 4/5); each
+// body takes a root only for a pair under its own bound on what can win
+// (see their headers).
+
+// One feature f of one column (value c) into the RB rows' values.
+template <int DMAX, int RB, int CODE>
+__device__ __forceinline__ void feature_step(const float (&xr)[RB][DMAX], int f, float c,
+                                             float (&v)[RB]) {
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    if (CODE == METRIC_EUCLID_DIFF_SQ) {
+      const float t = xr[r][f] - c;
+      v[r] = f == 0 ? t * t : v[r] + t * t;
+    } else if (CODE == METRIC_EUCLID_DOT_SQ) {
+      v[r] = f == 0 ? xr[r][f] * c : v[r] + xr[r][f] * c;
+    } else {
+      const float a = fabsf(xr[r][f] - c);
+      v[r] = f == 0 ? a : CODE == METRIC_MANHATTAN ? v[r] + a : fmaxf(v[r], a);
+    }
+  }
+}
+
+// Values of one column (features xc, float4-aligned; norm xc_sq) for the RB
+// rows of a thread: squared euclidean (codes 4/5) or manhattan/supremum.
+// Features go in float4 groups; only the last, partial group tests each
+// feature against d (a uniform branch per group, not per feature).
+template <int DMAX, int RB, int CODE>
+__device__ __forceinline__ void column_values(const float (&xr)[RB][DMAX],
+                                              const float (&xsq)[RB],
+                                              const float* xc, float xc_sq, int d,
+                                              float (&v)[RB]) {
+#pragma unroll
+  for (int f4 = 0; f4 < DMAX; f4 += 4) {
+    if (f4 < d) {
+      const float4 c4 = *reinterpret_cast<const float4*>(xc + f4);
+      const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+      if (f4 + 4 <= d) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) feature_step<DMAX, RB, CODE>(xr, f4 + u, c[u], v);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (f4 + u < d) feature_step<DMAX, RB, CODE>(xr, f4 + u, c[u], v);
+        }
+      }
+    }
+  }
+  if (CODE == METRIC_EUCLID_DOT_SQ) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) v[r] = fmaxf((xsq[r] + xc_sq) - 2.0f * v[r], 0.0f);
+  }
+}
+
 // The same distances with both points behind pointers, for any d (a
 // runtime loop in the same order): the wide mode of the gather kernels
 // (B7, B8), whose columns are each thread's own candidates.

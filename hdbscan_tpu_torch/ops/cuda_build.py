@@ -41,12 +41,16 @@ KERNELS = {
         "segmin.cu", "segmin_panel_launch",
         [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
-    "knn_kbest": ("knn_kbest.cu", "knn_kbest_launch", [_P, _I, _I, _I, _I, _P, _P, _P]),
+    "knn_kbest": (
+        "knn_kbest.cu", "knn_kbest_launch", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
     "knn_kbest_panel": (
         "knn_kbest.cu", "knn_kbest_panel_launch",
-        [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
-    "knn_smallest": ("knn_kbest.cu", "knn_smallest_launch", [_P, _I, _I, _I, _I, _P, _P]),
+    "knn_smallest": (
+        "knn_kbest.cu", "knn_smallest_launch", [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+    ),
     "uf_scan": ("uf_scan.cu", "uf_scan_launch", [_P, _P, _I, _I, _P, _P, _P, _P]),
     "forest_leaf_topk": (
         "forest_leaf_topk.cu", "forest_leaf_topk_launch",

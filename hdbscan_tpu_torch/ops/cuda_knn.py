@@ -4,11 +4,22 @@ rectangular, and its plain version.
 The port of the TPU kernel ``hdbscan_tpu/ops/pallas_knn.py``
 ``knn_fused_pallas`` and of the XLA scan ``ops/tiled._knn_core_scan``:
 every query row's k nearest columns as (distance, id), ascending in the
-(distance, id) lexicographic order of ``ops/lexmerge``. The kernel is
-``csrc/knn_kbest.cu`` (one thread per row, a sorted k-list in registers,
-columns in ascending tiles through shared memory; past k or d = 128 its
-wide mode, features in chunks and the list in the output row; see its
-header for the design and what bounds it). Every k >= 1 and d >= 1.
+(distance, id) lexicographic order of ``ops/lexmerge``. Every k >= 1 and
+d >= 1.
+
+The kernel is ``csrc/knn_kbest.cu``; its header has the design. It is bound
+by the pair distances on the FP32 pipes, and what holds it back is latency,
+so the design keeps warps resident. At d <= 32 a thread holds 2 rows (1
+past k = 16, where a block's lists would pass 32 KB) and takes two columns
+a step (above, 1 and 1), each column's features read once from shared
+memory. Its lists lie in shared memory, k slots a row; an insert finds its
+slot by bisection and moves the entries behind it in batches. A root is
+taken only for a pair under a row's admission bound. Where the row
+blocks alone are fewer than about four an SM, the columns are cut into
+spans over a second grid axis, and a second pass merges a row's span lists
+in order: :func:`_scratch` allocates their scratch here, and the merged
+list is the single scan's, bit for bit. Past k or d = 128 the kernel runs
+its wide mode: features in chunks, the list in the output row.
 
 :func:`knn_kbest` scans every row of a point set against all of them, self
 included; :func:`knn_kbest_panel` scans query rows against one column panel
@@ -20,6 +31,8 @@ tensor; nothing else picks the route.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -67,6 +80,19 @@ def _check(name: str, q: torch.Tensor, x: torch.Tensor, k: int) -> None:
         raise ValueError(f"{name}: needs k >= 1 and d >= 1, got k={k}, d={q.shape[1]}")
 
 
+def _scratch(dev, nq: int, nx: int, d: int, k: int, ids: bool):
+    """The column splits of one launch (``knn_kbest_splits`` of the kernel)
+    and the scratch pointers for its span lists: ``splits x nq x k``
+    distances (and ids with ``ids``), null where it does not split."""
+    splits = cuda_build.function("knn_kbest.cu", "knn_kbest_splits", [ctypes.c_int] * 5)(
+        nq, nx, d, k, int(ids))
+    if splits == 1:
+        return splits, (), (0, 0)
+    sd = torch.empty(splits * nq * k, dtype=torch.float32, device=dev)
+    si = torch.empty(splits * nq * k, dtype=torch.int32, device=dev) if ids else None
+    return splits, (sd, si), (sd.data_ptr(), si.data_ptr() if ids else 0)
+
+
 def knn_kbest(x: torch.Tensor, k: int, metric: str = "euclidean",
               form: str | None = "diff"):
     """(n, d) float32 points -> ((n, k) float32 distances, (n, k) int32 ids),
@@ -85,9 +111,10 @@ def knn_kbest(x: torch.Tensor, k: int, metric: str = "euclidean",
     x = x.contiguous()
     out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
+    splits, _bufs, ptrs = _scratch(dev, n, n, d, k, ids=True)
     cuda_build.launch(
-        "knn_kbest", dev, x.data_ptr(), n, d, k, code, out_d.data_ptr(), out_i.data_ptr(),
-        wide=max(k, d) > cuda_build.WIDE,
+        "knn_kbest", dev, x.data_ptr(), n, d, k, code, splits, *ptrs, out_d.data_ptr(),
+        out_i.data_ptr(), wide=max(k, d) > cuda_build.WIDE,
     )
     return out_d, out_i
 
@@ -111,9 +138,10 @@ def knn_kbest_panel(q: torch.Tensor, x: torch.Tensor, k: int, metric: str = "euc
     q, x = q.contiguous(), x.contiguous()
     out_d = torch.empty((r, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((r, k), dtype=torch.int32, device=dev)
+    splits, _bufs, ptrs = _scratch(dev, r, c, d, k, ids=True)
     cuda_build.launch(
         "knn_kbest_panel", dev, q.data_ptr(), r, x.data_ptr(), c, d, k, code, id_offset,
-        out_d.data_ptr(), out_i.data_ptr(), wide=max(k, d) > cuda_build.WIDE,
+        splits, *ptrs, out_d.data_ptr(), out_i.data_ptr(), wide=max(k, d) > cuda_build.WIDE,
     )
     return out_d, out_i
 

@@ -10,16 +10,21 @@ feature at a time, exact on duplicates) or the dot form
 takes it for euclidean data at d >= 24 on a TPU (``ops/tiled.py:315-353``);
 the port takes it there when the points are on the card.
 
-Route: a mode of the k-best kernel B2 (``csrc/knn_kbest.cu``), not a second
-body. The metric codes 4 and 5 (``cuda_build.SQ_EUCLID_CODES``) select on
-the squared distance with no root, and no id buffer is written. B2's
-insertion — a column enters only when strictly closer than the current
-k-th, after every entry of equal value — keeps exactly the k smallest values
-with their multiplicity, which is all B3 returns, so the values cannot
-depend on the column order: the reference's diagonal schedule and
-whole-tile skip change which tiles it merges, never the result. The norms
+Route: a mode of the k-best kernel (``csrc/knn_kbest.cu``), not a second
+body, built without ids (a compile-time flag: its lists hold values only).
+The metric codes 4 and 5 (``cuda_build.SQ_EUCLID_CODES``) select on the
+squared distance with no root. A column enters a row's list only when
+strictly smaller than the current k-th value, after every entry of equal
+value: that keeps exactly the k smallest values with their multiplicity,
+equal values in column order, whatever the column order of the scan. So
+the reference's diagonal schedule and whole-tile skip, which change only
+which tiles it merges, are not carried over. What bounds it is the pair
+distances on the FP32 pipes. A thread holds 2 rows at d <= 32 (1 above,
+or past k = 32), its lists of k values in shared memory; where the row blocks alone do not
+fill the card, column spans are merged in order in a second pass, stable on
+equal values, with scratch allocated here (``cuda_knn._scratch``). The norms
 and the cross term accumulate feature by feature in ascending order, the
-arithmetic the B2 dot form already holds bitwise to its plain version.
+arithmetic the K2 dot form already holds bitwise to its plain version.
 
 :func:`knn_core_distances_pallas` keeps the reference's contract: ``(core,
 knn)`` or ``(core, None)``, the square root taken in float64 on the host
@@ -36,6 +41,7 @@ import torch
 
 from hdbscan_tpu_torch.core.distances import _sq_euclidean
 from hdbscan_tpu_torch.ops import cuda_build
+from hdbscan_tpu_torch.ops.cuda_knn import _scratch
 
 #: The reference kernel's default tiles and its 128-lane feature and k axes.
 ROW_TILE = 256
@@ -107,9 +113,10 @@ def knn_smallest(x: torch.Tensor, k: int, form: str = "diff") -> torch.Tensor:
     dev = cuda_build.launch_device("knn_smallest", x)
     x = x.contiguous()
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    splits, _bufs, ptrs = _scratch(dev, n, n, d, k, ids=False)
     cuda_build.launch(
-        "knn_smallest", dev, x.data_ptr(), n, d, k, cuda_build.SQ_EUCLID_CODES[form],
-        out.data_ptr(),
+        "knn_smallest", dev, x.data_ptr(), n, d, k, cuda_build.SQ_EUCLID_CODES[form], splits,
+        ptrs[0], out.data_ptr(),
     )
     return out
 

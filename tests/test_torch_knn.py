@@ -106,3 +106,29 @@ def test_lex_kbest_breaks_ties_by_lowest_id():
     d, i = lex_kbest(dist, 3)
     assert torch.equal(i, torch.tensor([[3, 1, 2]], dtype=torch.int32))
     assert torch.equal(d, torch.tensor([[0.5, 1.0, 1.0]]))
+
+
+def _straddling_grid(seed, n, d, hi):
+    """An integer grid in [0, hi) with one point outside it planted 16 times
+    at the columns 1,020-1,027 and 2,044-2,051: equal distances on both
+    sides of the columns 1,024 and 2,048, a point duplicated more than k."""
+    data = _grid(seed, n, d, hi)
+    planted = np.r_[1020:1028, 2044:2052]
+    data[planted] = hi
+    return data, planted
+
+
+@pytest.mark.parametrize("min_pts", [2, 8, 16])
+@pytest.mark.parametrize("tiles", [(256, 1024), (1024, 8192)])
+def test_split_boundary_ties_bitwise_vs_xla_scan(min_pts, tiles):
+    """The contract the kernel's column-split merge must keep: equal
+    distances straddling the columns 1,024 and 2,048 go to the lower ids,
+    and a point duplicated more than k times keeps its k lowest copies."""
+    k = max(min_pts - 1, 1)
+    data, planted = _straddling_grid(min_pts, 2100, 3, 40)
+    kw = dict(row_tile=tiles[0], col_tile=tiles[1], return_indices=True)
+    ref = ref_knn(data, min_pts, backend="xla", **kw)
+    port = port_knn(data, min_pts, backend="xla", device="cpu", **kw)
+    _assert_same(port, ref)
+    for row in planted:
+        np.testing.assert_array_equal(np.asarray(port[2])[row, :k], planted[:k])

@@ -75,6 +75,21 @@ def test_plain_bitwise_vs_pallas_interpret(d, k, form):
 
 
 @pytest.mark.parametrize("form", ["diff", "dot"])
+@pytest.mark.parametrize("k", [7, 15])
+def test_split_boundary_ties_bitwise_vs_pallas_interpret(k, form):
+    """The contract the kernel's column-split merge must keep, at d = 24: a
+    point outside the grid planted 16 times at the columns 1,020-1,027 and
+    2,044-2,051 (equal values on both sides of 1,024 and 2,048, more than k
+    copies) among duplicate grid ties."""
+    x = _grid(k + 3, 2100, 24, hi=3)
+    planted = np.r_[1020:1028, 2044:2052]
+    x[planted] = 3
+    port = _port_smallest(x, k, form)
+    np.testing.assert_array_equal(port, _ref_smallest(x, k, form, "scan", 256, 1024))
+    np.testing.assert_array_equal(port[planted], 0.0)
+
+
+@pytest.mark.parametrize("form", ["diff", "dot"])
 def test_continuous_within_tolerance(form):
     x = np.random.default_rng(4).normal(size=(250, 28))
     port = _port_smallest(x, 15, form)

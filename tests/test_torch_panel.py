@@ -147,3 +147,30 @@ def test_rectangular_kbest_vs_xla_tile_scan(k):
                              "diff", id_offset=off, n_cols=n_cols)
     np.testing.assert_array_equal(pd.numpy(), rd)
     np.testing.assert_array_equal(pi.numpy(), ri)
+
+
+@pytest.mark.parametrize("k", [1, 11, 15])
+def test_rectangular_kbest_split_boundary_ties(k):
+    """The contract the kernel's column-split merge must keep, on the ring's
+    rectangular entry: a point outside the grid planted 16 times in the
+    panel at the columns 1,020-1,027 and 2,044-2,051 (equal distances on
+    both sides of 1,024 and 2,048, more than k copies); queries at that
+    point take its k lowest copies, ids from the offset, padding masked."""
+    rng = np.random.default_rng(40 + k)
+    q = rng.integers(0, 9, size=(192, 3)).astype(np.float32)
+    q[::16] = 9.0
+    panel = np.zeros((3072, 3), np.float32)  # the scan's whole column tiles
+    panel[:2100] = rng.integers(0, 9, size=(2100, 3))
+    planted = np.r_[1020:1028, 2044:2052]
+    panel[planted] = 9.0
+    off, n_cols = 4096, 4096 + 2090
+    valid = (off + np.arange(3072)) < n_cols
+    rd, ri = _knn_core_scan(q, panel, valid, k, "euclidean", 64, 1024, with_indices=True,
+                            guarded=False)
+    rd, ri = np.asarray(rd), np.asarray(ri)
+    ri = np.where(ri >= 0, ri + off, ri)
+    pd, pi = knn_kbest_panel(torch.from_numpy(q), torch.from_numpy(panel[:2100]), k,
+                             "euclidean", "diff", id_offset=off, n_cols=n_cols)
+    np.testing.assert_array_equal(pd.numpy(), rd)
+    np.testing.assert_array_equal(pi.numpy(), ri)
+    np.testing.assert_array_equal(pi.numpy()[::16], np.tile(off + planted[:k], (12, 1)))
