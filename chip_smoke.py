@@ -28,7 +28,17 @@ Phases (any failure exits non-zero):
    7, 8, 9, 15, 16, 17, 32, 33 and 128 on every metric and form;
    every wide mode (K2, B2, B4 in both contracts, B5-B8) at d = 129 and 200
    and k = 129 and 200 on grids with duplicate ties and continuous points,
-   and B3's refusal past 128;
+   and B3's refusal past 128; the rescan top-k (B7) bit for bit: exact
+   ties at the k-th slot on integer grids (the lower id must win), one id
+   copied many times inside a span and across spans, spans and rows with
+   fewer live candidates than k and all-sentinel rows, k = 1 to 200, m
+   below one block and at one row, every d instantiation boundary (1 to
+   200) in f32 (both forms, manhattan, supremum) and bf16, and lists and
+   query rows past their shared-memory budgets; the window k-best (B4)
+   bit for bit: ``bnd`` at +inf, at 0 and equal to exact grid distances (a
+   guard must not fire on equality), windows past n, k above a window's
+   columns, k = 1 to 128 and row tiles of 1, 33 and 512 in every contract,
+   and every d instantiation boundary;
 3. run the exact fit (``hdbscan_tpu_torch.models.exact.fit``) on a seeded
    Skin-shaped set — 245,057 x 3 integer RGB values in [0, 255] — with
    min_points=16, min_cluster_size=3000: first check that the fit on the
@@ -101,7 +111,10 @@ Phases (any failure exits non-zero):
    operations at half that rate, since -fmad=false issues multiplies and
    adds separately, and the k-best rows their grid): the exact tier's
    kernels at the exact fit's shapes, B1 also at one round of the 3f fit
-   (``segmin_3f``), K2 also at the 3c exact twin's launch (``knn_kbest_3c``,
+   (``segmin_3f``; the k-best rows, B4, B5 and B7 count their bound with no
+   root a pair, and B4, B5 and B7 time the two-call yardstick
+   ``torch.cdist`` + ``torch.topk`` as ``library_ms``; B7's rows give their
+   grid in ``blocks``), K2 also at the 3c exact twin's launch (``knn_kbest_3c``,
    its plain version on 16,384 rows, scaled), the forest kernels at the 3b
    fit's (one leaf batch, the merge, one rescan chunk, B8 on that chunk's
    panel with round-1 components), B4 at the largest main-phase rescan
@@ -161,6 +174,10 @@ H100_FP32_PER_S = 67e12
 #: Separate FP32 multiplies and adds (-fmad=false, the bitwise rule) issue
 #: as one instruction each: half the FMA pipe's 67 TFLOP/s.
 H100_FP32_INSTR_PER_S = H100_FP32_PER_S / 2
+#: The yardstick of the k-best rows (B4, B5, B7): ``library_ms`` times it.
+TWO_CALLS = ("two library calls (torch.cdist + torch.topk(largest=False), TF32 off), "
+             "other rounding, tie order and no dedup")
+NO_SEGMIN_CALL = "none: no PyTorch call takes a segment minimum over a candidate panel"
 
 
 def fail(msg: str) -> int:
@@ -537,26 +554,37 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
     batches = rpforest.leaf_batches(forest, "cuda")
     rows = []
 
-    def row(name, source, replaces, launch, args, kernel, plain, nbytes, ops):
+    def row(name, source, replaces, launch, args, kernel, plain, nbytes, ops, library=None,
+            **extra):
         ms = cuda_ms(lambda: kernel(*args), 5)
         plain_ms = host_ms(lambda: plain(*args))
         a, b = kernel(*args), plain(*args)
         b_ms, by = bound_ms(nbytes, ops)
+        if library is not None:
+            extra.update(library_ms=cuda_ms(library, 2), library_call=TWO_CALLS)
+        else:
+            extra.setdefault("library_ms", None)
         rows.append(dict(
             name=name + suffix, route="cuda", source=f"hdbscan_tpu_torch/csrc/{source}",
             replaces=f"hdbscan_tpu/ops/pallas_forest.py:{replaces}",
             launches=launches[launch + suffix], max_abs_err=max_err(a[0], b[0], a[1], b[1]),
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+            bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3, **extra,
         ))
 
     a0, b0, _ = batches[0]
     widths = forest.leaf_mask[a0:b0].sum(axis=1).astype(np.float64)
     nb, ell = b0 - a0, lmax
+
+    def leaf_two_calls():
+        pts = x[members[0, a0:b0].long()]
+        torch.topk(torch.cdist(pts, pts), kk, dim=2, largest=False)
+
     row("forest_leaf_topk", "forest_leaf_topk.cu", 273, "forest_leaf_topk",
         (x, members[0, a0:b0], mask[a0:b0], kk, "euclidean", form, "f32", n),
         cf.forest_leaf_topk, cf.forest_leaf_topk_plain,
         nb * ell * (4 + 1 + d * 4) + nb * ell * kk * 8,
-        float(ell * widths.sum()) * pair_ops(d, form))
+        float(ell * widths.sum()) * pair_ops(d, form, root=False), library=leaf_two_calls)
 
     sd = torch.full((forest.trees, n, kk), float("inf"), device="cuda")
     si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device="cuda")
@@ -569,18 +597,28 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
             si[t, idx] = ni.reshape(-1, kk)[real]
     row("forest_merge", "forest_merge.cu", 344, "forest_merge", (sd, si, kk, n),
         cf.forest_merge, cf.forest_merge_plain,
-        forest.trees * n * kk * 8 + n * kk * 8, 0.0)
+        forest.trees * n * kk * 8 + n * kk * 8, 0.0,
+        library_note="none: no PyTorch call merges sorted lists with dedup by id")
 
     best_d, best_i = cf.forest_merge(sd, si, kk, n)
     chunk = min(n, max(64, rpforest._RESCAN_ELEM_BUDGET // (kk * kk * d)))
     cand = rpforest._expand(best_i, best_i[:chunk], kk, n)
     live = cand[cand != n]
     cands, uniq = float(live.numel()), int(torch.unique(live).numel())
+
+    def rescan_two_calls():
+        rows_ = max(1, (1 << 26) // (cand.shape[1] * d))
+        for a in range(0, chunk, rows_):
+            b = min(a + rows_, chunk)
+            pts = x[cand[a:b].clamp(max=n - 1).long()]
+            torch.topk(torch.cdist(x[a:b, None, :], pts), kk, dim=2, largest=False)
+
     row("forest_rescan_topk", "forest_rescan.cu", 411, "forest_rescan_topk",
         (x[:chunk], x, cand, kk, "euclidean", "f32", n),
         cf.forest_rescan_topk, cf.forest_rescan_topk_plain,
         chunk * d * 4 + chunk * kk * kk * 4 + uniq * d * 4 + chunk * kk * 8,
-        cands * pair_ops(d, "diff"))
+        cands * pair_ops(d, "diff", root=False), library=rescan_two_calls,
+        blocks=cf.rescan_blocks(chunk, cand.shape[1], d, kk))
 
     if not suffix or d > cuda_build.WIDE:  # B8's wide mode is d past 128 only
         core = torch.as_tensor(fres.core_distances.astype(np.float32), device="cuda")
@@ -589,7 +627,7 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
             (x[:chunk], x, cand, core[:chunk], core, comp[:chunk], comp, "euclidean", n),
             cf.forest_min_outgoing, cf.forest_min_outgoing_plain,
             chunk * (d * 4 + 8) + chunk * kk * kk * 4 + uniq * (d * 4 + 8) + chunk * 8,
-            cands * (pair_ops(d, "diff") + 2))
+            cands * (pair_ops(d, "diff") + 2), library_note=NO_SEGMIN_CALL)
     print(f"forest kernel{suffix} shapes: {n} x {d}, leaf batch {nb} x {ell}, kk {kk}; merge "
           f"{forest.trees} x {n} x {kk}; rescan chunk {chunk} rows x {kk * kk} candidates "
           f"({uniq} distinct)")
@@ -930,6 +968,228 @@ def parity_kbest() -> list[str]:
     return errors
 
 
+def parity_rescan() -> list[str]:
+    """B7 (the rescan top-k) against its plain version, bit for bit
+    (distances as int32 patterns, ids), one line per group: exact ties at
+    the k-th slot on integer grids (the lower id must win); one id copied
+    many times, inside one span and across spans; rows and spans with fewer
+    live candidates than k, all-sentinel rows; k from 1 to 200 in f32 and
+    bf16; m below one block and at one row; d at every instantiation
+    boundary (1 to 200) in f32 (diff form, manhattan, supremum), bf16, and
+    the dot form (C d past the diff form's budget); and the budget cuts
+    (lists past 32 KB a block, query rows past 16 KB)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    errors, counts = [], {}
+
+    def check(group, tag, q, x, cand, k, metric="euclidean", prec="f32"):
+        args = (q, x, cand, k, metric, prec, len(x))
+        a = cf.forest_rescan_topk(*args)
+        torch.cuda.synchronize()
+        ok = _bits_same(a, cf.forest_rescan_topk_plain(*args))
+        counts[group] = counts.get(group, 0) + 1
+        if not ok:
+            print(f"parity rescan {tag}: MISMATCH")
+            errors.append(f"B7 {tag}")
+        return a
+
+    def dev(a, dtype=np.float32):
+        return torch.as_tensor(np.asarray(a).astype(dtype), device="cuda")
+
+    rng = np.random.default_rng(SEED + 9)
+    # Exact ties at the k-th slot: 3,000 points of a 3 x 3 x 3 grid (every
+    # distance many times over), 64 rows of max(k^2, 64) random candidates.
+    g = dev(rng.integers(0, 3, size=(3000, 3)))
+    for k in (1, 7, 15, 16, 17, 32, 33, 63, 127, 128, 129, 200):
+        c = max(k * k, 64)
+        cand = dev(rng.integers(0, 3000, size=(64, c)), np.int32)
+        for prec in ("f32", "bf16") if k <= 128 else ("f32",):
+            check("k-th ties", f"grid 64 rows x {c} k={k} {prec}", g[:64], g, cand, k,
+                  prec=prec)
+        if k in (15, 129):
+            for metric in ("manhattan", "supremum"):
+                check("k-th ties", f"grid 64 rows x {c} k={k} {metric}", g[:64], g, cand, k,
+                      metric)
+    # 40 points at distance 1 from the query, met in descending id among
+    # 8,192 slots (32 spans): the 15 lowest ids must win.
+    x = np.full((60, 3), 5.0)
+    x[0] = 0.0
+    x[1:41] = (1.0, 0.0, 0.0)
+    row = np.full(8192, 60)
+    row[np.sort(rng.choice(8192, 40, replace=False))] = np.arange(40, 0, -1)
+    xt, rt_ = dev(x), dev(row[None], np.int32)
+    for prec in ("f32", "bf16"):
+        got = check("k-th ties", f"40 ties across spans {prec}", xt[:1], xt, rt_, 15,
+                    prec=prec)
+        if got[1][0].tolist() != list(range(1, 16)):
+            errors.append(f"B7 tie at the k-th slot {prec}: ids {got[1][0].tolist()}")
+    print(f"B7 spans of a 1-row launch of 8,192 candidates: {cf.rescan_splits(1, 8192, 3, 15)}")
+
+    # One id copied many times: inside span 0 and on both sides of every span
+    # boundary of 8 rows x 4,096 candidates.
+    m, c = 8, 4096
+    for k in (15, 33, 129):
+        splits = cf.rescan_splits(m, c, 3, k)
+        span = -(-c // splits)
+        cand = rng.integers(0, 3000, size=(m, c))
+        cand[:, rng.choice(span, 50, replace=False)] = 7
+        for y in range(1, splits):
+            cand[:, y * span - 1: y * span + 1] = 7
+        for prec in ("f32", "bf16") if k <= 128 else ("f32",):
+            got = check("copies", f"id 7 copied {50 + 2 * (splits - 1)} times over {splits} "
+                        f"spans k={k} {prec}", g[:m], g, dev(cand, np.int32), k, prec=prec)
+            if int((got[1] == 7).sum(dim=1).max()) > 1:
+                errors.append(f"B7 copies of id 7 kept twice at k={k} {prec}")
+
+    # Fewer live candidates than k: 3 live slots in three spans, an
+    # all-sentinel row, a whole span of sentinels, rows 90% sentinel.
+    for k in (15, 129):
+        splits = cf.rescan_splits(m, c, 3, k)
+        span = -(-c // splits)
+        cand = rng.integers(0, 3000, size=(m, c))
+        cand[0] = 3000
+        cand[0, [0, span, c - 1]] = (11, 12, 13)
+        cand[1] = 3000
+        cand[2, span: 2 * span] = 3000
+        cand[3:][rng.random((m - 3, c)) < 0.9] = 3000
+        for prec in ("f32", "bf16") if k <= 128 else ("f32",):
+            check("few live", f"short rows and spans k={k} {prec}", g[:m], g,
+                  dev(cand, np.int32), k, prec=prec)
+
+    # m below one block (four rows) and at one row.
+    for m in (1, 2, 3):
+        for k in (15, 129):
+            cand = dev(rng.integers(0, 3000, size=(m, k * k)), np.int32)
+            check("small m", f"{m} rows x {k * k} k={k}", g[:m], g, cand, k)
+
+    # Every d boundary: 2,000 points of a 0..2 grid, 40 rows x 600 candidates.
+    for d in (1, 2, 3, 4, 5, 8, 9, 31, 32, 33, 64, 128, 129, 200):
+        x = dev(rng.integers(0, 3, size=(2000, d)))
+        cand = dev(rng.integers(0, 2000, size=(40, 600)), np.int32)
+        for k in (7, 33):
+            for metric in ("euclidean", "manhattan", "supremum"):
+                check("d boundaries", f"grid 2000x{d} {metric} k={k}", x[:40], x, cand, k,
+                      metric)
+            if d <= 128:
+                check("d boundaries", f"grid 2000x{d} bf16 k={k}", x[:40], x, cand, k,
+                      prec="bf16")
+    for d in (3, 8, 33, 128, 129):
+        c = (1 << 25) // d + 1  # one row's panel past the diff form's budget
+        if cf.euclid_form(1, c, d) != "dot":
+            errors.append(f"B7 dot-form check at d={d} is not in the dot form")
+        x = dev(rng.integers(0, 3, size=(3000, d)))
+        cand = dev(rng.integers(0, 3000, size=(2, c)), np.int32)
+        check("d boundaries", f"grid 2 rows x {c} x {d} dot k=15", x[:2], x, cand, 15)
+
+    # The budget cuts: k = 1,100 (lists in device memory), d = 1,100 (rows
+    # read from device memory).
+    cand = dev(rng.integers(0, 3000, size=(8, 3000)), np.int32)
+    check("budget cuts", "k=1100 lists in device memory", g[:8], g, cand, 1100)
+    x = dev(rng.integers(0, 3, size=(500, 1100)))
+    cand = dev(rng.integers(0, 500, size=(6, 300)), np.int32)
+    check("budget cuts", "d=1100 rows in device memory", x[:6], x, cand, 33)
+
+    for group, n in counts.items():
+        print(f"parity rescan {group}: {n} checks")
+    print(f"parity rescan: {sum(counts.values())} checks, "
+          f"{'all bitwise' if not errors else f'{len(errors)} MISMATCHES'}")
+    return errors
+
+
+def parity_window_guard() -> list[str]:
+    """B4 (the window body) against its plain version, bit for bit: on a
+    0..3 integer grid (exact ties everywhere), row tiles of 1, 33 and 512
+    slots, k = 1, 7, 8, 9, 15, 16, 17, 33 and 128 (lists in shared memory up
+    to 64 KB a tile, in device memory above), the fused (dot), XLA (diff),
+    manhattan and supremum contracts, with ``bnd`` at +inf, at 0 and equal
+    to exact grid distances (each slot's nearest column in its window's
+    first tile, or a random column of its second: a guard must not fire on
+    equality); windows past n (one partly, one wholly); k above a window's
+    columns; and every d instantiation boundary."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import pairwise_distance
+    from hdbscan_tpu_torch.ops import cuda_knn_window as cw
+
+    errors, counts = [], {}
+
+    def check(group, tag, args):
+        a = cw.knn_window(*args)
+        torch.cuda.synchronize()
+        ok = _bits_same(a, cw.knn_window_plain(*args))
+        counts[group] = counts.get(group, 0) + 1
+        if not ok:
+            print(f"parity window {tag}: MISMATCH")
+            errors.append(f"B4 {tag}")
+
+    rng = np.random.default_rng(SEED + 10)
+    contracts = (("fused", "euclidean", "dot"), ("xla", "euclidean", "diff"),
+                 ("manhattan", "manhattan", None), ("supremum", "supremum", None))
+
+    def window(x, n, tiles, rt, col_tile, n_win):
+        ids = torch.as_tensor(rng.integers(0, n, size=(tiles, rt)).astype(np.int32),
+                              device="cuda")
+        n_tiles = -(-len(x) // col_tile)
+        ws = rng.integers(0, n_tiles - n_win + 1, size=tiles)
+        ws[-2:] = (n_tiles - n_win, n_tiles - 1)  # partly, then wholly past n
+        return ids, torch.as_tensor(ws.astype(np.int32), device="cuda")
+
+    def grid_bnd(x, n, ids, wst, col_tile, metric, form):
+        """Each slot's distance to its nearest column of its window's first
+        tile; odd slots instead to a random column of the second."""
+        xr = x[ids.long()]
+        cols = torch.clamp(wst[:, None].long() * col_tile + torch.arange(col_tile, device="cuda"),
+                           max=n - 1)
+        near = pairwise_distance(xr, x[cols], metric, form).amin(dim=2)
+        pick = torch.clamp(wst[:, None].long() * col_tile + col_tile + torch.as_tensor(
+            rng.integers(0, col_tile, size=ids.shape), device="cuda"), max=n - 1)
+        other = pairwise_distance(xr[..., None, :], x[pick][..., None, :], metric,
+                                  form)[..., 0, 0]
+        odd = torch.arange(ids.shape[1], device="cuda") % 2 == 1
+        return torch.where(odd, other, near).contiguous()
+
+    x = torch.as_tensor(rng.integers(0, 4, size=(4000, 3)).astype(np.float32), device="cuda")
+    n, col_tile, n_win, tiles = 3950, 256, 3, 6
+    for rt in (1, 33, 512):
+        ids, wst = window(x, n, tiles, rt, col_tile, n_win)
+        for cname, metric, form in contracts:
+            bounds = {"bnd inf": torch.full((tiles, rt), float("inf"), device="cuda"),
+                      "bnd 0": torch.zeros((tiles, rt), device="cuda"),
+                      "bnd grid distances": grid_bnd(x, n, ids, wst, col_tile, metric, form)}
+            for bname, bnd in bounds.items():
+                for k in (1, 7, 8, 9, 15, 16, 17, 33, 128):
+                    check(f"row tile {rt}", f"grid 4000x3 rt={rt} {cname} k={k} {bname}",
+                          (x, n, ids, wst, bnd, k, col_tile, n_win, metric, form))
+    # k above a window's columns: windows of 2 x 16 columns.
+    ids, wst = window(x, n, tiles, 33, 16, 2)
+    inf = torch.full((tiles, 33), float("inf"), device="cuda")
+    for k in (33, 128):
+        for cname, metric, form in contracts:
+            check("k above the window", f"windows of 32 columns {cname} k={k}",
+                  (x, n, ids, wst, inf, k, 16, 2, metric, form))
+    # Every d instantiation boundary, continuous and grid points.
+    for d in (1, 4, 5, 8, 9, 32, 33, 128):
+        xd = rng.normal(size=(3000, d)) if d % 2 else rng.integers(0, 3, size=(3000, d))
+        xd = torch.as_tensor(xd.astype(np.float32), device="cuda")
+        for rt in (33, 512):
+            ids, wst = window(xd, 2990, 4, rt, 512, 2)
+            bnd = torch.as_tensor(rng.uniform(0.5, 3.0, size=(4, rt)).astype(np.float32),
+                                  device="cuda")
+            for cname, metric, form in contracts[:3]:
+                for k in (7, 33):
+                    check(f"d={d}", f"3000x{d} rt={rt} {cname} k={k}",
+                          (xd, 2990, ids, wst, bnd, k, 512, 2, metric, form))
+    for group, c in counts.items():
+        print(f"parity window {group}: {c} checks")
+    print(f"parity window: {sum(counts.values())} checks, "
+          f"{'all bitwise' if not errors else f'{len(errors)} MISMATCHES'}")
+    return errors
+
+
 def parity_wide() -> list[str]:
     """Every wide mode (k or d past 128) against its plain version on the
     card, bit for bit: the k-best kernel square and rectangular (K2, B2),
@@ -1233,6 +1493,7 @@ def window_time(args, launches, name="knn_window") -> dict:
     bounds and window origins read, the scanned columns read once, the lists
     written), whichever is larger."""
     import numpy as np
+    import torch
 
     from hdbscan_tpu_torch.ops import cuda_knn_window as cw
 
@@ -1250,14 +1511,25 @@ def window_time(args, launches, name="knn_window") -> dict:
     np.add.at(cols, hi, -1)
     scanned = int((np.cumsum(cols)[:n] > 0).sum())
     nbytes = tiles * rt * 8 + tiles * 4 + scanned * d * 4 + tiles * rt * k * 8
-    b_ms, by = bound_ms(nbytes, pairs * pair_ops(d, form))
+    ops = pairs * pair_ops(d, form if metric == "euclidean" else "diff", root=False)
+    b_ms, by = bound_ms(nbytes, ops)
     print(f"{name} timing chunk: {tiles} row tiles of {rt}, d {d}, k {k}, windows of {n_win} x "
           f"{col_tile} columns, {pairs:.0f} pairs, {scanned} distinct columns")
+    ar = torch.arange(n_win * col_tile, device=x.device)
+    group = max(1, (1 << 28) // (rt * n_win * col_tile))
+
+    def two_calls():
+        for g0 in range(0, tiles, group):
+            cols = torch.clamp(wst[g0:g0 + group, None].long() * col_tile + ar, max=n - 1)
+            torch.topk(torch.cdist(x[ids[g0:g0 + group].long()], x[cols]), min(k, len(ar)),
+                       dim=2, largest=False)
+
     return dict(
         name=name, route="cuda", source="hdbscan_tpu_torch/csrc/knn_window.cu",
         replaces="hdbscan_tpu/ops/pallas_knn.py:640", launches=launches[name],
         max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=by, library_ms=None,
+        bound_by=by, bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
+        library_ms=cuda_ms(two_calls, 1), library_call=TWO_CALLS,
     )
 
 
@@ -1596,7 +1868,8 @@ def wide_phase(launches_out: dict) -> tuple[list[str], list[dict]]:
         replaces="hdbscan_tpu/ops/pallas_forest.py:476",
         launches=launches["forest_min_outgoing_wide"],
         max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=by, library_ms=None, shape=f"{n} rows x {cand.shape[1]} candidates, d {d}",
+        bound_by=by, library_ms=None, library_note=NO_SEGMIN_CALL,
+        shape=f"{n} rows x {cand.shape[1]} candidates, d {d}",
     ))
     rows += panel_times(s129, cards["sharded 4000x129"], launches, mesh, k=15, suffix="_wide")
     # The largest recorded window call (at this size the probe phase's).
@@ -1614,6 +1887,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardsticks' cdist at full f32
     sys.path.insert(0, here)
     from hdbscan_tpu_torch import HDBSCANParams
     from hdbscan_tpu_torch.core import mst_device
@@ -1628,7 +1902,8 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
 
     errors = (parity() + parity_forest() + parity_window() + parity_highd() + parity_panels()
-              + parity_segmin() + parity_kbest() + parity_wide())
+              + parity_segmin() + parity_kbest() + parity_wide() + parity_rescan()
+              + parity_window_guard())
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 
@@ -1861,6 +2136,7 @@ def main() -> int:
         replaces="hdbscan_tpu/core/mst_device.py:177 (lax.scan, not a Pallas kernel)",
         launches=launches["uf_scan"], max_abs_err=uf_err, ms=uf_ms, plain_ms=uf_plain,
         bound_ms=b, bound_by=by, library_ms=None,
+        library_note="none: no PyTorch call runs a sequential union-find over an edge list",
     ))
     rows += forest_times(data, fres, flaunches)
     rows.append(window_time(recorder.main_chunk(mev), mlaunches))

@@ -21,27 +21,83 @@
 // (comp[c] != comp_q[i]), the first minimal panel column on ties, (+inf,
 // -1) where there is none. Float32 distances only.
 //
-// Design: one thread per query row walks its candidates in panel order and
-// gathers each candidate's coordinates from `data` by id itself, so the
+// Both gather each candidate's coordinates from `data` by id, so the
 // (m, C, d) coordinate panel the TPU wrapper materialises is never built.
-// B7 keeps a k-list in registers: a candidate enters only if it lex-
-// precedes the current k-th and is not already in the list (copies of an
-// id carry the same distance).
 //
-// Bound on this card: bytes. Each candidate costs a 4-byte id and d
-// scattered 4-byte coordinate reads (mostly L2 hits: neighbors of
-// neighbors are few distinct points) for about 3d float operations.
+// Bound on this card: bytes, the candidate ids. Each candidate costs a
+// 4-byte id and d scattered 4-byte coordinate reads (mostly L2 hits:
+// neighbors of neighbors are few distinct points) for about 3d float
+// operations. What the bound does not count is the list: a row admits
+// about k (1 + ln(C' / k)) of its C' distinct candidates, each an insert
+// that waits on the one before.
 //
-// Wide mode (B7 past k = 128 or d = 128, f32 only, as bf16 runs inside the
-// reference's fused gate; B8 past d = 128): the same walk with both points
-// read through pointers in the same feature order (distance.cuh's
-// pair_distance_ptr), B7's k-list in the row's output (lexlist.cuh).
+// B7's design. The rescan chunk holds max(64, 2^24 / (k^2 d)) rows, so the
+// rows of a launch shrink as 1/k^2 while each row's candidates grow as
+// k^2: at k = 129 and d = 3 a chunk is 336 rows of 16,641 candidates.
+// (a) A warp per row, its lanes striding over the row's candidates, 32 a
+//     step. Where the row blocks (RESCAN_WARPS rows each) are fewer than
+//     RESCAN_TARGET_BLOCKS (about four an SM), the candidates are cut into
+//     contiguous spans over a second grid axis (spans of at least
+//     RESCAN_MIN_SPAN candidates), each span keeping its own list in
+//     scratch the wrapper allocates; a second pass merges a row's span
+//     lists. The contract is a function of the set of distinct pairs, so
+//     any partition and any insertion order give the same list; the merge
+//     drops a pair two spans both hold like any other copy. (132 and 2,112
+//     target blocks were 1.2-2.1x slower at k = 63 and 129; PERF.md §6.)
+// (b) The warp inserts together: every lane compares its slots with the
+//     candidate in lex (distance, id) order, a ballot counts the slots
+//     below it (its rank), and the duplicate test is part of the same
+//     pass: a copy is equal in lex order, so it sits exactly at the rank.
+//     The entries from the rank on move one slot back, 32 at a time, one
+//     a lane. Candidates do not arrive in id order, so the test is lex,
+//     not K2's "after every equal distance"; and a warp owns the list, so
+//     the rank comes from one ballot rather than kbest.cuh's one-thread
+//     bisection (list_insert): of that header B7 shares admit_bound only.
+//     The lanes' candidates under
+//     the admission bound are inserted in lane order, each re-tested
+//     against the list its predecessor left. At k <= 32 the list lives in
+//     registers, slot l in lane l (lane_lex_insert: one ballot, one
+//     shuffle), and a lane drops a candidate whose id the list already
+//     holds before the insert: neighbors of neighbors repeat the row's
+//     true neighbors many times over, and without that test the copies'
+//     rank passes made the 3b launch slower than one thread a row. Above
+//     k = 32 the list lies in shared memory (warp_lex_insert), up to
+//     RESCAN_LIST_BYTES a block (k <= 1,024 at four rows a block); past
+//     that in its own output or scratch row in device memory, with the
+//     same insert (it measured 2-10% slower than shared memory at k = 63
+//     and 129; PERF.md §6).
+// (c) A root only for a candidate that can enter: the rooted codes run on
+//     squared values v, and a candidate enters when sqrtf(v) is at most the
+//     k-th distance w (equal distances enter when the id is lower), so the
+//     bound is admit_bound at the float after w (nextafterf(w, +inf)),
+//     under which every v with sqrtf(v) <= w lies; the exact lex test
+//     follows the root. bf16 mode computes its rooted value as before.
+// (d) Every k and d through this body. At d <= 32 a lane holds the query
+//     row (and the bf16 centre) in registers; above, the warp stages it in
+//     shared memory (up to RESCAN_ROW_BYTES a block, d <= 1,024; past that
+//     f32 rows are read from device memory), and the distance takes a
+//     runtime feature loop in the same order, so the bits do not depend on
+//     the route.
+//
+// B8 keeps one thread per query row walking its candidates in panel order;
+// past d = 128 the wide kernel reads both points through pointers in the
+// same feature order (distance.cuh's pair_distance_ptr).
 #include <cstdint>
 
 #include "distance.cuh"
+#include "kbest.cuh"
 #include "lexlist.cuh"
 
-constexpr int RESCAN_ROWS = 128;
+constexpr int RESCAN_ROWS = 128;  // B8: rows (threads) a block
+// B7 launch shape: rows (warps) a block, about this many blocks, spans no
+// shorter than this, and the shared memory a block's lists and staged query
+// rows may take.
+constexpr int RESCAN_WARPS = 4;
+constexpr int RESCAN_THREADS = RESCAN_WARPS * 32;
+constexpr int RESCAN_TARGET_BLOCKS = 528;
+constexpr int RESCAN_MIN_SPAN = 256;
+constexpr long RESCAN_LIST_BYTES = 32 * 1024;
+constexpr long RESCAN_ROW_BYTES = 16 * 1024;
 
 // The row's point (centred and rounded in bf16 mode) and its norm.
 template <int DMAX>
@@ -62,59 +118,331 @@ __device__ __forceinline__ float load_point(const float* __restrict__ src,
   return sq;
 }
 
-template <int DMAX, int KB>
-__global__ void rescan_topk_kernel(const float* __restrict__ q,
-                                   const float* __restrict__ data,
-                                   const int32_t* __restrict__ cids, int m,
-                                   int C, int d, int k, int metric,
-                                   int sentinel, const float* __restrict__ mu,
-                                   float* __restrict__ out_d,
-                                   int32_t* __restrict__ out_i) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  const float* mur = mu != nullptr ? mu + (int64_t)row * d : nullptr;
-  const int code = mu != nullptr ? METRIC_EUCLID_DOT : metric;
-  float xr[DMAX], xc[DMAX];
-  const float xr_sq = load_point<DMAX>(q + (int64_t)row * d, mur, d, xr);
 
-  float bd[KB];
-  int32_t bi[KB];
-#pragma unroll
-  for (int s = 0; s < KB; ++s) {
-    bd[s] = CUDART_INF_F;
-    bi[s] = LEX_ID_MAX;
+// ---- B7 ------------------------------------------------------------------
+
+// Insert (dist, id) into the row's lex-ascending list of k slots at (ld, li)
+// (shared or device memory), the warp together; every lane passes the same
+// (dist, id). Lane l handles slots l, l + 32, ...: a ballot of "slot below
+// the candidate" counts the rank, a copy of the candidate is the entry at
+// the rank, and the entries from the rank on move one slot back, 32 at a
+// time, the last falling off. Returns whether it entered (a warp-uniform
+// value); the caller has checked that it lex-precedes slot k - 1.
+__device__ __forceinline__ bool warp_lex_insert(float* ld, int32_t* li, int k, float dist,
+                                                int32_t id) {
+  const int lane = threadIdx.x & 31;
+  int pos = 0;
+  bool dup = false;
+  for (int s0 = 0; s0 < k; s0 += 32) {
+    const int s = s0 + lane;
+    bool less = false, eq = false;
+    if (s < k) {
+      const float e = ld[s];
+      const int32_t ei = li[s];
+      less = lex_less(e, ei, dist, id);
+      eq = e == dist && ei == id;
+    }
+    const unsigned below = __ballot_sync(0xffffffffu, less);
+    pos += __popc(below);
+    dup |= __any_sync(0xffffffffu, eq);
+    if (below != 0xffffffffu) break;  // the first slot not below lies here
   }
-  float wd = CUDART_INF_F;  // slot k - 1
+  if (dup || pos >= k) return false;
+  for (int s0 = (k - 1) & ~31; s0 >= (pos & ~31); s0 -= 32) {
+    const int s = s0 + lane;
+    const bool move = s > pos && s < k;
+    float pd = 0.0f;
+    int32_t pi = 0;
+    if (move) {
+      pd = ld[s - 1];
+      pi = li[s - 1];
+    }
+    __syncwarp();
+    if (move) {
+      ld[s] = pd;
+      li[s] = pi;
+    } else if (s == pos) {
+      ld[s] = dist;
+      li[s] = id;
+    }
+    __syncwarp();
+  }
+  return true;
+}
+
+// The same insert for a list of k <= 32 slots held in registers, slot l in
+// lane l's (ed, ei): the rank by one ballot, the shift by one shuffle.
+__device__ __forceinline__ bool lane_lex_insert(float& ed, int32_t& ei, int k, float dist,
+                                                int32_t id) {
+  const int lane = threadIdx.x & 31;
+  const bool live = lane < k;
+  const int pos = __popc(__ballot_sync(0xffffffffu, live && lex_less(ed, ei, dist, id)));
+  const bool dup = __any_sync(0xffffffffu, live && ed == dist && ei == id);
+  if (dup || pos >= k) return false;
+  const float ud = __shfl_up_sync(0xffffffffu, ed, 1);
+  const int32_t ui = __shfl_up_sync(0xffffffffu, ei, 1);
+  if (lane > pos) {
+    ed = ud;
+    ei = ui;
+  } else if (lane == pos) {
+    ed = dist;
+    ei = id;
+  }
+  return true;
+}
+
+// The scan's (squared for the rooted codes) value of one candidate at xc
+// for the query row xr (registers, DMAX > 0; or behind a pointer, DMAX ==
+// 0, any d) with norm xr_sq; in bf16 mode (code 5) the candidate is
+// centred on mr, its norm taken unrounded, the cross term from its bf16
+// rounding. Features in ascending order, as load_point and pair_distance.
+template <int DMAX, int CODE, bool BF16, class Row>
+__device__ __forceinline__ float cand_value(const Row& xr, float xr_sq, const Row& mr,
+                                            const float* __restrict__ xc, int d) {
+  float acc = 0.0f, sq = 0.0f;
+  auto step = [&](int f) {
+    float c = xc[f];
+    if (BF16) {
+      c = c - mr[f];
+      sq = f == 0 ? c * c : sq + c * c;
+      c = bf16_round(c);
+    } else if (CODE == METRIC_EUCLID_DOT_SQ) {
+      sq = f == 0 ? c * c : sq + c * c;
+    }
+    if (CODE == METRIC_EUCLID_DIFF_SQ) {
+      const float t = xr[f] - c;
+      acc = f == 0 ? t * t : acc + t * t;
+    } else if (CODE == METRIC_EUCLID_DOT_SQ) {
+      acc = f == 0 ? xr[f] * c : acc + xr[f] * c;
+    } else {
+      const float a = fabsf(xr[f] - c);
+      acc = f == 0 ? a : CODE == METRIC_MANHATTAN ? acc + a : fmaxf(acc, a);
+    }
+  };
+  if constexpr (DMAX > 0) {
+#pragma unroll
+    for (int f = 0; f < DMAX; ++f) {
+      if (f < d) step(f);
+    }
+  } else {
+    for (int f = 0; f < d; ++f) step(f);
+  }
+  if (CODE == METRIC_EUCLID_DOT_SQ) acc = fmaxf((xr_sq + sq) - 2.0f * acc, 0.0f);
+  return acc;
+}
+
+// A warp's scan of candidates [c_begin, c_end) of its row into the list
+// (ld, li): 32 candidates a step, one a lane; those under the admission
+// bound are inserted in lane order, each re-tested first. REG (k <= 32):
+// the list lives in the lanes' registers while the scan runs and is
+// written to (ld, li) at its end.
+template <int DMAX, int CODE, bool BF16, bool REG, class Row>
+__device__ __forceinline__ void rescan_span(const Row& xr, float xr_sq, const Row& mr,
+                                            const float* __restrict__ data,
+                                            const int32_t* __restrict__ ids, int c_begin,
+                                            int c_end, int d, int k, bool root, int sentinel,
+                                            float* ld, int32_t* li) {
+  const int lane = threadIdx.x & 31;
+  float wd = CUDART_INF_F, th = CUDART_INF_F;  // slot k - 1 and the bound under it
   int32_t wi = LEX_ID_MAX;
-  const int32_t* ids = cids + (int64_t)row * C;
-  for (int c = 0; c < C; ++c) {
-    const int32_t cid = ids[c];
-    if (cid == sentinel) continue;
-    const float xc_sq = load_point<DMAX>(data + (int64_t)cid * d, mur, d, xc);
-    const float dist = pair_distance<DMAX>(xr, xr_sq, xc, xc_sq, d, code);
-    if (!(dist < CUDART_INF_F) || !lex_less(dist, cid, wd, wi)) continue;
-    bool dup = false;
-#pragma unroll
-    for (int s = 0; s < KB; ++s) dup |= s < k && bi[s] == cid && bd[s] == dist;
-    if (dup) continue;
-    lex_insert<KB>(bd, bi, k, dist, cid);
-#pragma unroll
-    for (int s = 0; s < KB; ++s) {
-      if (s == k - 1) {
-        wd = bd[s];
-        wi = bi[s];
+  float ed = CUDART_INF_F;  // REG: slot `lane`
+  int32_t ei = LEX_ID_MAX;
+  for (int c0 = c_begin; c0 < c_end; c0 += 32) {
+    const int c = c0 + lane;
+    const int32_t cid = c < c_end ? ids[c] : sentinel;
+    float v = CUDART_INF_F;
+    if (cid != sentinel) v = cand_value<DMAX, CODE, BF16>(xr, xr_sq, mr, data + (int64_t)cid * d, d);
+    // A copy of a listed id is the listed pair: it cannot enter (k <= 32).
+    bool hit = v < th;
+    if constexpr (REG) {
+      for (int s = 0; s < k; ++s) hit &= __shfl_sync(0xffffffffu, ei, s) != cid;
+    }
+    unsigned mask = __ballot_sync(0xffffffffu, hit);
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const float vs = __shfl_sync(0xffffffffu, v, src);
+      const int32_t is = __shfl_sync(0xffffffffu, cid, src);
+      if (!(vs < th)) continue;
+      const float dist = root ? sqrtf(vs) : vs;
+      if (!lex_less(dist, is, wd, wi)) continue;
+      if constexpr (REG) {
+        if (!lane_lex_insert(ed, ei, k, dist, is)) continue;
+        wd = __shfl_sync(0xffffffffu, ed, k - 1);
+        wi = __shfl_sync(0xffffffffu, ei, k - 1);
+      } else {
+        if (!warp_lex_insert(ld, li, k, dist, is)) continue;
+        wd = ld[k - 1];
+        wi = li[k - 1];
       }
+      th = admit_bound(nextafterf(wd, CUDART_INF_F), root);
     }
   }
-  const int64_t o = (int64_t)row * k;
-#pragma unroll
-  for (int s = 0; s < KB; ++s) {
-    if (s < k) {
-      out_d[o + s] = bd[s];
-      out_i[o + s] = bi[s];
+  if constexpr (REG) {
+    if (lane < k) {
+      ld[lane] = ed;
+      li[lane] = ei;
     }
   }
 }
+
+// Grid (row blocks, spans): warp w of block x scans row x * RESCAN_WARPS + w
+// over span y's candidates [y * span, (y + 1) * span) and writes its list to
+// dst row (y * m + row) (the output when there is one span, else the span
+// scratch). `code` is 4/5 (squared euclidean; `root` takes sqrtf of an
+// admitted candidate) or 2/3; mu != null is bf16 mode (code 5).
+template <int DMAX>
+__global__ void __launch_bounds__(RESCAN_THREADS)
+rescan_topk_kernel(const float* __restrict__ q, const float* __restrict__ data,
+                   const int32_t* __restrict__ cids, int m, int C, int d, int k, int code,
+                   bool root, int sentinel, const float* __restrict__ mu, int span,
+                   bool mem_lists, bool stage_rows, float* __restrict__ dst_d,
+                   int32_t* __restrict__ dst_i) {
+  extern __shared__ float rsm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * RESCAN_WARPS + warp;
+  if (row >= m) return;  // the warp's own work only: no block barrier follows
+  const int64_t o = ((int64_t)blockIdx.y * m + row) * k;
+  float* ld = mem_lists ? dst_d + o : rsm + warp * k;
+  int32_t* li = mem_lists ? dst_i + o
+                          : reinterpret_cast<int32_t*>(rsm + RESCAN_WARPS * k) + warp * k;
+  for (int s = lane; s < k; s += 32) {
+    ld[s] = CUDART_INF_F;
+    li[s] = LEX_ID_MAX;
+  }
+  const int c_begin = blockIdx.y * span;
+  const int c_end = min(C, c_begin + span);
+  const int32_t* ids = cids + (int64_t)row * C;
+  const bool bf16 = mu != nullptr;
+  const float* qr = q + (int64_t)row * d;
+  const float* mur = bf16 ? mu + (int64_t)row * d : nullptr;
+
+#define RESCAN_SPAN(CODE_, BF16_, REG_)                                                        \
+  rescan_span<DMAX, CODE_, BF16_, REG_>(xr, xr_sq, mr, data, ids, c_begin, c_end, d, k, root, \
+                                        sentinel, ld, li)
+#define RESCAN_LIST(REG_)                                                                      \
+  if (bf16) {                                                                                  \
+    RESCAN_SPAN(METRIC_EUCLID_DOT_SQ, true, REG_);                                             \
+  } else {                                                                                     \
+    switch (code) {                                                                            \
+      case METRIC_EUCLID_DIFF_SQ: RESCAN_SPAN(METRIC_EUCLID_DIFF_SQ, false, REG_); break;      \
+      case METRIC_EUCLID_DOT_SQ: RESCAN_SPAN(METRIC_EUCLID_DOT_SQ, false, REG_); break;        \
+      case METRIC_MANHATTAN: RESCAN_SPAN(METRIC_MANHATTAN, false, REG_); break;                \
+      default: RESCAN_SPAN(METRIC_SUPREMUM, false, REG_); break;                               \
+    }                                                                                          \
+  }
+#define RESCAN_CODES()                                                                         \
+  if (k <= 32) {                                                                               \
+    RESCAN_LIST(true)                                                                          \
+  } else {                                                                                     \
+    RESCAN_LIST(false)                                                                         \
+  }
+
+  if constexpr (DMAX > 0) {
+    float xr[DMAX], mr[DMAX];
+    const float xr_sq = load_point<DMAX>(qr, mur, d, xr);
+#pragma unroll
+    for (int f = 0; f < DMAX; ++f) mr[f] = (bf16 && f < d) ? mur[f] : 0.0f;
+    __syncwarp();  // the list's initial slots
+    RESCAN_CODES();
+  } else {
+    // The query row (centred, then rounded, in bf16 mode) and the centre in
+    // shared memory behind the lists; past the budget (f32 only) the row is
+    // read where it lies.
+    const float* xr = qr;
+    const float* mr = mur;
+    if (stage_rows) {
+      float* rows = rsm + (mem_lists ? 0 : 2 * RESCAN_WARPS * k);
+      float* xs = rows + warp * d;
+      float* ms = rows + (RESCAN_WARPS + warp) * d;
+      for (int f = lane; f < d; f += 32) {
+        float v = qr[f];
+        if (bf16) {
+          ms[f] = mur[f];
+          v = v - mur[f];
+        }
+        xs[f] = v;
+      }
+      xr = xs;
+      mr = ms;
+    }
+    __syncwarp();
+    const float xr_sq = sq_norm_ptr(xr, d);
+    if (bf16) {
+      __syncwarp();  // every lane has read the unrounded row
+      for (int f = lane; f < d; f += 32) const_cast<float*>(xr)[f] = bf16_round(xr[f]);
+      __syncwarp();
+    }
+    RESCAN_CODES();
+  }
+#undef RESCAN_CODES
+#undef RESCAN_LIST
+#undef RESCAN_SPAN
+  if (mem_lists) return;
+  __syncwarp();
+  for (int s = lane; s < k; s += 32) {
+    dst_d[o + s] = ld[s];
+    dst_i[o + s] = li[s];
+  }
+}
+
+// A row's span lists (scratch [span][row][slot], each ascending) merged into
+// its output row, a warp a row: span 0's list as it stands, then each later
+// span's entries in order until one no longer lex-precedes the k-th (a
+// list ascends, so none after it enters), inserted like candidates.
+__global__ void __launch_bounds__(RESCAN_THREADS)
+rescan_merge_kernel(const float* __restrict__ pd, const int32_t* __restrict__ pi, int splits,
+                    int m, int k, bool mem_lists, float* __restrict__ out_d,
+                    int32_t* __restrict__ out_i) {
+  extern __shared__ float rsm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * RESCAN_WARPS + warp;
+  if (row >= m) return;
+  const int64_t o = (int64_t)row * k;
+  float* ld = mem_lists ? out_d + o : rsm + warp * k;
+  int32_t* li = mem_lists ? out_i + o
+                          : reinterpret_cast<int32_t*>(rsm + RESCAN_WARPS * k) + warp * k;
+  for (int s = lane; s < k; s += 32) {
+    ld[s] = pd[o + s];
+    li[s] = pi[o + s];
+  }
+  __syncwarp();
+  float wd = ld[k - 1];
+  int32_t wi = li[k - 1];
+  for (int y = 1; y < splits; ++y) {
+    const int64_t base = ((int64_t)y * m + row) * k;
+    bool more = true;
+    for (int s0 = 0; s0 < k && more; s0 += 32) {
+      const int s = s0 + lane;
+      float e = CUDART_INF_F;
+      int32_t ei = LEX_ID_MAX;
+      if (s < k) {
+        e = pd[base + s];
+        ei = pi[base + s];
+      }
+      unsigned mask = __ballot_sync(0xffffffffu, lex_less(e, ei, wd, wi));
+      more = mask == 0xffffffffu;
+      while (mask) {
+        const int src = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const float es = __shfl_sync(0xffffffffu, e, src);
+        const int32_t is = __shfl_sync(0xffffffffu, ei, src);
+        if (lex_less(es, is, wd, wi) && warp_lex_insert(ld, li, k, es, is)) {
+          wd = ld[k - 1];
+          wi = li[k - 1];
+        }
+      }
+    }
+  }
+  if (mem_lists) return;
+  __syncwarp();
+  for (int s = lane; s < k; s += 32) {
+    out_d[o + s] = ld[s];
+    out_i[o + s] = li[s];
+  }
+}
+
+// ---- B8 ------------------------------------------------------------------
 
 template <int DMAX>
 __global__ void min_outgoing_kernel(const float* __restrict__ q,
@@ -149,42 +477,6 @@ __global__ void min_outgoing_kernel(const float* __restrict__ q,
   }
   out_w[row] = bw;
   out_j[row] = bw < CUDART_INF_F ? bj : -1;
-}
-
-__global__ void rescan_topk_wide_kernel(const float* __restrict__ q,
-                                        const float* __restrict__ data,
-                                        const int32_t* __restrict__ cids, int m, int C,
-                                        int d, int k, int metric, int sentinel,
-                                        float* __restrict__ out_d,
-                                        int32_t* __restrict__ out_i) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  const float* xr = q + (int64_t)row * d;
-  const bool dot = dot_form(metric);
-  const float xr_sq = dot ? sq_norm_ptr(xr, d) : 0.0f;
-  float* bd = out_d + (int64_t)row * k;
-  int32_t* bi = out_i + (int64_t)row * k;
-  for (int s = 0; s < k; ++s) {
-    bd[s] = CUDART_INF_F;
-    bi[s] = LEX_ID_MAX;
-  }
-  float wd = CUDART_INF_F;  // slot k - 1
-  int32_t wi = LEX_ID_MAX;
-  const int32_t* ids = cids + (int64_t)row * C;
-  for (int c = 0; c < C; ++c) {
-    const int32_t cid = ids[c];
-    if (cid == sentinel) continue;
-    const float* xc = data + (int64_t)cid * d;
-    const float dist = pair_distance_ptr(xr, xr_sq, xc, dot ? sq_norm_ptr(xc, d) : 0.0f, d,
-                                         metric);
-    if (!(dist < CUDART_INF_F) || !lex_less(dist, cid, wd, wi)) continue;
-    bool dup = false;
-    for (int s = 0; s < k && !dup; ++s) dup = bi[s] == cid && bd[s] == dist;
-    if (dup) continue;
-    lex_insert_mem(bd, bi, k, dist, cid);
-    wd = bd[k - 1];
-    wi = bi[k - 1];
-  }
 }
 
 __global__ void min_outgoing_wide_kernel(const float* __restrict__ q,
@@ -223,29 +515,65 @@ __global__ void min_outgoing_wide_kernel(const float* __restrict__ q,
   out_j[row] = bw < CUDART_INF_F ? bj : -1;
 }
 
-template <int DMAX, int KB>
-static cudaError_t launch_topk(const float* q, const float* data, const int32_t* cids,
-                               int m, int C, int d, int k, int metric, int sentinel,
-                               const float* mu, float* od, int32_t* oi, cudaStream_t s) {
-  const int blocks = (m + RESCAN_ROWS - 1) / RESCAN_ROWS;
-  rescan_topk_kernel<DMAX, KB><<<blocks, RESCAN_ROWS, 0, s>>>(
-      q, data, cids, m, C, d, k, metric, sentinel, mu, od, oi);
-  return cudaGetLastError();
+
+// B7 launch shape: row blocks, spans, span length, list and row placement,
+// and the dynamic shared memory of the scan (the merge's is the lists').
+struct RescanPlan {
+  int blocks, splits, span;
+  bool mem_lists, stage_rows;
+  size_t smem, merge_smem;
+};
+
+static RescanPlan rescan_plan(int m, int C, int d, int k, bool bf16) {
+  RescanPlan p;
+  p.blocks = max(1, (m + RESCAN_WARPS - 1) / RESCAN_WARPS);
+  int splits = (RESCAN_TARGET_BLOCKS + p.blocks - 1) / p.blocks;
+  splits = min(splits, max(1, C / RESCAN_MIN_SPAN));
+  p.splits = max(1, splits);
+  p.span = (C + p.splits - 1) / p.splits;
+  const size_t list_bytes = (size_t)RESCAN_WARPS * k * 8;
+  p.mem_lists = list_bytes > (size_t)RESCAN_LIST_BYTES;
+  const size_t row_bytes = (size_t)2 * RESCAN_WARPS * d * sizeof(float);
+  p.stage_rows = d > 32 && (bf16 || row_bytes <= (size_t)RESCAN_ROW_BYTES);
+  p.merge_smem = p.mem_lists ? 0 : list_bytes;
+  p.smem = p.merge_smem + (p.stage_rows ? row_bytes : 0);
+  return p;
 }
 
 template <int DMAX>
-static cudaError_t launch_topk_k(const float* q, const float* data, const int32_t* cids,
-                                 int m, int C, int d, int k, int metric, int sentinel,
-                                 const float* mu, float* od, int32_t* oi, cudaStream_t s) {
-  if (k <= 16) return launch_topk<DMAX, 16>(q, data, cids, m, C, d, k, metric, sentinel, mu, od, oi, s);
-  if (k <= 32) return launch_topk<DMAX, 32>(q, data, cids, m, C, d, k, metric, sentinel, mu, od, oi, s);
-  if (k <= 128) return launch_topk<DMAX, 128>(q, data, cids, m, C, d, k, metric, sentinel, mu, od, oi, s);
-  return cudaErrorInvalidValue;
+static cudaError_t launch_topk(const float* q, const float* data, const int32_t* cids, int m,
+                               int C, int d, int k, int code, bool root, int sentinel,
+                               const float* mu, const RescanPlan& p, float* dd, int32_t* di,
+                               cudaStream_t s) {
+  auto kern = rescan_topk_kernel<DMAX>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(p.blocks, p.splits), RESCAN_THREADS, p.smem, s>>>(
+      q, data, cids, m, C, d, k, code, root, sentinel, mu, p.span, p.mem_lists, p.stage_rows,
+      dd, di);
+  return cudaGetLastError();
+}
+
+// Spans of a B7 launch of m rows, C candidates, d features and k slots
+// (bf16: mu given): the wrapper allocates splits x m x k scratch slots
+// when it is above 1.
+extern "C" int forest_rescan_splits(int m, int C, int d, int k, int bf16) {
+  if (m <= 0 || k < 1 || d < 1 || C < 0) return 1;
+  return rescan_plan(m, C, d, k, bf16 != 0).splits;
+}
+
+// Blocks of the scan's grid (row blocks x spans), for reports of its size.
+extern "C" int forest_rescan_blocks(int m, int C, int d, int k, int bf16) {
+  if (m <= 0 || k < 1 || d < 1 || C < 0) return 0;
+  const RescanPlan p = rescan_plan(m, C, d, k, bf16 != 0);
+  return p.blocks * p.splits;
 }
 
 extern "C" int forest_rescan_topk_launch(const void* q, const void* data, const void* cids,
                                          int m, int C, int d, int k, int metric,
-                                         int sentinel, const void* mu, void* out_d,
+                                         int sentinel, const void* mu, int splits,
+                                         void* scratch_d, void* scratch_i, void* out_d,
                                          void* out_i, void* stream) {
   auto* qq = (const float*)q;
   auto* x = (const float*)data;
@@ -255,18 +583,37 @@ extern "C" int forest_rescan_topk_launch(const void* q, const void* data, const 
   auto* oi = (int32_t*)out_i;
   auto s = (cudaStream_t)stream;
   if (m <= 0) return 0;
-  if (k < 1 || C < 0 || d < 1) return (int)cudaErrorInvalidValue;
-  if (k > 128 || d > 128) {
-    if (mm != nullptr) return (int)cudaErrorInvalidValue;  // bf16 stays within 128
-    rescan_topk_wide_kernel<<<(m + RESCAN_ROWS - 1) / RESCAN_ROWS, RESCAN_ROWS, 0, s>>>(
-        qq, x, ids, m, C, d, k, metric, sentinel, od, oi);
-    return (int)cudaGetLastError();
+  if (k < 1 || C < 0 || d < 1 || metric < METRIC_EUCLID_DIFF || metric > METRIC_SUPREMUM)
+    return (int)cudaErrorInvalidValue;
+  if (mm != nullptr && (k > 128 || d > 128 || metric > METRIC_EUCLID_DOT))
+    return (int)cudaErrorInvalidValue;  // bf16 stays within 128, euclidean (either form)
+  const RescanPlan p = rescan_plan(m, C, d, k, mm != nullptr);
+  if (splits != p.splits || (p.splits > 1 && (scratch_d == nullptr || scratch_i == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  // The euclidean codes run on squared values; roots only for admitted pairs.
+  const bool root = metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DOT;
+  const int code = metric == METRIC_EUCLID_DIFF ? METRIC_EUCLID_DIFF_SQ
+                   : metric == METRIC_EUCLID_DOT ? METRIC_EUCLID_DOT_SQ
+                                                 : metric;
+  float* dd = p.splits > 1 ? (float*)scratch_d : od;
+  int32_t* di = p.splits > 1 ? (int32_t*)scratch_i : oi;
+  cudaError_t err;
+  if (d <= 4) {
+    err = launch_topk<4>(qq, x, ids, m, C, d, k, code, root, sentinel, mm, p, dd, di, s);
+  } else if (d <= 8) {
+    err = launch_topk<8>(qq, x, ids, m, C, d, k, code, root, sentinel, mm, p, dd, di, s);
+  } else if (d <= 32) {
+    err = launch_topk<32>(qq, x, ids, m, C, d, k, code, root, sentinel, mm, p, dd, di, s);
+  } else {
+    err = launch_topk<0>(qq, x, ids, m, C, d, k, code, root, sentinel, mm, p, dd, di, s);
   }
-  if (d <= 4) return launch_topk_k<4>(qq, x, ids, m, C, d, k, metric, sentinel, mm, od, oi, s);
-  if (d <= 8) return launch_topk_k<8>(qq, x, ids, m, C, d, k, metric, sentinel, mm, od, oi, s);
-  if (d <= 32) return launch_topk_k<32>(qq, x, ids, m, C, d, k, metric, sentinel, mm, od, oi, s);
-  if (d <= 128) return launch_topk_k<128>(qq, x, ids, m, C, d, k, metric, sentinel, mm, od, oi, s);
-  return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess || p.splits == 1) return (int)err;
+  err = cudaFuncSetAttribute(rescan_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)p.merge_smem);
+  if (err != cudaSuccess) return (int)err;
+  rescan_merge_kernel<<<p.blocks, RESCAN_THREADS, p.merge_smem, s>>>(dd, di, p.splits, m, k,
+                                                                     p.mem_lists, od, oi);
+  return (int)cudaGetLastError();
 }
 
 template <int DMAX>

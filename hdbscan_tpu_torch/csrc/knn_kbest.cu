@@ -70,6 +70,9 @@
 //     PERF.md §6 times it beside this.) The list keeps roots, so two v with
 //     one root still tie by id; the bound moves only after an insert.
 //
+// The scan and list code (scan_tile, list_insert, admit_bound, stage_tile)
+// lives in kbest.cuh, which B4's window kernel (knn_window.cu) shares.
+//
 // Wide mode (K2 and the rectangular entry only; B3 keeps the reference's
 // k, d <= 128): past k = 128 or d = 128 one kernel takes over whose
 // distances go through distance.cuh's chunked feature loop and whose k-list
@@ -78,6 +81,7 @@
 #include <cstdint>
 
 #include "distance.cuh"
+#include "kbest.cuh"
 #include "lexlist.cuh"
 
 constexpr int KB_THREADS = 128;
@@ -92,120 +96,12 @@ constexpr int KB_TILE_BYTES = 24 * 1024;
 // blocks (16 warps) an SM. At 64 KB, K2 at k = 31 kept 2 rows a thread, two
 // blocks an SM, and ran 16% slower (PERF.md §6).
 constexpr long KB_LIST_BYTES = 32 * 1024;
-// Columns a thread takes per step of its scan (one vote for all of them):
-// two independent sums where the rows' features leave the registers for
-// them (d <= 32), one above.
-__host__ __device__ constexpr int cols_per_step(int dmax) { return dmax <= 32 ? 2 : 1; }
-
 // Rows a thread holds: 2 at d <= 32, 1 above, halved while the block's
 // lists (K2: (distance, id) slots; B3: distances) would pass KB_LIST_BYTES.
 __host__ __device__ constexpr int rows_per_thread(int d, int k, bool ids) {
   int r = d <= 32 ? 2 : 1;
   while (r > 1 && (long)r * k * KB_THREADS * (ids ? 8 : 4) > KB_LIST_BYTES) r /= 2;
   return r;
-}
-
-// Admission bound for a list whose k-th distance is w: every candidate that
-// can enter lies below it. For the rooted codes the candidate is a squared
-// distance v and enters iff sqrtf(v) < w; sqrtf is correctly rounded and
-// monotone, so that implies v < w * w (exactly), below the float after
-// fl(w * w). The caller confirms sqrtf(v) < w before inserting.
-__device__ __forceinline__ float admit_bound(float w, bool root) {
-  return root ? nextafterf(w * w, CUDART_INF_F) : w;
-}
-
-// Entries an insert moves per batch: the batch's loads are independent.
-constexpr int KB_SHIFT = 8;
-
-// Insert (dist, id) into a k-slot list whose slot s lies at ld[s * stride]
-// (li[s * stride]), after every entry <= dist; the last slot falls off. The
-// caller has checked that dist is below slot k - 1. The place is found by
-// bisection and the entries behind it move KB_SHIFT at a time, so an insert
-// waits on about log2(k) + (k - place) / KB_SHIFT shared-memory loads in
-// turn, not on k - place of them.
-template <bool IDS>
-__device__ __forceinline__ void list_insert(float* ld, int32_t* li, int stride, int k,
-                                            float dist, int32_t id) {
-  int lo = 0, hi = k - 1;  // the first slot whose entry is above dist
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (ld[mid * stride] > dist) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  for (int s = k - 1; s > lo; s -= KB_SHIFT) {
-    float bd[KB_SHIFT];
-    int32_t bi[KB_SHIFT];
-#pragma unroll
-    for (int u = 0; u < KB_SHIFT; ++u) {
-      if (s - 1 - u >= lo) {
-        bd[u] = ld[(s - 1 - u) * stride];
-        if (IDS) bi[u] = li[(s - 1 - u) * stride];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < KB_SHIFT; ++u) {
-      if (s - 1 - u >= lo) {
-        ld[(s - u) * stride] = bd[u];
-        if (IDS) li[(s - u) * stride] = bi[u];
-      }
-    }
-  }
-  ld[lo * stride] = dist;
-  if (IDS) li[lo * stride] = id;
-}
-
-// Row r's candidate (squared for the rooted codes) v from column id: enters
-// the list (ld, li) when its distance is below the k-th, w; w and the
-// admission bound th follow the list.
-template <bool IDS>
-__device__ __forceinline__ void admit(float* ld, int32_t* li, int k, float v, int32_t id,
-                                      bool root, float& w, float& th) {
-  const float dist = root ? sqrtf(v) : v;
-  if (dist < w) {
-    list_insert<IDS>(ld, li, KB_THREADS, k, dist, id);
-    w = ld[(k - 1) * KB_THREADS];
-    th = admit_bound(w, root);
-  }
-}
-
-// One tile's columns (features xs at stride dp, norms ns, ids from id0)
-// against a thread's R rows, C columns a step. Row r's list starts at
-// ld/li + r * k * KB_THREADS; w and th hold each row's k-th distance and
-// admission bound. Within a step a row takes its columns in ascending id,
-// each tested against the bound its predecessor left.
-template <int DMAX, int R, int CODE, bool IDS>
-__device__ __forceinline__ void scan_tile(const float (&xr)[R][DMAX], const float (&xsq)[R],
-                                          const float* xs, const float* ns, int dp, int d,
-                                          int len, int32_t id0, bool root, int k, float* ld,
-                                          int32_t* li, float (&w)[R], float (&th)[R]) {
-  constexpr int C = cols_per_step(DMAX);
-  for (int t0 = 0; t0 < len; t0 += C) {
-    const int cols = min(C, len - t0);
-    float v[C][R];
-    bool hit = false;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int t = t0 + (c < cols ? c : 0);
-      column_values<DMAX, R, CODE>(xr, xsq, xs + t * dp, ns[t], d, v[c]);
-#pragma unroll
-      for (int r = 0; r < R; ++r) hit |= (c < cols) & (v[c][r] < th[r]);
-    }
-    if (__any_sync(0xffffffffu, hit)) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float* lr = ld + r * k * KB_THREADS;
-        int32_t* lir = IDS ? li + r * k * KB_THREADS : nullptr;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (c < cols && v[c][r] < th[r]) admit<IDS>(lr, lir, k, v[c][r], id0 + t0 + c, root,
-                                                      w[r], th[r]);
-        }
-      }
-    }
-  }
 }
 
 // Where slot s of row i of split y goes: the output (row-major (rows, k))
@@ -256,38 +152,25 @@ knn_kbest_kernel(const float* __restrict__ q, int nq, const float* __restrict__ 
   const int c_end = min(nx, c_begin + span);
   for (int c0 = c_begin; c0 < c_end; c0 += tile) {
     const int len = min(tile, c_end - c0);
-    for (int e = threadIdx.x; e < len * d; e += KB_THREADS) {
-      const int t = e / d;
-      xs[t * dp + (e - t * d)] = x[(int64_t)c0 * d + e];
-    }
-    __syncthreads();
-    if (code == METRIC_EUCLID_DOT_SQ) {
-      for (int t = threadIdx.x; t < len; t += KB_THREADS) {
-        const float* xc = xs + t * dp;
-        float acc = xc[0] * xc[0];
-        for (int f = 1; f < d; ++f) acc = acc + xc[f] * xc[f];
-        ns[t] = acc;
-      }
-      __syncthreads();
-    }
+    stage_tile(x, c0, len, d, dp, code, xs, ns, KB_THREADS);
     const int32_t id0 = id_offset + c0;
     switch (code) {  // uniform: the metric picks the tile loop, not each pair's code
       case METRIC_EUCLID_DIFF_SQ:
         scan_tile<DMAX, R, METRIC_EUCLID_DIFF_SQ, IDS>(xr, xsq, xs, ns, dp, d, len, id0, root,
-                                                       k, ld, li, w, th);
+                                                       k, ld, li, KB_THREADS, k * KB_THREADS, w, th);
         break;
       case METRIC_EUCLID_DOT_SQ:
         scan_tile<DMAX, R, METRIC_EUCLID_DOT_SQ, IDS>(xr, xsq, xs, ns, dp, d, len, id0, root,
-                                                      k, ld, li, w, th);
+                                                      k, ld, li, KB_THREADS, k * KB_THREADS, w, th);
         break;
       default:
         if constexpr (IDS) {  // B3 takes the euclidean codes only
           if (code == METRIC_MANHATTAN) {
             scan_tile<DMAX, R, METRIC_MANHATTAN, IDS>(xr, xsq, xs, ns, dp, d, len, id0, root,
-                                                      k, ld, li, w, th);
+                                                      k, ld, li, KB_THREADS, k * KB_THREADS, w, th);
           } else {
             scan_tile<DMAX, R, METRIC_SUPREMUM, IDS>(xr, xsq, xs, ns, dp, d, len, id0, root,
-                                                     k, ld, li, w, th);
+                                                     k, ld, li, KB_THREADS, k * KB_THREADS, w, th);
           }
         }
         break;

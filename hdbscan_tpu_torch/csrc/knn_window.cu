@@ -16,20 +16,44 @@
 // strictly below min(its running k-th, bnd[row]); then EVERY row of the
 // tile merges the whole column tile. A per-row guard would admit other
 // elements equal to the bound and change which id wins a tie at the k-th
-// slot, so the block first decides with __syncthreads_or (pass 1, which
-// stops at the first sub-tile holding a candidate) and only then merges
-// (pass 2, the distances recomputed).
+// slot, so the block first decides (pass 1, which stops as soon as one row
+// of the tile holds a candidate) and only then merges (pass 2, the
+// distances recomputed).
 //
-// Design: one CUDA block per row tile, one thread per row; the row's sorted
-// k-list lives in registers (k bucketed to a compile-time KB in {16, 32,
-// 128}; local memory at 128). Columns are staged through shared memory in
-// sub-tiles. A column enters only if strictly closer than the row's k-th;
-// ids arrive in ascending order, so that is the lex k-best (as K2).
+// Bound on this card: operations. Every scanned pair costs one distance on
+// the FP32 pipes (3d operations in the diff form, 2d + 3 in the dot form;
+// -fmad=false issues multiplies and adds separately, so the floor is half
+// the FMA rate), once in pass 1 up to the first candidate and again in
+// pass 2 for a column tile that merges; a root only for an admitted pair.
+// Device-memory traffic is one read of each window's columns per row tile
+// (L2-resident at these widths) plus the (rows, k) output.
 //
-// Bound on this card: operations. Every scanned pair costs one distance
-// (about 3d + 3 FP32 operations and a sqrt), twice for column tiles that
-// merge; device-memory traffic is one read of each window's columns per
-// row tile (L2-resident at these widths) plus the (rows, k) output.
+// Design: the k-best body of knn_kbest.cu, through the header it shares
+// (kbest.cuh: scan_tile, list_insert, admit_bound, stage_tile).
+// - One block per row tile, as before: the guard needs all of a tile's
+//   rows, so a tile is never split across blocks (splitting the window
+//   would reorder the guards). A thread holds R rows (2 at d <= 32, 1
+//   above: the rows_per_thread rule of knn_kbest.cu), so a 512-row tile
+//   takes 256 threads at d <= 32. The rows' features take DMAX registers
+//   each, so d rounds up to 4, 8, 16, 32 or 128: at d = 10 the 32-bucket
+//   took 165 registers (one block an SM), the 16-bucket takes 128 (two).
+// - Columns are staged in shared memory a sub-tile at a time and read as
+//   float4 for a thread's R rows, one feature guard per float4 group
+//   (distance.cuh column_values), two columns a step at d <= 32.
+// - Lists in shared memory, k slots a row interleaved thread by thread,
+//   inserts by bisection moving KB_SHIFT entries at a time (list_insert).
+//   Columns arrive in ascending id, so K2's rule (strictly below the k-th,
+//   after every equal distance) is the lex k-best as it stands. Where a
+//   tile's lists pass WIN_LIST_BYTES (k > 16 at 512 rows) they lie in the
+//   slots' own output rows in device memory instead, with the same insert.
+// - Pass 1 runs on squared values under admit_bound(min(k-th, bnd)),
+//   confirmed by the exact rooted `< thr` before it marks a row; one warp
+//   vote a step ends a warp's scan at its first candidate, and a flag in
+//   shared memory ends the other warps' within 16 steps. Pass 2 admits as
+//   K2 does (squared bound, root, strict test, one vote a step). At a
+//   3d-shaped chunk pass 1 is about a third of the time: a full scan of
+//   each tile whose guard does not fire (the decision needs every pair),
+//   and the leading columns of the others again in pass 2 (PERF.md §6).
 //
 // Wide mode (k or d past 128, both contracts): the same two passes over
 // sub-tiles of WIDE_COLS columns whose distances go through distance.cuh's
@@ -38,98 +62,190 @@
 #include <cstdint>
 
 #include "distance.cuh"
+#include "kbest.cuh"
 #include "lexlist.cuh"
 
 #define WINDOW_MAX_THREADS 512
+// Column sub-tile: at most this many bytes of features and norms a block.
+constexpr int WIN_TILE_BYTES = 24 * 1024;
+// Shared memory a tile's lists may take; past it they lie in device memory.
+constexpr long WIN_LIST_BYTES = 64 * 1024;
+// Steps of a pass-1 scan between two reads of the block's flag.
+constexpr int WIN_FLAG_STEPS = 16;
 
-template <int DMAX, int KB>
-__global__ void __launch_bounds__(WINDOW_MAX_THREADS)
+// Rows a thread holds: 2 at d <= 32, 1 above.
+__host__ __device__ constexpr int window_rows_per_thread(int d) { return d <= 32 ? 2 : 1; }
+
+// Pass 1's bound for a row whose guard threshold is thr (min of its k-th
+// and its bnd): every candidate strictly below thr lies below it. A row
+// whose threshold is not positive (a padding row: -inf) takes thr itself,
+// which no squared value passes.
+__device__ __forceinline__ float probe_bound(float thr, bool root) {
+  return (root && thr > 0.0f) ? admit_bound(thr, true) : thr;
+}
+
+// Pass 1 over one staged sub-tile: whether one of the thread's R rows has a
+// column strictly below its threshold thr (squared values under pth first,
+// then the exact rooted test). A warp stops at its first candidate and sets
+// the block's flag; it also stops when another warp has set it.
+template <int DMAX, int R, int CODE>
+__device__ __forceinline__ bool probe_tile(const float (&xr)[R][DMAX], const float (&xsq)[R],
+                                           const float* xs, const float* ns, int dp, int d,
+                                           int len, bool root, const float (&thr)[R],
+                                           const float (&pth)[R], volatile int* flag) {
+  constexpr int C = cols_per_step(DMAX);
+  bool mine = false;
+  for (int t0 = 0, step = 1; t0 < len; t0 += C, ++step) {
+    const int cols = min(C, len - t0);
+    float v[C][R];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      column_values<DMAX, R, CODE>(xr, xsq, xs + (t0 + (c < cols ? c : 0)) * dp,
+                                   ns[t0 + (c < cols ? c : 0)], d, v[c]);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (c < cols && v[c][r] < pth[r]) mine |= (root ? sqrtf(v[c][r]) : v[c][r]) < thr[r];
+      }
+    }
+    if (__any_sync(0xffffffffu, mine)) {
+      if (mine) *flag = 1;
+      break;
+    }
+    if (step % WIN_FLAG_STEPS == 0 && __any_sync(0xffffffffu, *flag != 0)) break;
+  }
+  return mine;
+}
+
+// One block per row tile; a thread holds rows threadIdx.x + r * blockDim.x
+// (r < R) of the tile's rt. `code` is 4/5 (squared euclidean; `root` takes
+// sqrtf of an admitted candidate for codes 0/1) or 2/3. Lists in shared
+// memory unless `mem_lists`, then in the output rows.
+template <int DMAX, int R>
+__global__ void __launch_bounds__(WINDOW_MAX_THREADS / R)
 knn_window_kernel(const float* __restrict__ x, int n, int d,
                   const int32_t* __restrict__ ids,
                   const int32_t* __restrict__ wstart,
-                  const float* __restrict__ bnd, int k, int metric,
-                  int col_tile, int n_win_tiles, int sub,
+                  const float* __restrict__ bnd, int rt, int k, int code, bool root,
+                  int col_tile, int n_win_tiles, int tile, bool mem_lists,
                   float* __restrict__ out_d, int32_t* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  float* xs = smem;          // sub * d features
-  float* ns = xs + sub * d;  // sub norms (dot form)
-
-  const int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t row = ids[slot];
-  float xr[DMAX];
-#pragma unroll
-  for (int f = 0; f < DMAX; ++f) xr[f] = f < d ? x[row * d + f] : 0.0f;
-  const float xr_sq = sq_norm<DMAX>(xr, d);
-  const float bound = bnd[slot];
-
-  float bd[KB];
-  int32_t bi[KB];
-#pragma unroll
-  for (int s = 0; s < KB; ++s) {
-    bd[s] = CUDART_INF_F;
-    bi[s] = -1;
+  extern __shared__ float4 smem4[];
+  const int dp = (d + 3) & ~3;
+  const int threads = blockDim.x;
+  float* xs = reinterpret_cast<float*>(smem4);  // tile x dp features
+  float* ns = xs + tile * dp;                    // tile norms (dot form)
+  volatile int* flag = reinterpret_cast<int*>(ns + tile);
+  float* lists = ns + tile + 4;                  // R x k x threads distances, then ids
+  const int64_t slot0 = (int64_t)blockIdx.x * rt;
+  float* ld;
+  int32_t* li;
+  int stride;
+  if (mem_lists) {
+    ld = out_d + (slot0 + threadIdx.x) * k;
+    li = out_i + (slot0 + threadIdx.x) * k;
+    stride = 1;
+  } else {
+    ld = lists + threadIdx.x;
+    li = reinterpret_cast<int32_t*>(lists + R * k * threads) + threadIdx.x;
+    stride = threads;
   }
-  float worst = CUDART_INF_F;  // bd[k - 1]
+  const int row_step = k * threads;
+
+  float xr[R][DMAX];
+  float xsq[R], w[R], th[R], bound[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = threadIdx.x + r * threads;
+    const bool ok = row < rt;
+    const int64_t p = ok ? ids[slot0 + row] : 0;
+#pragma unroll
+    for (int f = 0; f < DMAX; ++f) xr[r][f] = (ok && f < d) ? x[p * d + f] : 0.0f;
+    xsq[r] = sq_norm<DMAX>(xr[r], d);
+    w[r] = CUDART_INF_F;
+    th[r] = ok ? CUDART_INF_F : -CUDART_INF_F;  // a padding row admits nothing
+    bound[r] = ok ? bnd[slot0 + row] : -CUDART_INF_F;
+    if (ok) {
+      for (int s = 0; s < k; ++s) {
+        ld[r * row_step + s * stride] = CUDART_INF_F;
+        li[r * row_step + s * stride] = -1;
+      }
+    }
+  }
 
   const int64_t win0 = (int64_t)wstart[blockIdx.x] * col_tile;
   for (int j = 0; j < n_win_tiles; ++j) {
     const int64_t base = win0 + (int64_t)j * col_tile;
     const int64_t stop = min(base + col_tile, (int64_t)n);  // masked past n
     // Pass 1: does any row of the tile hold a candidate?
-    const float thr = fminf(worst, bound);
+    float thr[R], pth[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      thr[r] = fminf(w[r], bound[r]);
+      pth[r] = probe_bound(thr[r], root);
+    }
+    if (threadIdx.x == 0) *flag = 0;
     bool any = false;
-    for (int64_t c0 = base; c0 < stop && !any; c0 += sub) {
-      const int len = (int)min((int64_t)sub, stop - c0);
-      for (int t = threadIdx.x; t < len * d; t += blockDim.x) xs[t] = x[c0 * d + t];
-      __syncthreads();
-      if (metric == METRIC_EUCLID_DOT) {
-        for (int t = threadIdx.x; t < len; t += blockDim.x) ns[t] = sq_norm<DMAX>(xs + t * d, d);
-        __syncthreads();
-      }
-      bool mine = false;
-      for (int t = 0; t < len && !mine; ++t) {
-        mine = pair_distance<DMAX>(xr, xr_sq, xs + t * d, ns[t], d, metric) < thr;
+    for (int64_t c0 = base; c0 < stop && !any; c0 += tile) {
+      const int len = (int)min((int64_t)tile, stop - c0);
+      stage_tile(x, c0, len, d, dp, code, xs, ns, threads);
+      bool mine;
+      switch (code) {  // uniform
+        case METRIC_EUCLID_DIFF_SQ:
+          mine = probe_tile<DMAX, R, METRIC_EUCLID_DIFF_SQ>(xr, xsq, xs, ns, dp, d, len, root,
+                                                            thr, pth, flag);
+          break;
+        case METRIC_EUCLID_DOT_SQ:
+          mine = probe_tile<DMAX, R, METRIC_EUCLID_DOT_SQ>(xr, xsq, xs, ns, dp, d, len, root,
+                                                           thr, pth, flag);
+          break;
+        case METRIC_MANHATTAN:
+          mine = probe_tile<DMAX, R, METRIC_MANHATTAN>(xr, xsq, xs, ns, dp, d, len, root, thr,
+                                                       pth, flag);
+          break;
+        default:
+          mine = probe_tile<DMAX, R, METRIC_SUPREMUM>(xr, xsq, xs, ns, dp, d, len, root, thr,
+                                                      pth, flag);
+          break;
       }
       any = __syncthreads_or(mine);
     }
     if (!any) continue;
     // Pass 2: every row merges the whole column tile.
-    for (int64_t c0 = base; c0 < stop; c0 += sub) {
-      const int len = (int)min((int64_t)sub, stop - c0);
-      for (int t = threadIdx.x; t < len * d; t += blockDim.x) xs[t] = x[c0 * d + t];
-      __syncthreads();
-      if (metric == METRIC_EUCLID_DOT) {
-        for (int t = threadIdx.x; t < len; t += blockDim.x) ns[t] = sq_norm<DMAX>(xs + t * d, d);
-        __syncthreads();
-      }
-      for (int t = 0; t < len; ++t) {
-        const float dist = pair_distance<DMAX>(xr, xr_sq, xs + t * d, ns[t], d, metric);
-        if (!(dist < worst)) continue;
-        const int32_t id = (int32_t)(c0 + t);
-        // Insert after every entry <= dist; slots at or past k are ignored.
-#pragma unroll
-        for (int s = KB - 1; s >= 0; --s) {
-          if (s < k) {
-            const float prev = s > 0 ? bd[s > 0 ? s - 1 : 0] : -CUDART_INF_F;
-            if (prev > dist) {
-              bd[s] = prev;
-              bi[s] = bi[s > 0 ? s - 1 : 0];
-            } else if (dist < bd[s]) {
-              bd[s] = dist;
-              bi[s] = id;
-            }
-            if (s == k - 1) worst = bd[s];
-          }
-        }
+    for (int64_t c0 = base; c0 < stop; c0 += tile) {
+      const int len = (int)min((int64_t)tile, stop - c0);
+      stage_tile(x, c0, len, d, dp, code, xs, ns, threads);
+      const int32_t id0 = (int32_t)c0;
+      switch (code) {
+        case METRIC_EUCLID_DIFF_SQ:
+          scan_tile<DMAX, R, METRIC_EUCLID_DIFF_SQ, true>(xr, xsq, xs, ns, dp, d, len, id0,
+                                                          root, k, ld, li, stride, row_step,
+                                                          w, th);
+          break;
+        case METRIC_EUCLID_DOT_SQ:
+          scan_tile<DMAX, R, METRIC_EUCLID_DOT_SQ, true>(xr, xsq, xs, ns, dp, d, len, id0,
+                                                         root, k, ld, li, stride, row_step,
+                                                         w, th);
+          break;
+        case METRIC_MANHATTAN:
+          scan_tile<DMAX, R, METRIC_MANHATTAN, true>(xr, xsq, xs, ns, dp, d, len, id0, root,
+                                                     k, ld, li, stride, row_step, w, th);
+          break;
+        default:
+          scan_tile<DMAX, R, METRIC_SUPREMUM, true>(xr, xsq, xs, ns, dp, d, len, id0, root,
+                                                    k, ld, li, stride, row_step, w, th);
+          break;
       }
       __syncthreads();
     }
   }
+  if (mem_lists) return;
 #pragma unroll
-  for (int s = 0; s < KB; ++s) {
-    if (s < k) {
-      out_d[slot * k + s] = bd[s];
-      out_i[slot * k + s] = bi[s];
+  for (int r = 0; r < R; ++r) {
+    const int row = threadIdx.x + r * threads;
+    if (row >= rt) continue;
+    const int64_t o = (slot0 + row) * k;
+    for (int s = 0; s < k; ++s) {
+      out_d[o + s] = ld[r * row_step + s * stride];
+      out_i[o + s] = li[r * row_step + s * stride];
     }
   }
 }
@@ -189,34 +305,41 @@ knn_window_wide_kernel(const float* __restrict__ x, int n, int d,
   }
 }
 
-template <int DMAX, int KB>
-static cudaError_t launch(const float* x, int n, int d, const int32_t* ids,
-                          const int32_t* wstart, const float* bnd, int tiles,
-                          int row_tile, int k, int metric, int col_tile,
-                          int n_win_tiles, float* out_d, int32_t* out_i,
-                          cudaStream_t stream) {
-  const int sub = column_tile(d, 0);
-  const size_t smem = (size_t)sub * (d + 1) * sizeof(float);
-  knn_window_kernel<DMAX, KB><<<tiles, row_tile, smem, stream>>>(
-      x, n, d, ids, wstart, bnd, k, metric, col_tile, n_win_tiles, sub, out_d, out_i);
-  return cudaGetLastError();
+
+// Launch shape of a row tile of rt rows, d features and k slots: rows a
+// thread, threads, column sub-tile, list placement, dynamic shared memory.
+struct WinPlan {
+  int r, threads, tile;
+  bool mem_lists;
+  size_t smem;
+};
+
+static WinPlan win_plan(int rt, int d, int k) {
+  WinPlan p;
+  p.r = window_rows_per_thread(d);
+  p.threads = ((rt + p.r - 1) / p.r + 31) / 32 * 32;
+  const int dp = (d + 3) & ~3;
+  const int tile = (WIN_TILE_BYTES / 4) / (dp + 1);
+  p.tile = tile > 512 ? 512 : (tile / 32) * 32;
+  const size_t list_bytes = (size_t)p.r * p.threads * k * 8;
+  p.mem_lists = list_bytes > (size_t)WIN_LIST_BYTES;
+  p.smem = ((size_t)p.tile * (dp + 1) + 4) * sizeof(float) + (p.mem_lists ? 0 : list_bytes);
+  return p;
 }
 
-template <int DMAX>
-static cudaError_t launch_k(const float* x, int n, int d, const int32_t* ids,
-                            const int32_t* wstart, const float* bnd, int tiles,
-                            int row_tile, int k, int metric, int col_tile,
-                            int n_win_tiles, float* od, int32_t* oi, cudaStream_t s) {
-  if (k <= 16)
-    return launch<DMAX, 16>(x, n, d, ids, wstart, bnd, tiles, row_tile, k, metric,
-                            col_tile, n_win_tiles, od, oi, s);
-  if (k <= 32)
-    return launch<DMAX, 32>(x, n, d, ids, wstart, bnd, tiles, row_tile, k, metric,
-                            col_tile, n_win_tiles, od, oi, s);
-  if (k <= 128)
-    return launch<DMAX, 128>(x, n, d, ids, wstart, bnd, tiles, row_tile, k, metric,
-                             col_tile, n_win_tiles, od, oi, s);
-  return cudaErrorInvalidValue;
+template <int DMAX, int R>
+static cudaError_t launch(const float* x, int n, int d, const int32_t* ids,
+                          const int32_t* wstart, const float* bnd, int tiles, int rt, int k,
+                          int code, bool root, int col_tile, int n_win_tiles, const WinPlan& p,
+                          float* od, int32_t* oi, cudaStream_t stream) {
+  auto kern = knn_window_kernel<DMAX, R>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  kern<<<tiles, p.threads, p.smem, stream>>>(x, n, d, ids, wstart, bnd, rt, k, code, root,
+                                             col_tile, n_win_tiles, p.tile, p.mem_lists, od,
+                                             oi);
+  return cudaGetLastError();
 }
 
 // x: (>= n, d) float32 block-sorted points; ids (tiles * row_tile) int32 row
@@ -236,24 +359,32 @@ extern "C" int knn_window_launch(const void* x, int n, int d, const void* ids,
   auto s = (cudaStream_t)stream;
   if (tiles <= 0) return 0;
   if (k < 1 || row_tile < 1 || row_tile > WINDOW_MAX_THREADS || col_tile < 1 ||
-      n_win_tiles < 1 || d < 1)
+      n_win_tiles < 1 || d < 1 || metric < METRIC_EUCLID_DIFF || metric > METRIC_SUPREMUM)
     return (int)cudaErrorInvalidValue;
   if (k > 128 || d > 128) {
     knn_window_wide_kernel<<<tiles, row_tile, wide_smem_floats(row_tile) * sizeof(float), s>>>(
         xf, n, d, idp, wsp, bp, k, metric, col_tile, n_win_tiles, od, oi);
     return (int)cudaGetLastError();
   }
+  // The euclidean codes run on squared distances; roots only for admitted pairs.
+  const bool root = metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DOT;
+  const int code = metric == METRIC_EUCLID_DIFF ? METRIC_EUCLID_DIFF_SQ
+                   : metric == METRIC_EUCLID_DOT ? METRIC_EUCLID_DOT_SQ
+                                                 : metric;
+  const WinPlan p = win_plan(row_tile, d, k);
+  const int rt = row_tile, nw = n_win_tiles;
   if (d <= 4)
-    return launch_k<4>(xf, n, d, idp, wsp, bp, tiles, row_tile, k, metric, col_tile,
-                       n_win_tiles, od, oi, s);
+    return (int)launch<4, 2>(xf, n, d, idp, wsp, bp, tiles, rt, k, code, root, col_tile, nw, p,
+                             od, oi, s);
   if (d <= 8)
-    return launch_k<8>(xf, n, d, idp, wsp, bp, tiles, row_tile, k, metric, col_tile,
-                       n_win_tiles, od, oi, s);
+    return (int)launch<8, 2>(xf, n, d, idp, wsp, bp, tiles, rt, k, code, root, col_tile, nw, p,
+                             od, oi, s);
+  if (d <= 16)
+    return (int)launch<16, 2>(xf, n, d, idp, wsp, bp, tiles, rt, k, code, root, col_tile, nw,
+                              p, od, oi, s);
   if (d <= 32)
-    return launch_k<32>(xf, n, d, idp, wsp, bp, tiles, row_tile, k, metric, col_tile,
-                        n_win_tiles, od, oi, s);
-  if (d <= 128)
-    return launch_k<128>(xf, n, d, idp, wsp, bp, tiles, row_tile, k, metric, col_tile,
-                         n_win_tiles, od, oi, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch<32, 2>(xf, n, d, idp, wsp, bp, tiles, rt, k, code, root, col_tile, nw,
+                              p, od, oi, s);
+  return (int)launch<128, 1>(xf, n, d, idp, wsp, bp, tiles, rt, k, code, root, col_tile, nw, p,
+                             od, oi, s);
 }

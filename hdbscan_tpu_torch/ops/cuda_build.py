@@ -59,7 +59,7 @@ KERNELS = {
     "forest_merge": ("forest_merge.cu", "forest_merge_launch", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "forest_rescan_topk": (
         "forest_rescan.cu", "forest_rescan_topk_launch",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     ),
     "forest_min_outgoing": (
         "forest_rescan.cu", "forest_min_outgoing_launch",
@@ -70,7 +70,7 @@ KERNELS = {
         [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     ),
 }
-_HEADERS = ("distance.cuh", "lexlist.cuh")
+_HEADERS = ("distance.cuh", "kbest.cuh", "lexlist.cuh")
 SOURCES = sorted({src for src, _, _ in KERNELS.values()})
 
 #: Metric/form codes of ``csrc/distance.cuh``.

@@ -10,7 +10,10 @@ Four kernels (``csrc/forest_leaf_topk.cu``, ``csrc/forest_merge.cu``,
 * B6 :func:`forest_merge` — the cross-tree merge of the per-tree lists
   under the (distance, id) order, duplicate ids dropped;
 * B7 :func:`forest_rescan_topk` — per query row, the k lex-best distinct
-  ids of its own candidate panel (the rescan rounds);
+  ids of its own candidate panel (the rescan rounds): a warp a row, the
+  candidates cut into spans over a second grid axis where the rows alone
+  leave the card short of blocks (the wrapper allocates the spans'
+  scratch; :func:`rescan_splits`), the lists merged by a second pass;
 * B8 :func:`forest_min_outgoing` — the same panel reduced to a Borůvka
   segment-min of mutual reachability (no fit path calls it; the
   reference keeps it as the panel's second program entry).
@@ -19,7 +22,8 @@ Each wrapper runs its plain PyTorch version (``*_plain``, same signature
 and output) for a CPU tensor and launches its kernel for a CUDA tensor,
 raising on what the kernel does not take; nothing else picks the route.
 The kernels take every k and d: past 128 (the reference's fused gate)
-B5, B7 and B8 run their wide mode (f32), B6 the same kernel.
+B5 and B8 run their wide mode (f32), B6 and B7 the same kernel (B7's
+launches past 128 still count under ``forest_rescan_topk_wide``).
 At f32 the plain versions repeat the kernels' arithmetic (features one at
 a time, no FMA, correctly rounded roots), so the two agree bitwise.
 
@@ -39,6 +43,7 @@ for ``ops/rpforest``.
 
 from __future__ import annotations
 
+import ctypes
 import time
 
 import numpy as np
@@ -352,7 +357,17 @@ def forest_rescan_topk(q, data, cids, k: int, metric: str = "euclidean",
     """B7: query rows ``q`` (m, d) against their candidate ids ``cids``
     (m, C) int32 into ``data`` (N, d) (``sentinel`` marks an empty slot) ->
     (m, k) lex k-best distinct (distance, id), (+inf, ``sentinel``) in
-    unused slots."""
+    unused slots.
+
+    On the card (``csrc/forest_rescan.cu``; its header has the design) a
+    warp takes a row, its lanes striding over the candidates; where the
+    row blocks (four rows each) are fewer than about four an SM, each row's
+    candidates are cut into :func:`rescan_splits` spans, each span's list
+    goes to scratch allocated here, and a second pass of the same launch
+    merges them (the contract is a function of the set of distinct pairs,
+    so the partition does not change the result). Lists lie in registers
+    at k <= 32, in shared memory up to k = 1,024, in device memory above;
+    one launch is counted a call."""
     if q.device.type == "cpu":
         return forest_rescan_topk_plain(q, data, cids, k, metric, precision, sentinel)
     dev = cuda_build.launch_device("forest_rescan_topk", q, data, cids)
@@ -374,12 +389,33 @@ def forest_rescan_topk(q, data, cids, k: int, metric: str = "euclidean",
     q, data, cids = q.contiguous(), data.contiguous(), cids.contiguous()
     out_d = torch.empty((m, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=q.device)
+    splits = rescan_splits(m, c, d, k, mu is not None)
+    sd = si = None
+    if splits > 1:
+        sd = torch.empty(splits * m * k, dtype=torch.float32, device=q.device)
+        si = torch.empty(splits * m * k, dtype=torch.int32, device=q.device)
     cuda_build.launch(
         "forest_rescan_topk", dev, q.data_ptr(), data.data_ptr(), cids.data_ptr(), m, c, d, k,
-        code, sentinel, 0 if mu is None else mu.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), wide=max(k, d) > cuda_build.WIDE,
+        code, sentinel, 0 if mu is None else mu.data_ptr(), splits,
+        0 if sd is None else sd.data_ptr(), 0 if si is None else si.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), wide=max(k, d) > cuda_build.WIDE,
     )
     return _to_sentinel(out_d, out_i, sentinel)
+
+
+def rescan_splits(m: int, c: int, d: int, k: int, bf16: bool = False) -> int:
+    """Candidate spans a B7 launch of m rows, c candidates, d features and k
+    slots cuts each row into (``forest_rescan_splits`` of the kernel; the
+    launch's grid is :func:`rescan_blocks`)."""
+    fn = cuda_build.function("forest_rescan.cu", "forest_rescan_splits", [ctypes.c_int] * 5)
+    return fn(m, c, d, k, int(bf16))
+
+
+def rescan_blocks(m: int, c: int, d: int, k: int, bf16: bool = False) -> int:
+    """Blocks of a B7 launch's scan grid: row blocks of four rows times
+    spans."""
+    fn = cuda_build.function("forest_rescan.cu", "forest_rescan_blocks", [ctypes.c_int] * 5)
+    return fn(m, c, d, k, int(bf16))
 
 
 def forest_min_outgoing_plain(q, data, cids, core_q, core, comp_q, comp,

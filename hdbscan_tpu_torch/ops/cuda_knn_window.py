@@ -12,8 +12,14 @@ k-th, ``bnd[row]``) — the reference's guard at its grain, which decides
 which id wins an exact tie at the k-th slot. Empty slots are (+inf, -1);
 columns at or past ``n`` are masked.
 
-The kernel is ``csrc/knn_window.cu`` (one block per row tile, one thread
-per row; past k or d = 128 its wide mode; see its header).
+The kernel is ``csrc/knn_window.cu``; its header has the design. It runs
+the k-best body of K2 (``csrc/kbest.cuh``) under the guard: one block per
+row tile (the guard needs all of a tile's rows), 2 rows a thread at
+d <= 32 (1 above), float4 column reads from shared memory, lists in shared
+memory with inserts placed by bisection (in the slots' output rows past
+64 KB of lists a tile), pass 1 on squared values with a root only for a
+row under its bound, and a pass that stops as soon as one row of the tile
+holds a candidate. Past k or d = 128 it runs its wide mode.
 :func:`knn_window` launches it for CUDA tensors and runs
 :func:`knn_window_plain` for CPU tensors; nothing else picks the route.
 The distance form is the caller's: the fused contract's dot form, or the

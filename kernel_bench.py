@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one hand-written kernel body of one package tree on the card.
 
-    python3 kernel_bench.py segmin|kbest ROOT [SHAPE ...]
+    python3 kernel_bench.py segmin|kbest|rescan|window ROOT [SHAPE ...]
 
 ROOT is a directory holding ``hdbscan_tpu_torch/``: the checkout (``.``), or
 an earlier commit unpacked with ``git archive`` into a git-ignored directory,
@@ -29,12 +29,41 @@ not a parity path, ``torch.cdist`` plus ``torch.topk(largest=False)`` over
 row chunks at the k = 15 Skin, panel and 262,144 x 8 shapes and the 3f B3
 shape, TF32 off: two library calls, with other rounding and tie order.
 
+``rescan`` (B7): one rescan chunk (``max(64, 2^24 / (k^2 d))`` rows, each
+against its k^2 neighbor-of-neighbor candidates) at the 3b fit's shape
+(the Skin grid, k = 15, 24,855 rows x 225 candidates), on the Skin grid at
+k = 63 (1,409 x 3,969) and k = 129 (336 x 16,641), and at the 3h fit's
+3,000 x 3 lattice at k = 129 (336 x 16,641). The panels come from a real
+forest query on that data (the forest of ``chip_smoke.forest_times``: 4
+trees of leaf 1,024 on the Skin grid, 2 of leaf 300 on the lattice;
+kernels B5 and B6), built once and kept in the git-ignored
+``.torch_build/bench/`` beside this script, so every tree timed in turn
+gets the same tensors. Each shape also reports the scan's grid (blocks)
+and the share of its live candidates that repeat an id of their row.
+
+``window`` (B4): one chunk at the 3d fit's main-chunk shape: 1,024 row
+tiles of 512 rows, d = 10, k = 7, dot form, windows of 4 column tiles of
+8,192 columns, on the Morton-sorted ``make_gauss(1,000,000, dims=10,
+n_clusters=30, separation=9.0, seed=2)`` (the 3d data; block-sorted as
+the rescan sorts it); row tile t holds rows [512 t, 512 (t + 1)), its
+window starts one column tile before its own; odd tiles prime ``bnd`` with
+each slot's k-th distance within its own row tile (finite), even tiles
+with +inf, so that guards both fire and do not. It also reports the share
+of (row tile x column tile) guards that fire, counted from the running
+lists (not timed).
+
+Beside the rescan and window shapes, as a yardstick and not a parity path,
+``torch.cdist`` plus ``torch.topk(largest=False)`` over the same pairs
+(the candidate points gathered first for B7; tiles in groups), TF32 off:
+two library calls, with other rounding, tie order and no dedup.
+
 Prints the card and one JSON line of mean milliseconds by shape.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 
@@ -202,8 +231,226 @@ def kbest_yardstick(data: Data) -> dict:
     }
 
 
+def _cached(name: str, make):
+    """Tensors ``make()`` returns, kept in ``.torch_build/bench/<name>.pt``
+    beside this script so that every tree timed in turn gets the same ones."""
+    import os
+
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".torch_build", "bench",
+                        f"{name}.pt")
+    if os.path.exists(path):
+        return [t.cuda() for t in torch.load(path)]
+    out = make()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save([t.cpu() for t in out], f"{path}.tmp")
+    os.replace(f"{path}.tmp", path)
+    return out
+
+
+def rescan_panel(data, k: int, trees: int, leaf_size: int):
+    """(query rows, points, candidate ids) of the first rescan chunk of a
+    forest fit at k: the forest query's lists (B5, B6), each chunk row's
+    k^2 neighbors of neighbors (sentinel n where a slot is empty)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import rpforest
+
+    n, d = data.shape
+    x = torch.as_tensor(data.astype(np.float32), device="cuda")
+    forest = rpforest.build_forest(data, trees=trees, leaf_size=max(leaf_size, 2 * k + 2),
+                                   seed=0)
+    _, best_i = rpforest.forest_knn(x, forest, k, backend="fused")
+    kk = best_i.shape[1]
+    chunk = min(n, max(64, rpforest._RESCAN_ELEM_BUDGET // (kk * kk * d)))
+    return x[:chunk].contiguous(), x, rpforest._expand(best_i, best_i[:chunk], kk, n)
+
+
+def rescan_panels(data: Data) -> dict:
+    """Shape name -> (getter of the chunk's (q, x, cand), repetitions)."""
+    import numpy as np
+
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    def lattice():
+        return np.round(make_gauss(3000, dims=3, n_clusters=6, separation=8.0, seed=3)[0])
+
+    def skin():
+        return data.skin().cpu().numpy().astype(np.float64)
+
+    cases = (  # name, cache key, points, k, trees, leaf size, repetitions
+        (f"B7 skin {N_SKIN}x3 k15 (3b)", "skin_k15", skin, 15, 4, 1024, 10),
+        (f"B7 skin {N_SKIN}x3 k63", "skin_k63", skin, 63, 4, 1024, 5),
+        (f"B7 skin {N_SKIN}x3 k129", "skin_k129", skin, 129, 4, 1024, 3),
+        ("B7 lattice 3000x3 k129 (3h)", "lattice_k129", lattice, 129, 2, 300, 3),
+    )
+    panels = {}
+    for name, key, points, k, trees, leaf, reps in cases:
+        memo = []
+
+        def get(memo=memo, key=key, points=points, k=k, trees=trees, leaf=leaf):
+            if not memo:
+                memo.extend(_cached(f"rescan_{key}",
+                                    lambda: rescan_panel(points(), k, trees, leaf)))
+            return memo
+        panels[name] = (get, reps)
+    return panels
+
+
+def _rescan_k(cand) -> int:
+    return math.isqrt(cand.shape[1])
+
+
+def rescan_shapes(panels: dict) -> dict:
+    """Shape name -> (function to time, repetitions)."""
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    def run(get):
+        q, x, cand = get()
+        return cf.forest_rescan_topk(q, x, cand, _rescan_k(cand), "euclidean", "f32", len(x))
+
+    return {name: (lambda get=get: run(get), reps) for name, (get, reps) in panels.items()}
+
+
+def rescan_blocks_of(panels: dict) -> dict:
+    """Each rescan shape's scan grid (row blocks x spans), where the tree
+    has ``cuda_forest.rescan_blocks`` (the redesigned kernel)."""
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    if not hasattr(cf, "rescan_blocks"):
+        return {}
+    out = {}
+    for name, (get, _) in panels.items():
+        q, x, cand = get()
+        out[name] = cf.rescan_blocks(q.shape[0], cand.shape[1], q.shape[1], _rescan_k(cand))
+    return out
+
+
+def rescan_copy_share(panels: dict) -> dict:
+    """Each rescan shape's share of live candidates that repeat an id
+    already met in the same row (not timed)."""
+    import torch
+
+    out = {}
+    for name, (get, _) in panels.items():
+        _, x, cand = get()
+        live = cand != len(x)
+        s = torch.sort(cand, dim=1).values
+        repeat = torch.zeros_like(live)
+        repeat[:, 1:] = (s[:, 1:] == s[:, :-1]) & (s[:, 1:] != len(x))
+        out[name] = float(repeat.sum()) / max(1, int(live.sum()))
+    return out
+
+
+def rescan_yardstick(panels: dict) -> dict:
+    """cdist + topk of each rescan chunk's rows against their gathered
+    candidate points, rows in groups of at most 2^26 gathered features."""
+    import torch
+
+    def two_calls(get):
+        q, x, cand = get()
+        m, c = cand.shape
+        rows = max(1, (1 << 26) // (c * x.shape[1]))
+        for a in range(0, m, rows):
+            pts = x[cand[a:a + rows].clamp(max=x.shape[0] - 1).long()]
+            torch.topk(torch.cdist(q[a:a + rows, None, :], pts), _rescan_k(cand), dim=2,
+                       largest=False)
+
+    return {name: (lambda get=get: two_calls(get), reps) for name, (get, reps) in panels.items()}
+
+
+W_TILES, W_RT, W_D, W_K, W_COL_TILE, W_WIN = 1024, 512, 10, 7, 8192, 4
+
+
+def window_chunk():
+    """(x, n, ids, wstart, bnd) of the window bench's chunk (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import pairwise_distance
+    from hdbscan_tpu_torch.ops.cuda_knn_smallest import morton_order
+    from hdbscan_tpu_torch.ops.lexmerge import lex_kbest
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    def make():
+        xs = make_gauss(1_000_000, dims=W_D, n_clusters=30, separation=9.0, seed=2)[0]
+        x = torch.as_tensor(xs[morton_order(xs)].astype(np.float32), device="cuda")
+        n = x.shape[0]
+        ids = torch.arange(W_TILES * W_RT, dtype=torch.int32, device="cuda").reshape(W_TILES, W_RT)
+        n_tiles = -(-n // W_COL_TILE)
+        own = torch.arange(W_TILES, device="cuda") * W_RT // W_COL_TILE
+        wstart = torch.clamp(own - 1, 0, n_tiles - W_WIN).to(torch.int32)
+        bnd = torch.full((W_TILES, W_RT), float("inf"), device="cuda")
+        for t in range(1, W_TILES, 2):
+            xt = x[ids[t].long()]
+            bnd[t] = lex_kbest(pairwise_distance(xt, xt, "euclidean", "dot"), W_K)[0][:, -1]
+        return [x, ids, wstart, bnd]
+
+    x, ids, wstart, bnd = _cached("window_3d", make)
+    return x, x.shape[0], ids, wstart, bnd
+
+
+def window_shapes(chunk) -> dict:
+    from hdbscan_tpu_torch.ops import cuda_knn_window as cw
+
+    def run():
+        x, n, ids, wstart, bnd = chunk
+        return cw.knn_window(x, n, ids, wstart, bnd, W_K, W_COL_TILE, W_WIN, "euclidean", "dot")
+
+    name = (f"B4 {W_TILES} tiles x {W_RT} rows, d {W_D}, k {W_K}, dot, windows {W_WIN} x "
+            f"{W_COL_TILE}")
+    return {name: (run, 2)}
+
+
+def window_yardstick(chunk) -> dict:
+    """cdist + topk of each slot against its window's columns, 8 row tiles
+    a group."""
+    import torch
+
+    def go():
+        x, n, ids, wstart, bnd = chunk
+        ar = torch.arange(W_WIN * W_COL_TILE, device="cuda")
+        for a in range(0, W_TILES, 8):
+            cols = torch.clamp(wstart[a:a + 8, None].long() * W_COL_TILE + ar, max=n - 1)
+            torch.topk(torch.cdist(x[ids[a:a + 8].long()], x[cols]), W_K, dim=2, largest=False)
+
+    return {"window chunk": (go, 1)}
+
+
+def window_guard_share(chunk) -> float:
+    """Share of the chunk's (row tile x column tile) guards that fire: the
+    running lists after j column tiles (the kernel over the first j), and a
+    tile's guard fires iff one of its rows has a column of tile j strictly
+    below min(its k-th, bnd)."""
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import pairwise_distance
+    from hdbscan_tpu_torch.ops import cuda_knn_window as cw
+
+    x, n, ids, wstart, bnd = chunk
+    fired = 0
+    ar = torch.arange(W_COL_TILE, device="cuda")
+    for j in range(W_WIN):
+        if j:
+            kth = cw.knn_window(x, n, ids, wstart, bnd, W_K, W_COL_TILE, j, "euclidean",
+                                "dot")[0][..., -1]
+        else:
+            kth = torch.full_like(bnd, float("inf"))
+        thr = torch.minimum(kth, bnd)
+        for a in range(0, W_TILES, 16):
+            cols = (wstart[a:a + 16, None].long() + j) * W_COL_TILE + ar
+            dist = pairwise_distance(x[ids[a:a + 16].long()], x[cols.clamp(max=n - 1)],
+                                     "euclidean", "dot")
+            dist = torch.where((cols < n)[:, None, :], dist, float("inf"))
+            fired += int((dist.amin(dim=2) < thr[a:a + 16]).any(dim=1).sum())
+    return fired / (W_TILES * W_WIN)
+
+
 def main() -> int:
-    if len(sys.argv) < 3 or sys.argv[1] not in ("segmin", "kbest"):
+    if len(sys.argv) < 3 or sys.argv[1] not in ("segmin", "kbest", "rescan", "window"):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     kernel, root, keep = sys.argv[1], sys.argv[2], sys.argv[3:]
@@ -216,7 +463,8 @@ def main() -> int:
         print("kernel_bench: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda_build.kernel("knn_kbest" if kernel == "kbest" else "segmin")
+    cuda_build.kernel({"kbest": "knn_kbest", "segmin": "segmin", "rescan": "forest_rescan_topk",
+                       "window": "knn_window"}[kernel])
 
     def timed(shapes):
         return {name: ms(fn, reps) for name, (fn, reps) in shapes.items()
@@ -224,12 +472,25 @@ def main() -> int:
 
     data = Data()
     result = {"root": root, "kernel": kernel}
+    yardstick = "two_library_calls_other_rounding_and_tie_order_ms"
     if kernel == "segmin":
         result["ms"] = timed(segmin_shapes(data))
-    else:
+    elif kernel == "kbest":
         result["ms"] = timed(kbest_shapes(data))
-        result["two_library_calls_other_rounding_and_tie_order_ms"] = timed(
-            kbest_yardstick(data))
+        result[yardstick] = timed(kbest_yardstick(data))
+    elif kernel == "rescan":
+        panels = {name: v for name, v in rescan_panels(data).items()
+                  if not keep or any(s in name for s in keep)}
+        result["ms"] = timed(rescan_shapes(panels))
+        result["blocks"] = rescan_blocks_of(panels)
+        result["copy_share"] = rescan_copy_share(panels)
+        result["two_library_calls_other_rounding_tie_order_and_no_dedup_ms"] = timed(
+            rescan_yardstick(panels))
+    else:
+        chunk = window_chunk()
+        result["ms"] = timed(window_shapes(chunk))
+        result["guard_fired_share"] = window_guard_share(chunk)
+        result[yardstick] = timed(window_yardstick(chunk))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()

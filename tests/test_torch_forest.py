@@ -189,6 +189,59 @@ def test_rescan_topk_matches_pallas(integer):
     _assert_lists(*got, *ref, integer=integer)
 
 
+def _copied_panel(rng, n, rows, c, cuts):
+    """Random ids of ``n`` points with id 3 copied on both sides of every
+    cut position, every 7th slot, and two sentinel slots a row."""
+    cand = rng.integers(0, n, size=(rows, c)).astype(np.int32)
+    for cut in cuts:
+        cand[:, cut - 1: cut + 1] = 3
+    cand[:, ::7] = 3
+    cand[:, -2:] = n
+    return cand
+
+
+@pytest.mark.parametrize("k", [1, 7, 16, 17, 33])
+def test_rescan_topk_grid_ties_and_copies_match_pallas(k):
+    """B7's plain version == ``forest_rescan_topk`` (interpret), bitwise, on
+    a 0..2 integer grid (exact ties at the k-th slot, the lower id first)
+    with one id copied across the positions where a span would cut."""
+    rng = np.random.default_rng(20 + k)
+    data = rng.integers(0, 3, size=(150, 3)).astype(np.float32)
+    n, rows, c = len(data), 12, max(k * k, 64)
+    cand = _copied_panel(rng, n, rows, c, range(c // 4, c, c // 4))
+    dd = jnp.asarray(data)
+    cpts = dd[jnp.clip(jnp.asarray(cand), 0, n - 1)]
+    ref = pf.forest_rescan_topk(dd[:rows], cpts, jnp.asarray(cand), k, "euclidean", "f32", n,
+                                interpret=True)
+    got = cf.forest_rescan_topk(torch.as_tensor(data[:rows]), torch.as_tensor(data),
+                                torch.as_tensor(cand), k, "euclidean", "f32", n)
+    _assert_lists(*got, *ref, integer=True)
+    ids = got[1].numpy()
+    assert all(len(set(r[r != n])) == np.count_nonzero(r != n) for r in ids)
+
+
+@pytest.mark.parametrize("partition", ["spans", "shuffled"])
+@pytest.mark.parametrize("parts", [2, 3, 7])
+def test_rescan_topk_partition_merge_equals_whole(parts, partition):
+    """The invariant B7's span merge relies on: the plain version over any
+    partition of each row's candidates, the parts' lists merged with
+    ``lexmerge.dedup_lex_merge``, equals the plain version over the whole
+    row, bitwise (copies of one id in several parts count once)."""
+    rng = np.random.default_rng(30 + parts)
+    data = torch.as_tensor(rng.integers(0, 3, size=(120, 3)).astype(np.float32))
+    n, rows, c, k = len(data), 10, 200, 9
+    span = -(-c // parts)
+    cand = torch.as_tensor(_copied_panel(rng, n, rows, c, range(span, c, span)))
+    q = data[:rows]
+    whole = cf.forest_rescan_topk_plain(q, data, cand, k, "euclidean", "f32", n)
+    order = np.arange(c) if partition == "spans" else rng.permutation(c)
+    lists = [cf.forest_rescan_topk_plain(q, data, cand[:, order[a:a + span]].contiguous(), k,
+                                         "euclidean", "f32", n) for a in range(0, c, span)]
+    merged = port_lex.dedup_lex_merge(torch.cat([d for d, _ in lists], 1),
+                                      torch.cat([i for _, i in lists], 1), k, n)
+    assert torch.equal(merged[0], whole[0]) and torch.equal(merged[1], whole[1])
+
+
 @pytest.mark.parametrize("integer", [True, False], ids=["grid", "continuous"])
 def test_min_outgoing_matches_pallas(integer):
     """B8's plain version == ``forest_min_outgoing`` (interpret) and its XLA

@@ -79,6 +79,30 @@ def test_lattice_bitwise_vs_pallas(k, n_win, finite_bnd):
     np.testing.assert_array_equal(port[1], ref[1])
 
 
+@pytest.mark.parametrize("n_win", [1, 3])
+@pytest.mark.parametrize("k", [7, 8])
+def test_lattice_bnd_at_window_distances_vs_pallas(k, n_win):
+    """``bnd`` equal to distances present in each slot's window — its
+    nearest column of the window's first tile, odd slots a random column of
+    the last — so a guard must not fire on equality: bitwise vs the
+    reference."""
+    x, n_pad, ids, wstart, _ = _case(70 + k + n_win, 700, 3, True, 32, 3, n_win)
+    rng = np.random.default_rng(k * n_win)
+    n = len(x)
+    xr = x[ids].astype(np.float64)
+    first = wstart[:, None] * COL_TILE + np.arange(COL_TILE)
+    first = np.where(first < n, first, n - 1)
+    near = np.sqrt(((xr[:, :, None, :] - x[first][:, None, :, :]) ** 2).sum(-1)).min(-1)
+    last = (wstart[:, None] + n_win - 1) * COL_TILE + rng.integers(0, COL_TILE, size=ids.shape)
+    other = np.sqrt(((xr - x[np.minimum(last, n - 1)]) ** 2).sum(-1))
+    odd = np.arange(ids.shape[1]) % 2 == 1
+    bnd = np.where(odd, other, near).astype(np.float32)
+    ref = _reference(x, n_pad, ids, wstart, bnd, k, n_win)
+    port = _port(x, n_pad, ids, wstart, bnd, k, n_win)
+    np.testing.assert_array_equal(port[0], ref[0])
+    np.testing.assert_array_equal(port[1], ref[1])
+
+
 @pytest.mark.parametrize("k", [1, 7, 15])
 def test_lattice_window_at_last_column_tile(k):
     case = _case(50 + k, 650, 4, True, 16, 2, 2, last_window=True)  # ragged last tile
