@@ -38,7 +38,18 @@ Phases (any failure exits non-zero):
    bit for bit: ``bnd`` at +inf, at 0 and equal to exact grid distances (a
    guard must not fire on equality), windows past n, k above a window's
    columns, k = 1 to 128 and row tiles of 1, 33 and 512 in every contract,
-   and every d instantiation boundary;
+   and every d instantiation boundary; the union-find scan (K3, the batched
+   replay) bit for bit on adversarial pools up to 1,048,576 vertices (a
+   path whose every edge hangs the growing component under a fresh vertex,
+   stars with the hub as u and as v, only padding self-loops, n = 1,
+   m = 0, m >> n with duplicates, a random multigraph, a spanning path
+   followed by only cycle edges, a shuffled tree with a padding tail),
+   which cross up to ~2,000 of its 1,024-edge batches; the leaf top-k
+   (B5) bit for bit: exact grid ties on both sides of the step and tile
+   edges at the 3b and 3c batch shapes, masked columns in every metric and form,
+   kk = the leaf width, leaves of one real member, bf16, every d
+   instantiation boundary, lists in shared memory and in the output rows
+   (kk 1,600), kk = 129 and 200 and d = 129 and 200;
 3. run the exact fit (``hdbscan_tpu_torch.models.exact.fit``) on a seeded
    Skin-shaped set — 245,057 x 3 integer RGB values in [0, 255] — with
    min_points=16, min_cluster_size=3000: first check that the fit on the
@@ -97,6 +108,10 @@ Phases (any failure exits non-zero):
    whose labels, core distances, MST, outlier scores and condensed tree
    must equal the single-device fit of phase 3, with one host sync, 16 ring
    B2 launches and 16 B9 launches per Borůvka round;
+K3 is then held bit for bit to its plain version on the fits' own pools:
+   the Skin-shaped fit's MST, the 3c exact twin's, the 3f fit's and the 3d
+   MR fit's host edge pool (with its cycle and duplicate edges), each in
+   the scan's (w, u, v) order;
 3h. past k or d = 128, where every kernel but B3 runs its wide mode
    (features in chunks, lists in device memory): fits on the card equal to
    the same fits on the CPU -- exact at 2,000 x 129 and at min_points=200,
@@ -123,7 +138,14 @@ Phases (any failure exits non-zero):
    the 3g fit's first round, and every wide mode at the 3h fits' shapes
    (rows named ``<kernel>_wide``). It also prints the share of segment-min
    tiles whose rows and columns lie in one component, at round 1 and the
-   last round of the Skin-shaped fit.
+   last round of the Skin-shaped fit. K3's row adds its latency floor
+   (``latency_floor_ms``: the replay's dependent chain, counted by the
+   kernel's ``prof`` counters as shared-memory loads and shuffle rounds,
+   each at its round trip timed in this run by ``uf_probe_launch``) and,
+   from the same counters, its phases' shares of the block's cycles and
+   the hops per find; B5's row its grid
+   (``blocks``); both rows the kernel's device time a call from
+   ``torch.profiler`` (``device_ms``, without the wrapper's host gaps).
 
 The second line before the last is the card's name and power limit, the
 line before the last the ``kernels`` JSON, the last line the device JSON.
@@ -208,6 +230,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel: str, reps: int = 3) -> float:
+    """Device time a launch of the kernel whose name contains ``kernel``
+    (``torch.profiler`` over ``reps`` calls after one warm run, averaged
+    over the launches it recorded): the kernel without the wrapper's host
+    gaps, which ``cuda_ms`` includes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+             for e in events)
+    return us / 1e3 / max(1, sum(e.count for e in events))
+
+
+def uf_round_trip_ms(kind: int) -> float:
+    """One dependent round of a K3 replay latency unit, ms, timed on the
+    card (``uf_probe_launch`` of ``csrc/uf_scan.cu``; kind 0 a shuffle, 1 a
+    shared-memory load): two chain lengths timed, their difference over
+    the difference of their rounds, so the launch drops out."""
+    import ctypes
+
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("uf_scan.cu", "uf_probe_launch",
+                             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    out = torch.empty(32, dtype=torch.int32, device="cuda")
+
+    def run(steps):
+        rc = fn(steps, kind, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"uf_probe_launch failed: cudaError {rc}")
+
+    few, many = 1 << 18, 1 << 20
+    return (cuda_ms(lambda: run(many), 3) - cuda_ms(lambda: run(few), 3)) / (many - few)
+
+
 def host_ms(fn) -> float:
     import torch
 
@@ -280,6 +346,167 @@ def parity() -> list[str]:
     print(f"parity K3 uf_scan {m} edges: {'bitwise' if ok else 'MISMATCH'}")
     if not ok:
         errors.append("K3")
+    return errors
+
+
+def uf_pairs_check(label, su, sv, n, errors):
+    """K3 against its plain version on one pool (int32 numpy endpoints in
+    scan order), bitwise."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core import mst_device
+
+    gu = torch.as_tensor(np.asarray(su, np.int32), device="cuda")
+    gv = torch.as_tensor(np.asarray(sv, np.int32), device="cuda")
+    want = mst_device.uf_scan_plain(gu, gv, n)
+    got = mst_device.uf_scan(gu, gv, n)
+    torch.cuda.synchronize()
+    ok = _same(got, want)
+    tag = f"K3 uf_scan {label} ({len(su)} edges, n {n})"
+    print(f"parity {tag}: {'bitwise' if ok else 'MISMATCH'}")
+    if not ok:
+        errors.append(tag)
+    return int((want[0] != want[1]).sum())
+
+
+def parity_ufscan() -> list[str]:
+    """K3 against its plain version on the card, bitwise, on adversarial
+    pools up to 1,048,576 vertices (up to ~2,000 batches of the replay's
+    1,024 edges): a path in the order that hangs the
+    growing component under a fresh vertex at every edge (the longest link
+    chains) and in the other order, a star whose hub is u in every edge and
+    one whose hub is v, only padding self-loops, n = 1, m = 0, m >> n with
+    heavy duplicates, a random multigraph with self-loops, a spanning path
+    followed by batches of only cycle edges, and a shuffled tree with a
+    padding tail."""
+    import numpy as np
+
+    errors = []
+    rng = np.random.default_rng(SEED + 11)
+    big = 1 << 20
+    p = rng.permutation(big)
+    tree = 300_000
+    tu = np.arange(1, tree)
+    tv = (rng.random(tree - 1) * tu).astype(np.int64)  # vertex i's parent lies below i
+    shuf = rng.permutation(tree - 1)
+    cyc = rng.integers(0, 100_000, size=(400_000, 2))
+    dup = rng.integers(0, 1000, size=(1_000_000, 2))
+    mu = rng.integers(0, big, 2 * big)
+    mv = np.where(rng.random(2 * big) < 0.1, mu, rng.integers(0, big, 2 * big))
+    pools = [
+        ("path, fresh vertex as u", p[1:], p[:-1], big),
+        ("path, fresh vertex as v", p[:-1], p[1:], big),
+        ("star, hub as u", np.zeros(big - 1, np.int64), np.arange(1, big), big),
+        ("star, hub as v", np.arange(1, big), np.zeros(big - 1, np.int64), big),
+        ("only padding self-loops", np.zeros(100_000, np.int64), np.zeros(100_000, np.int64),
+         1000),
+        ("n = 1", np.zeros(50, np.int64), np.zeros(50, np.int64), 1),
+        ("m = 0", np.zeros(0, np.int64), np.zeros(0, np.int64), 10),
+        ("m >> n, duplicates", dup[:, 0], dup[:, 1], 1000),
+        ("random multigraph with self-loops", mu, mv, big),
+        ("spanning path, then only cycle edges",
+         np.concatenate([np.arange(99_999), cyc[:, 0]]),
+         np.concatenate([np.arange(1, 100_000), cyc[:, 1]]), 100_000),
+        ("shuffled tree, padding tail", np.concatenate([tu[shuf], np.zeros(50_000, np.int64)]),
+         np.concatenate([tv[shuf], np.zeros(50_000, np.int64)]), tree),
+    ]
+    for label, su, sv, n in pools:
+        uf_pairs_check(label, su, sv, n, errors)
+    return errors
+
+
+def parity_leaf() -> list[str]:
+    """B5 against its plain version on the card, bitwise, on leaf batches
+    built directly: exact ties on integer grids at the 3b and 3c batch
+    shapes (36 leaves of 958, 32 of 1,024; the same point on both sides of
+    every 32-position step and tile edge), random masked columns in every
+    metric and form, kk = the leaf width, leaves of one real member, bf16,
+    every d instantiation boundary, lists in shared memory (kk 33 to 800)
+    and past its budget (kk 1,600: the output rows), and the wide cases:
+    kk = 129 and 200 at d = 3, and d = 129 and 200 (no staged tile)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    errors = []
+    rng = np.random.default_rng(SEED + 13)
+
+    def check(tag, x, members, mask, kk, metric="euclidean", form="diff", prec="f32"):
+        n = x.shape[0]
+        args = (torch.as_tensor(x.astype(np.float32), device="cuda"),
+                torch.as_tensor(members.astype(np.int32), device="cuda"),
+                torch.as_tensor(mask, device="cuda"), kk, metric,
+                form if metric == "euclidean" else None, prec, n)
+        a = cf.forest_leaf_topk(*args)
+        torch.cuda.synchronize()
+        ok = _same(a, cf.forest_leaf_topk_plain(*args))
+        b, ell = members.shape
+        label = (f"B5 forest_leaf_topk {tag} ({b} x {ell}, d {x.shape[1]}, kk {kk}, {metric}"
+                 f"{' ' + form if metric == 'euclidean' else ''} {prec})")
+        print(f"parity {label}: {'bitwise' if ok else 'MISMATCH'}")
+        if not ok:
+            errors.append(label)
+
+    def leaves(n, b, ell, tie_steps=False):
+        members = np.stack([rng.choice(n, ell, replace=False) for _ in range(b)])
+        if tie_steps:  # one point on both sides of every 32-position step and tile edge
+            members[:, 32::32] = members[:, 31:-1:32][:, :members[:, 32::32].shape[1]]
+        return members
+
+    full = lambda b, ell: np.ones((b, ell), bool)  # noqa: E731
+    for ell, b in ((958, 36), (1024, 32)):
+        x = rng.integers(0, 12, size=(40_000, 3)).astype(np.float64)
+        members = leaves(len(x), b, ell, tie_steps=True)
+        mask = full(b, ell)
+        mask[:, -1] = False
+        for kk in (1, 15, 16, 33):
+            for form in ("diff", "dot"):
+                check("grid ties at step and tile edges", x, members, mask, kk, form=form)
+        check("grid ties at step and tile edges", x, members, mask, 15, form="dot", prec="bf16")
+    x = rng.normal(size=(20_000, 7))
+    members = leaves(len(x), 12, 500)
+    mask = rng.random((12, 500)) < 0.8
+    for metric, form in (("euclidean", "diff"), ("euclidean", "dot"), ("manhattan", None),
+                         ("supremum", None)):
+        for kk in (7, 64):
+            check("masked columns", x, members, mask, kk, metric, form)
+    check("masked columns", x, members, mask, 15, form="diff", prec="bf16")
+    xg = rng.integers(0, 6, size=(5000, 4)).astype(np.float64)
+    for ell in (40, 300):
+        members = leaves(len(xg), 9, ell)
+        for form in ("diff", "dot"):
+            check("kk = leaf width", xg, members, full(9, ell), ell, form=form)
+    one = np.zeros((20, 64), bool)
+    one[np.arange(20), rng.integers(0, 64, 20)] = True
+    check("one real member", xg, leaves(len(xg), 20, 64), one, 5)
+    check("one real member", xg, leaves(len(xg), 20, 64), one, 5, form="dot", prec="bf16")
+    for d in (1, 4, 5, 8, 9, 32, 33, 128):
+        xd = rng.integers(0, 4, size=(3000, d)).astype(np.float64)
+        members = leaves(len(xd), 6, 257)
+        mask = rng.random((6, 257)) < 0.9
+        for form in ("diff", "dot"):
+            check("d boundary", xd, members, mask, 17, form=form)
+        check("d boundary", xd, members, mask, 17, form="dot", prec="bf16")
+        check("d boundary", xd, members, mask, 9, "manhattan", None)
+    xw = rng.integers(0, 5, size=(4000, 3)).astype(np.float64)
+    members = leaves(len(xw), 3, 900)
+    check("lists in shared memory", xw, members, full(3, 900), 800)
+    members = leaves(len(xw), 3, 1700)
+    check("lists in the output rows", xw, members, full(3, 1700), 1600)
+    check("lists in the output rows", xw, members, rng.random((3, 1700)) < 0.95, 1600,
+          form="dot")
+    members = leaves(len(xw), 16, 375)
+    for kk in (129, 200):
+        for form in ("diff", "dot"):
+            check("wide kk", xw, members, rng.random((16, 375)) < 0.97, kk, form=form)
+    for d, kk in ((129, 15), (129, 129), (200, 200)):
+        xd = rng.integers(0, 3, size=(3000, d)).astype(np.float64)
+        members = leaves(len(xd), 8, 375)
+        mask = rng.random((8, 375)) < 0.97
+        for metric, form in (("euclidean", "diff"), ("euclidean", "dot"), ("manhattan", None)):
+            check("wide d", xd, members, mask, kk, metric, form)
     return errors
 
 
@@ -584,7 +811,10 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
         (x, members[0, a0:b0], mask[a0:b0], kk, "euclidean", form, "f32", n),
         cf.forest_leaf_topk, cf.forest_leaf_topk_plain,
         nb * ell * (4 + 1 + d * 4) + nb * ell * kk * 8,
-        float(ell * widths.sum()) * pair_ops(d, form, root=False), library=leaf_two_calls)
+        float(ell * widths.sum()) * pair_ops(d, form, root=False), library=leaf_two_calls,
+        blocks=cf.leaf_blocks(nb, ell), device_ms=device_ms(
+            lambda: cf.forest_leaf_topk(x, members[0, a0:b0], mask[a0:b0], kk, "euclidean",
+                                        form, "f32", n), "leaf_topk"))
 
     sd = torch.full((forest.trees, n, kk), float("inf"), device="cuda")
     si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device="cuda")
@@ -1457,33 +1687,40 @@ def mr_card_vs_cpu() -> list[str]:
     return errors
 
 
-class WindowRecorder:
-    """Wraps the B4 wrapper during a fit to keep the arguments of every
-    call; the wrapped call launches and counts as before."""
+class CallRecorder:
+    """Wraps ``mod.name`` during a fit to keep the arguments of every call;
+    the wrapped call runs (and launches and counts) as before."""
+
+    def __init__(self, mod, name: str):
+        self.mod, self.name = mod, name
+        self.orig = getattr(mod, name)
+        self.calls = []
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            self.calls.append(args)
+            return self.orig(*args, **kw)
+
+        setattr(self.mod, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+class WindowRecorder(CallRecorder):
+    """Keeps the arguments of every B4 call during a fit."""
 
     def __init__(self):
         from hdbscan_tpu_torch.ops import cuda_knn_window
 
-        self.mod = cuda_knn_window
-        self.orig = cuda_knn_window.knn_window
-        self.calls = []
+        super().__init__(cuda_knn_window, "knn_window")
 
     def main_chunk(self, ev):
         """The largest (most row tiles) chunk of the rescan's main phase:
         its calls are the last ``chunks`` of the ``knn_window_scan`` event."""
         main = self.calls[-ev["knn_window_scan"][0]["chunks"]:]
         return max(main, key=lambda args: args[2].shape[0])
-
-    def __enter__(self):
-        def rec(*args):
-            self.calls.append(args)
-            return self.orig(*args)
-
-        self.mod.knn_window = rec
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.knn_window = self.orig
 
 
 def window_time(args, launches, name="knn_window") -> dict:
@@ -1903,7 +2140,7 @@ def main() -> int:
 
     errors = (parity() + parity_forest() + parity_window() + parity_highd() + parity_panels()
               + parity_segmin() + parity_kbest() + parity_wide() + parity_rescan()
-              + parity_window_guard())
+              + parity_window_guard() + parity_ufscan() + parity_leaf())
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 
@@ -1984,7 +2221,9 @@ def main() -> int:
     mdata, truth = make_gauss(N_MR, **MR_DATA)
     mcs = max(64, N_MR // 200)
     mparams = HDBSCANParams(**MR_PARAMS, min_cluster_size=mcs, **BOUND05)
-    with WindowRecorder() as recorder:
+    from hdbscan_tpu_torch.models import _finalize
+
+    with WindowRecorder() as recorder, CallRecorder(_finalize, "finalize_clustering") as mr_pools:
         mres, mlaunches, mev, mwall, mpeak = run_mr(mdata, mparams)
     report_mr("3d boundary", mres, mlaunches, mev, mwall, mpeak)
     xres, _, xev, xwall = run_fit(mdata, HDBSCANParams(
@@ -2044,6 +2283,21 @@ def main() -> int:
     if cuda_build.LAUNCHES["knn_smallest"] != 1 or not np.all(np.isfinite(core90)):
         return fail("3f: the d=90 core distances did not run B3 once or are not finite")
     del x90, core90
+
+    # --- K3 on the fits' own pools ----------------------------------------
+    errors = []
+    fit_pools = [("Skin exact fit MST", N_SKIN, *res.mst),
+                 ("3c 1M x 8 exact fit MST", N_BLOBS, *eres.mst),
+                 ("3f 500k x 28 fit MST", N_HIGHD, *hres.mst)]
+    fit_pools += [("3d MR host pool (cycle and duplicate edges)", int(a[0]), a[1], a[2], a[3])
+                  for a in mr_pools.calls]
+    for label, pn, u, v, w in fit_pools:
+        order = np.lexsort((np.asarray(v), np.asarray(u), np.asarray(w)))  # the scan's order
+        merges = uf_pairs_check(label, np.asarray(u)[order], np.asarray(v)[order], pn, errors)
+        print(f"K3 pool {label}: {len(order)} edges, {merges} merges")
+    if errors or not mr_pools.calls:
+        return fail(f"K3 differs from its plain version on the fits' pools: {errors}"
+                    if errors else "3d: no MR pool recorded for the K3 check")
 
     # --- 3g: the sharded exact fit, B9 and the ring's rectangular B2 ------
     mesh = shard_mesh()
@@ -2131,12 +2385,31 @@ def main() -> int:
     uf_err = 0.0 if torch.equal(ra, qa) and torch.equal(rb, qb) else float("inf")
     m = len(u)
     b, by = bound_ms(m * 4 * 4, 0.0)  # read u, v; write ra, rb
+    prof = torch.zeros(len(mst_device.UF_PROF_FIELDS), dtype=torch.int64, device="cuda")
+    mst_device.uf_scan_launch(eu, evv, n, prof=prof)
+    prof = dict(zip(mst_device.UF_PROF_FIELDS, prof.tolist()))
+    cycles = sum(prof[f] for f in ("find_cycles", "compact_cycles", "replay_cycles",
+                                   "apply_cycles"))
+    shfl_ms, lds_ms = uf_round_trip_ms(0), uf_round_trip_ms(1)
+    chain_lds = prof["replay_groups"] + 2 * prof["replay_find_rounds"]
     rows.append(dict(
         name="uf_scan", route="cuda", source="hdbscan_tpu_torch/csrc/uf_scan.cu",
         replaces="hdbscan_tpu/core/mst_device.py:177 (lax.scan, not a Pallas kernel)",
         launches=launches["uf_scan"], max_abs_err=uf_err, ms=uf_ms, plain_ms=uf_plain,
         bound_ms=b, bound_by=by, library_ms=None,
         library_note="none: no PyTorch call runs a sequential union-find over an edge list",
+        # The replay's dependent chain at this run's round trips: a
+        # shared-memory load a group and two a find round, a shuffle a
+        # shuffle round.
+        latency_floor_ms=chain_lds * lds_ms + prof["replay_shuffle_rounds"] * shfl_ms,
+        shuffle_round_trip_ms=shfl_ms, shared_load_round_trip_ms=lds_ms,
+        replay_shared_loads=chain_lds, replay_shuffle_rounds=prof["replay_shuffle_rounds"],
+        replay_steps=prof["replay_steps"],
+        phase_shares={f: prof[f] / max(1, cycles) for f in (
+            "find_cycles", "compact_cycles", "replay_cycles", "apply_cycles")},
+        hops_per_find=prof["hops"] / max(1, prof["finds"]),
+        device_ms=device_ms(lambda: mst_device.uf_scan(eu, evv, n), "uf_scan"),
+        max_find_rounds=prof["max_find_rounds"], batches=prof["batches"],
     ))
     rows += forest_times(data, fres, flaunches)
     rows.append(window_time(recorder.main_chunk(mev), mlaunches))

@@ -128,9 +128,26 @@ def uf_scan(su: torch.Tensor, sv: torch.Tensor, n: int):
     kernel for CUDA tensors, the plain version for CPU tensors."""
     if su.device.type == "cpu":
         return uf_scan_plain(su, sv, n)
-    dev = cuda_build.launch_device("uf_scan", su, sv)
+    return uf_scan_launch(su, sv, n)
+
+
+#: ``prof`` slots of ``csrc/uf_scan.cu`` (its ``UF_PROF_*``).
+UF_PROF_FIELDS = ("find_cycles", "compact_cycles", "replay_cycles", "apply_cycles", "finds",
+                  "hops", "max_find_rounds", "batches", "replay_steps", "replay_find_rounds",
+                  "replay_groups", "replay_shuffle_rounds")
+
+
+def uf_scan_launch(su: torch.Tensor, sv: torch.Tensor, n: int,
+                   prof: torch.Tensor | None = None):
+    """Launch the ``uf_scan`` kernel (one block replaying 1,024 edges at a
+    time; ``csrc/uf_scan.cu`` has the design). ``prof``, an int64 CUDA
+    tensor of ``len(UF_PROF_FIELDS)``, receives the phases' cycles and the
+    finds' hop counts."""
     if su.dtype != torch.int32 or sv.dtype != torch.int32 or su.shape != sv.shape:
         raise ValueError("uf_scan: endpoints must be int32 vectors of one length")
+    if prof is not None and (prof.dtype != torch.int64 or prof.numel() != len(UF_PROF_FIELDS)):
+        raise ValueError(f"uf_scan: prof must hold {len(UF_PROF_FIELDS)} int64")
+    dev = cuda_build.launch_device("uf_scan", su, sv, *([] if prof is None else [prof]))
     su, sv = su.contiguous(), sv.contiguous()
     m = su.shape[0]
     par = torch.arange(max(n, 1), dtype=torch.int32, device=su.device)
@@ -138,7 +155,7 @@ def uf_scan(su: torch.Tensor, sv: torch.Tensor, n: int):
     rb = torch.empty(m, dtype=torch.int32, device=su.device)
     cuda_build.launch(
         "uf_scan", dev, su.data_ptr(), sv.data_ptr(), m, n, par.data_ptr(),
-        ra.data_ptr(), rb.data_ptr(),
+        ra.data_ptr(), rb.data_ptr(), 0 if prof is None else prof.data_ptr(),
     )
     return ra, rb
 

@@ -1,12 +1,11 @@
-// Per-thread (distance, id) lists shared by the rp-forest kernels.
+// Per-thread (distance, id) lists shared by the k-best and rp-forest
+// kernels.
 //
 // The order is the repo-wide lexicographic one (hdbscan_tpu_torch/ops/
-// lexmerge.py): ascending distance, ties to the lower id. Lists live in
-// arrays of a compile-time size KB whose loops are fully unrolled, so the
-// entries stay in registers at small KB; only the first `k` slots are used.
-// A list wider than the register kernels' KB = 128 (the kernels' wide mode)
-// lives in device memory instead: in the kernel's own output row, which the
-// wrapper allocates, with the same admission and insert (lex_insert_mem).
+// lexmerge.py): ascending distance, ties to the lower id. The lists here
+// live in device memory: in the kernel's own output row, which the wrapper
+// allocates (the wide modes of knn_kbest.cu and knn_window.cu, B5's lists
+// past its shared-memory budget).
 #pragma once
 
 #include <cstdint>
@@ -26,64 +25,9 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Insert (dist, id) into the lex-ascending list (bd, bi) of k slots, after
-// every entry that lex-precedes it; the last slot falls off. The caller has
-// checked that (dist, id) lex-precedes slot k - 1.
-template <int KB>
-__device__ __forceinline__ void lex_insert(float (&bd)[KB], int32_t (&bi)[KB],
-                                           int k, float dist, int32_t id) {
-#pragma unroll
-  for (int s = KB - 1; s >= 0; --s) {
-    if (s < k) {
-      const float pd = s > 0 ? bd[s > 0 ? s - 1 : 0] : -CUDART_INF_F;
-      const int32_t pi = s > 0 ? bi[s > 0 ? s - 1 : 0] : -1;
-      if (s > 0 && lex_less(dist, id, pd, pi)) {
-        bd[s] = pd;
-        bi[s] = pi;
-      } else if (lex_less(dist, id, bd[s], bi[s])) {
-        bd[s] = dist;
-        bi[s] = id;
-      }
-    }
-  }
-}
-
-// Sort a KB-slot list into lex order: odd-even transposition, KB phases,
-// every compare-exchange on a fixed pair of slots (registers, no spills).
-template <int KB>
-__device__ __forceinline__ void lex_sort(float (&bd)[KB], int32_t (&bi)[KB]) {
-#pragma unroll 1
-  for (int p = 0; p < (KB + 1) / 2; ++p) {
-#pragma unroll
-    for (int s = 0; s + 1 < KB; s += 2) {
-      if (lex_less(bd[s + 1], bi[s + 1], bd[s], bi[s])) {
-        const float td = bd[s];
-        const int32_t ti = bi[s];
-        bd[s] = bd[s + 1];
-        bi[s] = bi[s + 1];
-        bd[s + 1] = td;
-        bi[s + 1] = ti;
-      }
-    }
-#pragma unroll
-    for (int s = 1; s + 1 < KB; s += 2) {
-      if (lex_less(bd[s + 1], bi[s + 1], bd[s], bi[s])) {
-        const float td = bd[s];
-        const int32_t ti = bi[s];
-        bd[s] = bd[s + 1];
-        bi[s] = bi[s + 1];
-        bd[s + 1] = td;
-        bi[s + 1] = ti;
-      }
-    }
-  }
-}
-
-// ---- Lists past 128 slots, in device memory ------------------------------
-
-// lex_insert on a k-slot list at (bd, bi) in device memory (each thread its
-// own row): insert (dist, id) after every entry that lex-precedes it, the
-// last slot falls off. The caller has checked that (dist, id) lex-precedes
+// Insert (dist, id) into a k-slot list at (bd, bi) in device memory (each
+// thread its own row), after every entry that lex-precedes it; the last
+// slot falls off. The caller has checked that (dist, id) lex-precedes
 // slot k - 1.
 __device__ __forceinline__ void lex_insert_mem(float* bd, int32_t* bi, int k,
                                                float dist, int32_t id) {

@@ -51,7 +51,7 @@ KERNELS = {
     "knn_smallest": (
         "knn_kbest.cu", "knn_smallest_launch", [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     ),
-    "uf_scan": ("uf_scan.cu", "uf_scan_launch", [_P, _P, _I, _I, _P, _P, _P, _P]),
+    "uf_scan": ("uf_scan.cu", "uf_scan_launch", [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
     "forest_leaf_topk": (
         "forest_leaf_topk.cu", "forest_leaf_topk_launch",
         [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -70,7 +70,7 @@ KERNELS = {
         [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     ),
 }
-_HEADERS = ("distance.cuh", "kbest.cuh", "lexlist.cuh")
+_HEADERS = ("distance.cuh", "kbest.cuh", "lexlist.cuh", "warplist.cuh")
 SOURCES = sorted({src for src, _, _ in KERNELS.values()})
 
 #: Metric/form codes of ``csrc/distance.cuh``.

@@ -6,7 +6,8 @@ Four kernels (``csrc/forest_leaf_topk.cu``, ``csrc/forest_merge.cu``,
 
 * B5 :func:`forest_leaf_topk` — per leaf, the dense leaf x leaf distances
   and every slot's kk nearest columns in ``lax.top_k`` order, ids through
-  the leaf's members, then sorted by (distance, id);
+  the leaf's members, then sorted by (distance, id): a warp a slot over
+  the gathered leaf, with B7's warp inserts;
 * B6 :func:`forest_merge` — the cross-tree merge of the per-tree lists
   under the (distance, id) order, duplicate ids dropped;
 * B7 :func:`forest_rescan_topk` — per query row, the k lex-best distinct
@@ -22,8 +23,9 @@ Each wrapper runs its plain PyTorch version (``*_plain``, same signature
 and output) for a CPU tensor and launches its kernel for a CUDA tensor,
 raising on what the kernel does not take; nothing else picks the route.
 The kernels take every k and d: past 128 (the reference's fused gate)
-B5 and B8 run their wide mode (f32), B6 and B7 the same kernel (B7's
-launches past 128 still count under ``forest_rescan_topk_wide``).
+B8 runs its wide mode (f32), B5 past d = 128 a scan with no staged tile,
+B6 and B7 the same kernel (B5's and B7's launches past 128 still count
+under ``<name>_wide``).
 At f32 the plain versions repeat the kernels' arithmetic (features one at
 a time, no FMA, correctly rounded roots), so the two agree bitwise.
 
@@ -269,7 +271,13 @@ def forest_leaf_topk(data, members, mask, kk: int, metric: str = "euclidean",
     ``members`` (B, L) int32 global ids, ``mask`` (B, L) bool column mask.
     Returns (B, L, kk) float32 distances and int32 ids, ascending by
     (distance, id), (+inf, ``sentinel``) where a slot has fewer than kk
-    columns."""
+    columns.
+
+    On the card (``csrc/forest_leaf_topk.cu``; its header has the design)
+    a warp takes a slot, its lanes striding over the leaf's columns
+    gathered through ``members`` from the slot's own position round the
+    leaf; its list lies in registers, shared memory or the slot's output
+    row as kk grows. One launch is counted a call."""
     if data.device.type == "cpu":
         return forest_leaf_topk_plain(data, members, mask, kk, metric, form, precision, sentinel)
     dev = cuda_build.launch_device("forest_leaf_topk", data, members, mask)
@@ -300,6 +308,13 @@ def forest_leaf_topk(data, members, mask, kk: int, metric: str = "euclidean",
         out_d.data_ptr(), out_i.data_ptr(), wide=max(kk, d) > cuda_build.WIDE,
     )
     return out_d, out_i
+
+
+def leaf_blocks(b: int, ell: int) -> int:
+    """Blocks of a B5 launch on b leaves of width ell (``forest_leaf_blocks``
+    of the kernel), for reports."""
+    fn = cuda_build.function("forest_leaf_topk.cu", "forest_leaf_blocks", [ctypes.c_int] * 2)
+    return fn(b, ell)
 
 
 def forest_merge_plain(stack_d, stack_i, kk: int, sentinel: int):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one hand-written kernel body of one package tree on the card.
 
-    python3 kernel_bench.py segmin|kbest|rescan|window ROOT [SHAPE ...]
+    python3 kernel_bench.py segmin|kbest|rescan|window|ufscan|leaf ROOT [SHAPE ...]
 
 ROOT is a directory holding ``hdbscan_tpu_torch/``: the checkout (``.``), or
 an earlier commit unpacked with ``git archive`` into a git-ignored directory,
@@ -52,7 +52,30 @@ with +inf, so that guards both fire and do not. It also reports the share
 of (row tile x column tile) guards that fire, counted from the running
 lists (not timed).
 
-Beside the rescan and window shapes, as a yardstick and not a parity path,
+``ufscan`` (K3): the union-find event scan over the MST edge pool of an
+exact fit, in the scan's (w, u, v) order: the Skin-shaped fit's (245,056
+edges; ``chip_smoke.py`` phase 3) and the 1,048,576 x 8 blobs' exact fit
+(1,048,575 edges; phase 3c's twin). The pools are made once by a fit of
+the first tree timed and kept in ``.torch_build/bench/``. Where the tree
+has ``mst_device.uf_scan_launch`` (the batched replay) it also reports,
+from the kernel's ``prof`` counters, each phase's share of the block's
+cycles, the hops per find and the replay's find rounds. No PyTorch call
+runs a union-find: no yardstick.
+
+``leaf`` (B5): one leaf batch of tree 0 (``rpforest.leaf_batches``) at the
+3b fit's shape (the Skin grid, 4 trees of leaf 1,024: 36 leaves of 958
+slots, kk 15), at the 3c fit's (the 1,048,576 x 8 blobs, 4 trees of leaf
+1,024: 32 leaves of 1,024, kk 15; it reports the fit's B5 launches, trees
+x batches) and at the 3h wide fit's (the 3,000 x 3 lattice, 2 trees of
+leaf 300: 16 leaves of 188, kk 129), f32, the euclidean form the fit
+takes. Inputs are built once into ``.torch_build/bench/``. Where the tree
+has ``cuda_forest.leaf_blocks`` it reports each launch's grid.
+
+``rescan``, ``ufscan`` and ``leaf`` also report ``device_ms``: each
+kernel's device time a call from ``torch.profiler`` (the wrapper's host
+gaps, which the CUDA event times include, left out).
+
+Beside the rescan, window and leaf shapes, as a yardstick and not a parity path,
 ``torch.cdist`` plus ``torch.topk(largest=False)`` over the same pairs
 (the candidate points gathered first for B7; tiles in groups), TF32 off:
 two library calls, with other rounding, tie order and no dedup.
@@ -83,6 +106,27 @@ def ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 3) -> dict:
+    """Device time per call of each kernel ``fn()`` launches, by kernel
+    name (``torch.profiler``, after one warm run): where a call's time
+    goes, the wrapper's own small kernels included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us:
+            out[e.key[:80]] = us / 1e3 / reps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 class Data:
@@ -449,8 +493,176 @@ def window_guard_share(chunk) -> float:
     return fired / (W_TILES * W_WIN)
 
 
+def blobs(n: int, seed: int, d: int = 8):
+    """The rp-forest tier's blobs of ``chip_smoke.py`` (6 centres x 6.0,
+    unit normal)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(6, d)) * 6.0
+    per = n // 6 + 1
+    return np.concatenate([c + rng.normal(size=(per, d)) for c in centers])[:n]
+
+
+def uf_pools(data: Data) -> dict:
+    """Shape name -> getter of (su, sv, n): an exact fit's MST edges in the
+    scan's (w, u, v) order."""
+    import numpy as np
+
+    def pool(key, points, min_cl):
+        memo = []
+
+        def get():
+            if not memo:
+                def make():
+                    import torch
+
+                    from hdbscan_tpu_torch import HDBSCANParams
+                    from hdbscan_tpu_torch.models import exact
+
+                    x = points()
+                    res = exact.fit(x, HDBSCANParams(min_points=16, min_cluster_size=min_cl,
+                                                     knn_index="exact"))
+                    u, v, w = res.mst
+                    order = np.lexsort((v, u, w))
+                    return [torch.as_tensor(u[order].astype(np.int32), device="cuda"),
+                            torch.as_tensor(v[order].astype(np.int32), device="cuda"),
+                            torch.tensor([len(x)])]
+                su, sv, n = _cached(f"ufscan_{key}", make)
+                memo.extend([su, sv, int(n[0])])
+            return memo
+        return get
+
+    return {
+        f"K3 skin {N_SKIN}x3 MST pool": pool(
+            "skin", lambda: data.skin().cpu().numpy().astype(np.float64), 3000),
+        "K3 blobs 1048576x8 MST pool": pool("blobs", lambda: blobs(1 << 20, 0), 5000),
+    }
+
+
+def ufscan_shapes(pools: dict) -> dict:
+    """Shape name -> (function to time, repetitions)."""
+    from hdbscan_tpu_torch.core import mst_device
+
+    return {name: (lambda get=get: mst_device.uf_scan(*get()), 2)
+            for name, get in pools.items()}
+
+
+def ufscan_profile(pools: dict) -> dict:
+    """Each pool's phase shares of the kernel's cycles (block thread 0's
+    clock), hops per find and replay steps, from its ``prof`` counters."""
+    import torch
+
+    from hdbscan_tpu_torch.core import mst_device
+
+    if not hasattr(mst_device, "uf_scan_launch"):
+        return {}
+    out = {}
+    for name, get in pools.items():
+        su, sv, n = get()
+        prof = torch.zeros(len(mst_device.UF_PROF_FIELDS), dtype=torch.int64, device="cuda")
+        mst_device.uf_scan_launch(su, sv, n, prof=prof)
+        f = dict(zip(mst_device.UF_PROF_FIELDS, prof.tolist()))
+        cycles = sum(f[k] for k in ("find_cycles", "compact_cycles", "replay_cycles",
+                                    "apply_cycles"))
+        out[name] = dict(f, cycles=cycles, hops_per_find=f["hops"] / max(1, f["finds"]),
+                         **{f"{k}_share": f[k] / max(1, cycles)
+                            for k in ("find_cycles", "compact_cycles", "replay_cycles",
+                                      "apply_cycles")})
+    return out
+
+
+def leaf_batches(data: Data) -> dict:
+    """Shape name -> getter of (x, members, mask, kk, form, n, launches a
+    fit): batch 0 of tree 0 of a forest fit's leaf scan."""
+    import numpy as np
+
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    def lattice():
+        return np.round(make_gauss(3000, dims=3, n_clusters=6, separation=8.0, seed=3)[0])
+
+    def batch(key, points, k, trees, leaf):
+        memo = []
+
+        def get():
+            if not memo:
+                def make():
+                    import torch
+
+                    from hdbscan_tpu_torch.core.distances import euclidean_form
+                    from hdbscan_tpu_torch.ops import rpforest
+
+                    pts = points()
+                    forest = rpforest.build_forest(pts, trees=trees,
+                                                   leaf_size=max(leaf, 2 * k + 2), seed=0)
+                    batches = rpforest.leaf_batches(forest, "cuda")
+                    a, b, _ = batches[0]
+                    lmax = forest.max_leaf
+                    return [torch.as_tensor(pts.astype(np.float32), device="cuda"),
+                            torch.as_tensor(forest.members[0, a:b], device="cuda"),
+                            torch.as_tensor(forest.leaf_mask[a:b], device="cuda"),
+                            torch.tensor([min(k, lmax), trees * len(batches),
+                                          int(euclidean_form(lmax, lmax, pts.shape[1])
+                                              == "dot")])]
+                x, members, mask, meta = _cached(f"leaf_{key}", make)
+                kk, launches, dot = (int(v) for v in meta)
+                memo.extend([x, members, mask, kk, "dot" if dot else "diff", x.shape[0],
+                             launches])
+            return memo
+        return get
+
+    def skin():
+        return data.skin().cpu().numpy().astype(np.float64)
+
+    return {
+        f"B5 skin {N_SKIN}x3 k15 (3b)": batch("skin_k15", skin, 15, 4, 1024),
+        "B5 blobs 1048576x8 k15 (3c)": batch("blobs_k15", lambda: blobs(1 << 20, 0), 15, 4,
+                                             1024),
+        "B5 lattice 3000x3 k129 (3h wide)": batch("lattice_k129", lattice, 129, 2, 300),
+    }
+
+
+def leaf_shapes(batches: dict) -> dict:
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    def run(get):
+        x, members, mask, kk, form, n, _ = get()
+        return cf.forest_leaf_topk(x, members, mask, kk, "euclidean", form, "f32", n)
+
+    return {name: (lambda get=get: run(get), 10) for name, get in batches.items()}
+
+
+def leaf_info(batches: dict) -> dict:
+    """Each leaf shape's batch, kk, the fit's B5 launches and (where the tree
+    has ``cuda_forest.leaf_blocks``) the launch's scan grid."""
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    out = {}
+    for name, get in batches.items():
+        x, members, mask, kk, form, n, launches = get()
+        b, ell = members.shape
+        out[name] = dict(leaves=b, width=ell, kk=kk, form=form, fit_launches=launches)
+        if hasattr(cf, "leaf_blocks"):
+            out[name]["blocks"] = cf.leaf_blocks(b, ell)
+    return out
+
+
+def leaf_yardstick(batches: dict) -> dict:
+    """cdist + topk over each batch's gathered leaf points."""
+    import torch
+
+    def two_calls(get):
+        x, members, mask, kk, form, n, _ = get()
+        pts = x[members.long()]
+        torch.topk(torch.cdist(pts, pts), kk, dim=2, largest=False)
+
+    return {name: (lambda get=get: two_calls(get), 10) for name, get in batches.items()}
+
+
 def main() -> int:
-    if len(sys.argv) < 3 or sys.argv[1] not in ("segmin", "kbest", "rescan", "window"):
+    modes = ("segmin", "kbest", "rescan", "window", "ufscan", "leaf")
+    if len(sys.argv) < 3 or sys.argv[1] not in modes:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     kernel, root, keep = sys.argv[1], sys.argv[2], sys.argv[3:]
@@ -464,7 +676,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_build.kernel({"kbest": "knn_kbest", "segmin": "segmin", "rescan": "forest_rescan_topk",
-                       "window": "knn_window"}[kernel])
+                       "window": "knn_window", "ufscan": "uf_scan",
+                       "leaf": "forest_leaf_topk"}[kernel])
 
     def timed(shapes):
         return {name: ms(fn, reps) for name, (fn, reps) in shapes.items()
@@ -482,10 +695,27 @@ def main() -> int:
         panels = {name: v for name, v in rescan_panels(data).items()
                   if not keep or any(s in name for s in keep)}
         result["ms"] = timed(rescan_shapes(panels))
+        result["device_ms"] = {name: device_ms(fn) for name, (fn, _) in
+                               rescan_shapes(panels).items()}
         result["blocks"] = rescan_blocks_of(panels)
         result["copy_share"] = rescan_copy_share(panels)
         result["two_library_calls_other_rounding_tie_order_and_no_dedup_ms"] = timed(
             rescan_yardstick(panels))
+    elif kernel == "ufscan":
+        pools = {name: get for name, get in uf_pools(data).items()
+                 if not keep or any(s in name for s in keep)}
+        result["ms"] = timed(ufscan_shapes(pools))
+        result["profile"] = ufscan_profile(pools)
+        result["device_ms"] = {name: device_ms(fn, 1) for name, (fn, _) in
+                               ufscan_shapes(pools).items()}
+    elif kernel == "leaf":
+        batches = {name: get for name, get in leaf_batches(data).items()
+                   if not keep or any(s in name for s in keep)}
+        result["ms"] = timed(leaf_shapes(batches))
+        result["device_ms"] = {name: device_ms(fn) for name, (fn, _) in
+                               leaf_shapes(batches).items()}
+        result["shapes"] = leaf_info(batches)
+        result[yardstick] = timed(leaf_yardstick(batches))
     else:
         chunk = window_chunk()
         result["ms"] = timed(window_shapes(chunk))

@@ -78,20 +78,72 @@ def test_boruvka_events_forest_bitwise(case):
             np.testing.assert_array_equal(pf.kids_csr[0], rf.kids_csr[0])
 
 
-@pytest.mark.parametrize("seed", range(6))
+def _adversarial_pool(name):
+    """(u, v, n) of the pools the kernel's batched replay is held to on the
+    card (``chip_smoke.parity_ufscan``), at CPU size."""
+    rng = np.random.default_rng(7)
+    n = 600
+    p = rng.permutation(n)
+    q = rng.permutation(n - 1)
+    up = (rng.random(n - 1) * np.arange(1, n)).astype(int)  # vertex i's parent below i
+    pools = {
+        # every edge hangs the growing component under a fresh vertex
+        "path_fresh_u": (p[1:], p[:-1], n),
+        "path_fresh_v": (p[:-1], p[1:], n),
+        "star_hub_u": (np.zeros(n - 1), np.arange(1, n), n),
+        "star_hub_v": (np.arange(1, n), np.zeros(n - 1), n),
+        "only_self_loops": (np.zeros(300), np.zeros(300), n),
+        "n1": (np.zeros(20), np.zeros(20), 1),
+        "m0": (np.zeros(0), np.zeros(0), 5),
+        "duplicates_m_gg_n": (*rng.integers(0, 20, size=(2, 3000)), 20),
+        "path_then_cycles": (np.concatenate([np.arange(n - 1), rng.integers(0, n, 900)]),
+                             np.concatenate([np.arange(1, n), rng.integers(0, n, 900)]), n),
+        # a tree in random edge order, then the (0, 0) padding rows of a
+        # fit's pool
+        "shuffled_tree_padding_tail": (np.concatenate([p[1:][q], np.zeros(200)]),
+                                       np.concatenate([p[up][q], np.zeros(200)]), n),
+        # a spanning star, then its own edges again: only non-merges after it
+        "star_then_its_edges_again": (np.zeros(3 * (n - 1)), np.tile(np.arange(1, n), 3), n),
+    }
+    u, v, n = pools[name]
+    return np.asarray(u, np.int32), np.asarray(v, np.int32), n
+
+
+@pytest.mark.parametrize("seed", [*range(6), "path_fresh_u", "path_fresh_v", "star_hub_u",
+                                  "star_hub_v", "only_self_loops", "n1", "m0",
+                                  "duplicates_m_gg_n", "path_then_cycles",
+                                  "shuffled_tree_padding_tail", "star_then_its_edges_again"])
 def test_uf_scan_stream_matches_reference_on_unsorted_pools(seed):
     """Path halving changes only the parent array, never the roots: the
     event stream equals the reference scan's on arbitrary edge orders,
-    self-loops and repeated edges included."""
-    rng = np.random.default_rng(seed)
-    n = int(rng.integers(2, 400))
-    m = int(rng.integers(1, 3 * n))
-    u = rng.integers(0, n, m).astype(np.int32)
-    v = np.where(rng.random(m) < 0.1, u, rng.integers(0, n, m)).astype(np.int32)
+    self-loops and repeated edges included, and on the adversarial pools
+    (integer seeds: random pools; names: :func:`_adversarial_pool`)."""
+    if isinstance(seed, str):
+        u, v, n = _adversarial_pool(seed)
+    else:
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(2, 400))
+        m = int(rng.integers(1, 3 * n))
+        u = rng.integers(0, n, m).astype(np.int32)
+        v = np.where(rng.random(m) < 0.1, u, rng.integers(0, n, m)).astype(np.int32)
     _, (ra, rb) = RM._uf_scan(u, v, n)
     pa, pb = PM.uf_scan(torch.from_numpy(u), torch.from_numpy(v), n)
     np.testing.assert_array_equal(pa.numpy(), np.asarray(ra))
     np.testing.assert_array_equal(pb.numpy(), np.asarray(rb))
+
+
+@pytest.mark.parametrize("prof,match", [
+    (torch.zeros(3, dtype=torch.int64), "prof"),
+    (torch.zeros(len(PM.UF_PROF_FIELDS)), "prof"),
+    (None, "expected CUDA tensors"),
+    (torch.zeros(len(PM.UF_PROF_FIELDS), dtype=torch.int64), "expected CUDA tensors"),
+])
+def test_uf_scan_launch_checks_its_arguments(prof, match):
+    """The kernel's launcher refuses a malformed ``prof`` and never runs a
+    CPU tensor (there is no other route)."""
+    su = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        PM.uf_scan_launch(su, su.clone(), 3, prof=prof)
 
 
 @pytest.mark.parametrize(
