@@ -14,10 +14,18 @@ Phases (any failure exits non-zero):
    kernels at 16,384 x 3 integer-grid points in both euclidean forms (K2 at
    min_pts 2, 16 and 129, i.e. k = 1, 15, 128) and at 8,192 x 7 continuous
    points, the union-find scan (K3) on a 16k-edge pool; and the four
-   rp-forest kernels (B5 leaf top-k, B6 cross-tree merge, B7 rescan top-k,
+   rp-forest kernels (B5 leaf top-k, B6 cross-tree fold, B7 rescan top-k,
    B8 candidate segment-min) at f32 on 16,384 x 3 integer-grid points,
    8,192 x 7 continuous points and 5,003 x 3 grid points with duplicates
-   (uneven leaves), k = 1, 15 and 128, B5 and B7 in bf16 as well; the
+   (uneven leaves), k = 1, 15 and 128, B5, B7 and B8 in bf16 as well, B6
+   on the trees' bf16 leaf lists too (one pair's copies in two trees then
+   differ), B8 with random, round-1, spatial-cell and single components,
+   with exact weight ties and at row counts that cut the candidates into 3,
+   13 and 64 spans; B6 on stacks whose cross-tree copies differ, with
+   unequal sentinel tails and +inf entries with real ids, at 1, 3 and 65
+   trees and kk 1, 15, 30 and 129, at every kk where a segment's width
+   changes, and at kk 4,100 (lists in device memory); a bf16 forest query
+   and a 65-tree rp-forest fit on the card equal to the same on the CPU; the
    segment-min compared bit for bit (weights as int32 patterns): equal
    weights on both sides of a column-split boundary, all-zero cores on a
    grid with duplicates, d from 1 to 200 in every metric, square and panel;
@@ -132,7 +140,8 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    grid in ``blocks``), K2 also at the 3c exact twin's launch (``knn_kbest_3c``,
    its plain version on 16,384 rows, scaled), the forest kernels at the 3b
    fit's (one leaf batch, the merge, one rescan chunk, B8 on that chunk's
-   panel with round-1 components), B4 at the largest main-phase rescan
+   panel with round-1 components; B6 and B8 with their device time a
+   call), B4 at the largest main-phase rescan
    chunk of the 3d fit, B3 at the 3f fit's launch (its plain version on
    16,384 rows, scaled), B9 and the rectangular B2 at one panel launch of
    the 3g fit's first round, and every wide mode at the 3h fits' shapes
@@ -230,24 +239,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 3) -> float:
+def device_ms(fn, kernel: str, reps: int = 3) -> float | None:
     """Device time a launch of the kernel whose name contains ``kernel``
     (``torch.profiler`` over ``reps`` calls after one warm run, averaged
     over the launches it recorded): the kernel without the wrapper's host
-    gaps, which ``cuda_ms`` includes."""
+    gaps, which ``cuda_ms`` includes. A trace that records no device time
+    for it (the profiler drops one now and then) is taken again, up to
+    three times; None when none records it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-             for e in events)
-    return us / 1e3 / max(1, sum(e.count for e in events))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                 for e in events)
+        if us > 0:
+            return us / 1e3 / max(1, sum(e.count for e in events))
+    return None
 
 
 def uf_round_trip_ms(kind: int) -> float:
@@ -551,34 +565,199 @@ def parity_forest() -> list[str]:
         lmax = forest.max_leaf
         form = euclidean_form(lmax, lmax, d)
         core = torch.as_tensor(rng.integers(0, 40, n).astype(np.float32), device="cuda")
-        comp = torch.as_tensor(rng.integers(0, 64, n).astype(np.int32), device="cuda")
+        ties = core.clone()
+        ties[::3] = 1000.0  # the row's own core dominates: its outgoing weights all tie
+        comps = {
+            "64 random components": torch.as_tensor(rng.integers(0, 64, n).astype(np.int32),
+                                                    device="cuda"),
+            "round 1": torch.arange(n, dtype=torch.int32, device="cuda"),
+            "later round": cell_components(xg),
+            "one component": torch.zeros(n, dtype=torch.int32, device="cuda"),
+        }
         for k in (1, 15, 128):
             kk = min(k, lmax)
             for prec in ("f32", "bf16"):
                 args = (xg, members[0], mask, kk, "euclidean", form, prec, n)
                 check(f"B5 forest_leaf_topk {label} k={kk} {prec}",
                       cf.forest_leaf_topk(*args), cf.forest_leaf_topk_plain(*args))
-            stack = [cf.forest_leaf_topk_plain(xg, members[t], mask, kk, "euclidean", form,
-                                               "f32", n) for t in range(forest.trees)]
-            sd = torch.full((forest.trees, n, kk), float("inf"), device="cuda")
-            si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device="cuda")
-            real = mask.reshape(-1)
-            for t, (nd, ni) in enumerate(stack):
-                rows = members[t].reshape(-1)[real].long()
-                sd[t, rows] = nd.reshape(-1, kk)[real]
-                si[t, rows] = ni.reshape(-1, kk)[real]
-            check(f"B6 forest_merge {label} k={kk}",
-                  cf.forest_merge(sd, si, kk, n), cf.forest_merge_plain(sd, si, kk, n))
-            _, best_i = cf.forest_merge_plain(sd, si, kk, n)
+                # B6 on the trees' B5 lists; in bf16 one pair's copies in two
+                # trees carry two distances (each leaf its own centre).
+                sd, si = leaf_stacks(cf.forest_leaf_topk_plain, xg, forest, members, mask, kk,
+                                     form, prec)
+                check(f"B6 forest_merge {label} k={kk} {prec} stacks",
+                      cf.forest_merge(sd, si, kk, n), cf.forest_merge_plain(sd, si, kk, n))
+                if prec == "f32":
+                    _, best_i = cf.forest_merge_plain(sd, si, kk, n)
             m = n if kk < 128 else 2048  # the k=128 panel is 16,384 wide
             cand = rpforest._expand(best_i, best_i[:m], kk, n)
             for prec in ("f32", "bf16"):
                 args = (xg[:m], xg, cand, kk, "euclidean", prec, n)
                 check(f"B7 forest_rescan_topk {label} k={kk} {prec}",
                       cf.forest_rescan_topk(*args), cf.forest_rescan_topk_plain(*args))
-            args = (xg[:m], xg, cand, core[:m], core, comp[:m], comp, "euclidean", n)
-            check(f"B8 forest_min_outgoing {label} k={kk}",
-                  cf.forest_min_outgoing(*args), cf.forest_min_outgoing_plain(*args))
+            # B8: every component pattern in f32 and bf16, exact weight ties,
+            # and at k=128 row counts whose launches cut the candidates into
+            # 3, 13 and 64 spans.
+            for cname, comp in comps.items():
+                for prec in ("f32", "bf16"):
+                    args = (xg[:m], xg, cand, core[:m], core, comp[:m], comp, "euclidean", n,
+                            prec)
+                    check(f"B8 forest_min_outgoing {label} k={kk} {cname} {prec}",
+                          cf.forest_min_outgoing(*args), cf.forest_min_outgoing_plain(*args))
+            comp = comps["64 random components"]
+            rows = (m, 336, 8) if kk == 128 else (m,)
+            for r in rows:
+                args = (xg[:r], xg, cand[:r], ties[:r], ties, comp[:r], comp, "euclidean", n)
+                check(f"B8 forest_min_outgoing {label} k={kk} ties m={r} "
+                      f"({cf.minout_splits(r, cand.shape[1])} spans)",
+                      cf.forest_min_outgoing(*args), cf.forest_min_outgoing_plain(*args))
+    return errors
+
+
+def cell_components(x):
+    """Later-round components: each point's cell of an 8 x 8 x 8 grid over
+    its first three features' range (neighbors mostly share a cell)."""
+    import torch
+
+    f = x[:, :3]
+    lo, hi = f.min(0).values, f.max(0).values
+    cell = ((f - lo) / (hi - lo).clamp_min(1e-30) * 8).floor().clamp(0, 7).long()
+    scale = torch.tensor([1, 8, 64][: f.shape[1]], device=x.device)
+    return (cell * scale).sum(1).to(torch.int32)
+
+
+def leaf_stacks(leaf_fn, x, forest, members, mask, kk, form, prec):
+    """(T, n, kk) per-tree lists of B5's (``leaf_fn``) leaf lists, scattered
+    to point-major rows as ``cuda_forest.forest_knn_fused`` does."""
+    import torch
+
+    n = x.shape[0]
+    sd = torch.full((forest.trees, n, kk), float("inf"), device=x.device)
+    si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device=x.device)
+    real = mask.reshape(-1)
+    for t in range(forest.trees):
+        nd, ni = leaf_fn(x, members[t], mask, kk, "euclidean", form, prec, n)
+        rows = members[t].reshape(-1)[real].long()
+        sd[t, rows] = nd.reshape(-1, kk)[real]
+        si[t, rows] = ni.reshape(-1, kk)[real]
+    return sd, si
+
+
+def fold_stacks(rng, n: int, trees: int, kk: int, sentinel: int | None = None):
+    """(T, n, kk) per-tree lists on the card as B6 takes them, ascending by
+    (distance, id) with (+inf, sentinel) tails (``sentinel`` defaults to n):
+    each list holds between 0 and kk distinct ids from a pool of about 2 kk,
+    so ids recur across trees, each copy with its own integer distance in
+    [0, 8) (exact ties, and copies that differ as bf16 leaves make them); a
+    fifth of the lists end their real entries at +inf. Where it fits, row 0
+    holds the two-tree example whose fold keeps id 4 twice ((1, 1) (5, 4)
+    (6, 2) then (2, 3) (3, 4) (7, 5): the fold gives ids 1, 3, 4, 4, 2), its
+    other trees' lists empty."""
+    import numpy as np
+    import torch
+
+    sentinel = n if sentinel is None else sentinel
+    pool = min(sentinel, max(2 * kk, 8))
+    width = min(kk, pool)
+    ids = np.argsort(rng.random((trees, n, pool), dtype=np.float32), axis=2)[:, :, :width]
+    m = rng.integers(0, kk + 1, size=(trees, n, 1))
+    slot = np.arange(width)[None, None, :]
+    live = slot < m
+    at_inf = (rng.random((trees, n, 1)) < 0.2) & (slot == np.minimum(m, width) - 1)
+    dkey = np.where(live, np.where(at_inf, 8, rng.integers(0, 8, size=ids.shape)), 9)
+    key = np.sort(dkey * (sentinel + 1) + np.where(live, ids, sentinel), axis=2)
+    sd = np.full((trees, n, kk), np.inf, np.float32)
+    si = np.full((trees, n, kk), sentinel, np.int32)
+    dk = key // (sentinel + 1)
+    sd[:, :, :width] = np.where(dk >= 8, np.inf, dk)
+    si[:, :, :width] = key % (sentinel + 1)
+    if trees >= 2 and kk >= 3 and n > 5:
+        sd[:, 0], si[:, 0] = np.inf, sentinel  # the other trees' row 0 empty
+        sd[:2, 0, :3] = [[1, 5, 6], [2, 3, 7]]
+        si[:2, 0, :3] = [[1, 4, 2], [3, 4, 5]]
+    return (torch.as_tensor(sd, device="cuda"), torch.as_tensor(si, device="cuda"))
+
+
+def parity_fold() -> list[str]:
+    """B6 against its plain version on the card, bitwise, on stacks whose
+    copies of one id differ across trees (the fold keeps a later, smaller
+    copy beside the earlier one), with sentinel tails of unequal length and
+    +inf entries with real ids: 1, 3 and 65 trees at kk 1, 15, 30 and 129;
+    4 trees at every kk where a segment's width changes (2 to 64); and
+    kk 4,100, whose lists lie in device memory. Returns failure messages."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    errors = []
+    rng = np.random.default_rng(SEED + 9)
+
+    def check(tag, sd, si, kk, sentinel):
+        a = cf.forest_merge(sd, si, kk, sentinel)
+        b = cf.forest_merge_plain(sd, si, kk, sentinel)
+        torch.cuda.synchronize()
+        ok = _same(a, b)
+        print(f"parity B6 forest_merge {tag}: {'bitwise' if ok else 'MISMATCH'}")
+        if not ok:
+            errors.append(f"B6 {tag}")
+        return a
+
+    for trees in (1, 3, 65):
+        for kk in (1, 15, 30, 129):
+            n = 4001 if kk <= 15 else 1501
+            sd, si = fold_stacks(rng, n, trees, kk)
+            got = check(f"F2 stacks T={trees} kk={kk} n={n}", sd, si, kk, n)
+            if trees >= 2 and kk >= 5:
+                want = torch.tensor([1, 3, 4, 4, 2], dtype=torch.int32, device="cuda")
+                if not torch.equal(got[1][0, :5], want):
+                    errors.append(f"B6 the fold's example row at T={trees} kk={kk}")
+    for kk in (2, 3, 4, 5, 8, 9, 16, 17, 31, 32, 33, 64):
+        sd, si = fold_stacks(rng, 777, 4, kk)
+        check(f"F2 stacks T=4 kk={kk} n=777", sd, si, kk, 777)
+    sd, si = fold_stacks(rng, 24, 2, 4100, sentinel=10_000)
+    check(f"F2 stacks T=2 kk=4100 n=24 ({cf.merge_slots(24, 4100)} warp slots in device "
+          "memory)", sd, si, 4100, 10_000)
+    return errors
+
+
+def fold_fits() -> list[str]:
+    """B6 through its callers, card against CPU: the bf16 forest query
+    (``rpforest_core_distances``, ``knn_backend=fused``,
+    ``knn_precision=bf16``), whose trees' copies of one pair differ, and a
+    65-tree rp-forest fit, whose one B6 launch folds all 65 trees. Returns
+    failure messages."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.ops import cuda_build, rpforest
+
+    errors = []
+    rng = np.random.default_rng(SEED + 10)
+    x = rng.normal(size=(20_000, 5))
+    kw = dict(min_pts=16, trees=4, leaf_size=512, rescan_rounds=1, knn_backend="fused",
+              knn_precision="bf16", return_indices=True)
+    card = rpforest.rpforest_core_distances(x, **kw)
+    cpu = rpforest.rpforest_core_distances(x, device="cpu", **kw)
+    same = all(np.array_equal(a, b) for a, b in zip(card, cpu))
+    print(f"bf16 forest query 20000x5 (fused, bf16): card vs CPU "
+          f"{'identical' if same else 'DIFFERENT'}")
+    if not same:
+        errors.append("bf16 forest query card vs CPU")
+    g = rng.integers(0, 64, size=(3000, 3)).astype(np.float64)
+    params = HDBSCANParams(min_points=8, min_cluster_size=40, knn_index="rpforest",
+                           knn_backend="fused", rpf_trees=65, rpf_leaf_size=128)
+    cuda_build.reset_launches()
+    torch.cuda.synchronize()
+    card = exact.fit(g, params)
+    torch.cuda.synchronize()
+    merges = cuda_build.LAUNCHES["forest_merge"]
+    same = fits_equal(card, exact.fit(g, params, device="cpu"))
+    print(f"rp-forest fit 3000x3 with 65 trees: card vs CPU {'identical' if same else 'DIFFERENT'}"
+          f", B6 launches {merges}")
+    if not same or merges != 1:
+        errors.append("65-tree forest fit card vs CPU")
     return errors
 
 
@@ -828,7 +1007,8 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
     row("forest_merge", "forest_merge.cu", 344, "forest_merge", (sd, si, kk, n),
         cf.forest_merge, cf.forest_merge_plain,
         forest.trees * n * kk * 8 + n * kk * 8, 0.0,
-        library_note="none: no PyTorch call merges sorted lists with dedup by id")
+        library_note="none: no PyTorch call folds sorted lists under a per-id drop rule",
+        device_ms=device_ms(lambda: cf.forest_merge(sd, si, kk, n), "merge_"))
 
     best_d, best_i = cf.forest_merge(sd, si, kk, n)
     chunk = min(n, max(64, rpforest._RESCAN_ELEM_BUDGET // (kk * kk * d)))
@@ -853,11 +1033,13 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
     if not suffix or d > cuda_build.WIDE:  # B8's wide mode is d past 128 only
         core = torch.as_tensor(fres.core_distances.astype(np.float32), device="cuda")
         comp = torch.arange(n, dtype=torch.int32, device="cuda")
-        row("forest_min_outgoing", "forest_rescan.cu", 476, "forest_min_outgoing",
-            (x[:chunk], x, cand, core[:chunk], core, comp[:chunk], comp, "euclidean", n),
+        margs = (x[:chunk], x, cand, core[:chunk], core, comp[:chunk], comp, "euclidean", n)
+        row("forest_min_outgoing", "forest_rescan.cu", 476, "forest_min_outgoing", margs,
             cf.forest_min_outgoing, cf.forest_min_outgoing_plain,
             chunk * (d * 4 + 8) + chunk * kk * kk * 4 + uniq * (d * 4 + 8) + chunk * 8,
-            cands * (pair_ops(d, "diff") + 2), library_note=NO_SEGMIN_CALL)
+            cands * (pair_ops(d, "diff") + 2), library_note=NO_SEGMIN_CALL,
+            device_ms=device_ms(lambda: cf.forest_min_outgoing(*margs), "min_outgoing"),
+            spans=cf.minout_splits(chunk, cand.shape[1]))
     print(f"forest kernel{suffix} shapes: {n} x {d}, leaf batch {nb} x {ell}, kk {kk}; merge "
           f"{forest.trees} x {n} x {kk}; rescan chunk {chunk} rows x {kk * kk} candidates "
           f"({uniq} distinct)")
@@ -1497,15 +1679,8 @@ def parity_wide() -> list[str]:
             args = (x, members[0], mask, kk, "euclidean", form, "f32", n)
             check(f"B5 forest_leaf_topk wide {label} k={kk}",
                   cf.forest_leaf_topk(*args), cf.forest_leaf_topk_plain(*args))
-            stack = [cf.forest_leaf_topk_plain(x, members[t], mask, kk, "euclidean", form,
-                                               "f32", n) for t in range(forest.trees)]
-            sd = torch.full((forest.trees, n, kk), float("inf"), device="cuda")
-            si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device="cuda")
-            real = mask.reshape(-1)
-            for t, (nd, ni) in enumerate(stack):
-                rows = members[t].reshape(-1)[real].long()
-                sd[t, rows] = nd.reshape(-1, kk)[real]
-                si[t, rows] = ni.reshape(-1, kk)[real]
+            sd, si = leaf_stacks(cf.forest_leaf_topk_plain, x, forest, members, mask, kk, form,
+                                 "f32")
             check(f"B6 forest_merge wide {label} k={kk}",
                   cf.forest_merge(sd, si, kk, n), cf.forest_merge_plain(sd, si, kk, n))
             _, best_i = cf.forest_merge_plain(sd, si, kk, n)
@@ -2138,9 +2313,10 @@ def main() -> int:
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
 
-    errors = (parity() + parity_forest() + parity_window() + parity_highd() + parity_panels()
-              + parity_segmin() + parity_kbest() + parity_wide() + parity_rescan()
-              + parity_window_guard() + parity_ufscan() + parity_leaf())
+    errors = (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
+              + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
+              + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
+              + parity_leaf())
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 

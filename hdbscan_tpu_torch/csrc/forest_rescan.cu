@@ -19,7 +19,8 @@
 // B8: the Borůvka segment-min over the same panel: the minimum of
 // max(dist, core_q[i], core[c]) over candidates c in another component
 // (comp[c] != comp_q[i]), the first minimal panel column on ties, (+inf,
-// -1) where there is none. Float32 distances only.
+// -1) where there is none. Distances at f32, or in B7's bf16 mode (the same
+// row centres).
 //
 // Both gather each candidate's coordinates from `data` by id, so the
 // (m, C, d) coordinate panel the TPU wrapper materialises is never built.
@@ -80,9 +81,27 @@
 //     runtime feature loop in the same order, so the bits do not depend on
 //     the route.
 //
-// B8 keeps one thread per query row walking its candidates in panel order;
-// past d = 128 the wide kernel reads both points through pointers in the
-// same feature order (distance.cuh's pair_distance_ptr).
+// B8's design, after B7's (a): a warp a row, eight rows a block, the lanes
+// striding over the row's candidates 32 a step, so the id loads coalesce.
+// A candidate's component is read before its coordinates: in later Borůvka
+// rounds most candidates lie in the row's own component and cost an id and
+// a component load. Each lane keeps its running (w, column) minimum with a
+// strict `<` over its ascending columns; a 5-step shuffle reduction takes
+// the lex minimum of (w, column), which is the first minimal column. Where
+// the row blocks are fewer than MINOUT_TARGET_BLOCKS, the candidates are cut
+// into spans over a second grid axis, as B7's are, and a second pass takes
+// each row's minimum over its spans in ascending span order (the lex
+// minimum does not depend on the partition). After each step the warp
+// shares its least weight: a later step's columns are higher, so a later
+// candidate must fall below it to win; the warp stops once it reaches the
+// row's own core distance (no weight is below that), and reads a
+// candidate's coordinates only where its cores leave it below. The
+// distance is B7's cand_value (features in ascending order, no FMA) with
+// the root after, so the bits are the plain version's; at d <= 32 the
+// query row lies in
+// registers, above it is read where it lies (f32) or staged centred and
+// rounded in shared memory (bf16).
+#include <climits>
 #include <cstdint>
 
 #include "distance.cuh"
@@ -90,7 +109,12 @@
 #include "lexlist.cuh"
 #include "warplist.cuh"
 
-constexpr int RESCAN_ROWS = 128;  // B8: rows (threads) a block
+// B8 launch shape: rows (warps) a block, about this many blocks, and spans
+// no shorter than this.
+constexpr int MINOUT_WARPS = 8;
+constexpr int MINOUT_THREADS = MINOUT_WARPS * 32;
+constexpr int MINOUT_TARGET_BLOCKS = 528;
+constexpr int MINOUT_MIN_SPAN = 256;
 // B7 launch shape: rows (warps) a block, about this many blocks, spans no
 // shorter than this, and the shared memory a block's lists and staged query
 // rows may take.
@@ -376,75 +400,163 @@ rescan_merge_kernel(const float* __restrict__ pd, const int32_t* __restrict__ pi
 
 // ---- B8 ------------------------------------------------------------------
 
-template <int DMAX>
-__global__ void min_outgoing_kernel(const float* __restrict__ q,
-                                    const float* __restrict__ data,
-                                    const int32_t* __restrict__ cids, int m,
-                                    int C, int d, int metric, int sentinel,
-                                    const float* __restrict__ core_q,
-                                    const float* __restrict__ core,
-                                    const int32_t* __restrict__ comp_q,
-                                    const int32_t* __restrict__ comp,
-                                    float* __restrict__ out_w,
-                                    int32_t* __restrict__ out_j) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  float xr[DMAX], xc[DMAX];
-  const float xr_sq = load_point<DMAX>(q + (int64_t)row * d, nullptr, d, xr);
-  const float cq = core_q[row];
-  const int32_t gq = comp_q[row];
-  float bw = CUDART_INF_F;
-  int32_t bj = -1;
-  const int32_t* ids = cids + (int64_t)row * C;
-  for (int c = 0; c < C; ++c) {
-    const int32_t cid = ids[c];
-    if (cid == sentinel || comp[cid] == gq) continue;
-    const float xc_sq = load_point<DMAX>(data + (int64_t)cid * d, nullptr, d, xc);
-    const float dist = pair_distance<DMAX>(xr, xr_sq, xc, xc_sq, d, metric);
-    const float w = fmaxf(dist, fmaxf(cq, core[cid]));
-    if (w < bw) {
-      bw = w;
-      bj = cid;
+// A warp's scan of candidates [c_begin, c_end) of its row, 32 a step, one a
+// lane: the lane's running minimum (bw, bc) of w = max(dist, core_q,
+// core[cid]) over candidates in another component, its columns ascending
+// and a strict `<`, so each lane keeps its first minimal column. After each
+// step the warp takes the least of its lanes' minima (`bound`): a later
+// step's columns are all higher, so only a w below it can still win. Every
+// w is at least core_q, and at least max(core_q, core[cid]) before the
+// distance: the warp stops once the bound reaches core_q, and a candidate
+// whose cores already reach the bound is left before its coordinates are
+// read. The component test comes first.
+template <int DMAX, int CODE, bool BF16, class Row>
+__device__ __forceinline__ void minout_span(const Row& xr, float xr_sq, const Row& mr,
+                                            const float* __restrict__ data,
+                                            const int32_t* __restrict__ ids, int c_begin,
+                                            int c_end, int d, bool root, int sentinel, float cq,
+                                            int32_t gq, const float* __restrict__ core,
+                                            const int32_t* __restrict__ comp, float& bw,
+                                            int& bc) {
+  float bound = CUDART_INF_F;  // warp-uniform
+  for (int c0 = c_begin; c0 < c_end && cq < bound; c0 += 32) {
+    const int c = c0 + (threadIdx.x & 31);
+    const int32_t cid = c < c_end ? ids[c] : sentinel;
+    if (cid != sentinel && comp[cid] != gq) {
+      const float floor_w = fmaxf(cq, core[cid]);
+      if (floor_w < bound) {
+        const float v =
+            cand_value<DMAX, CODE, BF16>(xr, xr_sq, mr, data + (int64_t)cid * d, d);
+        const float w = fmaxf(root ? sqrtf(v) : v, floor_w);
+        if (w < bw) {
+          bw = w;
+          bc = c;
+        }
+      }
     }
+    // Weights are not negative, so their bits order as unsigned integers
+    // (a -0 weight only leaves the bound higher, which prunes less).
+    bound = __uint_as_float(__reduce_min_sync(0xffffffffu, __float_as_uint(bw)));
   }
-  out_w[row] = bw;
-  out_j[row] = bw < CUDART_INF_F ? bj : -1;
 }
 
-__global__ void min_outgoing_wide_kernel(const float* __restrict__ q,
-                                         const float* __restrict__ data,
-                                         const int32_t* __restrict__ cids, int m, int C,
-                                         int d, int metric, int sentinel,
-                                         const float* __restrict__ core_q,
-                                         const float* __restrict__ core,
-                                         const int32_t* __restrict__ comp_q,
-                                         const int32_t* __restrict__ comp,
-                                         float* __restrict__ out_w,
-                                         int32_t* __restrict__ out_j) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  const float* xr = q + (int64_t)row * d;
-  const bool dot = dot_form(metric);
-  const float xr_sq = dot ? sq_norm_ptr(xr, d) : 0.0f;
+// Grid (row blocks, spans): warp w of block x takes row x * MINOUT_WARPS + w
+// over span y's candidates [y * span, (y + 1) * span). The lanes' minima
+// meet in a shuffle reduction under the (w, column) lex order, so the row's
+// first minimal column wins whatever lane holds it. One span: the row's (w,
+// id) is written; several: the span's (w, column) goes to the scratch row
+// (y * m + row) for min_outgoing_combine_kernel. `code` is 4/5 (squared
+// euclidean, `root` takes the root) or 2/3; mu != null is bf16 mode (code 5).
+template <int DMAX>
+__global__ void __launch_bounds__(MINOUT_THREADS)
+min_outgoing_kernel(const float* __restrict__ q, const float* __restrict__ data,
+                    const int32_t* __restrict__ cids, int m, int C, int d, int code, bool root,
+                    int sentinel, const float* __restrict__ mu, const float* __restrict__ core_q,
+                    const float* __restrict__ core, const int32_t* __restrict__ comp_q,
+                    const int32_t* __restrict__ comp, int span, float* __restrict__ pw,
+                    int32_t* __restrict__ pc, float* __restrict__ out_w,
+                    int32_t* __restrict__ out_j) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * MINOUT_WARPS + warp;
+  if (row >= m) return;  // the warp's own work only: no block barrier follows
+  const int c_begin = blockIdx.y * span;
+  const int c_end = min(C, c_begin + span);
+  const int32_t* ids = cids + (int64_t)row * C;
+  const bool bf16 = mu != nullptr;
+  const float* qr = q + (int64_t)row * d;
+  const float* mur = bf16 ? mu + (int64_t)row * d : nullptr;
   const float cq = core_q[row];
   const int32_t gq = comp_q[row];
   float bw = CUDART_INF_F;
-  int32_t bj = -1;
-  const int32_t* ids = cids + (int64_t)row * C;
-  for (int c = 0; c < C; ++c) {
-    const int32_t cid = ids[c];
-    if (cid == sentinel || comp[cid] == gq) continue;
-    const float* xc = data + (int64_t)cid * d;
-    const float dist = pair_distance_ptr(xr, xr_sq, xc, dot ? sq_norm_ptr(xc, d) : 0.0f, d,
-                                         metric);
-    const float w = fmaxf(dist, fmaxf(cq, core[cid]));
+  int bc = INT_MAX;
+
+#define MINOUT_SPAN(CODE_, BF16_)                                                              \
+  minout_span<DMAX, CODE_, BF16_>(xr, xr_sq, mr, data, ids, c_begin, c_end, d, root, sentinel, \
+                                  cq, gq, core, comp, bw, bc)
+#define MINOUT_CODES()                                                                         \
+  if (bf16) {                                                                                  \
+    MINOUT_SPAN(METRIC_EUCLID_DOT_SQ, true);                                                   \
+  } else {                                                                                     \
+    switch (code) {                                                                            \
+      case METRIC_EUCLID_DIFF_SQ: MINOUT_SPAN(METRIC_EUCLID_DIFF_SQ, false); break;            \
+      case METRIC_EUCLID_DOT_SQ: MINOUT_SPAN(METRIC_EUCLID_DOT_SQ, false); break;              \
+      case METRIC_MANHATTAN: MINOUT_SPAN(METRIC_MANHATTAN, false); break;                      \
+      default: MINOUT_SPAN(METRIC_SUPREMUM, false); break;                                     \
+    }                                                                                          \
+  }
+
+  if constexpr (DMAX > 0) {
+    float xr[DMAX], mr[DMAX];
+    const float xr_sq = load_point<DMAX>(qr, mur, d, xr);
+#pragma unroll
+    for (int f = 0; f < DMAX; ++f) mr[f] = (bf16 && f < d) ? mur[f] : 0.0f;
+    MINOUT_CODES();
+  } else {
+    // Past d = 32: f32 reads the query row where it lies; bf16 (d <= 128)
+    // stages it centred and rounded, and the centre, in shared memory.
+    __shared__ float rows[2][MINOUT_WARPS][128];
+    const float* xr = qr;
+    const float* mr = mur;
+    if (bf16) {
+      float* xs = rows[0][warp];
+      float* ms = rows[1][warp];
+      for (int f = lane; f < d; f += 32) {
+        ms[f] = mur[f];
+        xs[f] = qr[f] - mur[f];
+      }
+      __syncwarp();
+      xr = xs;
+      mr = ms;
+    }
+    const float xr_sq = sq_norm_ptr(xr, d);
+    if (bf16) {
+      __syncwarp();  // every lane has read the unrounded row
+      for (int f = lane; f < d; f += 32) rows[0][warp][f] = bf16_round(xr[f]);
+      __syncwarp();
+    }
+    MINOUT_CODES();
+  }
+#undef MINOUT_CODES
+#undef MINOUT_SPAN
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ow = __shfl_xor_sync(0xffffffffu, bw, off);
+    const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
+    if (ow < bw || (ow == bw && oc < bc)) {
+      bw = ow;
+      bc = oc;
+    }
+  }
+  if (lane != 0) return;
+  if (gridDim.y == 1) {
+    out_w[row] = bw;
+    out_j[row] = bw < CUDART_INF_F ? ids[bc] : -1;
+  } else {
+    pw[(int64_t)blockIdx.y * m + row] = bw;
+    pc[(int64_t)blockIdx.y * m + row] = bc;
+  }
+}
+
+// The spans' minima of a row, a thread a row, in ascending span order with
+// the strict `<` (a later span's columns are higher).
+__global__ void min_outgoing_combine_kernel(const float* __restrict__ pw,
+                                            const int32_t* __restrict__ pc,
+                                            const int32_t* __restrict__ cids, int splits, int m,
+                                            int C, float* __restrict__ out_w,
+                                            int32_t* __restrict__ out_j) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= m) return;
+  float bw = CUDART_INF_F;
+  int bc = INT_MAX;
+  for (int y = 0; y < splits; ++y) {
+    const float w = pw[(int64_t)y * m + row];
     if (w < bw) {
       bw = w;
-      bj = cid;
+      bc = pc[(int64_t)y * m + row];
     }
   }
   out_w[row] = bw;
-  out_j[row] = bw < CUDART_INF_F ? bj : -1;
+  out_j[row] = bw < CUDART_INF_F ? cids[(int64_t)row * C + bc] : -1;
 }
 
 
@@ -548,43 +660,85 @@ extern "C" int forest_rescan_topk_launch(const void* q, const void* data, const 
   return (int)cudaGetLastError();
 }
 
+// B8 launch shape: row blocks of MINOUT_WARPS rows; where they are fewer
+// than MINOUT_TARGET_BLOCKS (about four an SM), each row's candidates are
+// cut into spans of at least MINOUT_MIN_SPAN over a second grid axis.
+static int minout_splits(int m, int C) {
+  const int blocks = max(1, (m + MINOUT_WARPS - 1) / MINOUT_WARPS);
+  const int splits = min((MINOUT_TARGET_BLOCKS + blocks - 1) / blocks, C / MINOUT_MIN_SPAN);
+  return max(1, splits);
+}
+
+// Spans of a B8 launch of m rows and C candidates: the wrapper allocates
+// splits x m (w, column) scratch slots when it is above 1.
+extern "C" int forest_minout_splits(int m, int C) {
+  if (m <= 0 || C < 0) return 1;
+  return minout_splits(m, C);
+}
+
 template <int DMAX>
-static cudaError_t launch_minout(const float* q, const float* data, const int32_t* cids,
-                                 int m, int C, int d, int metric, int sentinel,
-                                 const float* core_q, const float* core,
-                                 const int32_t* comp_q, const int32_t* comp,
-                                 float* ow, int32_t* oj, cudaStream_t s) {
-  const int blocks = (m + RESCAN_ROWS - 1) / RESCAN_ROWS;
-  min_outgoing_kernel<DMAX><<<blocks, RESCAN_ROWS, 0, s>>>(
-      q, data, cids, m, C, d, metric, sentinel, core_q, core, comp_q, comp, ow, oj);
+static cudaError_t launch_minout(const float* q, const float* data, const int32_t* cids, int m,
+                                 int C, int d, int code, bool root, int sentinel,
+                                 const float* mu, const float* core_q, const float* core,
+                                 const int32_t* comp_q, const int32_t* comp, int splits,
+                                 float* pw, int32_t* pc, float* ow, int32_t* oj,
+                                 cudaStream_t s) {
+  const int blocks = (m + MINOUT_WARPS - 1) / MINOUT_WARPS;
+  const int span = splits > 1 ? (C + splits - 1) / splits : C;
+  min_outgoing_kernel<DMAX><<<dim3(blocks, splits), MINOUT_THREADS, 0, s>>>(
+      q, data, cids, m, C, d, code, root, sentinel, mu, core_q, core, comp_q, comp, span, pw,
+      pc, ow, oj);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  min_outgoing_combine_kernel<<<(m + 255) / 256, 256, 0, s>>>(pw, pc, cids, splits, m, C, ow,
+                                                               oj);
   return cudaGetLastError();
 }
 
 extern "C" int forest_min_outgoing_launch(const void* q, const void* data, const void* cids,
                                           int m, int C, int d, int metric, int sentinel,
-                                          const void* core_q, const void* core,
-                                          const void* comp_q, const void* comp,
-                                          void* out_w, void* out_j, void* stream) {
+                                          const void* mu, const void* core_q, const void* core,
+                                          const void* comp_q, const void* comp, int splits,
+                                          void* scratch_w, void* scratch_c, void* out_w,
+                                          void* out_j, void* stream) {
   auto* qq = (const float*)q;
   auto* x = (const float*)data;
   auto* ids = (const int32_t*)cids;
+  auto* mm = (const float*)mu;
   auto* cq = (const float*)core_q;
   auto* cc = (const float*)core;
   auto* gq = (const int32_t*)comp_q;
   auto* gc = (const int32_t*)comp;
+  auto* pw = (float*)scratch_w;
+  auto* pc = (int32_t*)scratch_c;
   auto* ow = (float*)out_w;
   auto* oj = (int32_t*)out_j;
   auto s = (cudaStream_t)stream;
   if (m <= 0) return 0;
-  if (C < 0 || d < 1) return (int)cudaErrorInvalidValue;
-  if (d > 128) {
-    min_outgoing_wide_kernel<<<(m + RESCAN_ROWS - 1) / RESCAN_ROWS, RESCAN_ROWS, 0, s>>>(
-        qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj);
-    return (int)cudaGetLastError();
+  if (C < 0 || d < 1 || metric < METRIC_EUCLID_DIFF || metric > METRIC_SUPREMUM)
+    return (int)cudaErrorInvalidValue;
+  if (mm != nullptr && (d > 128 || metric > METRIC_EUCLID_DOT))
+    return (int)cudaErrorInvalidValue;  // bf16 stays within 128, euclidean (either form)
+  if (splits != minout_splits(m, C) || (splits > 1 && (pw == nullptr || pc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  // The euclidean codes run on squared values and take the root after.
+  const bool root = metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DOT;
+  const int code = metric == METRIC_EUCLID_DIFF ? METRIC_EUCLID_DIFF_SQ
+                   : metric == METRIC_EUCLID_DOT ? METRIC_EUCLID_DOT_SQ
+                                                 : metric;
+#define MINOUT_LAUNCH(DMAX_)                                                                  \
+  launch_minout<DMAX_>(qq, x, ids, m, C, d, code, root, sentinel, mm, cq, cc, gq, gc, splits, \
+                       pw, pc, ow, oj, s)
+  cudaError_t err;
+  if (d <= 4) {
+    err = MINOUT_LAUNCH(4);
+  } else if (d <= 8) {
+    err = MINOUT_LAUNCH(8);
+  } else if (d <= 32) {
+    err = MINOUT_LAUNCH(32);
+  } else {
+    err = MINOUT_LAUNCH(0);
   }
-  if (d <= 4) return launch_minout<4>(qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj, s);
-  if (d <= 8) return launch_minout<8>(qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj, s);
-  if (d <= 32) return launch_minout<32>(qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj, s);
-  if (d <= 128) return launch_minout<128>(qq, x, ids, m, C, d, metric, sentinel, cq, cc, gq, gc, ow, oj, s);
-  return (int)cudaErrorInvalidValue;
+#undef MINOUT_LAUNCH
+  return (int)err;
 }

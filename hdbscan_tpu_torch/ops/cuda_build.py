@@ -56,14 +56,16 @@ KERNELS = {
         "forest_leaf_topk.cu", "forest_leaf_topk_launch",
         [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
-    "forest_merge": ("forest_merge.cu", "forest_merge_launch", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "forest_merge": (
+        "forest_merge.cu", "forest_merge_launch", [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
     "forest_rescan_topk": (
         "forest_rescan.cu", "forest_rescan_topk_launch",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     ),
     "forest_min_outgoing": (
         "forest_rescan.cu", "forest_min_outgoing_launch",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     ),
     "knn_window": (
         "knn_window.cu", "knn_window_launch",

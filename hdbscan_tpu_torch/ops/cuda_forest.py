@@ -8,33 +8,36 @@ Four kernels (``csrc/forest_leaf_topk.cu``, ``csrc/forest_merge.cu``,
   and every slot's kk nearest columns in ``lax.top_k`` order, ids through
   the leaf's members, then sorted by (distance, id): a warp a slot over
   the gathered leaf, with B7's warp inserts;
-* B6 :func:`forest_merge` — the cross-tree merge of the per-tree lists
-  under the (distance, id) order, duplicate ids dropped;
+* B6 :func:`forest_merge` — the trees' lists folded in tree order into
+  running lists under the (distance, id) order, a tree's entry dropped where
+  the running list already holds its id at a distance no larger (so one id
+  may stand twice: the reference's fold, not a dedup of the concatenation);
 * B7 :func:`forest_rescan_topk` — per query row, the k lex-best distinct
   ids of its own candidate panel (the rescan rounds): a warp a row, the
   candidates cut into spans over a second grid axis where the rows alone
   leave the card short of blocks (the wrapper allocates the spans'
   scratch; :func:`rescan_splits`), the lists merged by a second pass;
 * B8 :func:`forest_min_outgoing` — the same panel reduced to a Borůvka
-  segment-min of mutual reachability (no fit path calls it; the
-  reference keeps it as the panel's second program entry).
+  segment-min of mutual reachability, a warp a row, spans over a second
+  grid axis as B7's (no fit path calls it; the reference keeps it as the
+  panel's second program entry).
 
 Each wrapper runs its plain PyTorch version (``*_plain``, same signature
 and output) for a CPU tensor and launches its kernel for a CUDA tensor,
 raising on what the kernel does not take; nothing else picks the route.
-The kernels take every k and d: past 128 (the reference's fused gate)
-B8 runs its wide mode (f32), B5 past d = 128 a scan with no staged tile,
-B6 and B7 the same kernel (B5's and B7's launches past 128 still count
-under ``<name>_wide``).
+The kernels take every k and d and B6 every tree count: past 128 (the
+reference's fused gate) B8 runs its wide mode (f32), B5 past d = 128 a scan
+with no staged tile, B6 and B7 the same kernel (B5's to B7's launches past
+128 still count under ``<name>_wide``).
 At f32 the plain versions repeat the kernels' arithmetic (features one at
 a time, no FMA, correctly rounded roots), so the two agree bitwise.
 
-bf16 mode (B5, B7; euclidean only): operands centred, rounded to bfloat16,
+bf16 mode (B5, B7, B8; euclidean only): operands centred, rounded to bfloat16,
 the cross term accumulated in float32 from their exact products beside
 float32 norms of the centred, unrounded operands. The centre is the port's
 own, computed by the wrapper and shared by kernel and plain version: for
-B5 the mean of the leaf's real members (:func:`leaf_centres`), for B7 the
-mean of the query rows' tile of :data:`RESCAN_ROW_TILE` consecutive rows
+B5 the mean of the leaf's real members (:func:`leaf_centres`), for B7 and
+B8 the mean of the query rows' tile of :data:`RESCAN_ROW_TILE` consecutive rows
 (:func:`row_tile_centres`). The reference averages over its TPU blocks
 (the leaf zero-padded to 128 rows; 8-row tiles zero-padded), so bf16 is
 held to it only by recall and ARI.
@@ -70,9 +73,6 @@ FUSED_METRICS = ("euclidean", "manhattan", "supremum", "cosine")
 #: kernels take every k and d (past 128 in their wide mode, f32 only); bf16
 #: runs only inside the gate, so its over-provisioned width stays within it.
 LANES = 128
-#: Largest tree count of the merge kernel.
-MAX_TREES = 64
-
 #: Query rows per bf16 centring tile of the rescan (the reference's row
 #: tile of its rescan kernel).
 RESCAN_ROW_TILE = 8
@@ -214,12 +214,12 @@ def rescan_topk_values(q, cpts, cids, k: int, *, metric: str, precision: str,
 
 
 def cand_minout_values(q, cpts, cids, core_q, core_c, comp_q, comp_c, *,
-                       metric: str, sentinel: int):
+                       metric: str, sentinel: int, precision: str = "f32", mu=None):
     """Candidate-panel Borůvka reduction: per row the minimum of
     max(d, core_q, core_c) over candidates in another component, ((m,) w,
     (m,) id), the first minimal panel column on ties, (+inf, -1) where
-    there is none."""
-    dist = rows_dist(q, cpts, metric, precision="f32")
+    there is none. bf16 (euclidean): distances centred on ``mu``."""
+    dist = rows_dist(q, cpts, metric, precision=precision, mu=mu)
     w = torch.maximum(dist, torch.maximum(core_q[:, None], core_c))
     out = (comp_q[:, None] != comp_c) & (cids != sentinel)
     w = torch.where(out, w, torch.tensor(float("inf"), device=q.device))
@@ -318,8 +318,8 @@ def leaf_blocks(b: int, ell: int) -> int:
 
 
 def forest_merge_plain(stack_d, stack_i, kk: int, sentinel: int):
-    """Plain version of B6: the trees folded one at a time into running
-    lists (``lexmerge.merge_tile_candidates``)."""
+    """Plain version of B6 (see :func:`forest_merge`): the trees folded one
+    at a time into running lists (``lexmerge.merge_tile_candidates``)."""
     n = stack_d.shape[1]
     bd = torch.full((n, kk), float("inf"), dtype=stack_d.dtype, device=stack_d.device)
     bi = torch.full((n, kk), sentinel, dtype=torch.int32, device=stack_d.device)
@@ -330,7 +330,18 @@ def forest_merge_plain(stack_d, stack_i, kk: int, sentinel: int):
 
 def forest_merge(stack_d, stack_i, kk: int, sentinel: int):
     """B6: (T, n, kk) per-tree lists, each ascending by (distance, id) with
-    (+inf, ``sentinel``) tails -> (n, kk) merged, duplicate ids dropped."""
+    (+inf, ``sentinel``) tails -> (n, kk) lists: the trees folded in order
+    into running lists that start as (+inf, ``sentinel``). Tree t's entry
+    is dropped where the running list holds its id at a distance no larger
+    (or it repeats the entry before it); a finite survivor enters among the
+    kk lex-smallest. A later tree's copy of an id at a smaller distance so
+    stands beside the earlier copy, as in the reference.
+
+    On the card (``csrc/forest_merge.cu``; its header has the design) a
+    segment of lanes takes a row at kk <= 32 (two rows a warp at kk <= 16),
+    the running list in registers; past 32 a warp a row with the lists in
+    shared memory, or past its budget in scratch allocated here. Any number
+    of trees; one launch is counted a call."""
     if stack_d.device.type == "cpu":
         return forest_merge_plain(stack_d, stack_i, kk, sentinel)
     dev = cuda_build.launch_device("forest_merge", stack_d, stack_i)
@@ -339,18 +350,27 @@ def forest_merge(stack_d, stack_i, kk: int, sentinel: int):
         raise ValueError(f"forest_merge: stacks must be (T, n, {kk}), got {tuple(stack_d.shape)}")
     if stack_d.dtype != torch.float32 or stack_i.dtype != torch.int32:
         raise ValueError("forest_merge: float32 distances, int32 ids")
-    if not 1 <= trees <= MAX_TREES:
-        raise ValueError(f"forest_merge supports 1 <= trees <= {MAX_TREES}, got {trees}")
-    if kk < 1:
-        raise ValueError(f"forest_merge needs kk >= 1, got {kk}")
+    if trees < 1 or kk < 1:
+        raise ValueError(f"forest_merge needs trees >= 1 and kk >= 1, got {trees}, {kk}")
     stack_d, stack_i = stack_d.contiguous(), stack_i.contiguous()
     out_d = torch.empty((n, kk), dtype=torch.float32, device=stack_d.device)
     out_i = torch.empty((n, kk), dtype=torch.int32, device=stack_d.device)
+    slots = merge_slots(n, kk)  # each 3 lists of kk (distance, id) pairs
+    scratch = torch.empty(slots * 6 * kk, dtype=torch.float32, device=stack_d.device)
     cuda_build.launch(
         "forest_merge", dev, stack_d.data_ptr(), stack_i.data_ptr(), trees, n, kk, sentinel,
-        out_d.data_ptr(), out_i.data_ptr(), wide=kk > cuda_build.WIDE,
+        scratch.data_ptr() if slots else 0, out_d.data_ptr(), out_i.data_ptr(),
+        wide=kk > cuda_build.WIDE,
     )
     return out_d, out_i
+
+
+def merge_slots(n: int, kk: int) -> int:
+    """Warp slots whose lists a B6 launch on n rows at kk keeps in device
+    memory (``forest_merge_slots`` of the kernel; 0 where they fit in
+    shared memory)."""
+    fn = cuda_build.function("forest_merge.cu", "forest_merge_slots", [ctypes.c_int] * 2)
+    return fn(n, kk)
 
 
 def _to_sentinel(nd, ni, sentinel):
@@ -434,23 +454,34 @@ def rescan_blocks(m: int, c: int, d: int, k: int, bf16: bool = False) -> int:
 
 
 def forest_min_outgoing_plain(q, data, cids, core_q, core, comp_q, comp,
-                              metric: str = "euclidean", sentinel: int = 0):
+                              metric: str = "euclidean", sentinel: int = 0,
+                              precision: str = "f32"):
     """Plain version of B8 (see :func:`forest_min_outgoing`)."""
+    mu = row_tile_centres(q) if precision == "bf16" else None
     at = cids.clamp(0, sentinel - 1).long()
     return cand_minout_values(q, data[at], cids, core_q, core[at], comp_q, comp[at],
-                              metric=metric, sentinel=sentinel)
+                              metric=metric, sentinel=sentinel, precision=precision, mu=mu)
 
 
 def forest_min_outgoing(q, data, cids, core_q, core, comp_q, comp,
-                        metric: str = "euclidean", sentinel: int = 0):
+                        metric: str = "euclidean", sentinel: int = 0, precision: str = "f32"):
     """B8: query rows ``q`` (m, d) with core ``core_q`` and component
     ``comp_q`` against their candidate ids ``cids`` (m, C) into ``data``
     (N, d), ``core`` (N,), ``comp`` (N,) -> ((m,) float32 w, (m,) int32 id)
-    of the minimum mutual-reachability edge to another component, (+inf,
-    -1) where there is none. Float32 distances."""
+    of the minimum mutual-reachability edge to another component, the first
+    minimal panel column on ties, (+inf, -1) where there is none. f32, or
+    bf16 distances (euclidean) centred as B7's.
+
+    On the card (``csrc/forest_rescan.cu``; its header has the design) a
+    warp takes a row, its lanes striding over the candidates, the
+    component test before the coordinates; where the row blocks are fewer
+    than about four an SM, the candidates are cut into
+    :func:`minout_splits` spans, each span's minimum goes to scratch
+    allocated here, and a second pass of the same launch takes each row's
+    minimum over its spans. One launch is counted a call."""
     if q.device.type == "cpu":
         return forest_min_outgoing_plain(q, data, cids, core_q, core, comp_q, comp,
-                                         metric, sentinel)
+                                         metric, sentinel, precision)
     args = (q, data, cids, core_q, core, comp_q, comp)
     dev = cuda_build.launch_device("forest_min_outgoing", *args)
     m, d = q.shape
@@ -467,16 +498,35 @@ def forest_min_outgoing(q, data, cids, core_q, core, comp_q, comp,
         raise ValueError("forest_min_outgoing: q (m, d), data (N, d), cids (m, C), "
                          "core_q and comp_q (m,), core and comp (N,)")
     _check_ids(cids, n, "forest_min_outgoing cids", sentinel)
+    mu = None
+    if precision == "bf16":
+        if metric != "euclidean":
+            raise ValueError("bf16 distance tiles support euclidean only")
+        _check_bf16_width("forest_min_outgoing", 1, d)
+        mu = row_tile_centres(q).contiguous()
     code = cuda_build.metric_code(metric, euclid_form(1, c, d) if metric == "euclidean" else None)
     args = [t.contiguous() for t in args]
     out_w = torch.empty(m, dtype=torch.float32, device=q.device)
     out_j = torch.empty(m, dtype=torch.int32, device=q.device)
+    splits = minout_splits(m, c)
+    nscratch = splits * m if splits > 1 else 0  # each span's (w, column) a row
+    pw = torch.empty(nscratch, dtype=torch.float32, device=q.device)
+    pc = torch.empty(nscratch, dtype=torch.int32, device=q.device)
     cuda_build.launch(
         "forest_min_outgoing", dev, args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-        m, c, d, code, sentinel, args[3].data_ptr(), args[4].data_ptr(), args[5].data_ptr(),
-        args[6].data_ptr(), out_w.data_ptr(), out_j.data_ptr(), wide=d > cuda_build.WIDE,
+        m, c, d, code, sentinel, 0 if mu is None else mu.data_ptr(), args[3].data_ptr(),
+        args[4].data_ptr(), args[5].data_ptr(), args[6].data_ptr(), splits,
+        pw.data_ptr() if nscratch else 0, pc.data_ptr() if nscratch else 0,
+        out_w.data_ptr(), out_j.data_ptr(), wide=d > cuda_build.WIDE,
     )
     return out_w, out_j
+
+
+def minout_splits(m: int, c: int) -> int:
+    """Candidate spans a B8 launch of m rows and c candidates cuts each row
+    into (``forest_minout_splits`` of the kernel)."""
+    fn = cuda_build.function("forest_rescan.cu", "forest_minout_splits", [ctypes.c_int] * 2)
+    return fn(m, c)
 
 
 # ---------------------------------------------------------------------------

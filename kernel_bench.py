@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one hand-written kernel body of one package tree on the card.
 
-    python3 kernel_bench.py segmin|kbest|rescan|window|ufscan|leaf ROOT [SHAPE ...]
+    python3 kernel_bench.py segmin|kbest|rescan|window|ufscan|leaf|merge|minout ROOT [SHAPE ...]
 
 ROOT is a directory holding ``hdbscan_tpu_torch/``: the checkout (``.``), or
 an earlier commit unpacked with ``git archive`` into a git-ignored directory,
@@ -71,7 +71,25 @@ leaf 300: 16 leaves of 188, kk 129), f32, the euclidean form the fit
 takes. Inputs are built once into ``.torch_build/bench/``. Where the tree
 has ``cuda_forest.leaf_blocks`` it reports each launch's grid.
 
-``rescan``, ``ufscan`` and ``leaf`` also report ``device_ms``: each
+``merge`` (B6): the fold of the per-tree lists a forest query's B5 launches
+make (``cuda_forest.forest_knn_fused``'s stacks) at the 3b fit's shape (the
+Skin grid, 4 trees of leaf 1,024: 4 x 245,057 x 15), at the 3c fit's (the
+1,048,576 x 8 blobs: 4 x 1,048,576 x 15), on the 3b grid's bf16 stacks at
+the bf16 route's over-provisioned kk = min(2k, 128, n) = 30, and at the 3h
+wide fit's (the 3,000 x 3 lattice, 2 trees of leaf 300, kk 129). Inputs are
+built once into ``.torch_build/bench/``.
+
+``minout`` (B8): the four ``rescan`` panels, each with round-1 components
+(every point its own) and with a later round's (each point's cell of an 8
+x 8 x 8 grid over its first three features' range, 512 components, so
+that most neighbors of neighbors lie in the row's own component); each
+point's core distance is its k-th nearest distance (``torch.cdist`` +
+``torch.topk`` over row chunks, k the panel's, built once into
+``.torch_build/bench/``). It reports each shape's share of live candidates
+in another component and, where the tree has ``cuda_forest.minout_splits``,
+its spans.
+
+``rescan``, ``ufscan``, ``leaf``, ``merge`` and ``minout`` also report ``device_ms``: each
 kernel's device time a call from ``torch.profiler`` (the wrapper's host
 gaps, which the CUDA event times include, left out).
 
@@ -111,21 +129,26 @@ def ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int = 3) -> dict:
     """Device time per call of each kernel ``fn()`` launches, by kernel
     name (``torch.profiler``, after one warm run): where a call's time
-    goes, the wrapper's own small kernels included."""
+    goes, the wrapper's own small kernels included. A trace that records
+    no device time (the profiler drops one now and then) is taken again, up
+    to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        if us:
-            out[e.key[:80]] = us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            if us:
+                out[e.key[:80]] = us / 1e3 / reps
+        if out:
+            break
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
@@ -660,8 +683,146 @@ def leaf_yardstick(batches: dict) -> dict:
     return {name: (lambda get=get: two_calls(get), 10) for name, get in batches.items()}
 
 
+def merge_stacks(data: Data) -> dict:
+    """Shape name -> getter of (stack_d, stack_i, kk, n): the per-tree lists
+    of a forest query at kk, made by B5 over every leaf batch of every tree
+    (in ``precision``) and scattered to point-major rows as
+    ``cuda_forest.forest_knn_fused`` does."""
+    import numpy as np
+
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    def lattice():
+        return np.round(make_gauss(3000, dims=3, n_clusters=6, separation=8.0, seed=3)[0])
+
+    def skin():
+        return data.skin().cpu().numpy().astype(np.float64)
+
+    def stacks(key, points, k, kk, trees, leaf, precision):
+        memo = []
+
+        def get():
+            if not memo:
+                def make():
+                    import torch
+
+                    from hdbscan_tpu_torch.core.distances import euclidean_form
+                    from hdbscan_tpu_torch.ops import cuda_forest as cf
+                    from hdbscan_tpu_torch.ops import rpforest
+
+                    pts = points()
+                    n = len(pts)
+                    x = torch.as_tensor(pts.astype(np.float32), device="cuda")
+                    forest = rpforest.build_forest(pts, trees=trees,
+                                                   leaf_size=max(leaf, 2 * k + 2), seed=0)
+                    lmax = forest.max_leaf
+                    width = min(kk, lmax)
+                    form = euclidean_form(lmax, lmax, pts.shape[1])
+                    members = torch.as_tensor(forest.members, device="cuda")
+                    mask = torch.as_tensor(forest.leaf_mask, device="cuda")
+                    sd = torch.full((trees, n, width), float("inf"), device="cuda")
+                    si = torch.full((trees, n, width), n, dtype=torch.int32, device="cuda")
+                    for t in range(trees):
+                        for a, b, real in rpforest.leaf_batches(forest, "cuda"):
+                            nd, ni = cf.forest_leaf_topk(x, members[t, a:b], mask[a:b], width,
+                                                         "euclidean", form, precision, n)
+                            rows = members[t, a:b].reshape(-1)[real].long()
+                            sd[t].index_copy_(0, rows, nd.reshape(-1, width)[real])
+                            si[t].index_copy_(0, rows, ni.reshape(-1, width)[real])
+                    return [sd, si, torch.tensor([width, n])]
+                sd, si, meta = _cached(f"merge_{key}", make)
+                memo.extend([sd, si, int(meta[0]), int(meta[1])])
+            return memo
+        return get
+
+    return {
+        f"B6 skin {N_SKIN}x3 4 trees kk15 (3b)": stacks("skin_k15", skin, 15, 15, 4, 1024, "f32"),
+        "B6 blobs 1048576x8 4 trees kk15 (3c)": stacks(
+            "blobs_k15", lambda: blobs(1 << 20, 0), 15, 15, 4, 1024, "f32"),
+        f"B6 skin {N_SKIN}x3 4 trees bf16 kk30 (3b bf16)": stacks(
+            "skin_bf16_k30", skin, 15, 30, 4, 1024, "bf16"),
+        "B6 lattice 3000x3 2 trees kk129 (3h wide)": stacks(
+            "lattice_k129", lattice, 129, 129, 2, 300, "f32"),
+    }
+
+
+def merge_shapes(stacks: dict) -> dict:
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    def run(get):
+        sd, si, kk, n = get()
+        return cf.forest_merge(sd, si, kk, n)
+
+    return {name: (lambda get=get: run(get), 10) for name, get in stacks.items()}
+
+
+def minout_inputs(data: Data, panels: dict) -> dict:
+    """Shape name -> getter of B8's arguments on a ``rescan`` panel, with
+    round-1 components or a later round's spatial cells
+    (``chip_smoke.cell_components``)."""
+    from chip_smoke import cell_components
+
+    def kth_distance(x, k):
+        import torch
+
+        kth = []
+        for a in range(0, x.shape[0], 1024):
+            dist = torch.cdist(x[a:a + 1024], x)
+            kth.append(torch.topk(dist, k, dim=1, largest=False).values[:, k - 1])
+        return [torch.cat(kth)]
+
+    out = {}
+    for name, (get, reps) in panels.items():
+        for label in ("round 1", "later round, 512 cells"):
+            memo = []
+
+            def args(get=get, label=label, memo=memo, name=name):
+                if not memo:
+                    import re
+
+                    import torch
+
+                    q, x, cand = get()
+                    n, m = x.shape[0], q.shape[0]
+                    key = re.sub(r"[^a-z0-9]+", "_", name.lower())
+                    core = _cached(f"minout_core_{key}",
+                                   lambda: kth_distance(x, _rescan_k(cand)))[0]
+                    comp = (torch.arange(n, dtype=torch.int32, device=x.device)
+                            if label == "round 1" else cell_components(x))
+                    memo.extend([q, x, cand, core[:m], core, comp[:m].contiguous(), comp])
+                return memo
+            out[f"{name.replace('B7', 'B8')} {label}"] = (args, reps)
+    return out
+
+
+def minout_shapes(inputs: dict) -> dict:
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    def run(args):
+        return cf.forest_min_outgoing(*args(), "euclidean", args()[1].shape[0])
+
+    return {name: (lambda args=args: run(args), reps) for name, (args, reps) in inputs.items()}
+
+
+def minout_info(inputs: dict) -> dict:
+    """Each B8 shape's share of live candidates in another component and,
+    where the tree has ``cuda_forest.minout_splits``, its spans."""
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    out = {}
+    for name, (args, _) in inputs.items():
+        q, x, cand, _, _, comp_q, comp = args()
+        live = cand != x.shape[0]
+        other = live & (comp[cand.clamp(max=x.shape[0] - 1).long()] != comp_q[:, None])
+        out[name] = dict(rows=q.shape[0], candidates=cand.shape[1],
+                         outgoing_share=float(other.sum()) / max(1, int(live.sum())))
+        if hasattr(cf, "minout_splits"):
+            out[name]["spans"] = cf.minout_splits(q.shape[0], cand.shape[1])
+    return out
+
+
 def main() -> int:
-    modes = ("segmin", "kbest", "rescan", "window", "ufscan", "leaf")
+    modes = ("segmin", "kbest", "rescan", "window", "ufscan", "leaf", "merge", "minout")
     if len(sys.argv) < 3 or sys.argv[1] not in modes:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
@@ -677,7 +838,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_build.kernel({"kbest": "knn_kbest", "segmin": "segmin", "rescan": "forest_rescan_topk",
                        "window": "knn_window", "ufscan": "uf_scan",
-                       "leaf": "forest_leaf_topk"}[kernel])
+                       "leaf": "forest_leaf_topk", "merge": "forest_merge",
+                       "minout": "forest_min_outgoing"}[kernel])
 
     def timed(shapes):
         return {name: ms(fn, reps) for name, (fn, reps) in shapes.items()
@@ -716,6 +878,19 @@ def main() -> int:
                                leaf_shapes(batches).items()}
         result["shapes"] = leaf_info(batches)
         result[yardstick] = timed(leaf_yardstick(batches))
+    elif kernel == "merge":
+        stacks = {name: get for name, get in merge_stacks(data).items()
+                  if not keep or any(s in name for s in keep)}
+        result["ms"] = timed(merge_shapes(stacks))
+        result["device_ms"] = {name: device_ms(fn) for name, (fn, _) in
+                               merge_shapes(stacks).items()}
+    elif kernel == "minout":
+        inputs = {name: v for name, v in minout_inputs(data, rescan_panels(data)).items()
+                  if not keep or any(s in name for s in keep)}
+        result["ms"] = timed(minout_shapes(inputs))
+        result["device_ms"] = {name: device_ms(fn) for name, (fn, _) in
+                               minout_shapes(inputs).items()}
+        result["shapes"] = minout_info(inputs)
     else:
         chunk = window_chunk()
         result["ms"] = timed(window_shapes(chunk))
