@@ -127,6 +127,16 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    boundary fit at 3,000 x 130 -- with the launch counters zeroed just
    before the first and read just after the last; every wide mode a fit
    path runs must have launched;
+3i. cosine and pearson (metric code 6; pearson's rows centred by the
+   wrappers): after ``parity_metrics`` held B1, B9, K2 and the rectangular
+   B2 at both metrics, and B5-B8 at cosine, bit for bit to their plain
+   versions (NaN patterns included) on grid, continuous and collinear
+   points, zero-norm rows and d = 129 (phase 2), the cells skin_cosine,
+   highd_cosine, highd_pearson, 3b_cosine, 3e_cosine and 3g_cosine each
+   equal their CPU fits on a 4,096-row slice, and 3g_cosine the
+   single-device fit (``metric_phase``); their kernels are timed as rows
+   ``<kernel>_cosine`` and ``<kernel>_3f_{cosine,pearson}``, K2, B5 and B7
+   beside ``F.normalize`` + ``torch.mm`` / ``torch.bmm`` + ``torch.topk``;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -208,6 +218,10 @@ H100_FP32_INSTR_PER_S = H100_FP32_PER_S / 2
 #: The yardstick of the k-best rows (B4, B5, B7): ``library_ms`` times it.
 TWO_CALLS = ("two library calls (torch.cdist + torch.topk(largest=False), TF32 off), "
              "other rounding, tie order and no dedup")
+#: The cosine rows' yardstick (K2, B5, B7).
+COSINE_CALLS = ("library calls: torch.nn.functional.normalize, then torch.mm / torch.bmm "
+                "(TF32 off) and torch.topk(largest=True) of the similarities; other "
+                "rounding, tie order and no dedup")
 NO_SEGMIN_CALL = "none: no PyTorch call takes a segment minimum over a candidate panel"
 
 
@@ -308,8 +322,21 @@ def pair_ops(d: int, form: str, root: bool = True) -> int:
     (d - 1) add + sqrt; dot form d mul + (d - 1) add + 3 (norm sums,
     doubling, subtract) + max + sqrt. ``root=False`` leaves the sqrt out,
     for a k-best: it needs a root only for the about k (1 + ln(n / k))
-    candidates a row admits, as csrc/knn_kbest.cu takes them."""
+    candidates a row admits, as csrc/knn_kbest.cu takes them. ``form``
+    "cosine" (cosine and pearson, no root): d mul + (d - 1) add, then the
+    norms' product, the division and the subtraction from 1, and one more
+    for the rooted norms' share of a pair: 2d + 3."""
+    if form == "cosine":
+        return 2 * d + 3
     return (3 * d if form == "diff" else 2 * d + 4) - (0 if root else 1)
+
+
+def metric_form(metric: str, form):
+    """The form ``pair_ops`` counts for a metric: the euclidean form, else
+    "cosine" for cosine and pearson, "diff" for manhattan and supremum."""
+    if metric == "euclidean":
+        return form
+    return "cosine" if metric in ("cosine", "pearson") else "diff"
 
 
 def parity() -> list[str]:
@@ -625,7 +652,7 @@ def cell_components(x):
     return (cell * scale).sum(1).to(torch.int32)
 
 
-def leaf_stacks(leaf_fn, x, forest, members, mask, kk, form, prec):
+def leaf_stacks(leaf_fn, x, forest, members, mask, kk, form, prec, metric="euclidean"):
     """(T, n, kk) per-tree lists of B5's (``leaf_fn``) leaf lists, scattered
     to point-major rows as ``cuda_forest.forest_knn_fused`` does."""
     import torch
@@ -635,7 +662,7 @@ def leaf_stacks(leaf_fn, x, forest, members, mask, kk, form, prec):
     si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device=x.device)
     real = mask.reshape(-1)
     for t in range(forest.trees):
-        nd, ni = leaf_fn(x, members[t], mask, kk, "euclidean", form, prec, n)
+        nd, ni = leaf_fn(x, members[t], mask, kk, metric, form, prec, n)
         rows = members[t].reshape(-1)[real].long()
         sd[t, rows] = nd.reshape(-1, kk)[real]
         si[t, rows] = ni.reshape(-1, kk)[real]
@@ -905,11 +932,11 @@ def report_forest_fit(label, data, params, res, launches, ev, wall, exact_core,
     # The final lists (after the rescan rounds), recomputed outside the
     # counted fit: the fit keeps only the core distances.
     _, opts = resolve_index_for(params, len(data))
-    _, _, idx = rpforest.rpforest_core_distances(data, params.min_points, k=q["k"],
-                                                 return_indices=True, **opts)
+    _, _, idx = rpforest.rpforest_core_distances(data, params.min_points, params.dist_function,
+                                                 k=q["k"], return_indices=True, **opts)
     final, rows = rpforest._sampled_recall(
         torch.as_tensor(data.astype(np.float32), device="cuda"),
-        torch.as_tensor(idx, device="cuda"), q["k"], "euclidean", 256)
+        torch.as_tensor(idx, device="cuda"), q["k"], params.dist_function, 256)
     print(f"{label} recall@{q['k']} of the final lists {final} over {rows} rows")
     same = float(np.mean(res.core_distances == exact_core))
     near = float(np.mean(np.isclose(res.core_distances, exact_core, rtol=1e-4, atol=0)))
@@ -933,13 +960,17 @@ def max_err(a, b, ia=None, ib=None) -> float:
 
 
 def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
-                 leaf_size=FOREST["rpf_leaf_size"], suffix="") -> list[dict]:
+                 leaf_size=FOREST["rpf_leaf_size"], suffix="", metric="euclidean",
+                 launch_suffix=None) -> list[dict]:
     """The forest kernels timed at a forest fit's shapes (the 3b fit's by
     default) beside their plain versions and bounds: B5 on the first leaf
     batch, B6 on the trees' lists, B7 on the first rescan chunk, B8 on that
     chunk's panel with the fit's core distances and round-1 components.
-    ``suffix`` names the rows (and their launch counts) "_wide" for the
-    wide fit's."""
+    ``suffix`` names the rows "_wide" for the wide fit's, or "_cosine" for
+    the 3b cosine fit's (``metric``); ``launch_suffix`` (default
+    ``suffix``) picks their launch counts. At cosine the yardstick of B5
+    and B7 is ``F.normalize``, ``torch.mm`` / ``torch.bmm`` (TF32 off) and
+    ``torch.topk``."""
     import numpy as np
     import torch
 
@@ -954,7 +985,10 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
                                    seed=SEED)
     lmax = forest.max_leaf
     kk = min(k, lmax)
-    form = euclidean_form(lmax, lmax, d)
+    launch_suffix = suffix if launch_suffix is None else launch_suffix
+    cosine = metric != "euclidean"
+    form = euclidean_form(lmax, lmax, d) if not cosine else None
+    pform = metric_form(metric, form)
     members = torch.as_tensor(forest.members, device="cuda")
     mask = torch.as_tensor(forest.leaf_mask, device="cuda")
     batches = rpforest.leaf_batches(forest, "cuda")
@@ -967,13 +1001,15 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
         a, b = kernel(*args), plain(*args)
         b_ms, by = bound_ms(nbytes, ops)
         if library is not None:
-            extra.update(library_ms=cuda_ms(library, 2), library_call=TWO_CALLS)
+            extra.update(library_ms=cuda_ms(library, 2),
+                         library_call=COSINE_CALLS if cosine else TWO_CALLS)
         else:
             extra.setdefault("library_ms", None)
         rows.append(dict(
             name=name + suffix, route="cuda", source=f"hdbscan_tpu_torch/csrc/{source}",
             replaces=f"hdbscan_tpu/ops/pallas_forest.py:{replaces}",
-            launches=launches[launch + suffix], max_abs_err=max_err(a[0], b[0], a[1], b[1]),
+            launches=launches[launch + launch_suffix],
+            max_abs_err=max_err(a[0], b[0], a[1], b[1]),
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
             bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3, **extra,
         ))
@@ -984,22 +1020,26 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
 
     def leaf_two_calls():
         pts = x[members[0, a0:b0].long()]
-        torch.topk(torch.cdist(pts, pts), kk, dim=2, largest=False)
+        if cosine:
+            pn = torch.nn.functional.normalize(pts, dim=2)
+            torch.topk(torch.bmm(pn, pn.transpose(1, 2)), kk, dim=2, largest=True)
+        else:
+            torch.topk(torch.cdist(pts, pts), kk, dim=2, largest=False)
 
     row("forest_leaf_topk", "forest_leaf_topk.cu", 273, "forest_leaf_topk",
-        (x, members[0, a0:b0], mask[a0:b0], kk, "euclidean", form, "f32", n),
+        (x, members[0, a0:b0], mask[a0:b0], kk, metric, form, "f32", n),
         cf.forest_leaf_topk, cf.forest_leaf_topk_plain,
         nb * ell * (4 + 1 + d * 4) + nb * ell * kk * 8,
-        float(ell * widths.sum()) * pair_ops(d, form, root=False), library=leaf_two_calls,
+        float(ell * widths.sum()) * pair_ops(d, pform, root=False), library=leaf_two_calls,
         blocks=cf.leaf_blocks(nb, ell), device_ms=device_ms(
-            lambda: cf.forest_leaf_topk(x, members[0, a0:b0], mask[a0:b0], kk, "euclidean",
+            lambda: cf.forest_leaf_topk(x, members[0, a0:b0], mask[a0:b0], kk, metric,
                                         form, "f32", n), "leaf_topk"))
 
     sd = torch.full((forest.trees, n, kk), float("inf"), device="cuda")
     si = torch.full((forest.trees, n, kk), n, dtype=torch.int32, device="cuda")
     for t in range(forest.trees):
         for a, b, real in batches:
-            nd, ni = cf.forest_leaf_topk(x, members[t, a:b], mask[a:b], kk, "euclidean",
+            nd, ni = cf.forest_leaf_topk(x, members[t, a:b], mask[a:b], kk, metric,
                                          form, "f32", n)
             idx = members[t, a:b].reshape(-1)[real].long()
             sd[t, idx] = nd.reshape(-1, kk)[real]
@@ -1018,26 +1058,30 @@ def forest_times(data, fres, launches, k=MIN_PTS - 1, trees=FOREST["rpf_trees"],
 
     def rescan_two_calls():
         rows_ = max(1, (1 << 26) // (cand.shape[1] * d))
+        xn = torch.nn.functional.normalize(x, dim=1) if cosine else x
         for a in range(0, chunk, rows_):
             b = min(a + rows_, chunk)
-            pts = x[cand[a:b].clamp(max=n - 1).long()]
-            torch.topk(torch.cdist(x[a:b, None, :], pts), kk, dim=2, largest=False)
+            pts = xn[cand[a:b].clamp(max=n - 1).long()]
+            if cosine:
+                torch.topk(torch.bmm(pts, xn[a:b, :, None])[:, :, 0], kk, dim=1, largest=True)
+            else:
+                torch.topk(torch.cdist(x[a:b, None, :], pts), kk, dim=2, largest=False)
 
     row("forest_rescan_topk", "forest_rescan.cu", 411, "forest_rescan_topk",
-        (x[:chunk], x, cand, kk, "euclidean", "f32", n),
+        (x[:chunk], x, cand, kk, metric, "f32", n),
         cf.forest_rescan_topk, cf.forest_rescan_topk_plain,
         chunk * d * 4 + chunk * kk * kk * 4 + uniq * d * 4 + chunk * kk * 8,
-        cands * pair_ops(d, "diff", root=False), library=rescan_two_calls,
+        cands * pair_ops(d, metric_form(metric, "diff"), root=False), library=rescan_two_calls,
         blocks=cf.rescan_blocks(chunk, cand.shape[1], d, kk))
 
-    if not suffix or d > cuda_build.WIDE:  # B8's wide mode is d past 128 only
+    if suffix != "_wide" or d > cuda_build.WIDE:  # B8's wide mode is d past 128 only
         core = torch.as_tensor(fres.core_distances.astype(np.float32), device="cuda")
         comp = torch.arange(n, dtype=torch.int32, device="cuda")
-        margs = (x[:chunk], x, cand, core[:chunk], core, comp[:chunk], comp, "euclidean", n)
+        margs = (x[:chunk], x, cand, core[:chunk], core, comp[:chunk], comp, metric, n)
         row("forest_min_outgoing", "forest_rescan.cu", 476, "forest_min_outgoing", margs,
             cf.forest_min_outgoing, cf.forest_min_outgoing_plain,
             chunk * (d * 4 + 8) + chunk * kk * kk * 4 + uniq * (d * 4 + 8) + chunk * 8,
-            cands * (pair_ops(d, "diff") + 2), library_note=NO_SEGMIN_CALL,
+            cands * (pair_ops(d, metric_form(metric, "diff")) + 2), library_note=NO_SEGMIN_CALL,
             device_ms=device_ms(lambda: cf.forest_min_outgoing(*margs), "min_outgoing"),
             spans=cf.minout_splits(chunk, cand.shape[1]))
     print(f"forest kernel{suffix} shapes: {n} x {d}, leaf batch {nb} x {ell}, kk {kk}; merge "
@@ -1178,6 +1222,116 @@ def _bits_same(a, b) -> bool:
     import torch
 
     return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+def metric_cases():
+    """The inputs of the cosine and pearson checks (``parity_metrics``):
+    (label, float32 points, metrics). Collinear rows (integer multiples of
+    a few directions) give negative cosine distances and exact ties; a zero
+    row has NaN cosine distances to every row, a constant row NaN pearson
+    ones; d = 129 runs the wide modes."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    grid = rng.integers(0, 256, size=(16384, 3)).astype(np.float32)
+    cont = rng.normal(size=(8192, 7)).astype(np.float32)
+    dirs = rng.integers(1, 5, size=(40, 3)) * rng.choice([-1, 1], size=(40, 3))
+    collinear = (dirs[rng.integers(0, 40, 3000)] * rng.integers(1, 6, size=(3000, 1)))
+    zero = grid.copy()
+    zero[[5, 9000, 9001]] = 0.0  # zero rows in two of the reference's 8,192-column tiles
+    const = cont.copy()
+    const[[5, 7000]] = 2.5
+    both = ("cosine", "pearson")
+    return [
+        ("grid 16384x3", grid, both),
+        ("continuous 8192x7", cont, both),
+        ("collinear 3000x3", collinear.astype(np.float32), both),
+        ("zero rows 16384x3", zero, ("cosine",)),
+        ("constant rows 8192x7", const, ("pearson",)),
+        ("wide 2000x129", rng.integers(0, 3, size=(2000, 129)).astype(np.float32), both),
+    ]
+
+
+def parity_metrics() -> list[str]:
+    """Cosine and pearson (metric code 6, pearson's rows centred by the
+    wrappers) against the plain versions on the card, bit for bit, NaN
+    patterns included (``metric_cases``): B1 and B9 (random and round-1
+    components, the reference's tile rule at zero-norm rows), K2 and the
+    rectangular B2 at k = 1, 15 and 129 (the zero-norm pieces and their
+    merge pass where a tile holds such rows), and at cosine B5, B6 (on the
+    trees' B5 stacks, with negative distances), B7 and B8; returns failure
+    messages."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.ops import cuda_knn, cuda_segmin, rpforest, tiled
+
+    errors = []
+
+    def check(label, a, b):
+        torch.cuda.synchronize()
+        ok = _bits_same(a, b)
+        print(f"parity {label}: {'bitwise' if ok else 'MISMATCH'}")
+        if not ok:
+            errors.append(label)
+
+    rng = np.random.default_rng(SEED + 8)
+    for label, x, metrics in metric_cases():
+        n, d = x.shape
+        xg = torch.as_tensor(x, device="cuda")
+        ct = tiled._tile_sizes(n, 1024, 8192)[1]
+        core = torch.as_tensor((rng.random(n) * 0.3).astype(np.float32), device="cuda")
+        core[::5] = 0.0
+        valid = torch.ones(n, dtype=torch.bool, device="cuda")
+        valid[::97] = False
+        comps = {"64 random components": torch.as_tensor(rng.integers(0, 64, n).astype(np.int32),
+                                                         device="cuda"),
+                 "round 1": torch.arange(n, dtype=torch.int32, device="cuda")}
+        r = 1024  # the panel launches: rows [0, r) against columns [r, n)
+        for metric in metrics:
+            for cname, comp in comps.items():
+                args = (xg, core, comp, valid, metric, None, ct)
+                check(f"B1 segmin {metric} {label} {cname}", cuda_segmin.segmin(*args),
+                      cuda_segmin.min_outgoing_plain(*args))
+                pargs = (xg[:r], core[:r], comp[:r], valid[:r], xg[r:], core[r:], comp[r:],
+                         valid[r:], metric)
+                check(f"B9 segmin_panel {metric} {label} {cname}",
+                      cuda_segmin.min_outgoing_panel(*pargs, 1024, r, col_offset=r),
+                      cuda_segmin.min_outgoing_panel_plain(*pargs, None, r, r))
+            for k in (1, 15, 129):
+                check(f"K2 knn_kbest {metric} {label} k={k}",
+                      cuda_knn.knn_kbest(xg, k, metric, None, ct),
+                      cuda_knn.knn_kbest_plain(xg, k, metric, None, ct))
+                check(f"B2 knn_kbest_panel {metric} {label} k={k}",
+                      cuda_knn.knn_kbest_panel(xg[:r], xg[r:], k, metric, None, r, col_tile=r),
+                      cuda_knn.knn_kbest_panel_plain(xg[:r], xg[r:], k, metric, None, r, r))
+        if "cosine" not in metrics:
+            continue
+        forest = rpforest.build_forest(x, trees=3, leaf_size=300, seed=SEED)
+        members = torch.as_tensor(forest.members, device="cuda")
+        mask = torch.as_tensor(forest.leaf_mask, device="cuda")
+        for k in (1, 15, 129):
+            kk = min(k, forest.max_leaf)
+            args = (xg, members[0], mask, kk, "cosine", None, "f32", n)
+            check(f"B5 forest_leaf_topk cosine {label} k={kk}", cf.forest_leaf_topk(*args),
+                  cf.forest_leaf_topk_plain(*args))
+            sd, si = leaf_stacks(cf.forest_leaf_topk_plain, xg, forest, members, mask, kk, None,
+                                 "f32", "cosine")
+            neg = int((sd < 0).sum())
+            check(f"B6 forest_merge cosine {label} k={kk} stacks ({neg} negative entries)",
+                  cf.forest_merge(sd, si, kk, n), cf.forest_merge_plain(sd, si, kk, n))
+            _, best_i = cf.forest_merge_plain(sd, si, kk, n)
+            m = min(n, max(64, (1 << 22) // (kk * kk)))
+            cand = rpforest._expand(best_i, best_i[:m], kk, n)
+            args = (xg[:m], xg, cand, kk, "cosine", "f32", n)
+            check(f"B7 forest_rescan_topk cosine {label} k={kk}", cf.forest_rescan_topk(*args),
+                  cf.forest_rescan_topk_plain(*args))
+            for cname, comp in comps.items():
+                args = (xg[:m], xg, cand, core[:m], core, comp[:m], comp, "cosine", n)
+                check(f"B8 forest_min_outgoing cosine {label} k={kk} {cname}",
+                      cf.forest_min_outgoing(*args), cf.forest_min_outgoing_plain(*args))
+    return errors
 
 
 def parity_segmin() -> list[str]:
@@ -1987,12 +2141,13 @@ def highd_times(hdata, launches) -> list[dict]:
     )]
 
 
-def panel_times(data, sres, launches, mesh, k=MIN_PTS - 1, suffix="") -> list[dict]:
+def panel_times(data, sres, launches, mesh, k=MIN_PTS - 1, suffix="", metric="euclidean",
+                launch_suffix=None) -> list[dict]:
     """B9 and the ring's rectangular B2 timed at one launch of a sharded
     fit's first round (the 3g fit's by default): shard 0's rows against
     shard 1's panel, round-1 components, the ring tiles' form; bounds from
-    the pairs and the bytes of both sides. ``suffix`` as in
-    :func:`forest_times`."""
+    the pairs and the bytes of both sides. ``suffix``, ``metric`` and
+    ``launch_suffix`` as in :func:`forest_times`."""
     import numpy as np
     import torch
 
@@ -2002,7 +2157,9 @@ def panel_times(data, sres, launches, mesh, k=MIN_PTS - 1, suffix="") -> list[di
 
     n, d = data.shape
     rt, ct, shard, _ = _ring_geometry(n, N_SHARDS, 1024, 8192)
-    form = euclidean_form(rt, ct, d)
+    form = euclidean_form(rt, ct, d) if metric == "euclidean" else None
+    pform = metric_form(metric, form)
+    launch_suffix = suffix if launch_suffix is None else launch_suffix
     x = torch.as_tensor(data.astype(np.float32), device="cuda")
     core = torch.as_tensor(sres.core_distances.astype(np.float32), device="cuda")
     comp = torch.arange(n, dtype=torch.int32, device="cuda")
@@ -2018,22 +2175,23 @@ def panel_times(data, sres, launches, mesh, k=MIN_PTS - 1, suffix="") -> list[di
         b_ms, by = bound_ms(nbytes, ops)
         rows.append(dict(
             name=name + suffix, route="cuda", source=f"hdbscan_tpu_torch/csrc/{replaces[0]}",
-            replaces=replaces[1], launches=launches[name + suffix],
+            replaces=replaces[1], launches=launches[name + launch_suffix],
             max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=by, library_ms=None, **extra,
         ))
 
     pairs = float(shard) * shard
-    ops = pairs * (pair_ops(d, form) + 2)
+    ops = pairs * (pair_ops(d, pform) + 2)
     row("segmin_panel", ("segmin.cu", "hdbscan_tpu/ops/pallas_segmin.py:127"),
-        lambda: cuda_segmin.min_outgoing_panel(*args, "euclidean", form=form),
-        lambda: cuda_segmin.min_outgoing_panel_plain(*args, "euclidean", form),
+        lambda: cuda_segmin.min_outgoing_panel(*args, metric, rt, ct, form=form, col_offset=shard),
+        lambda: cuda_segmin.min_outgoing_panel_plain(*args, metric, form, ct, shard),
         2 * shard * (d * 4 + 4 + 4 + 1) + shard * 8, ops,
         bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3)
-    ops = pairs * pair_ops(d, form, root=False)
+    ops = pairs * pair_ops(d, pform, root=False)
     row("knn_kbest_panel", ("knn_kbest.cu", "hdbscan_tpu/ops/pallas_knn.py:453"),
-        lambda: cuda_knn.knn_kbest_panel(x[r], x[c], k, "euclidean", form, id_offset=shard),
-        lambda: cuda_knn.knn_kbest_panel_plain(x[r], x[c], k, "euclidean", form, shard),
+        lambda: cuda_knn.knn_kbest_panel(x[r], x[c], k, metric, form, id_offset=shard,
+                                         col_tile=ct),
+        lambda: cuda_knn.knn_kbest_panel_plain(x[r], x[c], k, metric, form, shard, ct),
         2 * shard * d * 4 + shard * k * 8, ops,
         bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
         blocks=kbest_blocks(shard, shard, d, k))
@@ -2060,29 +2218,93 @@ def kbest_3c_row(blob, launches) -> dict:
     """K2 at the 1M x 8 exact twin's launch (3c): all rows, k = 15, the
     form the exact tier takes there, beside its plain version on the first
     PLAIN_ROWS rows (scaled) and its bounds."""
+    return kbest_metric_row("knn_kbest_3c", blob, MIN_PTS - 1, launches, "euclidean", PLAIN_ROWS)
+
+
+def kbest_metric_row(name, data, k, launches, metric, plain_rows=None) -> dict:
+    """K2 at a fit's launch: all rows, the cell's k, the distance form the
+    exact tier takes there, beside its plain version (on ``plain_rows``
+    leading rows, scaled, where the whole takes minutes) and its bounds;
+    at cosine and pearson also the library yardstick (``F.normalize``,
+    ``torch.mm`` with TF32 off and ``torch.topk`` over row blocks)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_knn, tiled
+
+    n, d = data.shape
+    ct = tiled._tile_sizes(n, 1024, 8192)[1]
+    form = tiled.scan_form(n, d, metric, 1024, 8192)
+    x = torch.as_tensor(data.astype(np.float32), device="cuda")
+    ms = cuda_ms(lambda: cuda_knn.knn_kbest(x, k, metric, form, ct), 2)
+    a = cuda_knn.knn_kbest(x, k, metric, form, ct)
+    r = slice(0, plain_rows or n)
+    plain_ms, b = timed_plain(lambda: cuda_knn.knn_kbest_panel_plain(
+        x[r], x, k, metric, form, 0, ct))
+    err = max_err(a[0][r], b[0], a[1][r], b[1])
+    if not _bits_same((a[0][r], a[1][r]), b):
+        err = float("inf")
+    ops = float(n) * n * pair_ops(d, metric_form(metric, form), root=False)
+    b_ms, by = bound_ms(n * d * 4 + n * k * 8, ops)
+    extra = {"plain_ms_scaled_from_rows": plain_rows} if plain_rows else {}
+    if metric in ("cosine", "pearson"):
+        xc, _ = cuda_build.kernel_points(x, metric)
+        rows_ = max(1, (1 << 28) // n)
+
+        def library():
+            xn = torch.nn.functional.normalize(xc, dim=1)
+            for a0 in range(0, n, rows_):
+                torch.topk(torch.mm(xn[a0:a0 + rows_], xn.t()), k, dim=1, largest=True)
+
+        extra.update(library_ms=cuda_ms(library, 1), library_call=COSINE_CALLS)
+    else:
+        extra["library_ms"] = None
+    return dict(
+        name=name, route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
+        replaces="hdbscan_tpu/ops/pallas_knn.py:453", launches=launches["knn_kbest"],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms * n / (plain_rows or n), bound_ms=b_ms,
+        bound_by=by, bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
+        blocks=kbest_blocks(n, n, d, k), shape=f"{n} x {d}, k {k}, {metric} {form or ''}",
+        **extra,
+    )
+
+
+def kbest_merge_row(data, launches) -> dict:
+    """K2's merge pass (``knn_kbest_merge``) on the lists of the Skin-shaped
+    cosine launch with rows 5 and n / 2 set to zero: the pieces the
+    reference's tile rule cuts the columns into, merged; beside the plain
+    fold of stable merges. No fit of the main path holds a zero-norm row,
+    so its launches there are 0; the parity phase runs it."""
     import numpy as np
     import torch
 
     from hdbscan_tpu_torch.ops import cuda_knn, tiled
 
-    n, d = blob.shape
+    x = data.astype(np.float32).copy()
+    x[[5, len(x) // 2]] = 0.0
+    n, d = x.shape
     k = MIN_PTS - 1
-    form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
-    x = torch.as_tensor(blob.astype(np.float32), device="cuda")
-    ms = cuda_ms(lambda: cuda_knn.knn_kbest(x, k, "euclidean", form), 2)
-    a = cuda_knn.knn_kbest(x, k, "euclidean", form)
-    plain_ms, b = timed_plain(lambda: cuda_knn.knn_kbest_panel_plain(
-        x[:PLAIN_ROWS], x, k, "euclidean", form))
-    err = max_err(a[0][:PLAIN_ROWS], b[0], a[1][:PLAIN_ROWS], b[1])
-    ops = float(n) * n * pair_ops(d, form, root=False)
-    b_ms, by = bound_ms(n * d * 4 + n * k * 8, ops)
+    ct = tiled._tile_sizes(n, 1024, 8192)[1]
+    xg = torch.as_tensor(x, device="cuda")
+    pieces = cuda_knn._zero_pieces(xg, "cosine", k, ct, 0)
+    lists = []
+    for a0, b0, slots in pieces:
+        td, ti = cuda_knn.knn_kbest_panel(xg, xg[a0:b0], slots, "cosine", None, a0)
+        pad = (n, k - slots)
+        lists.append((torch.cat([td, torch.full(pad, float("inf"), device="cuda")], 1),
+                      torch.cat([ti, torch.full(pad, -1, dtype=torch.int32, device="cuda")], 1)))
+    ms = cuda_ms(lambda: cuda_knn._merge_lists(lists, k, plain=False), 5)
+    a = cuda_knn._merge_lists(lists, k, plain=False)
+    plain_ms, b = timed_plain(lambda: cuda_knn._merge_lists(lists, k, plain=True))
+    b_ms, by = bound_ms(len(lists) * n * k * 8 + n * k * 8, 0.0)
     return dict(
-        name="knn_kbest_3c", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
-        replaces="hdbscan_tpu/ops/pallas_knn.py:453", launches=launches["knn_kbest"],
-        max_abs_err=err, ms=ms, plain_ms=plain_ms * n / PLAIN_ROWS,
-        plain_ms_scaled_from_rows=PLAIN_ROWS, bound_ms=b_ms, bound_by=by, library_ms=None,
-        bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
-        blocks=kbest_blocks(n, n, d, k), shape=f"{n} x {d}, k {k}, {form} form",
+        name="knn_kbest_merge", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
+        replaces="hdbscan_tpu/ops/tiled.py:88 (_merge_sorted_k of the XLA scan, no Pallas call)",
+        launches=launches["knn_kbest_merge"],
+        max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=by, library_ms=None,
+        library_note="none: no PyTorch call merges sorted (distance, id) lists",
+        shape=f"{len(lists)} lists of {n} x {k}",
     )
 
 
@@ -2131,7 +2353,7 @@ def tile_shares(data, core_np, form) -> tuple[float, float, int]:
 
 
 def segmin_row(name, x, core, comp, valid, form, launches, plain_rows=None, kernel=None,
-               **extra) -> dict:
+               metric="euclidean", **extra) -> dict:
     """The segment-min kernel timed on one round's inputs beside its plain
     version and its bounds (every pair of the round crosses components:
     round 1). ``plain_rows`` times (and checks) the plain version on that
@@ -2143,26 +2365,166 @@ def segmin_row(name, x, core, comp, valid, form, launches, plain_rows=None, kern
     from hdbscan_tpu_torch.ops import cuda_segmin
 
     n, d = x.shape
-    ms = cuda_ms(lambda: cuda_segmin.segmin(x, core, comp, valid, "euclidean", form), 3)
-    a = cuda_segmin.segmin(x, core, comp, valid, "euclidean", form)
+    ms = cuda_ms(lambda: cuda_segmin.segmin(x, core, comp, valid, metric, form), 3)
+    a = cuda_segmin.segmin(x, core, comp, valid, metric, form)
     r = slice(0, plain_rows or n)
     plain_ms, b = timed_plain(lambda: cuda_segmin.min_outgoing_panel_plain(
-        x[r], core[r], comp[r], valid[r], x, core, comp, valid, "euclidean", form))
+        x[r], core[r], comp[r], valid[r], x, core, comp, valid, metric, form))
     if plain_rows:
         plain_ms *= n / plain_rows
         extra["plain_ms_scaled_from_rows"] = plain_rows
     err = max_err(a[0][r], b[0], a[1][r], b[1])
     if not _bits_same((a[0][r], a[1][r]), b):
         err = float("inf")
-    ops = float(n) * (n - 1) * (pair_ops(d, form) + 2)
+    ops = float(n) * (n - 1) * (pair_ops(d, metric_form(metric, form)) + 2)
     b_ms, by = bound_ms(n * (d * 4 + 4 + 4 + 1) + n * 8, ops)
     return dict(
         name=name, route="cuda", source="hdbscan_tpu_torch/csrc/segmin.cu",
         replaces="hdbscan_tpu/ops/pallas_segmin.py:79", launches=launches[kernel or name],
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
         library_ms=None, bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
-        shape=f"{n} x {d}, {form} form, round 1", **extra,
+        shape=f"{n} x {d}, {metric} {form or ''} form, round 1", **extra,
     )
+
+
+def metric_cell(label, x, params, kernels, fit=None, sub_kw=None, **fit_kw):
+    """A cell at cosine or pearson through the exact fit's checks: the
+    card's fit equal to the CPU's on a 4,096-row slice of the cell's data
+    (``sub_kw``: the two sides' extra arguments, default the card and
+    ``device="cpu"``), then the whole fit with the launch counters zeroed
+    just before and read just after, its walls and launches printed and
+    ``check_fit`` applied. Returns (error or None, result, launches,
+    events, wall)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hdbscan_tpu_torch.models import exact
+
+    fit = fit or exact.fit
+    card_kw, cpu_kw = sub_kw or ({}, {"device": "cpu"})
+    sub = x[np.random.default_rng(SEED).choice(len(x), 4096, replace=False)]
+    small = dataclasses.replace(params, min_cluster_size=50)
+    a, b = fit(sub, small, **card_kw), fit(sub, small, **cpu_kw)
+    same = fits_equal(a, b) and trees_equal(a.tree, b.tree)
+    print(f"{label} card fit vs CPU fit on 4096 rows: {'identical' if same else 'DIFFERENT'}")
+    res, launches, ev, wall = run_fit(x, params, **fit_kw)
+    print(f"{label} {len(x)} x {x.shape[1]} fit walls (s): {fit_walls(ev, wall)}")
+    counts = np.bincount(res.labels)
+    print(f"{label} labels: {len(counts) - 1} clusters, noise {int(counts[0])}; "
+          f"launches on the fit: {launches}")
+    msg = None if same else f"{label}: the card's fit differs from the CPU's on 4096 rows"
+    return msg or check_fit(label, res, launches, ev, len(x), kernels), res, launches, ev, wall
+
+
+def metric_phase(data, hdata, fdata, mesh) -> tuple[list[str], list[dict]]:
+    """The cosine and pearson cells (metric code 6 in K2, B1, B9, the
+    rectangular B2 and B5-B8), each equal to its CPU fit on a 4,096-row
+    slice: skin_cosine (the Skin-shaped exact fit: K2, B1, K3),
+    highd_cosine and highd_pearson (the 3f data, 500,000 x 28: K2 at d =
+    28, not B3), 3b_cosine (the reference's forest on the Skin-shaped data:
+    B5, B6, B7, B1, K3), 3e_cosine (default MR at 200,000: K2 and B1 in the
+    glue) and 3g_cosine (four shards, equal to skin_cosine's fit: B9 and
+    the rectangular B2); then each cosine mode timed at its fit's shapes
+    (rows ``<kernel>_cosine``, ``<kernel>_3f_cosine``,
+    ``<kernel>_3f_pearson``; their launches are the cell's). Returns
+    (failure messages, kernel rows)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact, mr_hdbscan
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    errors, rows = [], []
+    zero = np.flatnonzero((data == 0).all(axis=1))
+    print(f"skin_cosine: the seeded Skin-shaped data holds {len(zero)} zero rows {zero.tolist()}"
+          " (a zero row's cosine is NaN to every row: the fit then follows the reference's "
+          "tile rule, tests/test_torch_metrics.py)")
+    skin = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, knn_index="exact",
+                         dist_function="cosine")
+    msg, cres, claunches, _, _ = metric_cell("skin_cosine", data, skin, EXACT_KERNELS)
+    errors += [msg] if msg else []
+
+    hcells = {}
+    for metric in ("cosine", "pearson"):
+        p = HDBSCANParams(**HIGHD_PARAMS, dist_function=metric)
+        label = f"highd_{metric}"
+        msg, hres, hl, _, _ = metric_cell(label, hdata, p, ("knn_kbest", "segmin", "uf_scan"))
+        if hl["knn_smallest"]:
+            msg = msg or f"{label}: B3 launched at {metric} ({hl})"
+        errors += [msg] if msg else []
+        hcells[metric] = (hres, hl)
+
+    fp = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE,
+                       **dict(FOREST, dist_function="cosine"))
+    msg, fres, fl, fev, fwall = metric_cell("3b_cosine", data, fp, FOREST_FIT_KERNELS)
+    errors += [msg] if msg else []
+    report_forest_fit("3b_cosine", data, fp, fres, fl, fev, fwall, cres.core_distances,
+                      cres.labels)
+
+    qp = HDBSCANParams(**MR_PARAMS, min_cluster_size=max(64, N_FULLQ // 200),
+                       dist_function="cosine")
+    sub = fdata[np.random.default_rng(SEED).choice(len(fdata), 4096, replace=False)]
+    small = dataclasses.replace(qp, min_cluster_size=50, processing_units=1024)
+    same = mr_fits_equal(mr_hdbscan.fit(sub, small), mr_hdbscan.fit(sub, small, device="cpu"))
+    print(f"3e_cosine card MR fit vs CPU MR fit on 4096 rows: "
+          f"{'identical' if same else 'DIFFERENT'}")
+    qres, ql, qev, qwall, qpeak = run_mr(fdata, qp)
+    report_mr("3e_cosine", qres, ql, qev, qwall, qpeak)
+    if not same:
+        errors.append("3e_cosine: the card's MR fit differs from the CPU's on 4096 rows")
+    if not np.all(np.isfinite(qres.core_distances)) or not (ql["knn_kbest"] and ql["segmin"]):
+        errors.append(f"3e_cosine: non-finite cores or K2/B1 never launched ({ql})")
+
+    sp = dataclasses.replace(skin, **SHARDED)
+    cpu_mesh = get_mesh([torch.device("cpu")] * N_SHARDS)
+    msg, sres, sl, sev, _ = metric_cell("3g_cosine", data, sp, SHARDED_KERNELS,
+                                        sub_kw=({"mesh": mesh}, {"mesh": cpu_mesh}), mesh=mesh)
+    rounds = sev["boruvka_mst"][0]["rounds"]
+    same = fits_equal(sres, cres) and trees_equal(sres.tree, cres.tree)
+    print(f"3g_cosine sharded fit vs skin_cosine's single-device fit: "
+          f"{'identical' if same else 'DIFFERENT'}; ring B2 launches {sl['knn_kbest_panel']}, "
+          f"B9 launches {sl['segmin_panel']} ({rounds} rounds), host syncs {len(sev['host_sync'])}")
+    if not same:
+        msg = msg or "3g_cosine: the sharded fit differs from the single-device fit"
+    if (sl["knn_kbest_panel"] != N_SHARDS ** 2 or sl["segmin_panel"] != N_SHARDS ** 2 * rounds
+            or sl["knn_kbest"] or sl["segmin"]):
+        msg = msg or f"3g_cosine: unexpected launches {sl}"
+    errors += [msg] if msg else []
+    if errors:
+        return errors, rows
+
+    # --- the cosine and pearson modes timed at their fits' shapes --------
+    n = len(data)
+    x = torch.as_tensor(data.astype(np.float32), device="cuda")
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    rows.append(kbest_metric_row("knn_kbest_cosine", data, MIN_PTS - 1, claunches, "cosine",
+                                 PLAIN_ROWS))
+    rows.append(segmin_row(
+        "segmin_cosine", x, torch.as_tensor(cres.core_distances.astype(np.float32),
+                                            device="cuda"),
+        torch.arange(n, dtype=torch.int32, device="cuda"), ones, None, claunches,
+        kernel="segmin", metric="cosine"))
+    hx = torch.as_tensor(hdata.astype(np.float32), device="cuda")
+    hn = len(hdata)
+    for metric, (hres, hl) in hcells.items():
+        rows.append(kbest_metric_row(f"knn_kbest_3f_{metric}", hdata,
+                                     HIGHD_PARAMS["min_points"] - 1, hl, metric, 4096))
+        rows.append(segmin_row(
+            f"segmin_3f_{metric}", hx,
+            torch.as_tensor(hres.core_distances.astype(np.float32), device="cuda"),
+            torch.arange(hn, dtype=torch.int32, device="cuda"),
+            torch.ones(hn, dtype=torch.bool, device="cuda"), None, hl, plain_rows=4096,
+            kernel="segmin", metric=metric))
+    del hx
+    rows += forest_times(data, fres, fl, suffix="_cosine", metric="cosine", launch_suffix="")
+    rows += panel_times(data, sres, sl, mesh, suffix="_cosine", metric="cosine",
+                        launch_suffix="")
+    rows.append(kbest_merge_row(data, claunches))
+    return errors, rows
 
 
 def wide_phase(launches_out: dict) -> tuple[list[str], list[dict]]:
@@ -2304,7 +2666,7 @@ def main() -> int:
     from hdbscan_tpu_torch import HDBSCANParams
     from hdbscan_tpu_torch.core import mst_device
     from hdbscan_tpu_torch.models import exact
-    from hdbscan_tpu_torch.ops import cuda_build, cuda_knn, cuda_segmin, tiled
+    from hdbscan_tpu_torch.ops import cuda_build, tiled
     from hdbscan_tpu_torch.utils.evaluation import adjusted_rand_index
 
     card = gpu_line()
@@ -2316,7 +2678,7 @@ def main() -> int:
     errors = (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
-              + parity_leaf())
+              + parity_leaf() + parity_metrics())
     if errors:
         return fail(f"kernel/plain mismatches: {errors}")
 
@@ -2509,6 +2871,11 @@ def main() -> int:
     if errors:
         return fail(f"the wide fits failed: {errors}")
 
+    # --- 3i: cosine and pearson on the card ------------------------------
+    errors, metric_rows = metric_phase(data, hdata, fdata, mesh)
+    if errors:
+        return fail(f"the cosine and pearson cells failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -2518,20 +2885,7 @@ def main() -> int:
     valid = torch.ones(n, dtype=torch.bool, device="cuda")
     rows = []
 
-    knn_ms = cuda_ms(lambda: cuda_knn.knn_kbest(x, k, "euclidean", form), 3)
-    knn_plain = host_ms(lambda: cuda_knn.knn_kbest_plain(x, k, "euclidean", form))
-    kd, ki = cuda_knn.knn_kbest(x, k, "euclidean", form)
-    pd, pi = cuda_knn.knn_kbest_plain(x, k, "euclidean", form)
-    knn_err = float((kd - pd).abs().max()) if torch.equal(ki, pi) else float("inf")
-    ops = float(n) * n * pair_ops(d, form, root=False)
-    b, by = bound_ms(n * d * 4 + n * k * 8, ops)
-    rows.append(dict(
-        name="knn_kbest", route="cuda", source="hdbscan_tpu_torch/csrc/knn_kbest.cu",
-        replaces="hdbscan_tpu/ops/pallas_knn.py:453", launches=launches["knn_kbest"],
-        max_abs_err=knn_err, ms=knn_ms, plain_ms=knn_plain, bound_ms=b, bound_by=by,
-        library_ms=None, bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
-        blocks=kbest_blocks(n, n, d, k),
-    ))
+    rows.append(kbest_metric_row("knn_kbest", data, k, launches, "euclidean"))
     rows.append(kbest_3c_row(blob, elaunches))
 
     rows.append(segmin_row("segmin", x, core, comp, valid, form, launches))
@@ -2592,6 +2946,7 @@ def main() -> int:
     rows += highd_times(hdata, hlaunches)
     rows += panel_times(data, sres, slaunches, mesh)
     rows += wide_rows
+    rows += metric_rows
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")

@@ -17,6 +17,18 @@ input. With the reference's XLA scans they agree bitwise on integer grids
 (every partial sum is exact and every root correctly rounded there) and
 within 2 ulp on continuous data (XLA's fused CPU square root is not
 correctly rounded).
+
+Cosine (:func:`_cosine`) is the dot form's loop too: the cross term and
+both squared norms in ascending feature order with separate multiplies and
+adds, the norms rooted by :func:`sqrt_rn`, then ``1 - cross / (nx * ny)``
+with an IEEE division: the CUDA kernels' metric code 6 (``csrc/
+distance.cuh``) repeats it. Pearson is cosine over rows centred once
+(:func:`centre_rows`: each row's in-order sum over d, subtracted), exactly
+the reference's ``cosine(x - mean, y - mean)`` over the d real features;
+the kernel wrappers centre their points before the launch
+(``ops/cuda_build.kernel_points``). A zero-norm row (a zero row at cosine,
+a constant row at pearson; :func:`zero_rows`) has NaN distances to every
+row, as in the reference.
 """
 
 from __future__ import annotations
@@ -82,18 +94,50 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
-def _cross_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x @ y.T at full input precision: TF32 is switched off for the product,
-    the analog of the reference's ``Precision.HIGHEST``."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return x @ y.transpose(-1, -2)
+def _sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """Squared norms of the rows of ``x`` (..., n, d), in the dot form's
+    order."""
+    acc = x[..., 0] * x[..., 0]
+    for f in range(1, x.shape[-1]):
+        acc = acc + x[..., f] * x[..., f]
+    return acc
 
 
 def _cosine(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    cross = _cross_f32(x, y)
-    nx = torch.sqrt(torch.sum(x * x, dim=-1))
-    ny = torch.sqrt(torch.sum(y * y, dim=-1))
+    """``1 - x.y / (|x| |y|)``: the cross term and the squared norms
+    accumulated feature by feature in ascending order, the norms rooted
+    correctly rounded (the CUDA kernels' metric code 6)."""
+    cross = x[..., :, None, 0] * y[..., None, :, 0]
+    for f in range(1, x.shape[-1]):
+        cross = cross + x[..., :, None, f] * y[..., None, :, f]
+    nx = sqrt_rn(_sq_norms(x))
+    ny = sqrt_rn(_sq_norms(y))
     return 1.0 - cross / (nx[..., :, None] * ny[..., None, :])
+
+
+def centre_rows(x: torch.Tensor) -> torch.Tensor:
+    """Each row less its mean over the d features (the sum in ascending
+    feature order, divided by d): the rows pearson takes the cosine of.
+
+    d divides as a tensor: PyTorch's CUDA division by a Python scalar
+    multiplies by its rounded reciprocal, which is not the CPU's (or the
+    reference's) IEEE division."""
+    acc = x[..., 0]
+    for f in range(1, x.shape[-1]):
+        acc = acc + x[..., f]
+    return x - (acc / torch.full_like(acc, x.shape[-1]))[..., None]
+
+
+def zero_rows(x: torch.Tensor, metric: str) -> torch.Tensor:
+    """(n,) bool: the rows of ``x`` (n, d) whose distances are NaN at
+    cosine or pearson, i.e. whose (centred, for pearson) squared norm in
+    the dot form's order is 0 (for finite rows, ``1 - 0 / 0``). All False
+    at the other metrics."""
+    if metric == "pearson":
+        x = centre_rows(x)
+    elif metric != "cosine":
+        return torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    return _sq_norms(x) == 0
 
 
 def pairwise_distance(
@@ -117,9 +161,7 @@ def pairwise_distance(
     if metric == "cosine":
         return _cosine(x, y)
     if metric == "pearson":
-        return _cosine(
-            x - x.mean(dim=-1, keepdim=True), y - y.mean(dim=-1, keepdim=True)
-        )
+        return _cosine(centre_rows(x), centre_rows(y))
     raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
 
 

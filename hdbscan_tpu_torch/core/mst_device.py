@@ -349,10 +349,13 @@ def build_merge_forest_device(
 
     Returns ``None`` — the caller then builds the forest on the host — for
     a trivial pool, for non-integral point weights, when the weights fail
-    the exact-tie gate, and for a float64 pool whose weights are not
-    exactly float32-representable: the card sorts and carries float32
+    the exact-tie gate, for a float64 pool whose weights are not
+    exactly float32-representable (the card sorts and carries float32
     weights, and a rounded weight would no longer give the host builder's
-    forest. Emits ``host_sync`` and ``tree_build_device``.
+    forest), and for a pool with a weight that is not finite: the scan
+    takes a +inf edge for inert padding (the exact fit's buffer tail), where
+    the host builder merges at +inf, as a pool around a zero-norm point at
+    cosine needs. Emits ``host_sync`` and ``tree_build_device``.
     """
     import time
 
@@ -363,6 +366,8 @@ def build_merge_forest_device(
         return None
     w = np.asarray(w)
     if w.dtype == np.float64 and not np.array_equal(w, w.astype(np.float32).astype(np.float64)):
+        return None
+    if not np.all(np.isfinite(w)):
         return None
     dev = cuda_build.resolve_device(device)
     t0 = time.monotonic()

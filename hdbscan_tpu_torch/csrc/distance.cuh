@@ -4,9 +4,19 @@
 // (hdbscan_tpu_torch/core/distances.py): features accumulate one at a time
 // in ascending order, with separate multiplies and adds. Built with
 // -fmad=false, nvcc keeps every a*b+c as two roundings, so kernel and plain
-// version agree bitwise; sqrtf stays IEEE-rounded (no fast math). The
-// register forms below take d <= DMAX <= 128; the wide mode (further down)
-// takes any d in chunks, with the same sums.
+// version agree bitwise; sqrtf and the division stay IEEE-rounded (no fast
+// math). The register forms below take d <= DMAX <= 128; the wide mode
+// (further down) takes any d in chunks, with the same sums.
+//
+// Cosine (code 6) is the dot form's cross term over the two rooted norms:
+// 1 - cross / (nx * ny), nx = sqrtf of the in-order sum of squares. A
+// kernel's norm slots (xr_sq, xc_sq, the staged tile's norms) carry the
+// squared norms in the dot form and the rooted ones at cosine (norm_slot).
+// Cosine takes no root of its value, so every "root only under the bound"
+// shortcut treats it as manhattan. Pearson has no code: the wrappers centre
+// the rows (ops/cuda_build.kernel_points) and run cosine. A zero-norm row's
+// cosine is 0 / 0 = NaN against every row; a NaN value never passes a
+// kernel's strict admission test.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,11 +30,28 @@ enum : int {
   METRIC_SUPREMUM = 3,     // max |x_f - y_f|
   METRIC_EUCLID_DIFF_SQ = 4,  // sum (x_f - y_f)^2, no root (B3)
   METRIC_EUCLID_DOT_SQ = 5,   // max((|x|^2 + |y|^2) - 2 x.y, 0), no root (B3)
+  METRIC_COSINE = 6,          // 1 - x.y / (|x| |y|)
 };
 
 // Whether a metric code takes the dot form's per-column norms.
 __host__ __device__ __forceinline__ bool dot_form(int metric) {
   return metric == METRIC_EUCLID_DOT || metric == METRIC_EUCLID_DOT_SQ;
+}
+
+// Whether a metric code takes per-point norm slots (dot form or cosine).
+__host__ __device__ __forceinline__ bool uses_norms(int metric) {
+  return dot_form(metric) || metric == METRIC_COSINE;
+}
+
+// A point's norm slot from its squared norm (sq_norm's order): rooted at
+// cosine, as it is in the dot form.
+__device__ __forceinline__ float norm_slot(float sq, int metric) {
+  return metric == METRIC_COSINE ? sqrtf(sq) : sq;
+}
+
+// Cosine from the in-order cross term and the two rooted norms.
+__device__ __forceinline__ float cosine_value(float cross, float nx, float ny) {
+  return 1.0f - cross / (nx * ny);
 }
 
 // Squared norm in the dot form's order.
@@ -38,8 +65,9 @@ __device__ __forceinline__ float sq_norm(const float* x, int d) {
   return acc;
 }
 
-// Distance between a row held in registers (xr, norm xr_sq) and a column in
-// shared memory (xc, norm xc_sq; the norms are used by the dot form only).
+// Distance between a row held in registers (xr, norm slot xr_sq) and a
+// column in shared memory (xc, norm slot xc_sq; used by the dot form and
+// cosine only).
 template <int DMAX>
 __device__ __forceinline__ float pair_distance(
     const float (&xr)[DMAX], float xr_sq, const float* xc, float xc_sq, int d,
@@ -56,12 +84,13 @@ __device__ __forceinline__ float pair_distance(
     }
     return metric == METRIC_EUCLID_DIFF ? sqrtf(acc) : acc;
   }
-  if (dot_form(metric)) {
+  if (uses_norms(metric)) {
     float cross = xr[0] * xc[0];
 #pragma unroll
     for (int f = 1; f < DMAX; ++f) {
       if (f < d) cross = cross + xr[f] * xc[f];
     }
+    if (metric == METRIC_COSINE) return cosine_value(cross, xr_sq, xc_sq);
     const float d2 = fmaxf((xr_sq + xc_sq) - 2.0f * cross, 0.0f);
     return metric == METRIC_EUCLID_DOT ? sqrtf(d2) : d2;
   }
@@ -82,7 +111,7 @@ __device__ __forceinline__ float pair_distance(
 // and read each column's features once from shared memory for all RB
 // rows. The euclidean codes run on squared distances (codes 4/5); each
 // body takes a root only for a pair under its own bound on what can win
-// (see their headers).
+// (see their headers). Cosine (code 6) finishes each value here.
 
 // One feature f of one column (value c) into the RB rows' values.
 template <int DMAX, int RB, int CODE>
@@ -93,7 +122,7 @@ __device__ __forceinline__ void feature_step(const float (&xr)[RB][DMAX], int f,
     if (CODE == METRIC_EUCLID_DIFF_SQ) {
       const float t = xr[r][f] - c;
       v[r] = f == 0 ? t * t : v[r] + t * t;
-    } else if (CODE == METRIC_EUCLID_DOT_SQ) {
+    } else if (CODE == METRIC_EUCLID_DOT_SQ || CODE == METRIC_COSINE) {
       v[r] = f == 0 ? xr[r][f] * c : v[r] + xr[r][f] * c;
     } else {
       const float a = fabsf(xr[r][f] - c);
@@ -102,8 +131,9 @@ __device__ __forceinline__ void feature_step(const float (&xr)[RB][DMAX], int f,
   }
 }
 
-// Values of one column (features xc, float4-aligned; norm xc_sq) for the RB
-// rows of a thread: squared euclidean (codes 4/5) or manhattan/supremum.
+// Values of one column (features xc, float4-aligned; norm slot xc_sq) for
+// the RB rows of a thread (norm slots xsq): squared euclidean (codes 4/5),
+// manhattan/supremum or cosine.
 // Features go in float4 groups; only the last, partial group tests each
 // feature against d (a uniform branch per group, not per feature).
 template <int DMAX, int RB, int CODE>
@@ -131,6 +161,10 @@ __device__ __forceinline__ void column_values(const float (&xr)[RB][DMAX],
 #pragma unroll
     for (int r = 0; r < RB; ++r) v[r] = fmaxf((xsq[r] + xc_sq) - 2.0f * v[r], 0.0f);
   }
+  if (CODE == METRIC_COSINE) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) v[r] = cosine_value(v[r], xsq[r], xc_sq);
+  }
 }
 
 // The same distances with both points behind pointers, for any d (a
@@ -154,9 +188,10 @@ __device__ __forceinline__ float pair_distance_ptr(const float* xr, float xr_sq,
     }
     return metric == METRIC_EUCLID_DIFF ? sqrtf(acc) : acc;
   }
-  if (dot_form(metric)) {
+  if (uses_norms(metric)) {
     float cross = xr[0] * xc[0];
     for (int f = 1; f < d; ++f) cross = cross + xr[f] * xc[f];
+    if (metric == METRIC_COSINE) return cosine_value(cross, xr_sq, xc_sq);
     const float d2 = fmaxf((xr_sq + xc_sq) - 2.0f * cross, 0.0f);
     return metric == METRIC_EUCLID_DOT ? sqrtf(d2) : d2;
   }
@@ -229,8 +264,8 @@ __device__ __forceinline__ void wide_chunk(float (&acc)[WIDE_COLS], const float*
 // thread's row `row` (nullptr: a padding thread; its values are unused) to
 // the columns col(0), ..., col(len - 1), len <= WIDE_COLS, into dist[0..len).
 // Every thread of the block must call it (it synchronises); `smem` holds
-// wide_smem_floats(blockDim.x) floats. `row_sq` is the row's norm (dot
-// form; from sq_norm_ptr).
+// wide_smem_floats(blockDim.x) floats. `row_sq` is the row's norm slot (dot
+// form or cosine: norm_slot of sq_norm_ptr).
 template <class ColPtr>
 __device__ __forceinline__ void wide_distances(const float* row, float row_sq,
                                                ColPtr col, int len, int d,
@@ -239,7 +274,7 @@ __device__ __forceinline__ void wide_distances(const float* row, float row_sq,
   float* cs = smem;                            // WIDE_COLS x WIDE_STRIDE
   float* ns = cs + WIDE_COLS * WIDE_STRIDE;    // WIDE_COLS norms
   float* rs = ns + WIDE_COLS + threadIdx.x * WIDE_STRIDE;  // this thread's row chunk
-  const bool dot = dot_form(metric);
+  const bool dot = uses_norms(metric);
   const int family = (metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DIFF_SQ)
                          ? WIDE_DIFF
                          : dot ? WIDE_DOT
@@ -269,13 +304,19 @@ __device__ __forceinline__ void wide_distances(const float* row, float row_sq,
       default: wide_chunk<WIDE_SUPREMUM>(dist, rs, cs, fl, first); break;
     }
   }
-  if (dot && threadIdx.x < len) ns[threadIdx.x] = cnorm;
+  if (dot && threadIdx.x < len) ns[threadIdx.x] = norm_slot(cnorm, metric);
   __syncthreads();
   const bool root = metric == METRIC_EUCLID_DIFF || metric == METRIC_EUCLID_DOT;
+  const bool cosine = metric == METRIC_COSINE;
 #pragma unroll
   for (int t = 0; t < WIDE_COLS; ++t) {
     float v = dist[t];
-    if (dot) v = fmaxf((row_sq + (t < len ? ns[t] : 0.0f)) - 2.0f * v, 0.0f);
+    const float nc = t < len ? ns[t] : 0.0f;
+    if (cosine) {
+      v = cosine_value(v, row_sq, nc);
+    } else if (dot) {
+      v = fmaxf((row_sq + nc) - 2.0f * v, 0.0f);
+    }
     dist[t] = root ? sqrtf(v) : v;
   }
 }

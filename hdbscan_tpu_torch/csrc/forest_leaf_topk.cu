@@ -11,7 +11,9 @@
 //
 // Distances: at f32 the caller's metric and euclidean form (the one the
 // reference picks for the real (L, L, d) leaf shape), in the plain
-// version's operation order (distance.cuh). In bf16 mode (mu != null) the
+// version's operation order (distance.cuh); cosine (pearson's rows come
+// centred) can be slightly negative, and a zero-norm point's cosine is NaN,
+// which enters no list (the plain version's lex_kbest). In bf16 mode (mu != null) the
 // operands are centred on the leaf's centre mu[b] (computed by the
 // wrapper, the mean of the leaf's real members), rounded to bfloat16, and
 // the cross term accumulates their products in float32 (each product is
@@ -99,10 +101,13 @@ struct LeafArgs {
   int32_t* out_i;
 };
 
-// The float after x >= 0 (x itself at +inf): nextafterf(x, +inf) by one
-// integer add.
+// The float after x (x itself at +inf): nextafterf(x, +inf) by one integer
+// step, up for a positive pattern, down for a negative one (cosine
+// distances can be negative), -0 to the least positive float.
 __device__ __forceinline__ float next_up(float x) {
-  return x < CUDART_INF_F ? __int_as_float(__float_as_int(x) + 1) : x;
+  const int b = __float_as_int(x);
+  if (!(x < CUDART_INF_F)) return x;
+  return __int_as_float(b >= 0 ? b + 1 : b == INT32_MIN ? 1 : b - 1);
 }
 
 // The bound under which every candidate that can enter a list whose slot
@@ -284,7 +289,7 @@ __device__ __forceinline__ void scan_leaf_tile(const float (&xr)[1][DMAX],
 
 // Grid (B * row_blocks): warp w of block x takes slot (x % row_blocks) *
 // LEAF_WARPS + w of leaf x / row_blocks. `code` is 4/5 (squared euclidean;
-// `root` takes sqrtf of an admitted candidate for codes 0/1) or 2/3.
+// `root` takes sqrtf of an admitted candidate for codes 0/1), 2/3 or 6.
 template <int DMAX, bool REG>
 __global__ void __launch_bounds__(LEAF_THREADS)
 leaf_topk_kernel(LeafArgs a, int code, bool root) {
@@ -301,7 +306,7 @@ leaf_topk_kernel(LeafArgs a, int code, bool root) {
   const uint8_t* msk = a.mask + (int64_t)b * L;
   const bool bf16 = a.mu != nullptr;
   const float* mub = bf16 ? a.mu + (int64_t)b * d : nullptr;
-  const bool dot = code == METRIC_EUCLID_DOT_SQ;
+  const bool normed = uses_norms(code);
   const int64_t row = (int64_t)b * L + r;
 
   float xr[1][DMAX], xsq[1];
@@ -312,7 +317,7 @@ leaf_topk_kernel(LeafArgs a, int code, bool root) {
     if (bf16 && f < d) v = v - mub[f];
     xr[0][f] = v;
   }
-  xsq[0] = sq_norm<DMAX>(xr[0], d);
+  xsq[0] = norm_slot(sq_norm<DMAX>(xr[0], d), code);
   if (bf16) {
 #pragma unroll
     for (int f = 0; f < DMAX; ++f) xr[0][f] = bf16_round(xr[0][f]);
@@ -331,20 +336,23 @@ leaf_topk_kernel(LeafArgs a, int code, bool root) {
     const int len = min(a.tile, L - c0);
     for (int t = threadIdx.x; t < len; t += LEAF_THREADS) {
       const float* src = a.data + (int64_t)mem[c0 + t] * d;
-      const bool off = !dot && !msk[c0 + t];  // no slot takes a masked column
+      const bool off = !normed && !msk[c0 + t];  // no slot takes a masked column
       for (int f = 0; f < d; ++f) {
         float v = src[f];
         if (bf16) v = v - mub[f];
         xs[t * dp + f] = off ? CUDART_INF_F : v;
       }
     }
-    if (dot) {
+    if (normed) {
       __syncthreads();
       for (int t = threadIdx.x; t < len; t += LEAF_THREADS) {
         float* xc = xs + t * dp;
         float acc = xc[0] * xc[0];
         for (int f = 1; f < d; ++f) acc = acc + xc[f] * xc[f];
-        ns[t] = msk[c0 + t] ? acc : CUDART_INF_F;
+        // A masked column's norm slot makes its value +inf (dot form) or
+        // NaN (cosine): no slot takes it.
+        ns[t] = msk[c0 + t] ? norm_slot(acc, code)
+                            : code == METRIC_COSINE ? CUDART_NAN_F : CUDART_INF_F;
         if (bf16) {
           for (int f = 0; f < d; ++f) xc[f] = bf16_round(xc[f]);
         }
@@ -364,6 +372,10 @@ leaf_topk_kernel(LeafArgs a, int code, bool root) {
         case METRIC_MANHATTAN:
           scan_leaf_tile<DMAX, METRIC_MANHATTAN, REG>(xr, xsq, xs, ns, dp, d, len, c0, r, root,
                                                       kk, wd, wi, th, ed, ei, ld, li);
+          break;
+        case METRIC_COSINE:
+          scan_leaf_tile<DMAX, METRIC_COSINE, REG>(xr, xsq, xs, ns, dp, d, len, c0, r, root, kk,
+                                                   wd, wi, th, ed, ei, ld, li);
           break;
         default:
           scan_leaf_tile<DMAX, METRIC_SUPREMUM, REG>(xr, xsq, xs, ns, dp, d, len, c0, r, root,
@@ -392,9 +404,9 @@ __global__ void __launch_bounds__(LEAF_THREADS) leaf_topk_wide_kernel(LeafArgs a
   const int32_t* mem = a.members + (int64_t)b * L;
   const uint8_t* msk = a.mask + (int64_t)b * L;
   const int64_t row = (int64_t)b * L + r;
-  const bool dot = dot_form(a.metric);
+  const bool normed = uses_norms(a.metric);
   const float* xr = a.data + (int64_t)mem[r] * d;
-  const float xr_sq = dot ? sq_norm_ptr(xr, d) : 0.0f;
+  const float xr_sq = normed ? norm_slot(sq_norm_ptr(xr, d), a.metric) : 0.0f;
   float* ld = nullptr;
   int32_t* li = nullptr;
   leaf_list(a, lsm, row, ld, li);
@@ -407,7 +419,8 @@ __global__ void __launch_bounds__(LEAF_THREADS) leaf_topk_wide_kernel(LeafArgs a
     float v = CUDART_INF_F;
     if (t < L && msk[t]) {
       const float* xc = a.data + (int64_t)mem[t] * d;
-      v = pair_distance_ptr(xr, xr_sq, xc, dot ? sq_norm_ptr(xc, d) : 0.0f, d, a.metric);
+      v = pair_distance_ptr(xr, xr_sq, xc, normed ? norm_slot(sq_norm_ptr(xc, d), a.metric) : 0.0f,
+                            d, a.metric);
     }
     admit_step<REG>(v, t0, false, kk, wd, wi, th, ed, ei, ld, li);
   }
@@ -447,7 +460,8 @@ extern "C" int forest_leaf_topk_launch(const void* data, int d, const void* memb
                                        void* stream) {
   auto s = (cudaStream_t)stream;
   if (B <= 0 || L <= 0) return 0;
-  if (kk < 1 || kk > L || d < 1 || metric < METRIC_EUCLID_DIFF || metric > METRIC_SUPREMUM) {
+  if (kk < 1 || kk > L || d < 1 || metric < METRIC_EUCLID_DIFF ||
+      (metric > METRIC_SUPREMUM && metric != METRIC_COSINE)) {
     return (int)cudaErrorInvalidValue;
   }
   const int lists = kk <= 32 ? LEAF_LISTS_REGISTERS

@@ -25,6 +25,15 @@
 // Both gather each candidate's coordinates from `data` by id, so the
 // (m, C, d) coordinate panel the TPU wrapper materialises is never built.
 //
+// Cosine (code 6; pearson's rows come centred) takes no root and can be
+// slightly negative; a zero-norm point's cosine is NaN. NaN follows the
+// plain versions (lexmerge.topk_tile_candidates, cand_minout_values), whose
+// minima propagate it: B7 gives a row with a NaN candidate an empty list
+// (every extraction pass meets a NaN minimum and takes nothing), and B8
+// gives it the weight NaN at its first NaN candidate (torch.maximum keeps
+// the NaN, torch.amin and argmin meet it first). B8 at cosine therefore
+// reads every outgoing candidate: its bound (below) would skip one.
+//
 // Bound on this card: bytes, the candidate ids. Each candidate costs a
 // 4-byte id and d scattered 4-byte coordinate reads (mostly L2 hits:
 // neighbors of neighbors are few distinct points) for about 3d float
@@ -149,9 +158,10 @@ __device__ __forceinline__ float load_point(const float* __restrict__ src,
 
 // The scan's (squared for the rooted codes) value of one candidate at xc
 // for the query row xr (registers, DMAX > 0; or behind a pointer, DMAX ==
-// 0, any d) with norm xr_sq; in bf16 mode (code 5) the candidate is
-// centred on mr, its norm taken unrounded, the cross term from its bf16
-// rounding. Features in ascending order, as load_point and pair_distance.
+// 0, any d) with norm slot xr_sq (rooted at cosine); in bf16 mode (code 5)
+// the candidate is centred on mr, its norm taken unrounded, the cross term
+// from its bf16 rounding. Features in ascending order, as load_point and
+// pair_distance.
 template <int DMAX, int CODE, bool BF16, class Row>
 __device__ __forceinline__ float cand_value(const Row& xr, float xr_sq, const Row& mr,
                                             const float* __restrict__ xc, int d) {
@@ -162,13 +172,13 @@ __device__ __forceinline__ float cand_value(const Row& xr, float xr_sq, const Ro
       c = c - mr[f];
       sq = f == 0 ? c * c : sq + c * c;
       c = bf16_round(c);
-    } else if (CODE == METRIC_EUCLID_DOT_SQ) {
+    } else if (CODE == METRIC_EUCLID_DOT_SQ || CODE == METRIC_COSINE) {
       sq = f == 0 ? c * c : sq + c * c;
     }
     if (CODE == METRIC_EUCLID_DIFF_SQ) {
       const float t = xr[f] - c;
       acc = f == 0 ? t * t : acc + t * t;
-    } else if (CODE == METRIC_EUCLID_DOT_SQ) {
+    } else if (CODE == METRIC_EUCLID_DOT_SQ || CODE == METRIC_COSINE) {
       acc = f == 0 ? xr[f] * c : acc + xr[f] * c;
     } else {
       const float a = fabsf(xr[f] - c);
@@ -184,6 +194,7 @@ __device__ __forceinline__ float cand_value(const Row& xr, float xr_sq, const Ro
     for (int f = 0; f < d; ++f) step(f);
   }
   if (CODE == METRIC_EUCLID_DOT_SQ) acc = fmaxf((xr_sq + sq) - 2.0f * acc, 0.0f);
+  if (CODE == METRIC_COSINE) acc = cosine_value(acc, xr_sq, sqrtf(sq));
   return acc;
 }
 
@@ -191,9 +202,10 @@ __device__ __forceinline__ float cand_value(const Row& xr, float xr_sq, const Ro
 // (ld, li): 32 candidates a step, one a lane; those under the admission
 // bound are inserted in lane order, each re-tested first. REG (k <= 32):
 // the list lives in the lanes' registers while the scan runs and is
-// written to (ld, li) at its end.
+// written to (ld, li) at its end. Returns whether a candidate's value was
+// NaN (the caller then empties the row's list).
 template <int DMAX, int CODE, bool BF16, bool REG, class Row>
-__device__ __forceinline__ void rescan_span(const Row& xr, float xr_sq, const Row& mr,
+__device__ __forceinline__ bool rescan_span(const Row& xr, float xr_sq, const Row& mr,
                                             const float* __restrict__ data,
                                             const int32_t* __restrict__ ids, int c_begin,
                                             int c_end, int d, int k, bool root, int sentinel,
@@ -203,11 +215,13 @@ __device__ __forceinline__ void rescan_span(const Row& xr, float xr_sq, const Ro
   int32_t wi = LEX_ID_MAX;
   float ed = CUDART_INF_F;  // REG: slot `lane`
   int32_t ei = LEX_ID_MAX;
+  bool nan_seen = false;  // warp-uniform
   for (int c0 = c_begin; c0 < c_end; c0 += 32) {
     const int c = c0 + lane;
     const int32_t cid = c < c_end ? ids[c] : sentinel;
     float v = CUDART_INF_F;
     if (cid != sentinel) v = cand_value<DMAX, CODE, BF16>(xr, xr_sq, mr, data + (int64_t)cid * d, d);
+    nan_seen |= __any_sync(0xffffffffu, isnan(v));
     // A copy of a listed id is the listed pair: it cannot enter (k <= 32).
     bool hit = v < th;
     if constexpr (REG) {
@@ -240,13 +254,16 @@ __device__ __forceinline__ void rescan_span(const Row& xr, float xr_sq, const Ro
       li[lane] = ei;
     }
   }
+  return nan_seen;
 }
 
 // Grid (row blocks, spans): warp w of block x scans row x * RESCAN_WARPS + w
 // over span y's candidates [y * span, (y + 1) * span) and writes its list to
 // dst row (y * m + row) (the output when there is one span, else the span
 // scratch). `code` is 4/5 (squared euclidean; `root` takes sqrtf of an
-// admitted candidate) or 2/3; mu != null is bf16 mode (code 5).
+// admitted candidate), 2/3 or 6; mu != null is bf16 mode (code 5). A row
+// with a NaN candidate writes an empty list, and into span scratch a NaN
+// in its slot 0, which the merge pass reads as "the row is empty".
 template <int DMAX>
 __global__ void __launch_bounds__(RESCAN_THREADS)
 rescan_topk_kernel(const float* __restrict__ q, const float* __restrict__ data,
@@ -274,8 +291,8 @@ rescan_topk_kernel(const float* __restrict__ q, const float* __restrict__ data,
   const float* mur = bf16 ? mu + (int64_t)row * d : nullptr;
 
 #define RESCAN_SPAN(CODE_, BF16_, REG_)                                                        \
-  rescan_span<DMAX, CODE_, BF16_, REG_>(xr, xr_sq, mr, data, ids, c_begin, c_end, d, k, root, \
-                                        sentinel, ld, li)
+  nan_row = rescan_span<DMAX, CODE_, BF16_, REG_>(xr, xr_sq, mr, data, ids, c_begin, c_end, d, \
+                                                  k, root, sentinel, ld, li)
 #define RESCAN_LIST(REG_)                                                                      \
   if (bf16) {                                                                                  \
     RESCAN_SPAN(METRIC_EUCLID_DOT_SQ, true, REG_);                                             \
@@ -284,6 +301,7 @@ rescan_topk_kernel(const float* __restrict__ q, const float* __restrict__ data,
       case METRIC_EUCLID_DIFF_SQ: RESCAN_SPAN(METRIC_EUCLID_DIFF_SQ, false, REG_); break;      \
       case METRIC_EUCLID_DOT_SQ: RESCAN_SPAN(METRIC_EUCLID_DOT_SQ, false, REG_); break;        \
       case METRIC_MANHATTAN: RESCAN_SPAN(METRIC_MANHATTAN, false, REG_); break;                \
+      case METRIC_COSINE: RESCAN_SPAN(METRIC_COSINE, false, REG_); break;                      \
       default: RESCAN_SPAN(METRIC_SUPREMUM, false, REG_); break;                               \
     }                                                                                          \
   }
@@ -294,9 +312,10 @@ rescan_topk_kernel(const float* __restrict__ q, const float* __restrict__ data,
     RESCAN_LIST(false)                                                                         \
   }
 
+  bool nan_row = false;
   if constexpr (DMAX > 0) {
     float xr[DMAX], mr[DMAX];
-    const float xr_sq = load_point<DMAX>(qr, mur, d, xr);
+    const float xr_sq = norm_slot(load_point<DMAX>(qr, mur, d, xr), code);
 #pragma unroll
     for (int f = 0; f < DMAX; ++f) mr[f] = (bf16 && f < d) ? mur[f] : 0.0f;
     __syncwarp();  // the list's initial slots
@@ -323,7 +342,7 @@ rescan_topk_kernel(const float* __restrict__ q, const float* __restrict__ data,
       mr = ms;
     }
     __syncwarp();
-    const float xr_sq = sq_norm_ptr(xr, d);
+    const float xr_sq = norm_slot(sq_norm_ptr(xr, d), code);
     if (bf16) {
       __syncwarp();  // every lane has read the unrounded row
       for (int f = lane; f < d; f += 32) const_cast<float*>(xr)[f] = bf16_round(xr[f]);
@@ -334,6 +353,15 @@ rescan_topk_kernel(const float* __restrict__ q, const float* __restrict__ data,
 #undef RESCAN_CODES
 #undef RESCAN_LIST
 #undef RESCAN_SPAN
+  if (nan_row) {
+    __syncwarp();
+    for (int s = lane; s < k; s += 32) {
+      ld[s] = CUDART_INF_F;
+      li[s] = LEX_ID_MAX;
+    }
+    __syncwarp();
+    if (gridDim.y > 1 && lane == 0) ld[0] = CUDART_NAN_F;
+  }
   if (mem_lists) return;
   __syncwarp();
   for (int s = lane; s < k; s += 32) {
@@ -345,7 +373,8 @@ rescan_topk_kernel(const float* __restrict__ q, const float* __restrict__ data,
 // A row's span lists (scratch [span][row][slot], each ascending) merged into
 // its output row, a warp a row: span 0's list as it stands, then each later
 // span's entries in order until one no longer lex-precedes the k-th (a
-// list ascends, so none after it enters), inserted like candidates.
+// list ascends, so none after it enters), inserted like candidates. A span
+// whose slot 0 is NaN met a NaN candidate: the row's list is empty.
 __global__ void __launch_bounds__(RESCAN_THREADS)
 rescan_merge_kernel(const float* __restrict__ pd, const int32_t* __restrict__ pi, int splits,
                     int m, int k, bool mem_lists, float* __restrict__ out_d,
@@ -355,6 +384,15 @@ rescan_merge_kernel(const float* __restrict__ pd, const int32_t* __restrict__ pi
   const int row = blockIdx.x * RESCAN_WARPS + warp;
   if (row >= m) return;
   const int64_t o = (int64_t)row * k;
+  bool nan_row = false;
+  for (int y = 0; y < splits; ++y) nan_row |= isnan(pd[((int64_t)y * m + row) * k]);
+  if (nan_row) {
+    for (int s = lane; s < k; s += 32) {
+      out_d[o + s] = CUDART_INF_F;
+      out_i[o + s] = LEX_ID_MAX;
+    }
+    return;
+  }
   float* ld = mem_lists ? out_d + o : rsm + warp * k;
   int32_t* li = mem_lists ? out_i + o
                           : reinterpret_cast<int32_t*>(rsm + RESCAN_WARPS * k) + warp * k;
@@ -403,13 +441,15 @@ rescan_merge_kernel(const float* __restrict__ pd, const int32_t* __restrict__ pi
 // A warp's scan of candidates [c_begin, c_end) of its row, 32 a step, one a
 // lane: the lane's running minimum (bw, bc) of w = max(dist, core_q,
 // core[cid]) over candidates in another component, its columns ascending
-// and a strict `<`, so each lane keeps its first minimal column. After each
-// step the warp takes the least of its lanes' minima (`bound`): a later
-// step's columns are all higher, so only a w below it can still win. Every
-// w is at least core_q, and at least max(core_q, core[cid]) before the
-// distance: the warp stops once the bound reaches core_q, and a candidate
-// whose cores already reach the bound is left before its coordinates are
-// read. The component test comes first.
+// and a strict `<`, so each lane keeps its first minimal column (a NaN w,
+// which the max keeps, beats every number: the lane keeps its first NaN).
+// After each step the warp takes the least of its lanes' minima (`bound`):
+// a later step's columns are all higher, so only a w below it can still
+// win. Every w is at least core_q, and at least max(core_q, core[cid])
+// before the distance: the warp stops once the bound reaches core_q, and a
+// candidate whose cores already reach the bound is left before its
+// coordinates are read. Cosine keeps no bound: a NaN there would be missed.
+// The component test comes first.
 template <int DMAX, int CODE, bool BF16, class Row>
 __device__ __forceinline__ void minout_span(const Row& xr, float xr_sq, const Row& mr,
                                             const float* __restrict__ data,
@@ -418,26 +458,36 @@ __device__ __forceinline__ void minout_span(const Row& xr, float xr_sq, const Ro
                                             int32_t gq, const float* __restrict__ core,
                                             const int32_t* __restrict__ comp, float& bw,
                                             int& bc) {
+  constexpr bool prune = CODE != METRIC_COSINE;
   float bound = CUDART_INF_F;  // warp-uniform
-  for (int c0 = c_begin; c0 < c_end && cq < bound; c0 += 32) {
+  for (int c0 = c_begin; c0 < c_end && (!prune || cq < bound); c0 += 32) {
     const int c = c0 + (threadIdx.x & 31);
     const int32_t cid = c < c_end ? ids[c] : sentinel;
     if (cid != sentinel && comp[cid] != gq) {
       const float floor_w = fmaxf(cq, core[cid]);
-      if (floor_w < bound) {
+      if (!prune || floor_w < bound) {
         const float v =
             cand_value<DMAX, CODE, BF16>(xr, xr_sq, mr, data + (int64_t)cid * d, d);
-        const float w = fmaxf(root ? sqrtf(v) : v, floor_w);
-        if (w < bw) {
+        const float dist = root ? sqrtf(v) : v;
+        const float w = isnan(dist) ? dist : fmaxf(dist, floor_w);
+        if (isnan(w) ? !isnan(bw) : w < bw) {
           bw = w;
           bc = c;
         }
       }
     }
-    // Weights are not negative, so their bits order as unsigned integers
-    // (a -0 weight only leaves the bound higher, which prunes less).
-    bound = __uint_as_float(__reduce_min_sync(0xffffffffu, __float_as_uint(bw)));
+    // Weights of the pruned metrics are not negative, so their bits order
+    // as unsigned integers (a -0 weight only leaves the bound higher, which
+    // prunes less).
+    if (prune) bound = __uint_as_float(__reduce_min_sync(0xffffffffu, __float_as_uint(bw)));
   }
+}
+
+// Whether the minimum (ow, oc) precedes (bw, bc): a NaN weight first (the
+// lower column among NaNs), then the lex (w, column) order.
+__device__ __forceinline__ bool minout_before(float ow, int oc, float bw, int bc) {
+  if (isnan(ow)) return !isnan(bw) || oc < bc;
+  return !isnan(bw) && (ow < bw || (ow == bw && oc < bc));
 }
 
 // Grid (row blocks, spans): warp w of block x takes row x * MINOUT_WARPS + w
@@ -446,7 +496,7 @@ __device__ __forceinline__ void minout_span(const Row& xr, float xr_sq, const Ro
 // first minimal column wins whatever lane holds it. One span: the row's (w,
 // id) is written; several: the span's (w, column) goes to the scratch row
 // (y * m + row) for min_outgoing_combine_kernel. `code` is 4/5 (squared
-// euclidean, `root` takes the root) or 2/3; mu != null is bf16 mode (code 5).
+// euclidean, `root` takes the root), 2/3 or 6; mu != null is bf16 mode (code 5).
 template <int DMAX>
 __global__ void __launch_bounds__(MINOUT_THREADS)
 min_outgoing_kernel(const float* __restrict__ q, const float* __restrict__ data,
@@ -481,13 +531,14 @@ min_outgoing_kernel(const float* __restrict__ q, const float* __restrict__ data,
       case METRIC_EUCLID_DIFF_SQ: MINOUT_SPAN(METRIC_EUCLID_DIFF_SQ, false); break;            \
       case METRIC_EUCLID_DOT_SQ: MINOUT_SPAN(METRIC_EUCLID_DOT_SQ, false); break;              \
       case METRIC_MANHATTAN: MINOUT_SPAN(METRIC_MANHATTAN, false); break;                      \
+      case METRIC_COSINE: MINOUT_SPAN(METRIC_COSINE, false); break;                            \
       default: MINOUT_SPAN(METRIC_SUPREMUM, false); break;                                     \
     }                                                                                          \
   }
 
   if constexpr (DMAX > 0) {
     float xr[DMAX], mr[DMAX];
-    const float xr_sq = load_point<DMAX>(qr, mur, d, xr);
+    const float xr_sq = norm_slot(load_point<DMAX>(qr, mur, d, xr), code);
 #pragma unroll
     for (int f = 0; f < DMAX; ++f) mr[f] = (bf16 && f < d) ? mur[f] : 0.0f;
     MINOUT_CODES();
@@ -508,7 +559,7 @@ min_outgoing_kernel(const float* __restrict__ q, const float* __restrict__ data,
       xr = xs;
       mr = ms;
     }
-    const float xr_sq = sq_norm_ptr(xr, d);
+    const float xr_sq = norm_slot(sq_norm_ptr(xr, d), code);
     if (bf16) {
       __syncwarp();  // every lane has read the unrounded row
       for (int f = lane; f < d; f += 32) rows[0][warp][f] = bf16_round(xr[f]);
@@ -522,7 +573,7 @@ min_outgoing_kernel(const float* __restrict__ q, const float* __restrict__ data,
   for (int off = 16; off > 0; off >>= 1) {
     const float ow = __shfl_xor_sync(0xffffffffu, bw, off);
     const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
-    if (ow < bw || (ow == bw && oc < bc)) {
+    if (minout_before(ow, oc, bw, bc)) {
       bw = ow;
       bc = oc;
     }
@@ -530,7 +581,7 @@ min_outgoing_kernel(const float* __restrict__ q, const float* __restrict__ data,
   if (lane != 0) return;
   if (gridDim.y == 1) {
     out_w[row] = bw;
-    out_j[row] = bw < CUDART_INF_F ? ids[bc] : -1;
+    out_j[row] = isinf(bw) ? -1 : ids[bc];
   } else {
     pw[(int64_t)blockIdx.y * m + row] = bw;
     pc[(int64_t)blockIdx.y * m + row] = bc;
@@ -538,7 +589,8 @@ min_outgoing_kernel(const float* __restrict__ q, const float* __restrict__ data,
 }
 
 // The spans' minima of a row, a thread a row, in ascending span order with
-// the strict `<` (a later span's columns are higher).
+// the strict `<` (a later span's columns are higher); the first NaN span's
+// minimum beats every number.
 __global__ void min_outgoing_combine_kernel(const float* __restrict__ pw,
                                             const int32_t* __restrict__ pc,
                                             const int32_t* __restrict__ cids, int splits, int m,
@@ -550,13 +602,13 @@ __global__ void min_outgoing_combine_kernel(const float* __restrict__ pw,
   int bc = INT_MAX;
   for (int y = 0; y < splits; ++y) {
     const float w = pw[(int64_t)y * m + row];
-    if (w < bw) {
+    if (isnan(w) ? !isnan(bw) : w < bw) {
       bw = w;
       bc = pc[(int64_t)y * m + row];
     }
   }
   out_w[row] = bw;
-  out_j[row] = bw < CUDART_INF_F ? cids[(int64_t)row * C + bc] : -1;
+  out_j[row] = isinf(bw) ? -1 : cids[(int64_t)row * C + bc];
 }
 
 
@@ -627,7 +679,8 @@ extern "C" int forest_rescan_topk_launch(const void* q, const void* data, const 
   auto* oi = (int32_t*)out_i;
   auto s = (cudaStream_t)stream;
   if (m <= 0) return 0;
-  if (k < 1 || C < 0 || d < 1 || metric < METRIC_EUCLID_DIFF || metric > METRIC_SUPREMUM)
+  if (k < 1 || C < 0 || d < 1 || metric < METRIC_EUCLID_DIFF ||
+      (metric > METRIC_SUPREMUM && metric != METRIC_COSINE))
     return (int)cudaErrorInvalidValue;
   if (mm != nullptr && (k > 128 || d > 128 || metric > METRIC_EUCLID_DOT))
     return (int)cudaErrorInvalidValue;  // bf16 stays within 128, euclidean (either form)
@@ -715,7 +768,8 @@ extern "C" int forest_min_outgoing_launch(const void* q, const void* data, const
   auto* oj = (int32_t*)out_j;
   auto s = (cudaStream_t)stream;
   if (m <= 0) return 0;
-  if (C < 0 || d < 1 || metric < METRIC_EUCLID_DIFF || metric > METRIC_SUPREMUM)
+  if (C < 0 || d < 1 || metric < METRIC_EUCLID_DIFF ||
+      (metric > METRIC_SUPREMUM && metric != METRIC_COSINE))
     return (int)cudaErrorInvalidValue;
   if (mm != nullptr && (d > 128 || metric > METRIC_EUCLID_DOT))
     return (int)cudaErrorInvalidValue;  // bf16 stays within 128, euclidean (either form)

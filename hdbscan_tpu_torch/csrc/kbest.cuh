@@ -136,8 +136,8 @@ __device__ __forceinline__ void scan_tile(const float (&xr)[R][DMAX], const floa
 }
 
 // Stage columns [c0, c0 + len) of the row-major (., d) points x into the
-// tile xs (stride dp, float4-aligned rows); in the dot form (code 5) their
-// norms go to ns in sq_norm's order. Every thread of the block calls it;
+// tile xs (stride dp, float4-aligned rows); in the dot form (code 5) and at
+// cosine (code 6) their norm slots go to ns, in sq_norm's order. Every thread of the block calls it;
 // it synchronises. nthreads is the block's thread count: K2 passes its
 // compile-time KB_THREADS, since a runtime stride (blockDim.x) here made K2
 // and B3 4-10% slower (PERF.md §6).
@@ -149,12 +149,12 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ x, int64_t 
     xs[t * dp + (e - t * d)] = x[c0 * d + e];
   }
   __syncthreads();
-  if (code == METRIC_EUCLID_DOT_SQ) {
+  if (uses_norms(code)) {
     for (int t = threadIdx.x; t < len; t += nthreads) {
       const float* xc = xs + t * dp;
       float acc = xc[0] * xc[0];
       for (int f = 1; f < d; ++f) acc = acc + xc[f] * xc[f];
-      ns[t] = acc;
+      ns[t] = norm_slot(acc, code);
     }
     __syncthreads();
   }

@@ -13,7 +13,11 @@
 //   knn_kbest_panel_launch  rectangular: queries q against a column panel x
 //                           whose ids start at id_offset (the ring scan of
 //                           parallel/ring.py runs one per visiting panel);
-//   knn_smallest_launch     square, metric codes 4/5 (no root), no ids.
+//   knn_smallest_launch     square, metric codes 4/5 (no root), no ids;
+// and knn_kbest_merge_launch, the span merge pass on its own: a row's
+// lists from launches over ascending column ranges merged into one (the
+// wrapper's decomposition where the reference's column tiles hold NaN
+// columns; ops/cuda_knn.py).
 //
 // The rule that fixes every bit: a row's list takes a column only when it
 // is strictly closer than the current k-th entry, and places it after every
@@ -23,7 +27,8 @@
 // (+inf, -1).
 //
 // Bound on this card: operations. Every query x column pair is evaluated on
-// the FP32 pipes (3d operations in the diff form, 2d + 3 in the dot form;
+// the FP32 pipes (3d operations in the diff form, 2d + 3 in the dot form and
+// at cosine, whose division counts as one;
 // -fmad=false issues multiplies and adds separately, so the floor is half
 // the FMA rate); a row admits about k (1 + ln(columns / k)) of them.
 // Device-memory traffic is O(columns d) per block plus the (rows, k) lists.
@@ -115,7 +120,7 @@ struct Out {
 
 // Grid (row blocks, splits); split y scans columns [y * span, (y+1) * span).
 // `code` is 4/5 (squared euclidean; `root` takes sqrtf of an admitted
-// candidate for codes 0/1) or 2/3.
+// candidate for codes 0/1), 2/3 or 6 (cosine, ids only).
 template <int DMAX, int R, bool IDS>
 __global__ void __launch_bounds__(KB_THREADS)
 knn_kbest_kernel(const float* __restrict__ q, int nq, const float* __restrict__ x, int nx,
@@ -139,7 +144,7 @@ knn_kbest_kernel(const float* __restrict__ q, int nq, const float* __restrict__ 
     const bool ok = i < nq;
 #pragma unroll
     for (int f = 0; f < DMAX; ++f) xr[r][f] = (ok && f < d) ? q[(int64_t)i * d + f] : 0.0f;
-    xsq[r] = sq_norm<DMAX>(xr[r], d);
+    xsq[r] = norm_slot(sq_norm<DMAX>(xr[r], d), code);
     w[r] = CUDART_INF_F;
     th[r] = ok ? CUDART_INF_F : -CUDART_INF_F;  // a padding row admits nothing
     for (int s = 0; s < k; ++s) {
@@ -163,8 +168,14 @@ knn_kbest_kernel(const float* __restrict__ q, int nq, const float* __restrict__ 
         scan_tile<DMAX, R, METRIC_EUCLID_DOT_SQ, IDS>(xr, xsq, xs, ns, dp, d, len, id0, root,
                                                       k, ld, li, KB_THREADS, k * KB_THREADS, w, th);
         break;
-      default:
+      case METRIC_COSINE:
         if constexpr (IDS) {  // B3 takes the euclidean codes only
+          scan_tile<DMAX, R, METRIC_COSINE, IDS>(xr, xsq, xs, ns, dp, d, len, id0, root, k, ld,
+                                                 li, KB_THREADS, k * KB_THREADS, w, th);
+        }
+        break;
+      default:
+        if constexpr (IDS) {
           if (code == METRIC_MANHATTAN) {
             scan_tile<DMAX, R, METRIC_MANHATTAN, IDS>(xr, xsq, xs, ns, dp, d, len, id0, root,
                                                       k, ld, li, KB_THREADS, k * KB_THREADS, w, th);
@@ -234,7 +245,8 @@ knn_kbest_wide_kernel(const float* __restrict__ q, int nq, const float* __restri
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool row_ok = i < nq;
   const float* row = row_ok ? q + (int64_t)i * d : nullptr;
-  const float row_sq = (row_ok && dot_form(metric)) ? sq_norm_ptr(row, d) : 0.0f;
+  const float row_sq =
+      (row_ok && uses_norms(metric)) ? norm_slot(sq_norm_ptr(row, d), metric) : 0.0f;
   float* bd = out_d + (int64_t)(row_ok ? i : 0) * k;
   int32_t* bi = out_i + (int64_t)(row_ok ? i : 0) * k;
   if (row_ok) {
@@ -343,10 +355,11 @@ static int dispatch(const void* q, int nq, const void* x, int nx, int d, int k, 
   auto* oi = (int32_t*)out_i;
   auto s = (cudaStream_t)stream;
   if (nq <= 0) return 0;
-  if (k < 1 || nx < 0 || d < 1 || metric < METRIC_EUCLID_DIFF || metric > METRIC_EUCLID_DOT_SQ) {
+  const bool ids = oi != nullptr;
+  if (k < 1 || nx < 0 || d < 1 || metric < METRIC_EUCLID_DIFF ||
+      metric > (ids ? METRIC_COSINE : METRIC_EUCLID_DOT_SQ)) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool ids = oi != nullptr;
   if (wide(d, k)) {
     if (!ids || splits != 1) return (int)cudaErrorInvalidValue;  // B3 has no wide mode
     const int blocks = (nq + WIDE_THREADS - 1) / WIDE_THREADS;
@@ -405,6 +418,18 @@ extern "C" int knn_kbest_panel_launch(const void* q, int nq, const void* x, int 
                                       void* out_i, void* stream) {
   return dispatch(q, nq, x, nx, d, k, metric, id_offset, splits, scratch_d, scratch_i, out_d,
                   out_i, stream);
+}
+
+// Lists of nq rows from `splits` launches over ascending column ranges
+// (pd/pi [split][slot][row], k slots each, ascending, (+inf, -1) padded)
+// merged row by row into (nq, k) output rows, with the list rule: the
+// lex k-best of their union.
+extern "C" int knn_kbest_merge_launch(const void* pd, const void* pi, int splits, int nq,
+                                      int k, void* out_d, void* out_i, void* stream) {
+  if (nq <= 0) return 0;
+  if (k < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  return (int)merge<true>((const float*)pd, (const int32_t*)pi, splits, nq, k,
+                          (float*)out_d, (int32_t*)out_i, (cudaStream_t)stream);
 }
 
 extern "C" int knn_smallest_launch(const void* x, int n, int d, int k, int metric, int splits,

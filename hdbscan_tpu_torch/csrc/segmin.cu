@@ -15,7 +15,8 @@
 // column panel, and then best_j is local to the panel.
 //
 // Bound on this card: operations. A round evaluates every row x column
-// pair (3d float operations for the diff form, 2d + 3 for the dot form);
+// pair (3d float operations for the diff form, 2d + 3 for the dot form and
+// cosine);
 // device-memory traffic is O(columns d) per block and stays in L2.
 //
 // Design (one body for both launches):
@@ -44,6 +45,18 @@
 // Invalid columns (rows) carry core +inf, so their core bound never beats
 // bw: no separate validity test. Past d = 128 the body runs its wide mode:
 // one row a thread, distances through distance.cuh's chunked feature loop.
+//
+// Cosine (and pearson, whose rows the wrapper centres) takes no root (T =
+// bw) and can be slightly negative. A zero-norm point's cosine is NaN
+// against every row, and the reference's scan (ops/tiled._min_out_row_block)
+// takes each column tile's minimum with NaN propagating, then keeps it only
+// under a strict `<`: a tile holding one NaN weight gives its row nothing.
+// The kernel repeats that rule without meeting the NaN: the wrapper passes
+// a code per reference tile (`zt`, tiles of 2^shift columns, global column
+// = offset + j): SEG_NO_ZERO where the tile holds no valid zero-norm
+// column, the component of its zero-norm columns where they share one,
+// else -1; a row takes no column of a tile whose code is neither
+// SEG_NO_ZERO nor its own component, and a zero-norm row takes nothing.
 #include <cstdint>
 
 #include "distance.cuh"
@@ -52,8 +65,27 @@ constexpr int SEG_THREADS = 128;
 // Launch shape: about this many blocks, columns split no finer than this.
 constexpr int SEG_TARGET_BLOCKS = 2048;
 constexpr int SEG_MIN_SPAN = 1024;
-// Wide mode: the (core, label) pairs after the chunked loop's floats, 8-byte aligned.
-constexpr int SEG_WIDE_META = (wide_smem_floats(SEG_THREADS) + 1) & ~1;
+// Wide mode: the (core, label, -, tile code) quads after the chunked loop's
+// floats, 16-byte aligned.
+constexpr int SEG_WIDE_META = (wide_smem_floats(SEG_THREADS) + 3) & ~3;
+// A reference tile's code when it holds no valid zero-norm column.
+constexpr int32_t SEG_NO_ZERO = -2;
+
+// The reference's column tiles (2^shift columns, column j of the launch at
+// global column offset + j) and their codes; code == nullptr: no tile holds
+// a zero-norm column.
+struct ZeroTiles {
+  const int32_t* code;
+  int shift, offset;
+  __device__ __forceinline__ int32_t of(int j) const {
+    return code != nullptr ? code[(offset + j) >> shift] : SEG_NO_ZERO;
+  }
+};
+
+// Whether a row of component kr may take a column of a tile with code tz.
+__device__ __forceinline__ bool tile_open(int32_t tz, int32_t kr) {
+  return (tz == SEG_NO_ZERO) | (tz == kr);
+}
 
 // Rows a thread holds in registers at feature count d (0: the wide mode).
 static int rows_per_thread(int d) {
@@ -92,18 +124,20 @@ __device__ __forceinline__ void take(RowBest& b, float v, float m, int32_t j, bo
   b.th = root ? sq_threshold(b.bw) : b.bw;
 }
 
-// Column j with value v, core bound m and label kc against a row with label
-// kr (the wide mode's per-pair form of the test scan_columns splits up).
+// Column j with value v, core bound m, label kc and tile code tz against a
+// row with label kr (the wide mode's per-pair form of the test scan_columns
+// splits up).
 __device__ __forceinline__ void consider(RowBest& b, float v, float m, int32_t kc,
-                                         int32_t kr, int32_t j, bool root) {
-  if ((kc != kr) & (m < b.bw) & (v < b.th)) take(b, v, m, j, root);
+                                         int32_t tz, int32_t kr, int32_t j, bool root) {
+  if ((kc != kr) & tile_open(tz, kr) & (m < b.bw) & (v < b.th)) take(b, v, m, j, root);
 }
 
-// One tile's columns (features xs at stride dp, (core, label, norm) in meta)
-// against a thread's RB rows. The tests are predicates and each of the two
-// branches is taken or skipped by the whole warp (__any_sync): a column no
-// row of the warp can take costs its core and label tests only, and a row's
-// update (the rare winner) is the only divergent code.
+// One tile's columns (features xs at stride dp, (core, label, norm slot,
+// tile code) in meta) against a thread's RB rows. The tests are predicates
+// and each of the two branches is taken or skipped by the whole warp
+// (__any_sync): a column no row of the warp can take costs its core, label
+// and tile tests only, and a row's update (the rare winner) is the only
+// divergent code.
 template <int DMAX, int RB, int CODE>
 __device__ __forceinline__ void scan_columns(const float (&xr)[RB][DMAX],
                                              const float (&xsq)[RB], const float (&cr)[RB],
@@ -114,11 +148,12 @@ __device__ __forceinline__ void scan_columns(const float (&xr)[RB][DMAX],
   for (int t = 0; t < len; ++t) {
     const float4 mt = meta[t];
     const int32_t kc = __float_as_int(mt.y);
+    const int32_t tz = __float_as_int(mt.w);
     bool ok[RB];
     bool want = false;
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
-      ok[r] = (kc != kr[r]) & (fmaxf(cr[r], mt.x) < best[r].bw);
+      ok[r] = (kc != kr[r]) & tile_open(tz, kr[r]) & (fmaxf(cr[r], mt.x) < best[r].bw);
       want |= ok[r];
     }
     if (!__any_sync(0xffffffffu, want)) continue;
@@ -149,16 +184,16 @@ struct Side {  // one side's arrays: points, core, label, validity
 
 // Register mode (d <= DMAX <= 128): columns in tiles of `tile` through
 // shared memory, features at a float4-aligned stride, then (core, label,
-// norm) per column.
+// norm slot, reference tile code) per column.
 template <int DMAX, int RB>
 __device__ __forceinline__ void scan_registers(const Side& rs, const Side& cs, int d,
-                                               int code, int c_begin, int c_end,
-                                               int tile, RowBest (&best)[RB]) {
+                                               int code, const ZeroTiles& zt, int c_begin,
+                                               int c_end, int tile, RowBest (&best)[RB]) {
   extern __shared__ float4 smem4[];
   const int dp = (d + 3) & ~3;
   float* xs = reinterpret_cast<float*>(smem4);  // tile x dp features
-  float4* meta = smem4 + tile * dp / 4;          // (core, label, norm, -)
-  const bool dot = code == METRIC_EUCLID_DOT_SQ;
+  float4* meta = smem4 + tile * dp / 4;          // (core, label, norm slot, tile code)
+  const bool normed = uses_norms(code);
 
   const int row0 = blockIdx.x * (SEG_THREADS * RB) + threadIdx.x;
   float xr[RB][DMAX];
@@ -170,8 +205,9 @@ __device__ __forceinline__ void scan_registers(const Side& rs, const Side& cs, i
     const bool ok = i < rs.n && rs.valid[i] != 0;
 #pragma unroll
     for (int f = 0; f < DMAX; ++f) xr[r][f] = (ok && f < d) ? rs.x[(int64_t)i * d + f] : 0.0f;
-    xsq[r] = sq_norm<DMAX>(xr[r], d);
-    cr[r] = ok ? rs.core[i] : CUDART_INF_F;  // an invalid row never takes a column
+    xsq[r] = norm_slot(sq_norm<DMAX>(xr[r], d), code);
+    // An invalid row, or a zero-norm row at cosine, never takes a column.
+    cr[r] = (ok && !(code == METRIC_COSINE && xsq[r] == 0.0f)) ? rs.core[i] : CUDART_INF_F;
     kr[r] = ok ? rs.comp[i] : 0;
   }
 
@@ -184,15 +220,15 @@ __device__ __forceinline__ void scan_registers(const Side& rs, const Side& cs, i
     for (int t = threadIdx.x; t < len; t += blockDim.x) {
       const int j = c0 + t;
       const float cc = cs.valid[j] != 0 ? cs.core[j] : CUDART_INF_F;
-      meta[t] = make_float4(cc, __int_as_float(cs.comp[j]), 0.0f, 0.0f);
+      meta[t] = make_float4(cc, __int_as_float(cs.comp[j]), 0.0f, __int_as_float(zt.of(j)));
     }
     __syncthreads();
-    if (dot) {
+    if (normed) {
       for (int t = threadIdx.x; t < len; t += blockDim.x) {
         const float* xc = xs + t * dp;
         float acc = xc[0] * xc[0];
         for (int f = 1; f < d; ++f) acc = acc + xc[f] * xc[f];
-        meta[t].z = acc;
+        meta[t].z = norm_slot(acc, code);
       }
       __syncthreads();
     }
@@ -209,6 +245,9 @@ __device__ __forceinline__ void scan_registers(const Side& rs, const Side& cs, i
         scan_columns<DMAX, RB, METRIC_MANHATTAN>(xr, xsq, cr, kr, xs, meta, dp, d, c0, len,
                                                  best);
         break;
+      case METRIC_COSINE:
+        scan_columns<DMAX, RB, METRIC_COSINE>(xr, xsq, cr, kr, xs, meta, dp, d, c0, len, best);
+        break;
       default:
         scan_columns<DMAX, RB, METRIC_SUPREMUM>(xr, xsq, cr, kr, xs, meta, dp, d, c0, len,
                                                 best);
@@ -221,24 +260,26 @@ __device__ __forceinline__ void scan_registers(const Side& rs, const Side& cs, i
 // Wide mode (d > 128): one row a thread, sub-tiles of WIDE_COLS columns
 // through the chunked feature loop.
 __device__ __forceinline__ void scan_wide(const Side& rs, const Side& cs, int d, int code,
-                                          int c_begin, int c_end, RowBest& best) {
+                                          const ZeroTiles& zt, int c_begin, int c_end,
+                                          RowBest& best) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // wide_smem_floats(SEG_THREADS)
-  float2* meta = reinterpret_cast<float2*>(ws + SEG_WIDE_META);  // (core, label)
+  float4* meta = reinterpret_cast<float4*>(ws + SEG_WIDE_META);  // (core, label, -, tile code)
   const bool root = code == METRIC_EUCLID_DIFF_SQ || code == METRIC_EUCLID_DOT_SQ;
   const int i = blockIdx.x * SEG_THREADS + threadIdx.x;
   const bool ok = i < rs.n && rs.valid[i] != 0;
   const float* row = ok ? rs.x + (int64_t)i * d : nullptr;
-  const float xsq = (ok && dot_form(code)) ? sq_norm_ptr(row, d) : 0.0f;
-  const float cr = ok ? rs.core[i] : CUDART_INF_F;
+  const float xsq = (ok && uses_norms(code)) ? norm_slot(sq_norm_ptr(row, d), code) : 0.0f;
+  const float cr =
+      (ok && !(code == METRIC_COSINE && xsq == 0.0f)) ? rs.core[i] : CUDART_INF_F;
   const int32_t kr = ok ? rs.comp[i] : 0;
   for (int c0 = c_begin; c0 < c_end; c0 += WIDE_COLS) {
     const int len = min(WIDE_COLS, c_end - c0);
     __syncthreads();  // the previous sub-tile's labels are read
     for (int t = threadIdx.x; t < len; t += blockDim.x) {
       const int j = c0 + t;
-      meta[t] = make_float2(cs.valid[j] != 0 ? cs.core[j] : CUDART_INF_F,
-                            __int_as_float(cs.comp[j]));
+      meta[t] = make_float4(cs.valid[j] != 0 ? cs.core[j] : CUDART_INF_F,
+                            __int_as_float(cs.comp[j]), 0.0f, __int_as_float(zt.of(j)));
     }
     float v[WIDE_COLS];
     const float* xc = cs.x;
@@ -247,8 +288,9 @@ __device__ __forceinline__ void scan_wide(const Side& rs, const Side& cs, int d,
 #pragma unroll
     for (int t = 0; t < WIDE_COLS; ++t) {
       if (t < len) {
-        const float2 mt = meta[t];
-        consider(best, v[t], fmaxf(cr, mt.x), __float_as_int(mt.y), kr, c0 + t, root);
+        const float4 mt = meta[t];
+        consider(best, v[t], fmaxf(cr, mt.x), __float_as_int(mt.y), __float_as_int(mt.w), kr,
+                 c0 + t, root);
       }
     }
   }
@@ -258,7 +300,7 @@ __device__ __forceinline__ void scan_wide(const Side& rs, const Side& cs, int d,
 // and writes its partials at part_w/part_j[s * nr + i].
 template <int DMAX, int RB>
 __global__ void __launch_bounds__(SEG_THREADS)
-segmin_kernel(Side rs, Side cs, int d, int code, int span, int tile,
+segmin_kernel(Side rs, Side cs, int d, int code, ZeroTiles zt, int span, int tile,
               float* __restrict__ part_w, int32_t* __restrict__ part_j) {
   const int c_begin = blockIdx.y * span;
   const int c_end = min(cs.n, c_begin + span);
@@ -267,7 +309,7 @@ segmin_kernel(Side rs, Side cs, int d, int code, int span, int tile,
     RowBest best[RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r) best[r] = row_start();
-    scan_registers<DMAX, RB>(rs, cs, d, code, c_begin, c_end, tile, best);
+    scan_registers<DMAX, RB>(rs, cs, d, code, zt, c_begin, c_end, tile, best);
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
       const int i = blockIdx.x * (SEG_THREADS * RB) + r * SEG_THREADS + threadIdx.x;
@@ -278,7 +320,7 @@ segmin_kernel(Side rs, Side cs, int d, int code, int span, int tile,
     }
   } else {
     RowBest best = row_start();
-    scan_wide(rs, cs, d, code, c_begin, c_end, best);
+    scan_wide(rs, cs, d, code, zt, c_begin, c_end, best);
     const int i = blockIdx.x * SEG_THREADS + threadIdx.x;
     if (i < rs.n) {
       part_w[out + i] = best.bw;
@@ -325,8 +367,8 @@ static Plan plan(int nr, int nc, int d) {
 }
 
 template <int DMAX, int RB>
-static cudaError_t launch(const Side& rs, const Side& cs, int d, int code, const Plan& p,
-                          float* pw, int32_t* pj, cudaStream_t stream) {
+static cudaError_t launch(const Side& rs, const Side& cs, int d, int code, const ZeroTiles& zt,
+                          const Plan& p, float* pw, int32_t* pj, cudaStream_t stream) {
   int tile = 0;
   size_t smem;
   if (DMAX > 0) {
@@ -335,20 +377,22 @@ static cudaError_t launch(const Side& rs, const Side& cs, int d, int code, const
     tile = tile > 512 ? 512 : (tile / 32) * 32;
     smem = (size_t)tile * (dp + 4) * sizeof(float);
   } else {
-    smem = (SEG_WIDE_META + 2 * WIDE_COLS) * sizeof(float);
+    smem = (SEG_WIDE_META + 4 * WIDE_COLS) * sizeof(float);
   }
   const dim3 grid(p.blocks, p.splits);
-  segmin_kernel<DMAX, RB><<<grid, SEG_THREADS, smem, stream>>>(rs, cs, d, code, p.span, tile,
-                                                                pw, pj);
+  segmin_kernel<DMAX, RB><<<grid, SEG_THREADS, smem, stream>>>(rs, cs, d, code, zt, p.span,
+                                                                tile, pw, pj);
   return cudaGetLastError();
 }
 
-static int dispatch(const Side& rs, const Side& cs, int d, int metric, int splits,
-                    void* scratch_w, void* scratch_j, void* best_w, void* best_j,
+static int dispatch(const Side& rs, const Side& cs, int d, int metric, const ZeroTiles& zt,
+                    int splits, void* scratch_w, void* scratch_j, void* best_w, void* best_j,
                     void* stream) {
   auto s = (cudaStream_t)stream;
   if (rs.n <= 0) return 0;
-  if (cs.n < 0 || d < 1 || metric < METRIC_EUCLID_DIFF || metric > METRIC_SUPREMUM) {
+  if (cs.n < 0 || d < 1 || metric < METRIC_EUCLID_DIFF ||
+      (metric > METRIC_SUPREMUM && metric != METRIC_COSINE) || zt.shift < 0 ||
+      zt.shift > 30 || zt.offset < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const Plan p = plan(rs.n, cs.n, d);
@@ -362,11 +406,11 @@ static int dispatch(const Side& rs, const Side& cs, int d, int metric, int split
   auto* pw = (float*)(p.splits > 1 ? scratch_w : best_w);
   auto* pj = (int32_t*)(p.splits > 1 ? scratch_j : best_j);
   cudaError_t err;
-  if (d <= 4) err = launch<4, 8>(rs, cs, d, code, p, pw, pj, s);
-  else if (d <= 8) err = launch<8, 8>(rs, cs, d, code, p, pw, pj, s);
-  else if (d <= 32) err = launch<32, 2>(rs, cs, d, code, p, pw, pj, s);
-  else if (d <= 128) err = launch<128, 1>(rs, cs, d, code, p, pw, pj, s);
-  else err = launch<0, 1>(rs, cs, d, code, p, pw, pj, s);
+  if (d <= 4) err = launch<4, 8>(rs, cs, d, code, zt, p, pw, pj, s);
+  else if (d <= 8) err = launch<8, 8>(rs, cs, d, code, zt, p, pw, pj, s);
+  else if (d <= 32) err = launch<32, 2>(rs, cs, d, code, zt, p, pw, pj, s);
+  else if (d <= 128) err = launch<128, 1>(rs, cs, d, code, zt, p, pw, pj, s);
+  else err = launch<0, 1>(rs, cs, d, code, zt, p, pw, pj, s);
   if (err != cudaSuccess || p.splits == 1) return (int)err;
   segmin_combine_kernel<<<(rs.n + 255) / 256, 256, 0, s>>>(pw, pj, p.splits, rs.n,
                                                            (float*)best_w, (int32_t*)best_j);
@@ -379,13 +423,15 @@ extern "C" int segmin_splits(int nr, int nc, int d) {
   return nr <= 0 ? 1 : plan(nr, nc, d).splits;
 }
 
+// zcode (nullable): the reference tiles' codes, tiles of 2^zshift columns.
 extern "C" int segmin_launch(const void* x, const void* core, const void* comp,
-                             const void* valid, int n, int d, int metric, int splits,
-                             void* scratch_w, void* scratch_j, void* best_w,
-                             void* best_j, void* stream) {
+                             const void* valid, int n, int d, int metric, const void* zcode,
+                             int zshift, int splits, void* scratch_w, void* scratch_j,
+                             void* best_w, void* best_j, void* stream) {
   const Side side{(const float*)x, (const float*)core, (const int32_t*)comp,
                   (const uint8_t*)valid, n};
-  return dispatch(side, side, d, metric, splits, scratch_w, scratch_j, best_w, best_j,
+  const ZeroTiles zt{(const int32_t*)zcode, zshift, 0};
+  return dispatch(side, side, d, metric, zt, splits, scratch_w, scratch_j, best_w, best_j,
                   stream);
 }
 
@@ -393,12 +439,14 @@ extern "C" int segmin_panel_launch(const void* rows, const void* core_r,
                                    const void* comp_r, const void* valid_r, int nr,
                                    const void* panel, const void* core_c,
                                    const void* comp_c, const void* valid_c, int nc,
-                                   int d, int metric, int splits, void* scratch_w,
+                                   int d, int metric, const void* zcode, int zshift,
+                                   int zoffset, int splits, void* scratch_w,
                                    void* scratch_j, void* best_w, void* best_j,
                                    void* stream) {
   const Side rs{(const float*)rows, (const float*)core_r, (const int32_t*)comp_r,
                 (const uint8_t*)valid_r, nr};
   const Side cs{(const float*)panel, (const float*)core_c, (const int32_t*)comp_c,
                 (const uint8_t*)valid_c, nc};
-  return dispatch(rs, cs, d, metric, splits, scratch_w, scratch_j, best_w, best_j, stream);
+  const ZeroTiles zt{(const int32_t*)zcode, zshift, zoffset};
+  return dispatch(rs, cs, d, metric, zt, splits, scratch_w, scratch_j, best_w, best_j, stream);
 }

@@ -24,6 +24,12 @@ shard_boruvka_mst``, the panel segment-min kernel per shard and visiting
 panel), then the shard edge buffers gathered onto the first shard's device
 in global order for one union-find event scan, and one bulk fetch.
 
+``dtype``: float32, or float64 on the CPU, where every stage runs its
+plain version in that type as the reference's XLA scans do. The kernels
+are float32 only, like the reference's Pallas kernels
+(``hdbscan_tpu/ops/pallas_segmin.py`` ``_pallas_eligible``): float64 with
+the card raises ``ValueError`` at the entry, before any work.
+
 Routes of the reference that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP entry.
 """
@@ -95,6 +101,7 @@ def fit(
     ``ring_device_wall`` and ``shard_mst_device`` events, and its
     ``mst_round`` events carry ``sharded: true``.
     """
+    from hdbscan_tpu_torch.ops.tiled import check_dtype
     from hdbscan_tpu_torch.parallel.mesh import get_mesh
     from hdbscan_tpu_torch.parallel.shard import resolve_fit_sharding
 
@@ -106,6 +113,7 @@ def fit(
     if device is None and mesh is not None:
         device = mesh.root
     device = cuda_build.resolve_device(device)
+    check_dtype(dtype, device)
     sharded = resolve_fit_sharding(params.fit_sharding, mesh) == "sharded"
     _check_ported(params, n, sharded)
     if sharded and mesh is None:
@@ -117,18 +125,28 @@ def fit(
     )
 
 
+#: The types :func:`_fetch` carries, with their host types.
+_HOST_TYPES = {torch.float64: np.float64, torch.int64: np.int64,
+               torch.float32: np.float32, torch.int32: np.int32}
+
+
 def _fetch(tensors: dict) -> dict:
-    """All 32-bit device tensors to host numpy in ONE transfer."""
-    names = list(tensors)
-    flat = torch.cat([tensors[k].reshape(-1).view(torch.int32) for k in names])
+    """Device tensors to host numpy in ONE transfer: their bytes side by
+    side (8-byte types first, so every array lies aligned), each read back
+    at its own offset in its own type. A type not in :data:`_HOST_TYPES`
+    is refused."""
+    for k, t in tensors.items():
+        if t.dtype not in _HOST_TYPES:
+            raise ValueError(f"_fetch: {k} has type {t.dtype}, not one of {list(_HOST_TYPES)}")
+    names = sorted(tensors, key=lambda k: -tensors[k].element_size())
+    flat = torch.cat([tensors[k].contiguous().reshape(-1).view(torch.uint8) for k in names])
     host = flat.cpu().numpy()
     out, off = {}, 0
     for k in names:
         t = tensors[k]
-        size = t.numel()
-        np_dtype = np.float32 if t.dtype == torch.float32 else np.int32
-        out[k] = host[off : off + size].view(np_dtype)
-        off += size
+        nbytes = t.numel() * t.element_size()
+        out[k] = host[off : off + nbytes].view(_HOST_TYPES[t.dtype])
+        off += nbytes
     return out
 
 

@@ -2,7 +2,7 @@
 ``models/hdbscan.py``'s ``HDBSCANResult`` and ``write_outputs``).
 
 The dense single-block ``fit`` of the reference is not ported yet
-(ROADMAP A2); the exact fit (``models/exact.py``) returns this result.
+(ROADMAP A5); the exact fit (``models/exact.py``) returns this result.
 """
 
 from __future__ import annotations

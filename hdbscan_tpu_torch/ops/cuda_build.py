@@ -35,11 +35,12 @@ BUILD_DIR = os.path.join(
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "segmin": (
-        "segmin.cu", "segmin_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "segmin.cu", "segmin_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
     ),
     "segmin_panel": (
         "segmin.cu", "segmin_panel_launch",
-        [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
     "knn_kbest": (
         "knn_kbest.cu", "knn_kbest_launch", [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -47,6 +48,9 @@ KERNELS = {
     "knn_kbest_panel": (
         "knn_kbest.cu", "knn_kbest_panel_launch",
         [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "knn_kbest_merge": (
+        "knn_kbest.cu", "knn_kbest_merge_launch", [_P, _P, _I, _I, _I, _P, _P, _P],
     ),
     "knn_smallest": (
         "knn_kbest.cu", "knn_smallest_launch", [_P, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -75,12 +79,14 @@ KERNELS = {
 _HEADERS = ("distance.cuh", "kbest.cuh", "lexlist.cuh", "warplist.cuh")
 SOURCES = sorted({src for src, _, _ in KERNELS.values()})
 
-#: Metric/form codes of ``csrc/distance.cuh``.
+#: Metric/form codes of ``csrc/distance.cuh``. Pearson has none of its
+#: own: a wrapper centres its points (:func:`kernel_points`) and runs cosine.
 METRIC_CODES = {
     ("euclidean", "diff"): 0,
     ("euclidean", "dot"): 1,
     ("manhattan", None): 2,
     ("supremum", None): 3,
+    ("cosine", None): 6,
 }
 
 #: Codes of the squared euclidean distance (no root) by form: B3's selection.
@@ -112,15 +118,29 @@ def reset_launches() -> None:
 
 
 def metric_code(metric: str, form: str | None) -> int:
-    """The kernels' code for a metric (and euclidean form); raises for the
-    metrics no kernel implements yet (cosine, pearson)."""
+    """The kernels' code for a metric (and euclidean form). Pearson is
+    refused: its points are centred first and run as cosine
+    (:func:`kernel_points`)."""
     key = (metric, form if metric == "euclidean" else None)
     if key not in METRIC_CODES:
-        raise NotImplementedError(
-            f"no CUDA kernel for metric {metric!r} (form {form!r}) yet "
-            "(ROADMAP A2): euclidean, manhattan and supremum are ported"
+        raise ValueError(
+            f"no kernel metric code for {metric!r} (form {form!r}); pearson runs as "
+            "cosine over rows centred by cuda_build.kernel_points"
         )
     return METRIC_CODES[key]
+
+
+def kernel_points(x, metric: str):
+    """The points a kernel takes for ``metric`` and the metric it runs:
+    pearson's rows centred once (``core/distances.centre_rows``, O(n d)
+    preparation outside the pairwise scan, on the points' own device, so
+    kernel and plain version see the same tensor) under cosine; the points
+    as they are otherwise."""
+    if metric == "pearson":
+        from hdbscan_tpu_torch.core.distances import centre_rows
+
+        return centre_rows(x).contiguous(), "cosine"
+    return x, metric
 
 
 def _nvcc() -> str:

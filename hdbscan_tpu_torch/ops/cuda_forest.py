@@ -54,7 +54,12 @@ import time
 import numpy as np
 import torch
 
-from hdbscan_tpu_torch.core.distances import euclidean_form, pairwise_distance, sqrt_rn
+from hdbscan_tpu_torch.core.distances import (
+    _sq_norms,
+    euclidean_form,
+    pairwise_distance,
+    sqrt_rn,
+)
 from hdbscan_tpu_torch.ops import cuda_build
 from hdbscan_tpu_torch.ops.lexmerge import (
     dedup_lex_merge,
@@ -64,9 +69,10 @@ from hdbscan_tpu_torch.ops.lexmerge import (
     topk_tile_candidates,
 )
 
-#: Metrics of the fused family (the reference's; pearson is excluded
-#: there). On the card cosine raises until its kernels land
-#: (``cuda_build.metric_code``).
+#: Metrics of the fused family off the card (the reference's; pearson is
+#: excluded there and runs the unfused route). On the card the kernels
+#: take every metric, pearson as cosine over rows centred once
+#: (``cuda_build.kernel_points``), the arithmetic of the unfused route.
 FUSED_METRICS = ("euclidean", "manhattan", "supremum", "cosine")
 
 #: The reference's fused forest gate: k and d within its 128 lanes. The
@@ -96,11 +102,13 @@ def fused_forest_eligible(n: int, d: int, k: int, metric: str, dtype) -> bool:
     )
 
 
-def check_card_shape(d: int, k: int, metric: str, dtype) -> None:
+def check_card_shape(d: int, k: int, metric: str, dtype, precision: str = "f32") -> None:
     """What the kernels take on the card (any k >= 1 and d >= 1, float32,
-    the ported metrics); raises naming the limit. The card has no unfused
-    path to fall back to."""
-    cuda_build.metric_code(metric, "diff")
+    every metric; bf16 tiles at euclidean only, as in the reference); raises
+    naming the limit. The card has no unfused path to fall back to."""
+    cuda_build.metric_code("cosine" if metric == "pearson" else metric, "diff")
+    if precision == "bf16" and metric != "euclidean":
+        raise ValueError("bf16 distance tiles support euclidean only")
     if np.dtype(dtype) != np.float32:
         raise ValueError(f"the forest kernels compute in float32, got dtype {dtype}")
     if k < 1 or d < 1:
@@ -119,13 +127,6 @@ def _check_bf16_width(name: str, k: int, d: int) -> None:
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
-
-
-def _sq_norms(x: torch.Tensor) -> torch.Tensor:
-    acc = x[..., 0] * x[..., 0]
-    for f in range(1, x.shape[-1]):
-        acc = acc + x[..., f] * x[..., f]
-    return acc
 
 
 def _bf16_dist(xc: torch.Tensor, yc: torch.Tensor) -> torch.Tensor:
@@ -283,7 +284,8 @@ def forest_leaf_topk(data, members, mask, kk: int, metric: str = "euclidean",
     dev = cuda_build.launch_device("forest_leaf_topk", data, members, mask)
     b, ell = members.shape
     d = data.shape[1]
-    check_card_shape(d, kk, metric, np.float32)
+    check_card_shape(d, kk, metric, np.float32, precision)
+    data, metric = cuda_build.kernel_points(data, metric)
     if data.dtype != torch.float32 or members.dtype != torch.int32 or mask.dtype != torch.bool:
         raise ValueError("forest_leaf_topk: data float32, members int32, mask bool")
     if data.dim() != 2 or mask.shape != members.shape:
@@ -408,7 +410,9 @@ def forest_rescan_topk(q, data, cids, k: int, metric: str = "euclidean",
     dev = cuda_build.launch_device("forest_rescan_topk", q, data, cids)
     m, d = q.shape
     c = cids.shape[1]
-    check_card_shape(d, k, metric, np.float32)
+    check_card_shape(d, k, metric, np.float32, precision)
+    q, _ = cuda_build.kernel_points(q, metric)
+    data, metric = cuda_build.kernel_points(data, metric)
     if q.dtype != torch.float32 or data.dtype != torch.float32 or cids.dtype != torch.int32:
         raise ValueError("forest_rescan_topk: q and data float32, cids int32")
     if data.dim() != 2 or data.shape[1] != d or cids.shape != (m, c):
@@ -486,7 +490,10 @@ def forest_min_outgoing(q, data, cids, core_q, core, comp_q, comp,
     dev = cuda_build.launch_device("forest_min_outgoing", *args)
     m, d = q.shape
     c = cids.shape[1]
-    check_card_shape(d, 1, metric, np.float32)
+    check_card_shape(d, 1, metric, np.float32, precision)
+    q, _ = cuda_build.kernel_points(q, metric)
+    data, metric = cuda_build.kernel_points(data, metric)
+    args = (q, data, *args[2:])
     if any(t.dtype != torch.float32 for t in (q, data, core_q, core)):
         raise ValueError("forest_min_outgoing: q, data, core_q and core must be float32")
     if any(t.dtype != torch.int32 for t in (cids, comp_q, comp)):

@@ -52,7 +52,9 @@ def lex_kbest(dist: torch.Tensor, k: int):
 
     The k-th smallest value per row comes from ``torch.topk`` (values are
     exact whatever its tie order); every entry below it enters, and entries
-    equal to it fill the remaining slots in ascending column order.
+    equal to it fill the remaining slots in ascending column order. A NaN
+    entry (a zero-norm point at cosine) never enters, like +inf: the
+    kernels' strict admission test.
     """
     rows, cols = dist.shape
     kk = min(k, cols)
@@ -60,7 +62,8 @@ def lex_kbest(dist: torch.Tensor, k: int):
     out_i = torch.full((rows, k), -1, dtype=torch.int32, device=dist.device)
     if rows == 0 or kk == 0:
         return out_d, out_i
-    kth = torch.topk(dist, kk, dim=1, largest=False, sorted=True).values[:, kk - 1 :]
+    ranked = torch.where(torch.isnan(dist), float("inf"), dist)
+    kth = torch.topk(ranked, kk, dim=1, largest=False, sorted=True).values[:, kk - 1 :]
     below = dist < kth
     at = (dist == kth) & torch.isfinite(dist)
     room = kk - below.sum(dim=1, keepdim=True)

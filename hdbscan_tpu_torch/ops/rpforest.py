@@ -435,9 +435,11 @@ def rpforest_core_distances(
     candidates including self. ``forest`` reuses a built forest (e.g. the
     reference's, through :func:`forest_from_numpy`).
 
-    Routes: on the card the kernels run at every ``knn_backend``, past
-    k or d = 128 in their wide mode (and the call raises where they cannot:
-    cosine or pearson, not float32). Off the card ``knn_backend="fused"``
+    Routes: on the card the kernels run at every ``knn_backend`` and
+    metric (pearson over rows centred once, ``cuda_build.kernel_points``,
+    while the forest's hyperplanes split the raw rows), past k or d = 128
+    in their wide mode (and the call raises where they cannot: not
+    float32). Off the card ``knn_backend="fused"``
     takes the fused route's plain versions where
     ``cuda_forest.fused_forest_eligible``, else the unfused route; both
     agree bitwise at f32. ``knn_precision="bf16"`` (euclidean,
@@ -460,7 +462,7 @@ def rpforest_core_distances(
     on_card = device.type == "cuda"
     eligible = cf.fused_forest_eligible(n, d, k_eff, metric, dtype)
     if on_card:
-        cf.check_card_shape(d, k_eff, metric, dtype)
+        cf.check_card_shape(d, k_eff, metric, dtype, knn_precision)
         use_fused = True
     else:
         use_fused = knn_backend == "fused" and eligible
@@ -472,6 +474,10 @@ def rpforest_core_distances(
         forest = build_forest(data, trees=trees, leaf_size=leaf_size, seed=seed, dtype=dtype,
                               trace=trace, device=device)
     data_dev = torch.as_tensor(data.astype(dtype), device=device)
+    # The kernels take pearson's rows centred once; the forest was built on
+    # the raw rows.
+    if use_fused:
+        data_dev, metric = cuda_build.kernel_points(data_dev, metric)
     k_run = min(2 * k_eff, cf.LANES, n) if precision == "bf16" else k_eff
     t_fused = time.monotonic()
     best_d, best_i = forest_knn(data_dev, forest, k_run, metric, trace=trace,

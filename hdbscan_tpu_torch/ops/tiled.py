@@ -50,6 +50,20 @@ def _tile_sizes(n: int, row_tile: int, col_tile: int) -> tuple[int, int, int]:
     return row_tile, col_tile, _round_up(n, col_tile)
 
 
+def check_dtype(dtype, device) -> None:
+    """The scans' dtypes: float32 everywhere, float64 on the CPU too (the
+    plain versions run in the asked type, as the reference's XLA scans
+    do). The kernels, like the reference's Pallas kernels, are float32
+    only: float64 for the card raises here, before any work."""
+    if np.dtype(dtype) == np.float32:
+        return
+    if np.dtype(dtype) != np.float64 or torch.device(device).type != "cpu":
+        raise ValueError(
+            f"dtype {np.dtype(dtype)} on {device}: the kernels compute in float32 "
+            "(float64 runs only on the CPU, through the plain versions)"
+        )
+
+
 def scan_form(n: int, d: int, metric: str, row_tile: int, col_tile: int):
     """Euclidean form the reference's XLA scans take for n points at the
     caller's tiles (after :func:`_tile_sizes` clamps them); None for the
@@ -113,9 +127,9 @@ def knn_core_distances(
         raise ValueError(f"unknown index {index!r}: exact | rpforest")
     if backend not in ("auto", "xla", "pallas", "fused"):
         raise ValueError(f"unknown backend {backend!r}: auto | xla | pallas | fused")
-    if np.dtype(dtype) != np.float32:
-        raise ValueError(f"the k-best kernel computes in float32, got dtype {dtype}")
     from hdbscan_tpu_torch.ops import cuda_build
+
+    check_dtype(dtype, cuda_build.resolve_device(device))
     from hdbscan_tpu_torch.ops.cuda_knn import kbest_core_distances
     from hdbscan_tpu_torch.ops.cuda_knn_smallest import LANES, knn_core_distances_pallas
 
@@ -129,7 +143,7 @@ def knn_core_distances(
         )
     if backend == "pallas" or (
         backend == "auto" and eligible and d >= _PALLAS_MIN_D
-        and (row_tile, col_tile) == (1024, 8192)
+        and (row_tile, col_tile) == (1024, 8192) and np.dtype(dtype) == np.float32
         and cuda_build.resolve_device(device).type == "cuda"
     ):
         return knn_core_distances_pallas(
@@ -144,7 +158,8 @@ def knn_core_distances(
     else:
         form = scan_form(n, d, metric, row_tile, col_tile)
     return kbest_core_distances(
-        data, min_pts, k, metric, form, fetch_knn, return_indices, device
+        data, min_pts, k, metric, form, fetch_knn, return_indices, device,
+        col_tile=_tile_sizes(n, row_tile, col_tile)[1], dtype=dtype,
     )
 
 
@@ -242,16 +257,23 @@ def boruvka_glue_edges(
 
 
 def _min_outgoing_panel_scan(rows, core_r, comp_r, valid_r, panel, core_c, comp_c,
-                             valid_c, metric: str, form: str | None):
+                             valid_c, metric: str, form: str | None,
+                             col_tile: int | None = None, col_offset: int = 0):
     """Plain PyTorch Borůvka scan of resident ``rows`` against a column
     ``panel``: per row, the minimum mutual-reachability edge to a valid
     panel column in another component.
 
-    ``rows`` (r, d) / ``panel`` (c, d) float32 with their (core float32,
-    comp int32, valid bool) vectors. Returns ((r,) best_w, (r,) int32
-    best_j): ``best_j`` is the lowest panel column reaching the row minimum
-    (``torch.min`` returns the first minimal index), (+inf, -1) where no
-    outgoing edge exists or the row is not valid.
+    ``rows`` (r, d) / ``panel`` (c, d) float32 (float64 on the CPU) with
+    their (core, comp int32, valid bool) vectors. Returns ((r,) best_w, (r,)
+    int32 best_j): ``best_j`` is the lowest panel column reaching the row
+    minimum (``torch.min`` returns the first minimal index), (+inf, -1)
+    where no outgoing edge exists or the row is not valid.
+
+    ``col_tile``: the reference scan's column tile (global column =
+    ``col_offset`` + panel column). Its per-tile minimum propagates a NaN
+    weight (a zero-norm point at cosine) and keeps a tile's minimum only
+    under a strict ``<``, so a row takes nothing from a tile where one of
+    its outgoing weights is NaN; this scan drops those tiles alike.
     """
     r, c = rows.shape[0], panel.shape[0]
     best_w = torch.full((r,), float("inf"), dtype=rows.dtype, device=rows.device)
@@ -266,17 +288,24 @@ def _min_outgoing_panel_scan(rows, core_r, comp_r, valid_r, panel, core_c, comp_
         w = torch.maximum(dist, torch.maximum(core_r[a:b, None], core_c[None, :]))
         out = (comp_r[a:b, None] != comp_c[None, :]) & valid_c[None, :] & valid_r[a:b, None]
         w = torch.where(out, w, inf)
+        nan = torch.isnan(w)
+        if col_tile is not None and bool(nan.any()):
+            tiles = ((col_offset + torch.arange(c, device=w.device)) // col_tile).expand(b - a, c)
+            hit = torch.zeros((b - a, int(tiles[0, -1]) + 1), dtype=torch.int32, device=w.device)
+            hit = hit.scatter_reduce(1, tiles, nan.to(torch.int32), "amax")
+            w = torch.where(torch.gather(hit, 1, tiles) > 0, inf, w)
         tw, tj = torch.min(w, dim=1)
         best_w[a:b] = tw
         best_j[a:b] = torch.where(torch.isfinite(tw), tj.to(torch.int32), -1)
     return best_w, best_j
 
 
-def _min_outgoing_scan(data, core, comp, valid, metric: str, form: str | None):
+def _min_outgoing_scan(data, core, comp, valid, metric: str, form: str | None,
+                       col_tile: int | None = None):
     """Plain PyTorch Borůvka scan over all rows (the square case of
     :func:`_min_outgoing_panel_scan`): ``data`` (n, d) float32, ``core``
     (n,) float32, ``comp`` (n,) int32 labels, ``valid`` (n,) bool; returns
     ((n,) best_w, (n,) int32 best_j)."""
     return _min_outgoing_panel_scan(
-        data, core, comp, valid, data, core, comp, valid, metric, form
+        data, core, comp, valid, data, core, comp, valid, metric, form, col_tile
     )

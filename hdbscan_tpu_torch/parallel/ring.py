@@ -33,7 +33,7 @@ import torch
 
 from hdbscan_tpu_torch.core.distances import euclidean_form
 from hdbscan_tpu_torch.ops.lexmerge import lexsort_rows
-from hdbscan_tpu_torch.ops.tiled import _next_pow2, _round_up
+from hdbscan_tpu_torch.ops.tiled import _next_pow2, _round_up, check_dtype
 from hdbscan_tpu_torch.parallel.mesh import device_count, fetch, get_mesh
 
 
@@ -126,11 +126,10 @@ def ring_knn_core_distances(
         )
     if index != "exact":
         raise ValueError(f"unknown knn index {index!r}")
-    if np.dtype(dtype) != np.float32:
-        raise ValueError(f"the k-best kernel computes in float32, got dtype {dtype}")
     n, d = np.shape(data)
     k = max(k or 0, max(min_pts - 1, 1))
     mesh = mesh if mesh is not None else get_mesh()
+    check_dtype(dtype, mesh.root)
     n_dev = device_count(mesh)
     row_tile, col_tile, shard, n_pad = _ring_geometry(n, n_dev, row_tile, col_tile)
     if metric != "euclidean":
@@ -140,7 +139,7 @@ def ring_knn_core_distances(
     else:
         form = euclidean_form(row_tile, col_tile, d)
     parts = _shard_rows(n, shard, n_dev)
-    x = np.asarray(data, np.float32)
+    x = np.asarray(data, dtype)
     t_up = time.monotonic()
     rows = [torch.as_tensor(x[o : o + m], device=dev)
             for (o, m), dev in zip(parts, mesh.devices)]
@@ -150,7 +149,7 @@ def ring_knn_core_distances(
     lists = []
     for me, dev in enumerate(mesh.devices):
         m = parts[me][1]
-        bd = torch.full((m, k), float("inf"), dtype=torch.float32, device=dev)
+        bd = torch.full((m, k), float("inf"), dtype=rows[me].dtype, device=dev)
         bi = torch.full((m, k), -1, dtype=torch.int32, device=dev)
         for step in range(n_dev):
             src = (me - step) % n_dev
@@ -158,7 +157,7 @@ def ring_knn_core_distances(
             if m == 0 or c == 0:
                 continue
             td, ti = knn_kbest_panel(rows[me], rows[src].to(dev), k, metric, form,
-                                     id_offset=off)
+                                     id_offset=off, col_tile=col_tile)
             bd, bi = _lex_merge_k(bd, bi, td, ti, k)
         lists.append((bd, bi))
     walls = _per_device_walls(mesh, t0)

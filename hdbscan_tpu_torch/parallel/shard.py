@@ -190,7 +190,7 @@ def shard_boruvka_mst(
                 pw, pj = min_outgoing_panel(
                     rows[me], cores[me], kr, valid[me],
                     rows[src].to(dev), cores[src].to(dev), labels[off : off + cnt],
-                    valid[src].to(dev), metric, row_tile, col_tile, form=form,
+                    valid[src].to(dev), metric, row_tile, col_tile, form=form, col_offset=off,
                 )
                 tj = torch.where(pj >= 0, pj + off, 0)
                 upd = (pw < bw) | ((pw == bw) & (tj < bj))

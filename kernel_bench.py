@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time one hand-written kernel body of one package tree on the card.
 
-    python3 kernel_bench.py segmin|kbest|rescan|window|ufscan|leaf|merge|minout ROOT [SHAPE ...]
+    python3 kernel_bench.py KERNEL ROOT [SHAPE ...]
+    (KERNEL: segmin kbest rescan window ufscan leaf merge minout cosine)
 
 ROOT is a directory holding ``hdbscan_tpu_torch/``: the checkout (``.``), or
 an earlier commit unpacked with ``git archive`` into a git-ignored directory,
@@ -89,9 +90,23 @@ point's core distance is its k-th nearest distance (``torch.cdist`` +
 in another component and, where the tree has ``cuda_forest.minout_splits``,
 its spans.
 
-``rescan``, ``ufscan``, ``leaf``, ``merge`` and ``minout`` also report ``device_ms``: each
-kernel's device time a call from ``torch.profiler`` (the wrapper's host
-gaps, which the CUDA event times include, left out).
+``cosine`` (metric code 6, every kernel that takes it): K2 on the Skin grid
+(k = 15) and on ``make_gauss(500,000, dims=28)`` at cosine and at pearson
+(k = 7; the 3f cells, in the fits' own row order), B1 on both at round 1
+with cosine core distances (each point's k-th nearest, from
+``F.normalize`` + ``torch.mm`` + ``torch.topk``, built once into
+``.torch_build/bench/``), B9 and the rectangular B2 on the 65,536 x 65,536
+panel of the Skin grid, B5 on the 3b leaf batch, B7 on the 3b rescan chunk
+and B8 on that chunk with round-1 components (the ``leaf`` and ``rescan``
+inputs: their candidates come from the euclidean forest query, inputs for
+timing). Beside the K2, B5 and B7 shapes, as a yardstick, one
+``F.normalize``, then ``torch.mm`` / ``torch.bmm`` (TF32 off) and
+``torch.topk(largest=True)`` of the similarities over the same pairs.
+
+``rescan``, ``ufscan``, ``leaf``, ``merge``, ``minout`` and ``cosine`` also
+report ``device_ms``: each kernel's device time a call from
+``torch.profiler`` (the wrapper's host gaps, which the CUDA event times
+include, left out).
 
 Beside the rescan, window and leaf shapes, as a yardstick and not a parity path,
 ``torch.cdist`` plus ``torch.topk(largest=False)`` over the same pairs
@@ -821,8 +836,139 @@ def minout_info(inputs: dict) -> dict:
     return out
 
 
+def cosine_inputs(data: Data) -> dict:
+    """Getters of the cosine shapes' inputs: the Skin grid and the 3f points
+    (unordered) with their cosine core distances (k 15 and 7)."""
+    import torch
+
+    def kth_cosine(x, k):
+        xn = torch.nn.functional.normalize(x, dim=1)
+        kth = []
+        for a in range(0, x.shape[0], 1024):
+            sim = torch.topk(torch.mm(xn[a:a + 1024], xn.t()), k, dim=1).values[:, k - 1]
+            kth.append(1.0 - sim)
+        return [torch.cat(kth)]
+
+    def cored(get, k, key):
+        memo = []
+
+        def run():
+            if not memo:
+                x = get()
+                memo.extend([x, _cached(f"cosine_core_{key}", lambda: kth_cosine(x, k))[0]])
+            return memo
+        return run
+
+    return {"skin": cored(data.skin, 16, "skin"),
+            "3f": cored(lambda: data.gauss(28, False), 8, "3f")}
+
+
+def cosine_shapes(data: Data, inputs: dict) -> dict:
+    """Shape name -> (function to time, repetitions), every kernel at
+    cosine (K2 and B1 at pearson too on the 3f points)."""
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.ops import cuda_knn, cuda_segmin
+
+    def k2(key, k, metric):
+        return lambda: cuda_knn.knn_kbest(inputs[key]()[0], k, metric, None, 8192)
+
+    def b1(key, metric):
+        def run():
+            x, core = inputs[key]()
+            n = x.shape[0]
+            return cuda_segmin.segmin(x, core, torch.arange(n, dtype=torch.int32, device="cuda"),
+                                      torch.ones(n, dtype=torch.bool, device="cuda"), metric,
+                                      None, 8192)
+        return run
+
+    def panel(which):
+        def run():
+            x, core = inputs["skin"]()
+            r, c = slice(0, PANEL), slice(PANEL, 2 * PANEL)
+            if which == "B2":
+                return cuda_knn.knn_kbest_panel(x[r], x[c], 15, "cosine", None, PANEL,
+                                                col_tile=PANEL)
+            comp = torch.arange(x.shape[0], dtype=torch.int32, device="cuda")
+            ones = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
+            return cuda_segmin.min_outgoing_panel(
+                x[r], core[r], comp[r], ones[r], x[c], core[c], comp[c], ones[c], "cosine",
+                1024, PANEL, col_offset=PANEL)
+        return run
+
+    leaf = leaf_batches(data)[f"B5 skin {N_SKIN}x3 k15 (3b)"]
+    rescan = rescan_panels(data)[f"B7 skin {N_SKIN}x3 k15 (3b)"][0]
+
+    def b5():
+        x, members, mask, kk, _, n, _ = leaf()
+        return cf.forest_leaf_topk(x, members, mask, kk, "cosine", None, "f32", n)
+
+    def b7():
+        q, x, cand = rescan()
+        return cf.forest_rescan_topk(q, x, cand, _rescan_k(cand), "cosine", "f32", x.shape[0])
+
+    def b8():
+        q, x, cand = rescan()
+        core = inputs["skin"]()[1]
+        comp = torch.arange(x.shape[0], dtype=torch.int32, device="cuda")
+        m = q.shape[0]
+        return cf.forest_min_outgoing(q, x, cand, core[:m], core, comp[:m], comp, "cosine",
+                                      x.shape[0])
+
+    return {
+        f"K2 cosine {N_SKIN}x3 k15": (k2("skin", 15, "cosine"), 3),
+        f"K2 cosine {N_HIGHD}x28 k7": (k2("3f", 7, "cosine"), 1),
+        f"K2 pearson {N_HIGHD}x28 k7": (k2("3f", 7, "pearson"), 1),
+        f"B1 cosine {N_SKIN}x3": (b1("skin", "cosine"), 3),
+        f"B1 cosine {N_HIGHD}x28": (b1("3f", "cosine"), 1),
+        f"B1 pearson {N_HIGHD}x28": (b1("3f", "pearson"), 1),
+        f"B9 cosine {PANEL}x{PANEL}x3": (panel("B9"), 5),
+        f"B2 cosine {PANEL}x{PANEL}x3 k15": (panel("B2"), 5),
+        f"B5 cosine skin {N_SKIN}x3 k15 (3b)": (b5, 10),
+        f"B7 cosine skin {N_SKIN}x3 k15 (3b)": (b7, 10),
+        f"B8 cosine skin {N_SKIN}x3 k15 (3b) round 1": (b8, 10),
+    }
+
+
+def cosine_yardstick(data: Data, inputs: dict) -> dict:
+    """``F.normalize``, ``torch.mm`` / ``torch.bmm`` (TF32 off) and
+    ``torch.topk(largest=True)`` at the K2, B5 and B7 cosine shapes."""
+    import torch
+
+    normalize = torch.nn.functional.normalize
+
+    def k2(key, k):
+        def run():
+            xn = normalize(inputs[key]()[0], dim=1)
+            rows = max(1, (1 << 28) // xn.shape[0])
+            for a in range(0, xn.shape[0], rows):
+                torch.topk(torch.mm(xn[a:a + rows], xn.t()), k, dim=1)
+        return run
+
+    leaf = leaf_batches(data)[f"B5 skin {N_SKIN}x3 k15 (3b)"]
+    rescan = rescan_panels(data)[f"B7 skin {N_SKIN}x3 k15 (3b)"][0]
+
+    def b5():
+        x, members, _, kk, _, _, _ = leaf()
+        pn = normalize(x[members.long()], dim=2)
+        torch.topk(torch.bmm(pn, pn.transpose(1, 2)), kk, dim=2)
+
+    def b7():
+        q, x, cand = rescan()
+        k = _rescan_k(cand)
+        xn, qn = normalize(x, dim=1), normalize(q, dim=1)
+        rows = max(1, (1 << 26) // cand.shape[1])
+        for a in range(0, q.shape[0], rows):
+            pts = xn[cand[a:a + rows].clamp(max=x.shape[0] - 1).long()]
+            torch.topk(torch.bmm(pts, qn[a:a + rows, :, None])[:, :, 0], k, dim=1)
+
+    return {f"K2 {N_SKIN}x3 k15": (k2("skin", 15), 2), f"K2 {N_HIGHD}x28 k7": (k2("3f", 7), 1),
+            f"B5 skin {N_SKIN}x3 k15 (3b)": (b5, 5), f"B7 skin {N_SKIN}x3 k15 (3b)": (b7, 5)}
+
+
 def main() -> int:
-    modes = ("segmin", "kbest", "rescan", "window", "ufscan", "leaf", "merge", "minout")
+    modes = ("segmin", "kbest", "rescan", "window", "ufscan", "leaf", "merge", "minout", "cosine")
     if len(sys.argv) < 3 or sys.argv[1] not in modes:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
@@ -839,7 +985,7 @@ def main() -> int:
     cuda_build.kernel({"kbest": "knn_kbest", "segmin": "segmin", "rescan": "forest_rescan_topk",
                        "window": "knn_window", "ufscan": "uf_scan",
                        "leaf": "forest_leaf_topk", "merge": "forest_merge",
-                       "minout": "forest_min_outgoing"}[kernel])
+                       "minout": "forest_min_outgoing", "cosine": "knn_kbest"}[kernel])
 
     def timed(shapes):
         return {name: ms(fn, reps) for name, (fn, reps) in shapes.items()
@@ -884,6 +1030,14 @@ def main() -> int:
         result["ms"] = timed(merge_shapes(stacks))
         result["device_ms"] = {name: device_ms(fn) for name, (fn, _) in
                                merge_shapes(stacks).items()}
+    elif kernel == "cosine":
+        inputs = cosine_inputs(data)
+        shapes = cosine_shapes(data, inputs)
+        result["ms"] = timed(shapes)
+        result["device_ms"] = {name: device_ms(fn, 1) for name, (fn, _) in shapes.items()
+                               if not keep or any(s in name for s in keep)}
+        result["normalize_mm_topk_other_rounding_and_tie_order_ms"] = timed(
+            cosine_yardstick(data, inputs))
     elif kernel == "minout":
         inputs = {name: v for name, v in minout_inputs(data, rescan_panels(data)).items()
                   if not keep or any(s in name for s in keep)}

@@ -340,10 +340,12 @@ def test_eligibility_and_card_limits():
     for bad in ({"metric": "pearson"}, {"k": 129}, {"d": 200}, {"dtype": np.float64}):
         assert not cf.fused_forest_eligible(**{**ok, **bad})
     cf.check_card_shape(8, 128, "manhattan", np.float32)
-    with pytest.raises(NotImplementedError, match="cosine"):
-        cf.check_card_shape(8, 16, "cosine", np.float32)
-    with pytest.raises(NotImplementedError, match="pearson"):
-        cf.check_card_shape(8, 16, "pearson", np.float32)
+    # Cosine and pearson (centred rows) run the kernels in f32; bf16 tiles
+    # stay euclidean only, as in the reference.
+    for metric in ("cosine", "pearson"):
+        cf.check_card_shape(8, 16, metric, np.float32)
+        with pytest.raises(ValueError, match="bf16 distance tiles support euclidean only"):
+            cf.check_card_shape(8, 16, metric, np.float32, "bf16")
     # Past the fused gate the kernels run their wide mode: the card takes
     # every k and d, but bf16 tiles stay within the gate.
     for d, k in ((8, 129), (129, 8), (200, 200)):
