@@ -134,9 +134,36 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    points, zero-norm rows and d = 129 (phase 2), the cells skin_cosine,
    highd_cosine, highd_pearson, 3b_cosine, 3e_cosine and 3g_cosine each
    equal their CPU fits on a 4,096-row slice, and 3g_cosine the
-   single-device fit (``metric_phase``); their kernels are timed as rows
+   single-device fit (``metric_phase``); with three zero rows added, the
+   dense fit and the MR fit with global_cores=false (block cores over NaN
+   distances) equal their CPU fits at both metrics (``zero_row_blocks``);
+   their kernels are timed as rows
    ``<kernel>_cosine`` and ``<kernel>_3f_{cosine,pearson}``, K2, B5 and B7
    beside ``F.normalize`` + ``torch.mm`` / ``torch.bmm`` + ``torch.topk``;
+3j. the command line (``python -m hdbscan_tpu_torch fit``) on phase 3's
+   Skin-shaped set, written as a tab-separated file like
+   ``Skin_NonSkin.txt``, in its three routes: ``cli_mr`` (the command a user
+   types, run as a subprocess: minPts=16 minClSize=3000
+   processing_units=16384 k=0.01 seed=0 --trace-out, the MR route),
+   ``cli_exact_sharded`` (``cli.main`` in this process with
+   fit_sharding=sharded processing_units=245057: the exact fit on a
+   one-card mesh) and ``cli_dense`` (in this process, the first 30,000
+   rows with processing_units=30000 minClSize=367: the dense single-block
+   fit at its real upper size; its peak device memory is printed). Each
+   leg must exit 0 with the stdout line naming its route, write five files
+   byte-identical to the in-process fit of the same file and flags on the
+   card (``mr_hdbscan.fit``, ``exact.fit``, ``models/hdbscan.fit``, then
+   ``write_outputs``) and a trace that passes ``scripts/check_trace.py``;
+   its 4,096-row leg (processing_units 1,024 for ``cli_mr``, else 4,096;
+   minClSize=50) must write the same files on the card and with ``--device
+   cpu``. The launch counters, zeroed just before each in-process run and
+   read just after, must show the route's kernels: the rectangular B2, B9
+   and K3 for ``cli_exact_sharded``; K3 for ``cli_dense`` (its dense block
+   is plain PyTorch ops, as the reference's is XLA; K3 runs in the
+   finalize's device forest build); ``cli_mr``'s K2 and B1 are counted on
+   its in-process twin. Each leg prints its
+   wall, its ``phases:`` summary and its file sizes beside the card's name
+   and power limit;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -208,6 +235,23 @@ HIGHD_PARAMS = dict(min_points=8, min_cluster_size=2500, processing_units=16384,
 #: the first card.
 N_SHARDS = 4
 SHARDED = dict(fit_sharding="sharded", mst_backend="device", knn_index="exact")
+#: Phase 3j, the command line: its legs (name, rows of the Skin-shaped set,
+#: key=value flags, processing_units of the 4,096-row leg, the kernels the
+#: route must launch, whether the full-size leg runs as a subprocess, the
+#: route its stdout line names). cli_dense's minClSize is 3000 scaled by
+#: 30,000 / 245,057; the 4,096-row legs take minClSize=50.
+CLI_SUB_ROWS = 4096
+CLI_DENSE_ROWS = 30_000
+CLI_LEGS = (
+    ("cli_mr", N_SKIN, ["minPts=16", "minClSize=3000", "processing_units=16384", "k=0.01",
+                        "seed=0"], 1024, ("knn_kbest", "segmin"), True, ", mr ("),
+    ("cli_exact_sharded", N_SKIN, ["minPts=16", "minClSize=3000", "fit_sharding=sharded",
+                                   f"processing_units={N_SKIN}"], 4096,
+     ("knn_kbest_panel", "segmin_panel", "uf_scan"), False, ", exact-sharded, "),
+    ("cli_dense", CLI_DENSE_ROWS, ["minPts=16", "minClSize=367",
+                                   f"processing_units={CLI_DENSE_ROWS}"], 4096, ("uf_scan",),
+     False, ", exact, "),
+)
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -2417,6 +2461,57 @@ def metric_cell(label, x, params, kernels, fit=None, sub_kw=None, **fit_kw):
     return msg or check_fit(label, res, launches, ev, len(x), kernels), res, launches, ev, wall
 
 
+def zero_row_blocks() -> list[str]:
+    """The dense core distances with NaN distances on the card: three zero
+    rows before the data of ``tests/test_torch_dense.py``'s MR zero-row
+    test (integer blobs at cosine, continuous blobs at pearson), through
+    the dense fit (one block) and the MR fit with global_cores=false
+    (processing_units=200, seed 1: each block's own cores,
+    ``parallel/blocks.block_mst_batch``, with the zero rows in blocks of
+    other rows); each equal to its CPU fit (NaN equal to NaN), with NaN
+    cores on the zero rows. Returns failure messages."""
+    import dataclasses
+
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import hdbscan, mr_hdbscan
+
+    def same(a, b):
+        if dataclasses.is_dataclass(a):
+            return all(same(getattr(a, f.name), getattr(b, f.name))
+                       for f in dataclasses.fields(a) if f.name != "wall_s")
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+        return a == b
+
+    rng = np.random.default_rng(6)
+    centres = rng.uniform(3, 14, size=(4, 3))
+    grid = np.round(centres[rng.integers(0, 4, 480)] + rng.normal(0, 1.2, size=(480, 3)))
+    grid = np.clip(np.concatenate([grid, rng.integers(1, 17, size=(60, 3))]), 1, None)
+    rng = np.random.default_rng(1)
+    centres = rng.normal(0, 4, size=(4, 5))
+    cont = centres[rng.integers(0, 4, 600)] + rng.normal(0, 0.6, size=(600, 5)) + 3.0
+    errors = []
+    for metric, pts in (("cosine", grid), ("pearson", cont)):
+        x = np.concatenate([np.zeros((3, pts.shape[1])), pts])
+        p = HDBSCANParams(min_points=8, min_cluster_size=20, dist_function=metric,
+                          processing_units=200, seed=1, global_core_distances=False)
+        a, b = hdbscan.fit(x, p), hdbscan.fit(x, p, device="cpu")
+        ma, mb = mr_hdbscan.fit(x, p), mr_hdbscan.fit(x, p, device="cpu")
+        dense, mr = same(a, b), same(ma, mb)
+        nan = np.isnan(a.core_distances[:3]).all() and np.isnan(ma.core_distances[:3]).all()
+        print(f"zero rows at {metric}: dense fit card vs CPU "
+              f"{'identical' if dense else 'DIFFERENT'}, MR fit (global_cores=false, "
+              f"{ma.n_levels} levels) card vs CPU {'identical' if mr else 'DIFFERENT'}, "
+              f"zero rows' cores NaN: {nan}")
+        if not (dense and mr and nan):
+            errors.append(f"zero rows at {metric}: dense {dense}, MR {mr}, NaN cores {nan}")
+    return errors
+
+
 def metric_phase(data, hdata, fdata, mesh) -> tuple[list[str], list[dict]]:
     """The cosine and pearson cells (metric code 6 in K2, B1, B9, the
     rectangular B2 and B5-B8), each equal to its CPU fit on a 4,096-row
@@ -2478,6 +2573,7 @@ def metric_phase(data, hdata, fdata, mesh) -> tuple[list[str], list[dict]]:
         errors.append("3e_cosine: the card's MR fit differs from the CPU's on 4096 rows")
     if not np.all(np.isfinite(qres.core_distances)) or not (ql["knn_kbest"] and ql["segmin"]):
         errors.append(f"3e_cosine: non-finite cores or K2/B1 never launched ({ql})")
+    errors += zero_row_blocks()
 
     sp = dataclasses.replace(skin, **SHARDED)
     cpu_mesh = get_mesh([torch.device("cpu")] * N_SHARDS)
@@ -2650,6 +2746,161 @@ def wide_phase(launches_out: dict) -> tuple[list[str], list[dict]]:
     rows.append(window_time(max(recorder.calls, key=lambda args: args[2].shape[0]), launches,
                             "knn_window_wide"))
     return errors, rows
+
+
+def file_digests(out_dir) -> dict:
+    """{file name: (bytes, sha256)} of the files a run wrote."""
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        h = hashlib.sha256()
+        with open(os.path.join(out_dir, name), "rb") as f:
+            for block in iter(lambda: f.read(1 << 24), b""):
+                h.update(block)
+        out[name] = (os.path.getsize(os.path.join(out_dir, name)), h.hexdigest())
+    return out
+
+
+def run_cli(argv, here, as_subprocess: bool):
+    """One command line run on the card (or where ``--device`` says):
+    ``python -m hdbscan_tpu_torch`` in a subprocess, or ``cli.main`` in this
+    process with the launch counters zeroed just before and read just
+    after. Returns (exit code, stdout, stderr, wall s, launches or None,
+    peak device bytes or None)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hdbscan_tpu_torch import cli
+    from hdbscan_tpu_torch.ops import cuda_build
+
+    if as_subprocess:
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "hdbscan_tpu_torch", *argv], cwd=here,
+                             capture_output=True, text=True, timeout=900)
+        return out.returncode, out.stdout, out.stderr, time.perf_counter() - t, None, None
+    so, se = io.StringIO(), io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (rc, so.getvalue(), se.getvalue(), wall, dict(cuda_build.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def cli_twin(name, path, flags, out_dir, device):
+    """The fit the leg's route runs, called in this process on the same
+    file and flags (``mr_hdbscan.fit``, ``exact.fit`` or ``models/hdbscan.fit``),
+    then ``write_outputs``: its launches."""
+    import dataclasses
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact, hdbscan, mr_hdbscan
+    from hdbscan_tpu_torch.ops import cuda_build
+    from hdbscan_tpu_torch.utils.io import load_points
+
+    params = dataclasses.replace(HDBSCANParams.from_args([f"file={path}", *flags]),
+                                 out_dir=out_dir)
+    data = load_points(path)
+    fit = {"cli_mr": mr_hdbscan.fit, "cli_exact_sharded": exact.fit}.get(name, hdbscan.fit)
+    cuda_build.reset_launches()
+    hdbscan.write_outputs(fit(data, params, device=device), params)
+    return dict(cuda_build.LAUNCHES)
+
+
+def check_trace_file(here, path) -> str | None:
+    """``scripts/check_trace.py`` on a trace file (stdlib only, run as a
+    subprocess): None when it passes, else its output."""
+    out = subprocess.run([sys.executable, os.path.join(here, "scripts", "check_trace.py"), path],
+                         capture_output=True, text=True, timeout=300)
+    return None if out.returncode == 0 else (out.stdout + out.stderr)[-2000:]
+
+
+def cli_leg(here, root, data, card, leg) -> list[str]:
+    """One leg of phase 3j (see the module docstring)."""
+    import numpy as np
+
+    name, rows, flags, sub_pu, kernels, as_subprocess, mode = leg
+    x = data[:rows]
+    path = os.path.join(root, f"{name}.tsv")
+    sub_path = os.path.join(root, f"{name}_{CLI_SUB_ROWS}.tsv")
+    np.savetxt(path, x, delimiter="\t", fmt="%d")
+    np.savetxt(sub_path, x[:CLI_SUB_ROWS], delimiter="\t", fmt="%d")
+    errors = []
+
+    def run(tag, file, leg_flags, subproc, device=()):
+        out_dir, trace = os.path.join(root, tag), os.path.join(root, f"{tag}.jsonl")
+        argv = ["fit", f"file={file}", *leg_flags, f"out_dir={out_dir}", "--trace-out", trace,
+                *device]
+        rc, out, err, wall, launches, peak = run_cli(argv, here, subproc)
+        first = out.splitlines()[0] if out else ""
+        print(f"3j {tag} ({card}): exit {rc}, wall {wall:.3f} s; {first}")
+        phases = err.split("phases:\n", 1)[-1] if "phases:\n" in err else ""
+        print(f"3j {tag} phases: {'; '.join(p.strip() for p in phases.splitlines())}")
+        if rc != 0:
+            errors.append(f"{tag}: exit {rc}: {err[-2000:]}")
+            return None, launches, peak
+        if mode not in first:
+            errors.append(f"{tag}: the stdout line does not name the route {mode!r}: {first}")
+        bad = check_trace_file(here, trace)
+        if bad:
+            errors.append(f"{tag}: check_trace.py failed: {bad}")
+        digests = file_digests(out_dir)
+        print(f"3j {tag} files (bytes): { {k: v[0] for k, v in digests.items()} }")
+        return digests, launches, peak
+
+    files, launches, peak = run(name, path, flags, as_subprocess)
+    if files is None:
+        return errors
+    twin_launches = cli_twin(name, path, flags, os.path.join(root, f"{name}_twin"), None)
+    twin_same = file_digests(os.path.join(root, f"{name}_twin")) == files
+    if not twin_same:
+        errors.append(f"{name}: the files differ from the in-process fit's on the card")
+    if as_subprocess:
+        launches = twin_launches  # counted on the in-process twin
+    print(f"3j {name} launches ({'the in-process twin' if as_subprocess else 'the CLI run'}): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        errors.append(f"{name}: kernels of the route never launched: {missing}")
+    if peak is not None:
+        print(f"3j {name} peak device memory {peak / 2**30:.3f} GiB")
+    sub_flags = [f for f in flags if not f.startswith(("processing_units=", "minClSize="))]
+    sub_flags += [f"processing_units={sub_pu}", "minClSize=50"]
+    card_files, _, _ = run(f"{name}_{CLI_SUB_ROWS}_card", sub_path, sub_flags, False)
+    cpu_files, _, _ = run(f"{name}_{CLI_SUB_ROWS}_cpu", sub_path, sub_flags, False,
+                          ("--device", "cpu"))
+    if card_files is None or card_files != cpu_files:
+        errors.append(f"{name}: the {CLI_SUB_ROWS}-row files differ card against CPU")
+    print(f"3j {name}: files vs the in-process fit {'identical' if twin_same else 'DIFFERENT'}; "
+          f"{CLI_SUB_ROWS}-row leg card vs CPU "
+          f"{'identical' if card_files and card_files == cpu_files else 'DIFFERENT'}")
+    return errors
+
+
+def cli_phase(here, data, card) -> list[str]:
+    """Phase 3j: the command line's three routes on the Skin-shaped set,
+    written as a tab-separated file like ``Skin_NonSkin.txt``; the files go
+    to the git-ignored ``.torch_build/cli`` and are removed after."""
+    import shutil
+
+    root = os.path.join(here, ".torch_build", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    errors = []
+    try:
+        for leg in CLI_LEGS:
+            errors += cli_leg(here, root, data, card, leg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return errors
 
 
 def main() -> int:
@@ -2875,6 +3126,11 @@ def main() -> int:
     errors, metric_rows = metric_phase(data, hdata, fdata, mesh)
     if errors:
         return fail(f"the cosine and pearson cells failed: {errors}")
+
+    # --- 3j: the command line's three routes ------------------------------
+    errors = cli_phase(here, data, card)
+    if errors:
+        return fail(f"the command line failed: {errors}")
 
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1

@@ -3,12 +3,16 @@ port of ``core/knn.py``.
 
 Core distance semantics are the reference's: the largest of a point's
 ``min_pts - 1`` smallest distances over its row of the self-distance
-matrix, self (distance 0) included; ``min_pts <= 1`` gives zeros.
+matrix, self (distance 0) included; ``min_pts <= 1`` gives zeros. A NaN
+distance takes a slot before every number, as in the reference's
+``lax.top_k``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hdbscan_tpu_torch.core.distances import DEFAULT_METRIC, self_distance_matrix
 
 
 def resolve_index_for(params, n: int) -> tuple[str, dict]:
@@ -53,7 +57,19 @@ def core_distances_from_matrix(
         core = torch.zeros(dist.shape[:-1], dtype=dist.dtype, device=dist.device)
     else:
         k = min(min_pts - 1, n)
-        core = torch.topk(dist, k, dim=-1, largest=False, sorted=True).values[..., k - 1]
+        vals = torch.topk(dist, k, dim=-1, largest=False, sorted=True).values
+        core = vals[..., k - 1]
+        # The reference's ``lax.top_k(-dist)`` ranks a NaN distance (a
+        # zero-norm row's at cosine and pearson: x86's NaN, negated, is a
+        # positive NaN) before every number, so a row's c NaNs take its
+        # first c slots: the core is its (k - c)-th smallest number, NaN
+        # where c >= k. torch.topk ranks NaN after every number. A row sum
+        # is NaN exactly where the row holds a NaN (no distance is -inf),
+        # so the count runs only on matrices that hold one.
+        if torch.isnan(dist.sum(dim=-1)).any():
+            nans = torch.isnan(dist).sum(dim=-1, keepdim=True)
+            core = torch.gather(vals, -1, (k - 1 - nans).clamp_min(0)).squeeze(-1)
+            core = torch.where(nans.squeeze(-1) >= k, torch.nan, core)
         if valid is not None:
             row_max = torch.amax(torch.where(valid[..., None, :], dist, -inf), dim=-1)
             core = torch.where(torch.isinf(core), row_max, core)
@@ -65,3 +81,14 @@ def core_distances_from_matrix(
 def mutual_reachability(dist: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
     """MRD[i, j] = max(dist[i, j], core[i], core[j]) over (..., n, n)."""
     return torch.maximum(dist, torch.maximum(core[..., :, None], core[..., None, :]))
+
+
+def mutual_reachability_block(
+    x: torch.Tensor, min_pts: int, metric: str = DEFAULT_METRIC,
+    valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(MRD matrix, core distances) of one point block (..., n, d);
+    ``valid`` as in :func:`core_distances_from_matrix`."""
+    dist = self_distance_matrix(x, metric)
+    core = core_distances_from_matrix(dist, min_pts, valid)
+    return mutual_reachability(dist, core), core

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from hdbscan_tpu_torch.core.distances import euclidean_form, pairwise_distance, self_distance_matrix
-from hdbscan_tpu_torch.core.knn import core_distances_from_matrix, mutual_reachability
+from hdbscan_tpu_torch.core.knn import mutual_reachability, mutual_reachability_block
 from hdbscan_tpu_torch.core.mst import boruvka_mst
 from hdbscan_tpu_torch.ops.tiled import _next_pow2
 
@@ -38,10 +38,7 @@ def block_mst_batch(x: torch.Tensor, num_valid: torch.Tensor, min_pts: int, metr
     MST edges and (B, cap) core distances (+inf on padding)."""
     cap = x.shape[1]
     valid = torch.arange(cap, device=x.device)[None, :] < num_valid[:, None]
-    dist = self_distance_matrix(x, metric)
-    core = core_distances_from_matrix(dist, min_pts, valid)
-    mrd = mutual_reachability(dist, core)
-    del dist
+    mrd, core = mutual_reachability_block(x, min_pts, metric, valid)
     u, v, w, mask, _ = boruvka_mst(mrd, num_valid)
     return u, v, w, mask, core
 

@@ -1,0 +1,219 @@
+"""The port's command line (``python -m hdbscan_tpu_torch``) against the
+reference's (``hdbscan_tpu.cli``), on the CPU (``--device cpu``).
+
+On integer grids the five files are byte-identical to the reference CLI's,
+run at its production setting (float32: ``jax.enable_x64(False)``), on the
+dense route and on the MR route in the default and boundary modes. The
+``exact-sharded`` route's files equal the reference's ``exact.fit`` plus
+``write_outputs`` run in process (the reference's own sharded CLI route
+fails under the installed jax). Every ``--trace-out`` file passes
+``scripts/check_trace.py``; every flag, subcommand and ``clusterName`` that
+is not ported exits 2 naming its ROADMAP item before any data is read.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from hdbscan_tpu.cli import main as ref_main
+from hdbscan_tpu.config import HDBSCANParams as RefParams
+from hdbscan_tpu.models import exact as ref_exact
+from hdbscan_tpu.models.hdbscan import write_outputs as ref_write
+from hdbscan_tpu.utils.io import load_points as ref_load
+from hdbscan_tpu_torch.cli import main as port_main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHECK_TRACE = os.path.join(REPO, "scripts", "check_trace.py")
+BASE = ["minPts=8", "minClSize=40", "seed=0"]
+
+
+@pytest.fixture(scope="module")
+def grid_file(tmp_path_factory):
+    """1,650 points on an integer grid (six blobs and uniform noise), tab
+    separated like ``Skin_NonSkin.txt``."""
+    rng = np.random.default_rng(3)
+    centres = rng.uniform(0, 60, size=(6, 3))
+    x = np.round(centres[rng.integers(0, 6, 1500)] + rng.normal(0, 3, size=(1500, 3)))
+    x = np.concatenate([x, rng.integers(0, 60, size=(150, 3))])
+    path = tmp_path_factory.mktemp("grid") / "grid.tsv"
+    np.savetxt(path, x, delimiter="\t", fmt="%d")
+    return str(path)
+
+
+def _files(out_dir) -> dict:
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def _check_trace(path):
+    out = subprocess.run([sys.executable, CHECK_TRACE, path], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _summary(stdout: str) -> str:
+    """The result line without its wall time."""
+    line = stdout.splitlines()[0]
+    assert line.startswith("hdbscan-tpu: "), stdout
+    return line.rsplit(",", 1)[0]
+
+
+@pytest.mark.parametrize(
+    "extra,mode",
+    [
+        (["processing_units=2000"], "exact,"),
+        (["processing_units=256", "k=0.1"], "mr (3 levels)"),
+        (["processing_units=256", "k=0.1", "boundary=0.05"], "mr (3 levels)"),
+    ],
+    ids=["dense", "mr-default", "mr-boundary"],
+)
+def test_files_equal_reference_cli(tmp_path, grid_file, capsys, extra, mode):
+    argv = ["fit", f"file={grid_file}", *BASE, *extra]
+    with jax.enable_x64(False):
+        assert ref_main(argv + [f"out_dir={tmp_path / 'ref'}"]) == 0
+    ref_out = capsys.readouterr().out
+    trace = str(tmp_path / "trace.jsonl")
+    assert port_main(argv + [f"out_dir={tmp_path / 'port'}", "--device", "cpu",
+                             "--trace-out", trace]) == 0
+    out, err = capsys.readouterr()
+    assert _summary(out) == _summary(ref_out)
+    assert f", {mode}" in out.splitlines()[0]
+    assert "phases:" in err and "write_outputs: n=1" in err
+    ref_files, port_files = _files(tmp_path / "ref"), _files(tmp_path / "port")
+    assert sorted(port_files) == sorted(ref_files) and len(ref_files) == 5
+    for name in ref_files:
+        assert port_files[name] == ref_files[name], name
+    _check_trace(trace)
+
+
+def test_exact_sharded_route_equals_reference_exact_fit(tmp_path, grid_file, capsys):
+    argv = ["fit", f"file={grid_file}", *BASE, "processing_units=2000", "fit_sharding=sharded"]
+    trace = str(tmp_path / "trace.jsonl")
+    assert port_main(argv + [f"out_dir={tmp_path / 'port'}", "--device", "cpu",
+                             "--trace-out", trace]) == 0
+    out = capsys.readouterr().out
+    assert ", exact-sharded, " in out.splitlines()[0]
+    # The reference's single-device exact fit: its sharded program fails
+    # under the installed jax, and the sharded fit equals the single-device
+    # one (tests/test_torch_shard.py).
+    ref_params = RefParams.from_args(argv[1:-1] + [f"out_dir={tmp_path / 'ref'}"])
+    with jax.enable_x64(False):
+        ref_write(ref_exact.fit(ref_load(grid_file), ref_params), ref_params)
+    ref_files, port_files = _files(tmp_path / "ref"), _files(tmp_path / "port")
+    assert sorted(port_files) == sorted(ref_files) and len(ref_files) == 5
+    for name in ref_files:
+        assert port_files[name] == ref_files[name], name
+    _check_trace(trace)
+
+
+def test_trace_file_records_the_cli_events(tmp_path, grid_file, capsys):
+    import json
+
+    trace = str(tmp_path / "t.jsonl")
+    assert port_main([f"file={grid_file}", *BASE, "processing_units=2000",
+                      f"out_dir={tmp_path}", f"--trace-out={trace}", "--device=cpu",
+                      "trace_rotate_bytes=0"]) == 0
+    capsys.readouterr()
+    with open(trace) as f:
+        recs = [json.loads(line) for line in f]
+    stages = [r["stage"] for r in recs]
+    assert stages[0] == "load_points" and stages[-2:] == ["fit", "write_outputs"]
+    assert "block_edges" in stages
+    fit = recs[-2]
+    assert fit["mode"] == "exact" and fit["rows"] == 1650 and fit["process"] == 0
+    assert [r["seq"] for r in recs] == list(range(len(recs)))
+
+
+@pytest.mark.parametrize(
+    "argv,item",
+    [
+        (["predict", "--model", "m.npz", "--points", "MISSING"], "A7"),
+        (["serve", "--model", "m.npz"], "A7"),
+        (["fleet", "--model", "m.npz"], "A12"),
+        (["fit", "file=MISSING", "--model-out", "m.npz"], "A7"),
+        (["fit", "file=MISSING", "--report", "r.json"], "A11"),
+        (["fit", "file=MISSING", "--flight-dir", "fl"], "A11"),
+        (["fit", "file=MISSING", "--assert-not-replicated"], "A11"),
+        (["fit", "file=MISSING", "--compile-cache", "off"], "A11"),
+        (["file=MISSING", "compile_cache=off"], "A11"),
+        (["file=MISSING", "heartbeat=0.5"], "A11"),
+        (["file=MISSING", "watchdog=30"], "A11"),
+        (["file=MISSING", "skew_threshold=3"], "A11"),
+        (["file=MISSING", "straggler_rounds=5"], "A11"),
+        (["file=MISSING", "clusterName=auto"], "A9"),
+        (["file=MISSING", "clusterName=localhost:1234,0,2"], "A9"),
+    ],
+)
+def test_unported_flags_exit_2_before_reading_data(tmp_path, capsys, argv, item):
+    """``file=`` names a file that does not exist: a run that read data
+    would raise instead of returning 2."""
+    argv = [a.replace("MISSING", str(tmp_path / "absent.tsv")) for a in argv]
+    assert port_main(argv + ["--device", "cpu"]) == 2
+    assert f"is not ported yet (ROADMAP {item})" in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize(
+    "extra,item",
+    [
+        (["processing_units=256", "variant=rs"], "A6"),
+        (["processing_units=256", "dedup=true"], "A6"),
+        (["processing_units=256", "fit_sharding=sharded"], "A9"),
+        (["processing_units=2000", "fit_sharding=sharded", "mst_backend=host"], "A3"),
+    ],
+)
+def test_unported_routes_exit_2(tmp_path, grid_file, capsys, extra, item):
+    """A fit route that is not ported raises ``NotImplementedError``; the
+    CLI prints it and exits 2, and runs no other route instead."""
+    argv = [f"file={grid_file}", *BASE, *extra, f"out_dir={tmp_path / 'out'}", "--device", "cpu"]
+    assert port_main(argv) == 2
+    assert f"(ROADMAP {item})" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "out")
+
+
+def test_bad_flag_missing_file_and_help(capsys):
+    assert port_main(["file=x", "bogus=1", "--device", "cpu"]) == 2
+    assert "unknown flag" in capsys.readouterr().err
+    assert port_main(["minPts=4", "--device", "cpu"]) == 2
+    assert "file=<input> is required" in capsys.readouterr().err
+    assert port_main(["fit", "--trace-out"]) == 2
+    assert "requires a PATH" in capsys.readouterr().err
+    for argv in (["--help"], ["fit", "-h"], []):
+        assert port_main(argv) == 0
+        out = capsys.readouterr().out
+        assert "minPts" in out and "--trace-out" in out and "(A11)" in out
+
+
+def test_without_a_card_fails_and_writes_nothing(tmp_path, grid_file, capsys):
+    """No ``--device`` means the card; with no card the command fails
+    instead of running on the CPU, and writes no file."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the command would run on it")
+    argv = [f"file={grid_file}", *BASE, "processing_units=2000", f"out_dir={tmp_path / 'out'}",
+            "--trace-out", str(tmp_path / "t.jsonl")]
+    assert port_main(argv) != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
+    assert port_main(argv + ["--device", "bogus"]) != 0
+    assert os.listdir(tmp_path) == []
+
+
+def test_module_runs_as_a_command(tmp_path, grid_file):
+    out = subprocess.run(
+        [sys.executable, "-m", "hdbscan_tpu_torch", "fit", f"file={grid_file}", *BASE,
+         "processing_units=2000", f"out_dir={tmp_path}", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert ", exact, " in out.stdout.splitlines()[0]
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        f"grid_{k}" for k in ("hierarchy.csv", "tree.csv", "partition.csv",
+                              "outlier_scores.csv", "visualization.vis"))

@@ -21,6 +21,8 @@ PORT = os.path.join(REPO, "hdbscan_tpu_torch")
 
 _PORT_MODULES = [
     "hdbscan_tpu_torch",
+    "hdbscan_tpu_torch.__main__",
+    "hdbscan_tpu_torch.cli",
     "hdbscan_tpu_torch.config",
     "hdbscan_tpu_torch.core.bubbles",
     "hdbscan_tpu_torch.core.constraints",
@@ -54,6 +56,8 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.utils.evaluation",
     "hdbscan_tpu_torch.utils.flops",
     "hdbscan_tpu_torch.utils.io",
+    "hdbscan_tpu_torch.utils.telemetry",
+    "hdbscan_tpu_torch.utils.tracing",
     "hdbscan_tpu_torch.utils.unionfind",
 ]
 
