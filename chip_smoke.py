@@ -164,6 +164,32 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    its in-process twin. Each leg prints its
    wall, its ``phases:`` summary and its file sizes beside the card's name
    and power limit;
+3k. the host-round routes on phase 3's Skin-shaped set, each cell's
+   4,096-row fit on the card equal to the same fit on the CPU (CPU shards
+   for a mesh) and each full fit run with the launch counters zeroed just
+   before and read just after, printing its wall, stage walls, per-round
+   (scan, fetch, contraction) walls and launches: ``skin_host_rounds``
+   (``mst_backend=host``: K2, B1 once a round; MST edge set and labels
+   equal to phase 3's device-route fit), ``skin_ring_1`` and
+   ``skin_ring_4`` (``scan_backend=ring`` on a one-card mesh and on four
+   shards of one card: the rectangular B2 and B9; MST equal to
+   ``skin_host_rounds``'), ``skin_shard_host`` (``fit_sharding=sharded
+   mst_backend=host`` on four shards: the same), ``skin_dedup``
+   (``dedup_points=True`` on 245,057 rows drawn from 51,433 unique grid
+   points with three groups of at least 3,000 rows: K2 with ids, B1, K3;
+   ARI 1.0 and equal core distances against the full-row device fit of the
+   same rows) with its command-line leg ``cli_dedup_sharded`` (``dedup=true
+   fit_sharding=sharded processing_units=245057``: the rectangular B2, B9
+   and K3; the checks of a 3j leg), and ``skin_rb``
+   (``mst_edges_random_blocks(n_parts=64, seed=0)``, BASELINE.json config
+   5: K2 and the plain block ops; its 4,096-row run equal card against
+   CPU, its sorted MST weights equal to ``skin_host_rounds``' and its
+   ``tree.extract_clusters`` labels the same partition as its labels (the
+   same noise rows and clusters, cluster ids renamed: another tie-broken
+   MST of the same weights numbers the clusters in another order); blocks,
+   launches and the
+   block and ``pool_mst`` walls printed). ``python3 chip_smoke.py 3k``
+   builds the kernels and runs phases 3 and 3k alone;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -252,6 +278,17 @@ CLI_LEGS = (
                                    f"processing_units={CLI_DENSE_ROWS}"], 4096, ("uf_scan",),
      False, ", exact, "),
 )
+#: Phase 3k, the host-round routes: the dedup cell's unique points (the
+#: real Skin set's count), its heavy groups (rows each, past minClSize) and
+#: the Random Blocks cell's parts (BASELINE.json config 5).
+N_SKIN_UNIQUE = 51_433
+HEAVY_GROUPS = (3500, 3200, 3000)
+RB_PARTS = 64
+#: Its command-line leg (the 3j leg tuple): dedup on the exact-sharded route.
+CLI_DEDUP_LEG = ("cli_dedup_sharded", N_SKIN,
+                 ["minPts=16", "minClSize=3000", "dedup=true", "fit_sharding=sharded",
+                  f"processing_units={N_SKIN}"], 4096,
+                 ("knn_kbest_panel", "segmin_panel", "uf_scan"), False, ", exact-sharded, ")
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -932,8 +969,9 @@ def highd_data(dims: int):
     return make_gauss(N_HIGHD, dims=dims, n_clusters=8, separation=3 * np.sqrt(dims), seed=4)
 
 
-def check_fit(label, res, launches, ev, n, kernels) -> str | None:
-    """The checks every fit passes; a failure message or None."""
+def check_fit(label, res, launches, ev, n, kernels, n_rows=None) -> str | None:
+    """The checks every fit passes (``n`` vertices, ``n_rows`` rows when a
+    dedup fit's vertices are fewer); a failure message or None."""
     import numpy as np
 
     from hdbscan_tpu_torch.core import mst_device
@@ -946,7 +984,8 @@ def check_fit(label, res, launches, ev, n, kernels) -> str | None:
         return f"{label}: Borůvka hit the round cap ({mst['rounds']})"
     if not (np.all(np.isfinite(res.core_distances)) and np.all(np.isfinite(w))):
         return f"{label}: non-finite core distances or MST weights"
-    if res.labels.shape != (n,) or res.outlier_scores.shape != (n,):
+    n_rows = n if n_rows is None else n_rows
+    if res.labels.shape != (n_rows,) or res.outlier_scores.shape != (n_rows,):
         return f"{label}: result arrays have the wrong shape"
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
@@ -2809,7 +2848,8 @@ def cli_twin(name, path, flags, out_dir, device):
     params = dataclasses.replace(HDBSCANParams.from_args([f"file={path}", *flags]),
                                  out_dir=out_dir)
     data = load_points(path)
-    fit = {"cli_mr": mr_hdbscan.fit, "cli_exact_sharded": exact.fit}.get(name, hdbscan.fit)
+    fit = {"cli_mr": mr_hdbscan.fit, "cli_exact_sharded": exact.fit,
+           "cli_dedup_sharded": exact.fit}.get(name, hdbscan.fit)
     cuda_build.reset_launches()
     hdbscan.write_outputs(fit(data, params, device=device), params)
     return dict(cuda_build.LAUNCHES)
@@ -2823,8 +2863,9 @@ def check_trace_file(here, path) -> str | None:
     return None if out.returncode == 0 else (out.stdout + out.stderr)[-2000:]
 
 
-def cli_leg(here, root, data, card, leg) -> list[str]:
-    """One leg of phase 3j (see the module docstring)."""
+def cli_leg(here, root, data, card, leg, phase="3j") -> list[str]:
+    """One leg of phase 3j (see the module docstring); ``phase`` prefixes
+    its lines."""
     import numpy as np
 
     name, rows, flags, sub_pu, kernels, as_subprocess, mode = leg
@@ -2841,9 +2882,9 @@ def cli_leg(here, root, data, card, leg) -> list[str]:
                 *device]
         rc, out, err, wall, launches, peak = run_cli(argv, here, subproc)
         first = out.splitlines()[0] if out else ""
-        print(f"3j {tag} ({card}): exit {rc}, wall {wall:.3f} s; {first}")
+        print(f"{phase} {tag} ({card}): exit {rc}, wall {wall:.3f} s; {first}")
         phases = err.split("phases:\n", 1)[-1] if "phases:\n" in err else ""
-        print(f"3j {tag} phases: {'; '.join(p.strip() for p in phases.splitlines())}")
+        print(f"{phase} {tag} phases: {'; '.join(p.strip() for p in phases.splitlines())}")
         if rc != 0:
             errors.append(f"{tag}: exit {rc}: {err[-2000:]}")
             return None, launches, peak
@@ -2853,7 +2894,7 @@ def cli_leg(here, root, data, card, leg) -> list[str]:
         if bad:
             errors.append(f"{tag}: check_trace.py failed: {bad}")
         digests = file_digests(out_dir)
-        print(f"3j {tag} files (bytes): { {k: v[0] for k, v in digests.items()} }")
+        print(f"{phase} {tag} files (bytes): { {k: v[0] for k, v in digests.items()} }")
         return digests, launches, peak
 
     files, launches, peak = run(name, path, flags, as_subprocess)
@@ -2865,13 +2906,13 @@ def cli_leg(here, root, data, card, leg) -> list[str]:
         errors.append(f"{name}: the files differ from the in-process fit's on the card")
     if as_subprocess:
         launches = twin_launches  # counted on the in-process twin
-    print(f"3j {name} launches ({'the in-process twin' if as_subprocess else 'the CLI run'}): "
+    print(f"{phase} {name} launches ({'the in-process twin' if as_subprocess else 'the CLI run'}): "
           f"{ {k: v for k, v in launches.items() if v} }")
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         errors.append(f"{name}: kernels of the route never launched: {missing}")
     if peak is not None:
-        print(f"3j {name} peak device memory {peak / 2**30:.3f} GiB")
+        print(f"{phase} {name} peak device memory {peak / 2**30:.3f} GiB")
     sub_flags = [f for f in flags if not f.startswith(("processing_units=", "minClSize="))]
     sub_flags += [f"processing_units={sub_pu}", "minClSize=50"]
     card_files, _, _ = run(f"{name}_{CLI_SUB_ROWS}_card", sub_path, sub_flags, False)
@@ -2879,7 +2920,7 @@ def cli_leg(here, root, data, card, leg) -> list[str]:
                           ("--device", "cpu"))
     if card_files is None or card_files != cpu_files:
         errors.append(f"{name}: the {CLI_SUB_ROWS}-row files differ card against CPU")
-    print(f"3j {name}: files vs the in-process fit {'identical' if twin_same else 'DIFFERENT'}; "
+    print(f"{phase} {name}: files vs the in-process fit {'identical' if twin_same else 'DIFFERENT'}; "
           f"{CLI_SUB_ROWS}-row leg card vs CPU "
           f"{'identical' if card_files and card_files == cpu_files else 'DIFFERENT'}")
     return errors
@@ -2901,6 +2942,196 @@ def cli_phase(here, data, card) -> list[str]:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return errors
+
+
+def sorted_mst(mst):
+    """An MST as (w, lo, hi) rows in (w, lo, hi) order: edge sets compared
+    whatever order and orientation a route emits them in."""
+    import numpy as np
+
+    u, v, w = (np.asarray(a) for a in mst)
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    order = np.lexsort((hi, lo, w))
+    return np.stack([w[order], lo[order].astype(np.float64), hi[order].astype(np.float64)])
+
+
+def same_partition(a, b) -> bool:
+    """Two labelings with the same noise rows (label 0) and the same
+    clusters under a renaming of their ids: the condensed tree of another
+    tie-broken MST of the same weights numbers its clusters in another
+    order."""
+    import numpy as np
+
+    if not np.array_equal(a == 0, b == 0):
+        return False
+    pairs = np.unique(np.stack([a, b]), axis=1)
+    return pairs.shape[1] == len(np.unique(a)) == len(np.unique(b))
+
+
+def dedup_rows(seed: int):
+    """245,057 rows drawn from 51,433 unique Skin-shaped grid points (the
+    real Skin set's counts): every point at least once, three of them
+    :data:`HEAVY_GROUPS` times (past minClSize, so the heavy-group expansion
+    runs), the rest of the rows spread at random; rows shuffled."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    codes = rng.choice(256 ** 3, N_SKIN_UNIQUE, replace=False)
+    pts = np.stack([codes // 65536, (codes // 256) % 256, codes % 256], 1).astype(np.float64)
+    reps = np.ones(N_SKIN_UNIQUE, np.int64)
+    reps[: len(HEAVY_GROUPS)] = HEAVY_GROUPS
+    rest = N_SKIN - int(reps.sum())
+    np.add.at(reps, rng.integers(len(HEAVY_GROUPS), N_SKIN_UNIQUE, rest), 1)
+    rows = np.repeat(pts, reps, axis=0)
+    return rows[rng.permutation(len(rows))]
+
+
+def host_cell(label, data, params, want, kernels, card, cpu_mesh=None, **fit_kw):
+    """One cell of phase 3k: the fit on ``CLI_SUB_ROWS`` rows on the card
+    equal to the same fit on the CPU (``cpu_mesh``: the CPU shards standing
+    in for ``fit_kw``'s mesh), then the full fit with the launch counters
+    zeroed just before and read just after; checks its MST against
+    ``want`` (a fit whose edge set it must equal, or None) and the kernels.
+    Returns (errors, result, launches, events, wall)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hdbscan_tpu_torch.models import exact
+
+    small = dataclasses.replace(params, min_cluster_size=50)
+    sub = data[:CLI_SUB_ROWS]
+    cpu_kw = {"mesh": cpu_mesh} if cpu_mesh is not None else {"device": "cpu"}
+    a, b = exact.fit(sub, small, **fit_kw), exact.fit(sub, small, **cpu_kw)
+    same_sub = fits_equal(a, b) and trees_equal(a.tree, b.tree)
+    res, launches, ev, wall = run_fit(data, params, **fit_kw)
+    errors = [] if same_sub else [f"{label}: the {CLI_SUB_ROWS}-row fit differs card vs CPU"]
+    # A dedup fit's MST spans the unique points.
+    n_mst = ev["dedup"][0]["unique"] if "dedup" in ev else len(data)
+    msg = check_fit(label, res, launches, ev, n_mst, kernels, n_rows=len(data))
+    if msg:
+        errors.append(msg)
+    mst_same = want is None or np.array_equal(sorted_mst(res.mst), sorted_mst(want.mst))
+    if not mst_same:
+        errors.append(f"{label}: the MST differs from the reference route's")
+    rounds = ev.get("boruvka_round", [])
+    print(f"3k {label} ({card}): wall {wall:.3f} s, core_distances "
+          f"{ev['core_distances'][-1]['wall_s']}, boruvka_mst {ev['boruvka_mst'][0]['wall_s']} "
+          f"in {ev['boruvka_mst'][0]['rounds']} rounds, host finalize "
+          f"{sum(e[0]['wall_s'] for s, e in ev.items() if s.startswith('tree_')):.6f}; "
+          f"{CLI_SUB_ROWS}-row card vs CPU {'identical' if same_sub else 'DIFFERENT'}"
+          + ("" if want is None else f"; MST {'identical' if mst_same else 'DIFFERENT'}"))
+    print(f"3k {label} rounds (scan s, fetch s, contract s): "
+          f"{[(r['scan_s'], r['fetch_s'], r['contract_s']) for r in rounds]}")
+    print(f"3k {label} launches: { {k: v for k, v in launches.items() if v} }")
+    return errors, res, launches, ev, wall
+
+
+def host_round_phase(here, data, res, card) -> tuple[list[str], dict]:
+    """Phase 3k: the host-round exact route, its two sharded scanners,
+    dedup and Random Blocks on phase 3's Skin-shaped set (module
+    docstring). ``res`` is phase 3's device-route fit. Returns failure
+    messages and each cell's launches."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.core import tree as tree_mod
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.ops import cuda_build
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    errors, launches = [], {}
+    base = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE)
+
+    # skin_host_rounds: K2, then B1 once a round and the host contraction.
+    p = dataclasses.replace(base, mst_backend="host")
+    e, hres, launches["skin_host_rounds"], hev, _ = host_cell(
+        "skin_host_rounds", data, p, res, ("knn_kbest", "segmin"), card)
+    errors += e
+    if not np.array_equal(hres.labels, res.labels):
+        errors.append("skin_host_rounds: labels differ from phase 3's device-route fit")
+
+    # skin_ring: a one-card mesh, then four shards on one card.
+    one = get_mesh([torch.device("cuda", 0)])
+    four = get_mesh([torch.device("cuda", 0)] * N_SHARDS)
+    p = dataclasses.replace(base, scan_backend="ring")
+    for tag, mesh, cpu in (("1", one, 1), ("4", four, N_SHARDS)):
+        e, _, launches[f"skin_ring_{tag}"], _, _ = host_cell(
+            f"skin_ring_{tag}", data, p, hres, ("knn_kbest_panel", "segmin_panel"), card,
+            cpu_mesh=get_mesh([torch.device("cpu")] * cpu), mesh=mesh)
+        errors += e
+
+    # skin_shard_host: the sharded scanner with host contraction.
+    p = dataclasses.replace(base, fit_sharding="sharded", mst_backend="host")
+    e, _, launches["skin_shard_host"], _, _ = host_cell(
+        "skin_shard_host", data, p, hres, ("knn_kbest_panel", "segmin_panel"), card,
+        cpu_mesh=get_mesh([torch.device("cpu")] * N_SHARDS), mesh=four)
+    errors += e
+
+    # skin_dedup: 51,433 unique points under 245,057 rows.
+    rows = dedup_rows(SEED + 7)
+    p = dataclasses.replace(base, dedup_points=True)
+    e, dres, launches["skin_dedup"], dev_, _ = host_cell(
+        "skin_dedup", rows, p, None, ("knn_kbest", "segmin", "uf_scan"), card)
+    errors += e
+    full, _, _, fwall = run_fit(rows, base)
+    a = ari(dres.labels, full.labels)
+    cores = np.array_equal(dres.core_distances, full.core_distances)
+    heavy = int(np.sum(np.unique(rows, axis=0, return_counts=True)[1] >= MIN_CL_SIZE))
+    print(f"3k skin_dedup: {dev_['dedup'][0]['unique']} unique of {len(rows)} rows, {heavy} "
+          f"groups of >= {MIN_CL_SIZE} rows; vs the full-row device fit ({fwall:.3f} s): ARI "
+          f"{a:.6f}, core distances {'equal' if cores else 'DIFFERENT'}")
+    if a != 1.0 or not cores or heavy < 3:
+        errors.append(f"skin_dedup: ARI {a}, cores equal {cores}, heavy groups {heavy}")
+    root = os.path.join(here, ".torch_build", "cli3k")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        cuda_build.reset_launches()
+        errors += cli_leg(here, root, rows, card, CLI_DEDUP_LEG, phase="3k")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # skin_rb: Random Blocks, BASELINE.json config 5.
+    t = time.perf_counter()
+    cuda_build.reset_launches()
+    a4 = exact.mst_edges_random_blocks(data[:CLI_SUB_ROWS], MIN_PTS, n_parts=RB_PARTS, seed=0)
+    b4 = exact.mst_edges_random_blocks(data[:CLI_SUB_ROWS], MIN_PTS, n_parts=RB_PARTS, seed=0,
+                                       device="cpu")
+    same_sub = all(np.array_equal(x, y) for x, y in zip(a4, b4))
+    sub_s = time.perf_counter() - t
+    ev = []
+    cuda_build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rb = exact.mst_edges_random_blocks(data, MIN_PTS, n_parts=RB_PARTS, seed=0,
+                                       trace=lambda st, **f: ev.append((st, f)))
+    rb_wall = time.perf_counter() - t
+    launches["skin_rb"] = dict(cuda_build.LAUNCHES)
+    fits = [f for st, f in ev if st == "block_fit"]
+    msts = [f for st, f in ev if st == "block_msts"]
+    _, rb_labels = tree_mod.extract_clusters(N_SKIN, *rb[:3], MIN_CL_SIZE, self_levels=rb[3])
+    w_same = np.array_equal(np.sort(rb[2]), np.sort(hres.mst[2]))
+    l_same = same_partition(rb_labels, hres.labels)
+    print(f"3k skin_rb ({card}): wall {rb_wall:.3f} s = core_distances "
+          f"{[f['wall_s'] for st, f in ev if st == 'core_distances'][0]} + blocks "
+          f"{sum(f['block_s'] for f in msts):.3f} + pool_mst {sum(f['pool_s'] for f in msts):.3f}; "
+          f"{msts[-1]['total_blocks']} blocks of cap {fits[0]['cap']} in {len(msts)} chunks, "
+          f"{sum(f['launches'] for f in fits)} block launches, pool edges "
+          f"{[f['pool_edges'] for f in msts]}; {CLI_SUB_ROWS}-row card vs CPU "
+          f"{'identical' if same_sub else 'DIFFERENT'} ({sub_s:.3f} s)")
+    print(f"3k skin_rb: sorted MST weights vs skin_host_rounds "
+          f"{'equal' if w_same else 'DIFFERENT'}, labels (extract_clusters) "
+          f"{'the same partition' if l_same else 'DIFFERENT'} (bitwise: "
+          f"{np.array_equal(rb_labels, hres.labels)}); launches "
+          f"{ {k: v for k, v in launches['skin_rb'].items() if v} }")
+    if not (same_sub and w_same and l_same and launches["skin_rb"]["knn_kbest"] == 1):
+        errors.append(f"skin_rb: sub {same_sub}, weights {w_same}, labels {l_same}")
+    return errors, launches
 
 
 def main() -> int:
@@ -2925,8 +3156,9 @@ def main() -> int:
     t = time.perf_counter()
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    only_3k = sys.argv[1:] == ["3k"]
 
-    errors = (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
+    errors = [] if only_3k else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
               + parity_leaf() + parity_metrics())
@@ -2966,6 +3198,10 @@ def main() -> int:
     msg = check_fit("exact", res, launches, ev, N_SKIN, EXACT_KERNELS)
     if msg:
         return fail(msg)
+    if only_3k:  # ``python3 chip_smoke.py 3k``: phase 3 and 3k alone
+        errors, _ = host_round_phase(here, data, res, card)
+        print(card)
+        return fail(f"the host-round routes failed: {errors}") if errors else 0
 
     # --- 3b: the rp-forest tier on the same data --------------------------
     fparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **FOREST)
@@ -3132,6 +3368,11 @@ def main() -> int:
     if errors:
         return fail(f"the command line failed: {errors}")
 
+    # --- 3k: the host-round routes, dedup and Random Blocks --------------
+    errors, host_launches = host_round_phase(here, data, res, card)
+    if errors:
+        return fail(f"the host-round routes failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -3206,6 +3447,10 @@ def main() -> int:
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")
+    for row in rows:  # each kernel's launches in the 3k cells that ran it
+        hits = {cell: n for cell, got in host_launches.items() if (n := got.get(row["name"]))}
+        if hits:
+            row["launches_3k"] = hits
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,7 @@
 """Time the port's fits of one package tree on the card.
 
     python3 fit_bench.py ROOT [CELL ...]
-    (CELL: 3d 3e 3e_local dense; default all four)
+    (CELL: 3d 3e 3e_local dense skin skin_sharded; default all six)
 
 ROOT is a directory holding ``hdbscan_tpu_torch/``: the checkout (``.``), or
 an earlier commit unpacked with ``git archive`` into a git-ignored directory,
@@ -21,12 +21,18 @@ earlier, this, this, earlier). The cells are ``chip_smoke.py``'s fits:
   own cores: ``block_mst_batch``); three fits;
 - ``dense``: the dense single-block fit (``models/hdbscan.fit``) on the
   first 30,000 rows of ``chip_smoke.py``'s seeded Skin-shaped set (245,057 x
-  3 integers in [0, 255]), min_points=16, min_cluster_size=367; three fits.
+  3 integers in [0, 255]), min_points=16, min_cluster_size=367; three fits;
+- ``skin``: the exact fit's device route (``models/exact.fit``) on the whole
+  Skin-shaped set, min_points=16, min_cluster_size=3,000; five fits;
+- ``skin_sharded``: the same fit with fit_sharding=sharded on four shards
+  of the first card (``parallel/shard.shard_boruvka_mst``); five fits.
 
 Before the cells one 20,000-point MR fit warms the kernels and the
 allocator. Each fit is timed on the host clock around a device
 synchronisation; ``block_fit_s`` sums the fit's ``block_fit`` events (the
-block programs) and ``block_edges_s`` the dense fit's ``block_edges``.
+block programs), ``block_edges_s`` the dense fit's ``block_edges``,
+``rounds_s`` an exact fit's Borůvka rounds (``boruvka_mst`` ``rounds_wall_s``)
+and ``finalize_s`` its host finalize (the ``tree_*`` events).
 Prints the card and one JSON line of the seconds of every fit by cell.
 """
 
@@ -39,7 +45,7 @@ import time
 
 MR_DATA = dict(dims=10, n_clusters=30, separation=9.0, seed=2)
 MR_PARAMS = dict(min_points=8, processing_units=16384, k=0.01, seed=0)
-CELLS = ("3d", "3e", "3e_local", "dense")
+CELLS = ("3d", "3e", "3e_local", "dense", "skin", "skin_sharded")
 
 
 def main() -> int:
@@ -55,7 +61,8 @@ def main() -> int:
         print("fit_bench: no CUDA device", file=sys.stderr)
         return 1
     from hdbscan_tpu_torch import HDBSCANParams
-    from hdbscan_tpu_torch.models import hdbscan, mr_hdbscan
+    from hdbscan_tpu_torch.models import exact, hdbscan, mr_hdbscan
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
     from hdbscan_tpu_torch.utils.datasets import make_gauss
 
     def timed(fit, data, params):
@@ -67,8 +74,11 @@ def main() -> int:
         wall = time.perf_counter() - t
         stage_s = {s: round(sum(kw.get("wall_s", 0.0) for st, kw in events if st == s), 6)
                    for s in ("block_fit", "block_edges")}
+        rounds = [kw.get("rounds_wall_s", 0.0) for st, kw in events if st == "boruvka_mst"]
         return {"wall_s": round(wall, 6), "block_fit_s": stage_s["block_fit"],
-                "block_edges_s": stage_s["block_edges"]}
+                "block_edges_s": stage_s["block_edges"], "rounds_s": sum(rounds),
+                "finalize_s": round(sum(kw.get("wall_s", 0.0) for st, kw in events
+                                        if st.startswith("tree_")), 6)}
 
     warm, _ = make_gauss(20_000, **MR_DATA)
     mr_hdbscan.fit(warm, HDBSCANParams(**dict(MR_PARAMS, processing_units=4096),
@@ -85,12 +95,23 @@ def main() -> int:
             params = HDBSCANParams(**MR_PARAMS, min_cluster_size=1000,
                                    global_core_distances=cell == "3e")
             runs = [timed(mr_hdbscan.fit, data, params) for _ in range(3)]
-        else:
+        elif cell == "dense":
             skin = np.random.default_rng(0).integers(0, 256, size=(245_057, 3))
             data = skin[:30_000].astype(np.float64)
             params = HDBSCANParams(min_points=16, min_cluster_size=367,
                                    processing_units=30_000)
             runs = [timed(hdbscan.fit, data, params) for _ in range(3)]
+        else:
+            data = np.random.default_rng(0).integers(0, 256, size=(245_057, 3)).astype(float)
+            params = HDBSCANParams(min_points=16, min_cluster_size=3000)
+            fit = exact.fit
+            if cell == "skin_sharded":
+                params = params.replace(fit_sharding="sharded", mst_backend="device")
+                mesh = get_mesh([torch.device("cuda", 0)] * 4)
+
+                def fit(data, params, trace):
+                    return exact.fit(data, params, mesh=mesh, trace=trace)
+            runs = [timed(fit, data, params) for _ in range(5)]
         result[cell] = runs
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

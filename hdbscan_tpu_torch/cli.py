@@ -10,8 +10,9 @@ Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
         [boundary_max_frac=F] [glue_alpha=F] [glue_factor=N] [glue_rows=N] \
         [knn_backend={auto,xla,pallas,fused}] [knn_index={auto,exact,rpforest}] \
         [knn_index_threshold=N] [rpf_trees=N] [rpf_leaf_size=N] [rpf_rescan=N] \
-        [fit_sharding={auto,replicated,sharded}] \
-        [tree_backend={auto,reference,vectorized}] [mst_backend={auto,device}] \
+        [fit_sharding={auto,replicated,sharded}] [scan_backend={auto,host,ring}] \
+        [dedup={true,false}] [tree_backend={auto,reference,vectorized}] \
+        [mst_backend={auto,host,device}] \
         [trace_rotate_bytes=N] [trace_max_events=N] \
         [--trace-out PATH] [--device DEV]
 
@@ -21,7 +22,10 @@ a mesh (``models/exact.fit``, mode ``exact-sharded``); otherwise n <=
 ``processing_units`` runs the dense single-block fit (``models/hdbscan.fit``,
 mode ``exact``) and larger inputs the MR-HDBSCAN* pipeline
 (``models/mr_hdbscan.fit``, mode ``mr (<levels> levels)``). A mesh is built
-only when more than one card is visible. Outputs are the five canonical
+only when more than one card is visible. On the exact-sharded route
+``mst_backend=host`` runs the host-round Borůvka over the sharded scanner
+and ``dedup=true`` the weighted fit over unique points; the dense route
+ignores ``dedup``, as the reference's does. Outputs are the five canonical
 files either way; the fit computes in float32.
 
 ``--device DEV`` picks the device (default: the card; ``--device cpu`` runs
@@ -38,7 +42,8 @@ Not ported yet — each exits 2 before any data is read:
 ``--compile-cache`` / ``compile_cache=`` and the observability knobs
 ``heartbeat``, ``watchdog``, ``skew_threshold``, ``straggler_rounds``
 (A11), ``clusterName`` other than ``local`` (A9). A fit route that is not
-ported (``variant=rs``, ``dedup=true``, ...) raises ``NotImplementedError``
+ported (``variant=rs`` or ``dedup=true`` on the MR route (A6), the MR route
+with ``fit_sharding=sharded`` (A9), ...) raises ``NotImplementedError``
 naming its item, printed the same way with exit 2.
 """
 

@@ -1,7 +1,6 @@
-"""Exact HDBSCAN* at scale on the card — the port of ``models/exact.py``'s
-device route (``fit`` -> ``_fit_device``).
+"""Exact HDBSCAN* at scale on the card — the port of ``models/exact.py``.
 
-The fit, phase by phase:
+The device route (``fit`` -> ``_fit_device``), phase by phase:
 
 1. core distances (``ops/tiled.knn_core_distances``), fetched as float64
    like the reference's: the exact tier is one k-best kernel launch
@@ -24,14 +23,25 @@ shard_boruvka_mst``, the panel segment-min kernel per shard and visiting
 panel), then the shard edge buffers gathered onto the first shard's device
 in global order for one union-find event scan, and one bulk fetch.
 
+The host-round route (``mst_backend=host``, or ``scan_backend=ring``
+without sharding) is :func:`mst_edges`: the same core distances, then
+Borůvka rounds contracted on the host (:func:`mst_edges_from_core`) over
+one of three scanners with the same per-round edges — ``ops/tiled.
+BoruvkaScanner`` (one segment-min launch a round), ``parallel/ring.
+RingBoruvkaScanner`` or ``parallel/shard.ShardBoruvkaScanner`` (B9 per
+shard and panel) — and the shared finalize. ``dedup_points`` collapses
+duplicate rows first (:func:`_fit_dedup`, ``core/dedup.py``).
+:func:`mst_edges_random_blocks` is the paper's Random Blocks method over
+the dense block program (``parallel/blocks``) and :func:`pool_mst`.
+
 ``dtype``: float32, or float64 on the CPU, where every stage runs its
 plain version in that type as the reference's XLA scans do. The kernels
 are float32 only, like the reference's Pallas kernels
 (``hdbscan_tpu/ops/pallas_segmin.py`` ``_pallas_eligible``): float64 with
 the card raises ``ValueError`` at the entry, before any work.
 
-Routes of the reference that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP entry.
+The sharded rp-forest tier raises ``NotImplementedError`` naming its
+ROADMAP entry (A9).
 """
 
 from __future__ import annotations
@@ -48,26 +58,345 @@ from hdbscan_tpu_torch.ops import cuda_build
 
 def _check_ported(params: HDBSCANParams, n: int, sharded: bool) -> None:
     from hdbscan_tpu_torch.core.knn import resolve_index_for
-    from hdbscan_tpu_torch.core.mst_device import resolve_mst_backend
 
-    if params.dedup_points:
-        raise NotImplementedError(
-            "dedup_points is not ported yet (ROADMAP A3: _fit_dedup, core/dedup.py)"
-        )
-    if resolve_mst_backend(params, n) == "host":
-        raise NotImplementedError(
-            "mst_backend=host (the host-round exact route) is not ported yet (ROADMAP A3)"
-        )
     if sharded and resolve_index_for(params, n)[0] == "rpforest":
         raise NotImplementedError(
             "the sharded fit's rp-forest tier (fit_sharding=sharded with "
             "knn_index=rpforest) is not ported yet (ROADMAP A9)"
         )
-    if not sharded and params.scan_backend == "ring":
-        raise NotImplementedError(
-            "scan_backend=ring (ring scans with host-round Borůvka contraction) "
-            "is not ported yet (ROADMAP A3, A9)"
+
+
+def _engine(fit_sharding: str, scan_backend: str, mesh, device):
+    """The scan engine of a run — "sharded", "ring" or "host" — resolved
+    once from the two knobs and the caller's mesh, with the mesh it runs on
+    (none given: every visible card, or one shard on ``device`` when that
+    is not a card) and the host scanner's device (None: the mesh's first
+    shard's). Callees get the engine back as literal knobs
+    (:data:`_KNOBS`), so a default mesh of several cards cannot turn a ring
+    run into a sharded one."""
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+    from hdbscan_tpu_torch.parallel.ring import resolve_scan_backend
+    from hdbscan_tpu_torch.parallel.shard import resolve_fit_sharding
+
+    if device is None and mesh is not None:
+        device = mesh.root
+    if resolve_fit_sharding(fit_sharding, mesh) == "sharded":
+        engine = "sharded"
+    elif resolve_scan_backend(scan_backend, mesh) == "ring":
+        engine = "ring"
+    else:
+        engine = "host"
+    if engine != "host" and mesh is None:
+        device = cuda_build.resolve_device(device)
+        mesh = get_mesh() if device.type == "cuda" else get_mesh([device])
+    return engine, mesh, device
+
+
+#: Each engine as the (fit_sharding, scan_backend) knobs that select it.
+_KNOBS = {
+    "sharded": dict(fit_sharding="sharded", scan_backend="host"),
+    "ring": dict(fit_sharding="replicated", scan_backend="ring"),
+    "host": dict(fit_sharding="replicated", scan_backend="host"),
+}
+
+
+def mst_edges(
+    data: np.ndarray,
+    min_pts: int,
+    metric: str = "euclidean",
+    row_tile: int = 1024,
+    col_tile: int = 8192,
+    dtype=np.float32,
+    max_rounds: int = 64,
+    mesh=None,
+    trace=None,
+    knn_backend: str = "auto",
+    scan_backend: str = "auto",
+    index: str = "exact",
+    index_opts: dict | None = None,
+    fit_sharding: str = "auto",
+    *,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Blocked Borůvka: (u, v, w) exact mutual-reachability MST + core
+    distances, with the rounds contracted on the host.
+
+    ``knn_backend`` selects the core-distance scan (``ops/tiled.
+    knn_core_distances``); ``scan_backend`` the engine for both the core
+    scan and the rounds — "host" (the k-best kernel and
+    ``ops/tiled.BoruvkaScanner`` on ``device``) or "ring" (the ring k-NN
+    scan and ``parallel/ring.RingBoruvkaScanner`` over ``mesh``), "auto"
+    picking ring on a mesh of two or more cards; ``fit_sharding="sharded"``
+    takes ``parallel/shard.shard_core_distances`` and
+    ``ShardBoruvkaScanner``. The edges are the same across scanners.
+    ``index``/``index_opts`` (``core/knn.resolve_index_for``) swap the core
+    scan for the rp-forest tier; the rounds stay exact. ``device`` None:
+    the first shard's device of ``mesh``, else the card.
+    """
+    from hdbscan_tpu_torch.ops.tiled import knn_core_distances
+    from hdbscan_tpu_torch.utils.flops import counter as _flops
+    from hdbscan_tpu_torch.utils.flops import phase_stats
+
+    n = len(data)
+    engine, mesh, device = _engine(fit_sharding, scan_backend, mesh, device)
+    t0 = time.monotonic()
+    fsnap = _flops.snapshot()
+    if engine == "sharded":
+        from hdbscan_tpu_torch.parallel.shard import shard_core_distances
+
+        core = shard_core_distances(
+            data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+            mesh=mesh, trace=trace, knn_backend=knn_backend, index=index,
+            index_opts=index_opts,
         )
+    elif engine == "ring":
+        from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances
+
+        core, _ = ring_knn_core_distances(
+            data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+            fetch_knn=False, mesh=mesh, trace=trace, knn_backend=knn_backend,
+            index=index, index_opts=index_opts,
+        )
+    else:
+        core, _ = knn_core_distances(
+            data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+            fetch_knn=False, backend=knn_backend, index=index, index_opts=index_opts,
+            trace=trace, device=device,
+        )
+    if trace is not None:
+        wall = time.monotonic() - t0
+        trace("core_distances", n=n, wall_s=round(wall, 6), **phase_stats(fsnap, wall))
+    u, v, w = mst_edges_from_core(
+        data, core, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+        max_rounds=max_rounds, mesh=mesh, trace=trace, device=device, **_KNOBS[engine],
+    )
+    return u, v, w, core
+
+
+def mst_edges_from_core(
+    data: np.ndarray,
+    core: np.ndarray,
+    metric: str = "euclidean",
+    row_tile: int = 1024,
+    col_tile: int = 8192,
+    dtype=np.float32,
+    max_rounds: int = 64,
+    mesh=None,
+    trace=None,
+    scan_backend: str = "auto",
+    fit_sharding: str = "auto",
+    *,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The Borůvka round loop of :func:`mst_edges` for pre-computed core
+    distances (the dedup route supplies multiset-weighted cores).
+
+    Per round the scanner gives every point (or, for the ring, every
+    component) its lightest outgoing candidate and the host contraction
+    (``utils/unionfind.contract_min_edges``, by (w, lo, hi)) merges the
+    components. ``trace`` gets one ``boruvka_round`` event per round (with
+    the scan, fetch and contraction walls) and one ``boruvka_mst``.
+    """
+    from hdbscan_tpu_torch.ops.tiled import BoruvkaScanner
+    from hdbscan_tpu_torch.parallel.ring import RingBoruvkaScanner
+    from hdbscan_tpu_torch.parallel.shard import ShardBoruvkaScanner
+    from hdbscan_tpu_torch.utils.flops import counter as _flops
+    from hdbscan_tpu_torch.utils.flops import phase_stats
+    from hdbscan_tpu_torch.utils.unionfind import contract_min_edges
+
+    n = len(data)
+    engine, mesh, device = _engine(fit_sharding, scan_backend, mesh, device)
+    t0 = time.monotonic()
+    fsnap = _flops.snapshot()
+    if engine == "host":
+        scanner = BoruvkaScanner(data, core, metric, row_tile, col_tile, dtype=dtype,
+                                 device=cuda_build.resolve_device(device))
+    else:
+        cls = ShardBoruvkaScanner if engine == "sharded" else RingBoruvkaScanner
+        scanner = cls(data, core, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+                      mesh=mesh, trace=trace)
+    comp = np.arange(n, dtype=np.int64)
+    eu, ev, ew = [], [], []
+    n_comp = n
+    rounds = 0
+    try:
+        for rnd in range(max_rounds):
+            if n_comp <= 1:
+                break
+            bw, bj = scanner.min_outgoing(comp)
+            t1 = time.monotonic()
+            emit, comp, n_comp = contract_min_edges(comp, bj, bw)
+            if len(emit) == 0:
+                break  # disconnected pool (cannot happen for a full metric space)
+            eu.append(emit)
+            ev.append(bj[emit])
+            ew.append(bw[emit])
+            rounds = rnd + 1
+            if trace is not None:
+                scan_s, fetch_s = scanner.walls
+                trace("boruvka_round", round=rnd, components=n_comp, edges_added=len(emit),
+                      scan_s=round(scan_s, 6), fetch_s=round(fetch_s, 6),
+                      contract_s=round(time.monotonic() - t1, 6))
+    finally:
+        close = getattr(scanner, "close", None)
+        if close is not None:
+            close()
+    if trace is not None:
+        wall = time.monotonic() - t0
+        trace("boruvka_mst", rounds=rounds, edges=int(sum(len(e) for e in eu)),
+              wall_s=round(wall, 6), **phase_stats(fsnap, wall))
+    return (
+        np.concatenate(eu) if eu else np.zeros(0, np.int64),
+        np.concatenate(ev) if ev else np.zeros(0, np.int64),
+        np.concatenate(ew) if ew else np.zeros(0, np.float64),
+    )
+
+
+def pool_mst(
+    u: np.ndarray, v: np.ndarray, w: np.ndarray, n: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized host Borůvka over an explicit edge pool (the reference's
+    ``pool_mst``): each round computes every component's minimum incident
+    pool edge with numpy segment operations and unions them all at once —
+    O(E) work per round, <= ceil(log2 n) rounds. Returns the MST (u, v, w)
+    of the pooled multigraph."""
+    from hdbscan_tpu_torch.utils.unionfind import contract_min_edges
+
+    u = np.asarray(u, np.int64)
+    v = np.asarray(v, np.int64)
+    w = np.asarray(w, np.float64)
+    comp = np.arange(n, dtype=np.int64)
+    su, sv, sw = [], [], []
+    # Pre-sort edges once by (w, u, v) for deterministic per-component mins.
+    order = np.lexsort((v, u, w))
+    u, v, w = u[order], v[order], w[order]
+    for _ in range(64):
+        cu, cv = comp[u], comp[v]
+        out = np.nonzero(cu != cv)[0]
+        if len(out) == 0:
+            break
+        # First pool edge (in sorted order) per component, from either side;
+        # the winner becomes that component's candidate, attached to its
+        # representative vertex (comp labels ARE root vertex ids here).
+        cc = np.concatenate([cu[out], cv[out]])
+        ee = np.tile(out, 2)
+        ord2 = np.lexsort((ee, cc))
+        cc_, ee_ = cc[ord2], ee[ord2]
+        first = np.concatenate([[True], np.diff(cc_) != 0])
+        reps, picks = cc_[first], ee_[first]
+        cand_j = np.full(n, -1, np.int64)
+        cand_w = np.zeros(n, np.float64)
+        edge_map = np.full(n, -1, np.int64)
+        # Point each rep at the OTHER side's rep vertex.
+        other = np.where(cu[picks] == reps, cv[picks], cu[picks])
+        cand_j[reps] = other
+        cand_w[reps] = w[picks]
+        edge_map[reps] = picks
+        emit, comp, _ = contract_min_edges(comp, cand_j, cand_w)
+        if len(emit) == 0:
+            break
+        e = edge_map[emit]
+        su.append(u[e])
+        sv.append(v[e])
+        sw.append(w[e])
+    return (
+        np.concatenate(su) if su else np.zeros(0, np.int64),
+        np.concatenate(sv) if sv else np.zeros(0, np.int64),
+        np.concatenate(sw) if sw else np.zeros(0, np.float64),
+    )
+
+
+def mst_edges_random_blocks(
+    data: np.ndarray,
+    min_pts: int,
+    metric: str = "euclidean",
+    n_parts: int = 8,
+    seed: int = 0,
+    row_tile: int = 1024,
+    col_tile: int = 8192,
+    dtype=np.float32,
+    max_block: int = 8192,
+    trace=None,
+    knn_backend: str = "auto",
+    *,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The Random Blocks exact method (the paper's RB).
+
+    1. Global core distances in one scan (the k-best kernel).
+    2. The dataset is randomly split into ``n_parts`` parts (a numpy
+       permutation from ``seed``); every PAIR of parts forms a block, so
+       every point pair co-occurs in exactly one block. Each block's MST
+       under global-core mutual reachability comes from the dense block
+       program (``parallel/blocks.run_packed_blocks``, plain PyTorch ops on
+       ``device``).
+    3. The pooled block MSTs merge with :func:`pool_mst`. A union of MSTs
+       over an edge-covering family contains the true MST, so the result is
+       the exact mutual-reachability MST.
+
+    ``n_parts`` rises until a pair-block holds at most ``max_block``
+    points. Blocks are packed and run in chunks of ~256 MiB of packed
+    input, the running MST pooled after each chunk. ``trace`` gets one
+    ``core_distances`` event, a ``block_fit`` event per chunk and one
+    ``block_msts`` event per chunk (its block and pool walls).
+    """
+    from hdbscan_tpu_torch.ops.tiled import _next_pow2, knn_core_distances
+    from hdbscan_tpu_torch.parallel.blocks import pack_blocks, run_packed_blocks
+    from hdbscan_tpu_torch.utils.flops import counter as _flops
+    from hdbscan_tpu_torch.utils.flops import phase_stats
+
+    device = cuda_build.resolve_device(device)
+    n = len(data)
+    t0 = time.monotonic()
+    fsnap = _flops.snapshot()
+    core, _ = knn_core_distances(
+        data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+        fetch_knn=False, backend=knn_backend, device=device,
+    )
+    if trace is not None:
+        wall = time.monotonic() - t0
+        trace("core_distances", n=n, wall_s=round(wall, 6), **phase_stats(fsnap, wall))
+
+    # A pair-block holds ~2n/n_parts points and its dense MRD matrix must fit
+    # the device: raise n_parts until blocks respect max_block.
+    n_parts = max(n_parts, -(-2 * n // max_block))
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    parts = np.array_split(perm, n_parts)
+    if n_parts == 1:
+        blocks = [parts[0]]
+    else:
+        blocks = [
+            np.concatenate([parts[i], parts[j]])
+            for i in range(n_parts)
+            for j in range(i + 1, n_parts)
+        ]
+    cap = _next_pow2(max(len(b) for b in blocks))
+    b = len(blocks)
+    # Pack and launch in streamed chunks, pooling the running MST after
+    # each, so host memory stays O(n + chunk) whatever the block count. The
+    # chunk budget counts the three packed arrays (x, core, point_index).
+    per_block = cap * (data.shape[1] * np.dtype(dtype).itemsize + 16)
+    chunk = max(1, int(2**28 // per_block))
+    data_c = data.astype(dtype, copy=False)
+    ku = kv = kw = None
+    for lo in range(0, b, chunk):
+        t0 = time.monotonic()
+        packed = pack_blocks(data_c, blocks[lo : lo + chunk], cap, core=core)
+        eu, ev, ew, _ = run_packed_blocks(packed, min_pts, metric, device=device,
+                                          dtype=dtype, trace=trace)
+        t1 = time.monotonic()
+        if ku is not None:
+            eu = np.concatenate([ku, eu])
+            ev = np.concatenate([kv, ev])
+            ew = np.concatenate([kw, ew])
+        ku, kv, kw = pool_mst(eu, ev, ew, n)
+        if trace is not None:
+            t2 = time.monotonic()
+            trace("block_msts", blocks=min(lo + chunk, b), total_blocks=b,
+                  pool_edges=len(eu), block_s=round(t1 - t0, 6),
+                  pool_s=round(t2 - t1, 6), wall_s=round(t2 - t0, 6))
+    return ku, kv, kw, core
 
 
 def fit(
@@ -100,10 +429,17 @@ def fit(
     a mesh of two or more cards. The sharded fit adds ``ring_knn_scan``,
     ``ring_device_wall`` and ``shard_mst_device`` events, and its
     ``mst_round`` events carry ``sharded: true``.
+
+    Routes, in the reference's order: ``dedup_points`` first
+    (:func:`_fit_dedup`); then the device route above unless
+    ``mst_backend=host`` or an unsharded ``scan_backend`` resolving to
+    ``ring`` (the same default mesh) sends the fit down the host-round
+    route (:func:`mst_edges`, ``boruvka_round`` events; the ring and
+    sharded scanners add ``ring_boruvka_scan`` / ``shard_boruvka_scan``).
+    A non-sharded mesh with the host scanner runs it on ``mesh.root``.
     """
+    from hdbscan_tpu_torch.core.mst_device import resolve_mst_backend
     from hdbscan_tpu_torch.ops.tiled import check_dtype
-    from hdbscan_tpu_torch.parallel.mesh import get_mesh
-    from hdbscan_tpu_torch.parallel.shard import resolve_fit_sharding
 
     params = params or HDBSCANParams()
     data = np.asarray(data, np.float64)
@@ -114,14 +450,102 @@ def fit(
         device = mesh.root
     device = cuda_build.resolve_device(device)
     check_dtype(dtype, device)
-    sharded = resolve_fit_sharding(params.fit_sharding, mesh) == "sharded"
+    engine, mesh, _ = _engine(params.fit_sharding, params.scan_backend, mesh, device)
+    kw = dict(row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+              num_constraints_satisfied=num_constraints_satisfied, trace=trace)
+    if params.dedup_points:
+        return _fit_dedup(data, params, engine, device=device, mesh=mesh, **kw)
+    sharded = engine == "sharded"
     _check_ported(params, n, sharded)
-    if sharded and mesh is None:
-        mesh = get_mesh() if device.type == "cuda" else get_mesh([device])
-    return _fit_device(
-        data, params, device=mesh.root if sharded else device,
-        mesh=mesh if sharded else None, row_tile=row_tile, col_tile=col_tile,
-        dtype=dtype, num_constraints_satisfied=num_constraints_satisfied, trace=trace,
+    if resolve_mst_backend(params, n) == "device" and engine != "ring":
+        return _fit_device(data, params, device=mesh.root if sharded else device,
+                           mesh=mesh if sharded else None, **kw)
+    from hdbscan_tpu_torch.core.knn import resolve_index_for
+    from hdbscan_tpu_torch.models._finalize import finalize_clustering
+
+    index, index_opts = resolve_index_for(params, n)
+    u, v, w, core = mst_edges(
+        data, params.min_points, params.dist_function, row_tile=row_tile,
+        col_tile=col_tile, dtype=dtype, mesh=mesh, trace=trace,
+        knn_backend=params.knn_backend, index=index, index_opts=index_opts,
+        device=device, **_KNOBS[engine],
+    )
+    tree, labels, scores, infinite = finalize_clustering(
+        n, u, v, w, core, params, num_constraints_satisfied, trace=trace, device=device,
+    )
+    return HDBSCANResult(
+        labels=labels,
+        tree=tree,
+        core_distances=core,
+        mst=(u, v, w),
+        outlier_scores=scores,
+        infinite_stability=infinite,
+    )
+
+
+def _fit_dedup(
+    data: np.ndarray,
+    params: HDBSCANParams,
+    engine: str,
+    *,
+    device,
+    mesh=None,
+    row_tile: int,
+    col_tile: int,
+    dtype,
+    num_constraints_satisfied,
+    trace,
+) -> HDBSCANResult:
+    """Exact HDBSCAN* over deduplicated weighted points (``core/dedup.py``):
+    the scans run at unique-point scale (the weighted core distances, then
+    the host-round Borůvka over the unique points), groups heavy enough to
+    pass ``min_cluster_size`` expand back into unit leaves, and the
+    member-weighted finalize broadcasts labels and scores over the inverse
+    index. Constraint row ids map through the inverse before counting.
+    ``engine`` is :func:`_engine`'s; ``trace`` gets a ``dedup`` event
+    besides the route's own."""
+    from hdbscan_tpu_torch.core.dedup import (
+        deduplicate,
+        expand_heavy_groups,
+        global_weighted_core_distances,
+    )
+    from hdbscan_tpu_torch.models._finalize import finalize_clustering
+
+    n = len(data)
+    uniq, counts, inverse = deduplicate(data)
+    if trace is not None:
+        trace("dedup", rows=n, unique=len(uniq))
+    t0 = time.monotonic()
+    core_u = global_weighted_core_distances(
+        uniq, counts, params.min_points, params.dist_function, row_tile=row_tile,
+        col_tile=col_tile, dtype=dtype, mesh=mesh, trace=trace,
+        fit_sharding=_KNOBS[engine]["fit_sharding"], device=device,
+    )
+    if trace is not None:
+        trace("core_distances", n=len(uniq), wall_s=round(time.monotonic() - t0, 6))
+    u, v, w = mst_edges_from_core(
+        uniq, core_u, params.dist_function, row_tile=row_tile, col_tile=col_tile,
+        dtype=dtype, mesh=mesh, trace=trace, device=device, **_KNOBS[engine],
+    )
+    # Tree extraction over the expanded vertex set (expand_heavy_groups:
+    # groups heavy enough to pass minClusterSize must dissolve under tie
+    # contraction exactly like their full-row counterparts).
+    u2, v2, w2, core2, weights2 = expand_heavy_groups(
+        u, v, w, core_u, counts, params.min_cluster_size
+    )
+    tree, labels_x, scores_x, infinite = finalize_clustering(
+        len(weights2), u2, v2, w2, core2, params, num_constraints_satisfied,
+        point_weights=weights2, constraint_index_map=inverse, trace=trace, device=device,
+    )
+    m = len(uniq)
+    return HDBSCANResult(
+        labels=labels_x[:m][inverse],
+        tree=tree,
+        core_distances=core_u[inverse],
+        mst=(u, v, w),  # unique-vertex space
+        outlier_scores=scores_x[:m][inverse],
+        infinite_stability=infinite,
+        dedup_inverse=inverse,
     )
 
 

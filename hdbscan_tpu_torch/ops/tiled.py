@@ -11,11 +11,13 @@ the port computes the same distances.
 :func:`_min_outgoing_scan` is the plain PyTorch version of the segment-min
 kernel; :func:`knn_core_distances` is the core-distance entry point;
 :class:`BoruvkaScanner` and :func:`boruvka_glue_edges` run host-contracted
-Borůvka rounds over that kernel (the MR pipeline's glue and refine
-harvests).
+Borůvka rounds over that kernel (the exact fit's host-round route, the MR
+pipeline's glue and refine harvests).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -166,36 +168,47 @@ def knn_core_distances(
 class BoruvkaScanner:
     """Device-resident state for repeated Borůvka rounds over one dataset
     (the reference's ``BoruvkaScanner`` without a mesh): the points and
-    core distances stay on the device in float32, only the (n,) component
-    labels go up and the per-row winners come back each round. Every
-    round is one launch of the segment-min kernel (``ops/cuda_segmin``; its
-    plain version on the CPU), in the distance form the reference's tiles
-    pick."""
+    core distances stay on the device in ``dtype`` (float64 only on the
+    CPU), only the (n,) component labels go up and the per-row winners come
+    back each round. Every round is one launch of the segment-min kernel
+    (``ops/cuda_segmin``; its plain version on the CPU), in the distance
+    form the reference's tiles pick. ``walls`` holds the last round's
+    (scan s, fetch s)."""
 
     def __init__(self, data: np.ndarray, core: np.ndarray, metric: str = "euclidean",
-                 row_tile: int = 1024, col_tile: int = 8192, *, device):
+                 row_tile: int = 1024, col_tile: int = 8192, *, device, dtype=np.float32):
         self.n, self.d = np.shape(data)
         self.metric = metric
         self.row_tile, self.col_tile = row_tile, col_tile
-        self.device = device
-        self._data = torch.as_tensor(np.asarray(data, np.float32), device=device)
-        self._core = torch.as_tensor(np.asarray(core, np.float32), device=device)
+        self.device = torch.device(device)
+        check_dtype(dtype, self.device)
+        self._data = torch.as_tensor(np.asarray(data, dtype), device=device)
+        self._core = torch.as_tensor(np.asarray(core, dtype), device=device)
         self._valid = torch.ones(self.n, dtype=torch.bool, device=device)
+        self.walls = (0.0, 0.0)
 
     def min_outgoing(self, comp: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """(best_w float64, best_j int64) per point: the lightest edge
         leaving the point's component, (+inf, -1) where none."""
+        import time
+
         from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows
         from hdbscan_tpu_torch.utils.flops import counter as _flops
 
         _, _, n_pad = _tile_sizes(self.n, self.row_tile, self.col_tile)
         _flops.add_scan(n_pad, n_pad, self.d, row_tile=self.row_tile)
+        t0 = time.monotonic()
         comp_t = torch.as_tensor(np.asarray(comp, np.int32), device=self.device)
         bw, bj = min_outgoing_all_rows(
             self._data, self._core, comp_t, self._valid, self.metric,
             self.row_tile, self.col_tile,
         )
-        return bw.cpu().numpy().astype(np.float64), bj.cpu().numpy().astype(np.int64)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.monotonic()
+        bw, bj = bw.cpu().numpy().astype(np.float64), bj.cpu().numpy().astype(np.int64)
+        self.walls = (t1 - t0, time.monotonic() - t1)
+        return bw, bj
 
 
 def boruvka_glue_edges(
@@ -222,9 +235,9 @@ def boruvka_glue_edges(
 
     if scan_backend == "ring" or fit_sharding == "sharded":
         raise NotImplementedError(
-            "the host-round ring and sharded Borůvka glue scanners "
-            "(RingBoruvkaScanner, ShardBoruvkaScanner) are not ported yet "
-            "(ROADMAP A3, A9)"
+            "the ring and sharded Borůvka glue (scan_backend=ring or "
+            "fit_sharding=sharded in the MR glue harvests) is not ported yet "
+            "(ROADMAP A9)"
         )
     n = len(data)
     if core is None:

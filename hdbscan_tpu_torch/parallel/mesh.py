@@ -53,6 +53,15 @@ def get_mesh(devices: list | None = None) -> Mesh:
     return Mesh(devices)
 
 
+def spans_cards(mesh: Mesh | None) -> bool:
+    """A mesh of two or more distinct CUDA devices: where ``auto`` takes
+    the sharded and ring engines (the reference's multi-device TPU rule)."""
+    if mesh is None:
+        return False
+    cards = mesh.distinct()
+    return len(cards) > 1 and all(d.type == "cuda" for d in cards)
+
+
 def device_count(mesh: Mesh) -> int:
     """Number of shards on the (1-D) mesh."""
     return len(mesh.devices)

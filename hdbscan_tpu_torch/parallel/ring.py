@@ -18,10 +18,13 @@ strictly below a row's k-th, which under the rotated arrival order can keep
 another id than the lex merge on an exact distance tie at the k-th slot; the
 values agree.
 
+:class:`RingBoruvkaScanner` runs host-contracted Borůvka rounds over the
+same shards (``scan_backend=ring``); :func:`resolve_scan_backend` maps the
+knob to it.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-entry: the ring Borůvka scanner (:class:`RingBoruvkaScanner`, A3 and A9),
-the rows scan (:func:`ring_knn_core_distances_rows`, A6 and A9) and the
-sharded rp-forest branch (A9).
+entry: the rows scan (:func:`ring_knn_core_distances_rows`, A6 and A9) and
+the sharded rp-forest branch (A9).
 """
 
 from __future__ import annotations
@@ -34,7 +37,22 @@ import torch
 from hdbscan_tpu_torch.core.distances import euclidean_form
 from hdbscan_tpu_torch.ops.lexmerge import lexsort_rows
 from hdbscan_tpu_torch.ops.tiled import _next_pow2, _round_up, check_dtype
-from hdbscan_tpu_torch.parallel.mesh import device_count, fetch, get_mesh
+from hdbscan_tpu_torch.parallel.mesh import device_count, fetch, get_mesh, spans_cards
+
+#: Valid ``scan_backend`` values (``config.HDBSCANParams.scan_backend``).
+SCAN_BACKENDS = ("auto", "host", "ring")
+
+
+def resolve_scan_backend(scan_backend: str, mesh) -> str:
+    """Map a ``scan_backend`` knob value to the engine: "host" and "ring"
+    are literal; "auto" picks the ring only on a mesh of two or more
+    distinct CUDA devices (``parallel/mesh.spans_cards``), so one card and
+    CPU meshes keep the host scanner."""
+    if scan_backend not in SCAN_BACKENDS:
+        raise ValueError(f"unknown scan_backend {scan_backend!r}: auto | host | ring")
+    if scan_backend != "auto":
+        return scan_backend
+    return "ring" if spans_cards(mesh) else "host"
 
 
 def _ring_geometry(n: int, n_dev: int, row_tile: int, col_tile: int):
@@ -193,10 +211,80 @@ def ring_knn_core_distances_rows(*args, **kwargs):
 
 
 class RingBoruvkaScanner:
-    """The ring Borůvka scanner with per-round host contraction."""
+    """Ring-sharded drop-in for ``ops/tiled.BoruvkaScanner`` (the
+    reference's ``RingBoruvkaScanner``): the same ``min_outgoing(comp) ->
+    (best_w, best_j)`` contract and the same edges after
+    ``utils/unionfind.contract_min_edges``, but the points shard over the
+    mesh (``mesh=None``: every visible card) and only the (n_comp,) reduced
+    winners come back each round.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the ring Borůvka scanner (RingBoruvkaScanner, host-round "
-            "contraction) is not ported yet (ROADMAP A3, A9)"
+    A round is ``parallel/shard._Shards.scan`` (B9 per shard and visiting
+    panel, the panels in ring order under the explicit (w, j) update) over
+    the dense component labels, then ``_Shards.winners``, the per-component
+    minimum by the contraction's own key (w, lo, hi) across shards. Each
+    component's one winner is scattered onto its in-component endpoint, so
+    the returned per-point arrays carry one candidate per component and the
+    host contraction emits the host scanner's edges round for round.
+    ``trace`` gets one ``ring_boruvka_scan`` event per round (with
+    per-shard ``ring_device_wall`` events).
+    """
+
+    def __init__(self, data: np.ndarray, core: np.ndarray, metric: str = "euclidean",
+                 row_tile: int = 1024, col_tile: int = 8192, dtype=np.float32,
+                 mesh=None, trace=None):
+        from hdbscan_tpu_torch.parallel.shard import _Shards
+
+        self._sh = _Shards(data, core, metric, row_tile, col_tile, dtype, mesh)
+        self.n, self.d, self.n_dev = self._sh.n, self._sh.d, self._sh.n_dev
+        self.trace = trace
+        self._itemsize = np.dtype(dtype).itemsize
+        self._round = 0
+        self.walls = (0.0, 0.0)  # the last round's (scan s, fetch s)
+
+    def close(self) -> None:
+        """Release the scanner's device row shards now."""
+        self._sh.close()
+
+    def min_outgoing(self, comp: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(best_w float64, best_j int64) per point — (+inf, -1) except each
+        component's winning outgoing edge, scattered onto its in-component
+        endpoint."""
+        from hdbscan_tpu_torch.utils.flops import counter as _flops
+
+        sh = self._sh
+        _flops.add_scan(sh.n_pad, sh.n_pad, self.d, row_tile=sh.row_tile)
+        uniq, dense = np.unique(np.asarray(comp), return_inverse=True)
+        n_comp = len(uniq)
+        t_up = time.monotonic()
+        labels_on = sh.put_labels(dense.astype(np.int32))
+        t0 = time.monotonic()
+        upload_s = t0 - t_up
+        w, lo, hi, n_cand = sh.winners(sh.scan(labels_on), labels_on, n_comp)
+        walls = _per_device_walls(sh.mesh, t0)
+        wall = time.monotonic() - t0
+        t_f = time.monotonic()
+        w = w.cpu().numpy().astype(np.float64)
+        lo, hi = torch.stack([lo, hi]).cpu().numpy().astype(np.int64)
+        cand = int(n_cand)
+        fetch_s = time.monotonic() - t_f
+        self.walls = (wall, fetch_s)
+        # The row shard with its cores circulates each round.
+        comm_bytes = (self.n_dev - 1) * sh.shard * (self.d + 1) * self._itemsize
+        _emit_ring_trace(
+            self.trace, "ring_boruvka_scan", wall, walls, self.n_dev, self._round,
+            n_comp=n_comp, candidates=cand, upload_s=round(upload_s, 6),
+            fetch_s=round(fetch_s, 6), comm_bytes=comm_bytes,
         )
+        self._round += 1
+        bw = np.full(self.n, np.inf, np.float64)
+        bj = np.full(self.n, -1, np.int64)
+        fin = np.isfinite(w)
+        if fin.any():
+            lo_f, hi_f = lo[fin], hi[fin]
+            cids = np.flatnonzero(fin)
+            # The winner's in-component endpoint emits it (host semantics:
+            # the vertex whose candidate won the component).
+            u = np.where(dense[lo_f] == cids, lo_f, hi_f)
+            bw[u] = w[fin]
+            bj[u] = lo_f + hi_f - u
+        return bw, bj

@@ -1,5 +1,6 @@
 """The sharded exact fit — the port of ``parallel/shard.py``'s exact tier:
-ring core distances and the sharded device Borůvka rounds.
+ring core distances, the sharded device Borůvka rounds and the host-round
+sharded scanner.
 
 The reference runs every sharded Borůvka round inside one ``shard_map``
 ``while_loop`` (``_shard_mst_fn``). The port runs the same rounds as a host
@@ -7,36 +8,44 @@ loop over a single-process mesh (``parallel/mesh.Mesh``), one scalar read
 per round driving it, as the single-device ``boruvka_mst_device`` does. A
 round:
 
-1. scan — every shard ``me`` keeps its row shard, core distances and
-   labels resident and scans the panels in ring order ``(me - s) % D``
-   through the panel segment-min kernel (``ops/cuda_segmin.
-   min_outgoing_panel``, B9); a panel-local winner becomes global as
-   ``where(pj >= 0, pj + off, 0)`` and enters under the explicit (w, j)
-   lexicographic update, so the arrival order cannot change the winner;
-2. reduction — each shard's scatter-min partials over the (n,) label space
-   are min-reduced across shards on the first shard's device, in the key
-   order of ``core/mst_device._contract_round``: weight, then lo, hi and
-   row over the rows still tied, then the winner's target column;
+1. scan (:meth:`_Shards.scan`) — every shard ``me`` keeps its row shard,
+   core distances and labels resident and scans the panels in ring order
+   ``(me - s) % D`` through the panel segment-min kernel
+   (``ops/cuda_segmin.min_outgoing_panel``, B9); a panel-local winner
+   becomes global and enters under the explicit (w, j) lexicographic
+   update, so the arrival order cannot change the winner;
+2. reduction (:meth:`_Shards.winners`) — each shard's scatter-min partials
+   over the label space are min-reduced across shards on the first
+   shard's device, key by key: weight, then lo and hi over the rows still
+   tied (the key of ``utils/unionfind.contract_min_edges`` and of
+   ``core/mst_device._contract_round``, whose row and target follow from
+   (lo, hi): the edge leaves the component from its in-component end);
 3. contraction — ``core/mst_device._collapse_labels`` (the same
    pointer-doubling collapse) and the slot emission into edge buffers in
    ascending-label order with +inf self-loop padding, so the edges equal the
    single-device engine's slot for slot; the new labels go back to every
    shard's device.
 
+:class:`ShardBoruvkaScanner` (``mst_backend=host`` under
+``fit_sharding=sharded``) runs step 1 alone per round and hands the (n,)
+per-point winners to the host contraction; ``parallel/ring.
+RingBoruvkaScanner`` runs steps 1 and 2 over the dense component labels.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-entry: the host-round sharded scanner :class:`ShardBoruvkaScanner` (A3,
-A9), the sharded rp-forest ``shard_forest_core_distances`` (A9), and the
-reference's partition-rule table (a JAX sharding device with no torch
-counterpart: a shard's tensors lie on its device).
+entry: the sharded rp-forest ``shard_forest_core_distances`` (A9). The
+reference's partition-rule table is a JAX sharding device with no torch
+counterpart: a shard's tensors lie on its device.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from hdbscan_tpu_torch.core.distances import euclidean_form
-from hdbscan_tpu_torch.parallel.mesh import device_count, get_mesh
+from hdbscan_tpu_torch.parallel.mesh import device_count, fetch, get_mesh, spans_cards
 from hdbscan_tpu_torch.parallel.ring import _ring_geometry, _shard_rows
 
 #: Valid ``fit_sharding`` values (``config.HDBSCANParams.fit_sharding``).
@@ -56,12 +65,7 @@ def resolve_fit_sharding(fit_sharding: str, mesh) -> str:
         )
     if fit_sharding != "auto":
         return fit_sharding
-    if mesh is None:
-        return "replicated"
-    cards = mesh.distinct()
-    if len(cards) > 1 and all(d.type == "cuda" for d in cards):
-        return "sharded"
-    return "replicated"
+    return "sharded" if spans_cards(mesh) else "replicated"
 
 
 def shard_core_distances(
@@ -99,14 +103,172 @@ def shard_forest_core_distances(*args, **kwargs):
     )
 
 
-class ShardBoruvkaScanner:
-    """The sharded Borůvka scanner with per-round host contraction."""
+class _Shards:
+    """The row shards of one Borůvka run over ``mesh``: each shard's points,
+    core distances and global row ids on its device, and the per-round
+    panel scan and per-component reduction that every sharded Borůvka engine
+    shares (:class:`ShardBoruvkaScanner`, ``parallel/ring.
+    RingBoruvkaScanner`` and :func:`shard_boruvka_mst`)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the sharded host-round Borůvka scanner (ShardBoruvkaScanner) is not "
-            "ported yet (ROADMAP A3, A9)"
+    def __init__(self, data, core, metric, row_tile, col_tile, dtype, mesh):
+        self.n, self.d = np.shape(data)
+        self.metric = metric
+        self.mesh = mesh if mesh is not None else get_mesh()
+        self.n_dev = device_count(self.mesh)
+        self.devs = self.mesh.devices
+        self.root = self.mesh.root
+        self.distinct = self.mesh.distinct()
+        self.row_tile, self.col_tile, self.shard, self.n_pad = _ring_geometry(
+            self.n, self.n_dev, row_tile, col_tile
         )
+        self.form = (euclidean_form(self.row_tile, self.col_tile, self.d)
+                     if metric == "euclidean" else None)
+        self.parts = _shard_rows(self.n, self.shard, self.n_dev)
+        self.live = [s for s in range(self.n_dev) if self.parts[s][1] > 0]
+        x = np.asarray(data, dtype)
+        c = np.asarray(core, dtype)
+        on = list(zip(self.parts, self.devs))
+        self.rows = [torch.as_tensor(x[o : o + m], device=dev) for (o, m), dev in on]
+        self.cores = [torch.as_tensor(c[o : o + m], device=dev) for (o, m), dev in on]
+        self.valid = [torch.ones(m, dtype=torch.bool, device=dev) for (_, m), dev in on]
+        self.gid = [torch.arange(o, o + m, dtype=torch.int32, device=dev) for (o, m), dev in on]
+
+    def put_labels(self, labels) -> dict:
+        """An (n,) int32 label vector (host array or tensor) on every
+        distinct device of the mesh."""
+        t = torch.as_tensor(labels)
+        return {dev: t.to(dev) for dev in self.distinct}
+
+    def scan(self, labels_on: dict) -> dict:
+        """One round's panel scan: every shard ``me`` against the panels in
+        ring order ``(me - s) % D`` through the panel segment-min kernel
+        (B9), each panel-local winner made global and entered under the
+        explicit (w, j) lexicographic update, so the arrival order cannot
+        change it. Returns {shard: ((m,) best_w, (m,) int32 best_j)} with
+        global column ids, (+inf, -1) where no outgoing edge exists."""
+        from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_panel
+
+        out = {}
+        for me in self.live:
+            dev, (off_me, m) = self.devs[me], self.parts[me]
+            labels = labels_on[dev]
+            kr = labels[off_me : off_me + m]
+            bw = torch.full((m,), float("inf"), dtype=self.rows[me].dtype, device=dev)
+            bj = torch.full((m,), -1, dtype=torch.int32, device=dev)
+            for step in range(self.n_dev):
+                src = (me - step) % self.n_dev
+                off, cnt = self.parts[src]
+                if cnt == 0:
+                    continue
+                pw, pj = min_outgoing_panel(
+                    self.rows[me], self.cores[me], kr, self.valid[me],
+                    self.rows[src].to(dev), self.cores[src].to(dev), labels[off : off + cnt],
+                    self.valid[src].to(dev), self.metric, self.row_tile, self.col_tile,
+                    form=self.form, col_offset=off,
+                )
+                tj = torch.where(pj >= 0, pj + off, 0)
+                upd = (pw < bw) | ((pw == bw) & (tj < bj))
+                bw = torch.where(upd, pw, bw)
+                bj = torch.where(upd, tj, bj)
+            out[me] = (bw, bj)
+        return out
+
+    def winners(self, cands: dict, labels_on: dict, n_seg: int):
+        """Per-component winners of one round's candidates: the minimum by
+        the shared key (w, lo = min(i, j), hi = max(i, j)) of
+        ``utils/unionfind.contract_min_edges``, each shard's scatter-min
+        partials over the ``n_seg`` labels min-reduced across shards on the
+        first shard's device, key by key. Returns (w, lo, hi) (n_seg,) on
+        that device, (+inf, INT32_MAX, INT32_MAX) for a label without a
+        candidate, and the number of candidates (a 0-d tensor)."""
+        from hdbscan_tpu_torch.core.mst_device import _seg_min_into
+
+        st = []
+        for me, (bw, bj) in cands.items():
+            dev, (off, m) = self.devs[me], self.parts[me]
+            has = bj >= 0
+            lab = torch.where(has, labels_on[dev][off : off + m], n_seg)
+            bj_c = torch.where(has, bj, 0)
+            st.append(dict(dev=dev, has=has, lab=lab, w=bw,
+                           kr_c=torch.clamp(lab, 0, n_seg - 1),
+                           lo=torch.minimum(self.gid[me], bj_c),
+                           hi=torch.maximum(self.gid[me], bj_c)))
+
+        def seg_min(key, fill):
+            return _reduce([_seg_min_into(n_seg, s["lab"], s[key], fill) for s in st],
+                           self.root, self.distinct)
+
+        w = seg_min("w", float("inf"))
+        for s in st:
+            s["lab"] = torch.where(s["w"] == w[s["dev"]][s["kr_c"]], s["lab"], n_seg)
+        lo = seg_min("lo", _INT32_MAX)
+        for s in st:
+            s["lab"] = torch.where(s["lo"] == lo[s["dev"]][s["kr_c"]], s["lab"], n_seg)
+        hi = seg_min("hi", _INT32_MAX)
+        n_cand = sum(s["has"].sum().to(self.root) for s in st)
+        return w[self.root], lo[self.root], hi[self.root], n_cand
+
+    def close(self) -> None:
+        """Drop the shards' device tensors now."""
+        self.rows = self.cores = self.valid = self.gid = []
+
+
+class ShardBoruvkaScanner:
+    """Fully row-sharded drop-in for ``ops/tiled.BoruvkaScanner`` (the
+    reference's ``ShardBoruvkaScanner``): the same ``min_outgoing(comp) ->
+    (best_w, best_j)`` contract and the same per-point arrays, but points,
+    cores and labels live per shard on the mesh (``mesh=None``: every
+    visible card) and each round is :meth:`_Shards.scan`, B9 per shard and
+    visiting panel. The (n,) winners come back to the host contraction
+    every round. ``trace`` gets one ``shard_boruvka_scan`` event per round
+    (with per-shard ``ring_device_wall`` events)."""
+
+    def __init__(self, data: np.ndarray, core: np.ndarray, metric: str = "euclidean",
+                 row_tile: int = 1024, col_tile: int = 8192, dtype=np.float32,
+                 mesh=None, trace=None):
+        self._sh = _Shards(data, core, metric, row_tile, col_tile, dtype, mesh)
+        self.n, self.d, self.n_dev = self._sh.n, self._sh.d, self._sh.n_dev
+        self.trace = trace
+        self._itemsize = np.dtype(dtype).itemsize
+        self._round = 0
+        self.walls = (0.0, 0.0)  # the last round's (scan s, fetch s)
+
+    def close(self) -> None:
+        """Release the scanner's device row shards now."""
+        self._sh.close()
+
+    def min_outgoing(self, comp: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Per-point (best_w float64, best_j int64): the minimum outgoing
+        mutual-reachability edge of every point's component seen from that
+        point, (w, j)-lex, (+inf, -1) where none."""
+        from hdbscan_tpu_torch.parallel.ring import _emit_ring_trace, _per_device_walls
+        from hdbscan_tpu_torch.utils.flops import counter as _flops
+
+        sh = self._sh
+        _flops.add_scan(sh.n_pad, sh.n_pad, self.d, row_tile=sh.row_tile)
+        comp = np.asarray(comp)
+        t_up = time.monotonic()
+        labels_on = sh.put_labels(comp.astype(np.int32))
+        t0 = time.monotonic()
+        upload_s = t0 - t_up
+        cands = sh.scan(labels_on)
+        walls = _per_device_walls(sh.mesh, t0)
+        wall = time.monotonic() - t0
+        t_f = time.monotonic()
+        bw = fetch([cands[s][0] for s in sh.live]).astype(np.float64)
+        bj = fetch([cands[s][1] for s in sh.live]).astype(np.int64)
+        fetch_s = time.monotonic() - t_f
+        self.walls = (wall, fetch_s)
+        # Two panels per hand-over: the row shard with its cores, and the
+        # int32 component labels.
+        comm_bytes = (self.n_dev - 1) * sh.shard * ((self.d + 1) * self._itemsize + 4)
+        _emit_ring_trace(
+            self.trace, "shard_boruvka_scan", wall, walls, self.n_dev, self._round,
+            n_comp=int(len(np.unique(comp))), candidates=int(np.sum(bj >= 0)),
+            upload_s=round(upload_s, 6), fetch_s=round(fetch_s, 6), comm_bytes=comm_bytes,
+        )
+        self._round += 1
+        return bw, bj
 
 
 def _reduce(parts, root, devices):
@@ -140,32 +302,16 @@ def shard_boruvka_mst(
     "rounds", "round_syncs", "stat_comp", "stat_edges", "shard". ``trace``
     gets one ``mst_round`` event per round, marked ``sharded``.
     """
-    from hdbscan_tpu_torch.core.mst_device import _collapse_labels, _seg_min_into
-    from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_panel
+    from hdbscan_tpu_torch.core.mst_device import _collapse_labels
 
-    n, d = np.shape(data)
-    mesh = mesh if mesh is not None else get_mesh()
-    n_dev = device_count(mesh)
-    devs = mesh.devices
-    root = mesh.root
-    distinct = mesh.distinct()
-    row_tile, col_tile, shard, _ = _ring_geometry(n, n_dev, row_tile, col_tile)
-    form = euclidean_form(row_tile, col_tile, d) if metric == "euclidean" else None
-    parts = _shard_rows(n, shard, n_dev)
-    live = [s for s in range(n_dev) if parts[s][1] > 0]
-    x = np.asarray(data, dtype)
-    c = np.asarray(core, dtype)
-    rows = [torch.as_tensor(x[o : o + m], device=devs[s]) for s, (o, m) in enumerate(parts)]
-    cores = [torch.as_tensor(c[o : o + m], device=devs[s]) for s, (o, m) in enumerate(parts)]
-    valid = [torch.ones(m, dtype=torch.bool, device=devs[s]) for s, (_, m) in enumerate(parts)]
-    gid = [torch.arange(o, o + m, dtype=torch.int32, device=devs[s])
-           for s, (o, m) in enumerate(parts)]
-
+    sh = _Shards(data, core, metric, row_tile, col_tile, dtype, mesh)
+    n, root = sh.n, sh.root
     buf = max(n - 1, 1)
     eu = torch.zeros(buf + 1, dtype=torch.int32, device=root)
     ev = torch.zeros(buf + 1, dtype=torch.int32, device=root)
-    ew = torch.full((buf + 1,), float("inf"), dtype=rows[0].dtype, device=root)
+    ew = torch.full((buf + 1,), float("inf"), dtype=sh.rows[0].dtype, device=root)
     comp = torch.arange(n, dtype=torch.int32, device=root)
+    label_ids = torch.arange(n, dtype=torch.int32, device=root)
     valid_all = torch.ones(n, dtype=torch.bool, device=root)
     stat_comp = np.zeros(max_rounds, np.int32)
     stat_edges = np.zeros(max_rounds, np.int32)
@@ -173,75 +319,24 @@ def shard_boruvka_mst(
     n_comp = n
     progress = True
     while rounds < max_rounds and n_comp > 1 and progress:
-        comp_on = {dev: comp.to(dev) for dev in distinct}
-        # 1. scan: each shard against the panels in ring order.
-        st = {}
-        for me in live:
-            dev, (off_me, m) = devs[me], parts[me]
-            labels = comp_on[dev]
-            kr = labels[off_me : off_me + m]
-            bw = torch.full((m,), float("inf"), dtype=rows[me].dtype, device=dev)
-            bj = torch.full((m,), -1, dtype=torch.int32, device=dev)
-            for step in range(n_dev):
-                src = (me - step) % n_dev
-                off, cnt = parts[src]
-                if cnt == 0:
-                    continue
-                pw, pj = min_outgoing_panel(
-                    rows[me], cores[me], kr, valid[me],
-                    rows[src].to(dev), cores[src].to(dev), labels[off : off + cnt],
-                    valid[src].to(dev), metric, row_tile, col_tile, form=form, col_offset=off,
-                )
-                tj = torch.where(pj >= 0, pj + off, 0)
-                upd = (pw < bw) | ((pw == bw) & (tj < bj))
-                bw = torch.where(upd, pw, bw)
-                bj = torch.where(upd, tj, bj)
-            bj_c = torch.clamp(bj, 0, n - 1)
-            cross = valid[me] & (bj >= 0) & (kr != labels[bj_c.long()])
-            st[me] = dict(
-                dev=dev, bw=bw, bj_c=bj_c, cross=cross, lab=torch.where(cross, kr, n),
-                kr_c=torch.clamp(kr, 0, n - 1), row=gid[me],
-                lo=torch.minimum(gid[me], bj_c), hi=torch.maximum(gid[me], bj_c),
-            )
-
-        # 2. cross-shard reduction in the contraction's key order.
-        def seg_min(key, fill, mask=None):
-            """Per-shard scatter-min of ``key`` by label (rows outside
-            ``mask`` dropped), reduced across shards."""
-            return _reduce(
-                [_seg_min_into(n, s["lab"] if mask is None else
-                               torch.where(mask(s), s["lab"], n), s[key], fill)
-                 for s in st.values()],
-                root, distinct,
-            )
-
-        def at_label(red, s):
-            return red[s["dev"]][s["kr_c"]]
-
-        wmin = seg_min("bw", float("inf"))
-        for s in st.values():
-            s["tied"] = s["cross"] & (s["bw"] == at_label(wmin, s))
-        for key in ("lo", "hi"):
-            best = seg_min(key, _INT32_MAX, lambda s: s["tied"])
-            for s in st.values():
-                s["tied"] = s["tied"] & (s[key] == at_label(best, s))
-        row_min = seg_min("row", _INT32_MAX, lambda s: s["tied"])
-        bj_win = seg_min("bj_c", _INT32_MAX,
-                         lambda s: s["tied"] & (s["row"] == at_label(row_min, s)))[root]
-
-        # 3. contraction and emission on the first shard's device.
-        row_min = row_min[root]
-        has_edge = row_min < _INT32_MAX
-        win_row = torch.where(has_edge, row_min, 0)
-        bjw_c = torch.clamp(bj_win, 0, n - 1)
+        labels_on = sh.put_labels(comp)
+        # 1. scan: each shard against the panels in ring order; 2. the
+        # per-component (w, lo, hi) reduction across shards.
+        w, lo, hi, _ = sh.winners(sh.scan(labels_on), labels_on, n)
+        # 3. contraction and emission on the first shard's device: a
+        # label's winning edge leaves from its in-component endpoint.
+        has_edge = lo < _INT32_MAX
+        lo_c, hi_c = torch.clamp(lo, 0, n - 1), torch.clamp(hi, 0, n - 1)
+        win_row = torch.where(comp[lo_c.long()] == label_ids, lo_c, hi_c)
+        win_j = lo_c + hi_c - win_row
         emit_mask, rep, n_comp_t, added_t = _collapse_labels(
-            comp, valid_all, has_edge, comp[bjw_c.long()], n
+            comp, valid_all, has_edge, comp[win_j.long()], n
         )
         pos = count + torch.cumsum(emit_mask.to(torch.int32), 0) - 1
         slot = torch.where(emit_mask, pos, buf).to(torch.int64)
-        eu[slot] = torch.clamp(win_row, 0, n - 1)
-        ev[slot] = bjw_c
-        ew[slot] = wmin[root]
+        eu[slot] = win_row
+        ev[slot] = win_j
+        ew[slot] = w
         comp = rep[comp.long()]
         # The round's one device->host read: it drives the loop.
         n_comp, added = torch.stack([n_comp_t, added_t]).tolist()
@@ -256,11 +351,11 @@ def shard_boruvka_mst(
         rounds += 1
 
     def split(t):
-        return [t[min(o, buf) : min(o + shard, buf)].to(devs[s])
-                for s, (o, _) in enumerate(parts)]
+        return [t[min(o, buf) : min(o + sh.shard, buf)].to(dev)
+                for (o, _), dev in zip(sh.parts, sh.devs)]
 
     return {
         "u": split(eu), "v": split(ev), "w": split(ew),
         "count": count, "rounds": rounds, "round_syncs": syncs,
-        "stat_comp": stat_comp, "stat_edges": stat_edges, "shard": shard,
+        "stat_comp": stat_comp, "stat_edges": stat_edges, "shard": sh.shard,
     }

@@ -114,6 +114,33 @@ def test_exact_sharded_route_equals_reference_exact_fit(tmp_path, grid_file, cap
     _check_trace(trace)
 
 
+@pytest.mark.parametrize(
+    "extra",
+    [["mst_backend=host"], ["dedup=true"], ["dedup=true", "mst_backend=host", "scan_backend=ring"]],
+    ids=["mst_backend_host", "dedup", "dedup_ring_host"],
+)
+def test_exact_sharded_host_rounds_equal_reference_cli(tmp_path, grid_file, capsys, extra):
+    """The exact-sharded route down the host rounds (the sharded scanner)
+    and with dedup: the reference CLI runs these on its 8-device mesh, the
+    port on one CPU shard; the five files are byte-identical."""
+    argv = ["fit", f"file={grid_file}", *BASE, "processing_units=2000",
+            "fit_sharding=sharded", *extra]
+    with jax.enable_x64(False):
+        assert ref_main(argv + [f"out_dir={tmp_path / 'ref'}"]) == 0
+    ref_out = capsys.readouterr().out
+    trace = str(tmp_path / "trace.jsonl")
+    assert port_main(argv + [f"out_dir={tmp_path / 'port'}", "--device", "cpu",
+                             "--trace-out", trace]) == 0
+    out = capsys.readouterr().out
+    assert _summary(out) == _summary(ref_out)
+    assert ", exact-sharded, " in out.splitlines()[0]
+    ref_files, port_files = _files(tmp_path / "ref"), _files(tmp_path / "port")
+    assert sorted(port_files) == sorted(ref_files) and len(ref_files) == 5
+    for name in ref_files:
+        assert port_files[name] == ref_files[name], name
+    _check_trace(trace)
+
+
 def test_trace_file_records_the_cli_events(tmp_path, grid_file, capsys):
     import json
 
@@ -167,7 +194,6 @@ def test_unported_flags_exit_2_before_reading_data(tmp_path, capsys, argv, item)
         (["processing_units=256", "variant=rs"], "A6"),
         (["processing_units=256", "dedup=true"], "A6"),
         (["processing_units=256", "fit_sharding=sharded"], "A9"),
-        (["processing_units=2000", "fit_sharding=sharded", "mst_backend=host"], "A3"),
     ],
 )
 def test_unported_routes_exit_2(tmp_path, grid_file, capsys, extra, item):

@@ -26,6 +26,7 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.config",
     "hdbscan_tpu_torch.core.bubbles",
     "hdbscan_tpu_torch.core.constraints",
+    "hdbscan_tpu_torch.core.dedup",
     "hdbscan_tpu_torch.core.distances",
     "hdbscan_tpu_torch.core.knn",
     "hdbscan_tpu_torch.core.mst",
@@ -216,10 +217,7 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 @pytest.mark.parametrize(
     "overrides,entry",
     [
-        ({"mst_backend": "host"}, "A3"),
-        ({"dedup_points": True}, "A3"),
         ({"fit_sharding": "sharded", "knn_index": "rpforest"}, "A9"),
-        ({"scan_backend": "ring"}, "A9"),
     ],
 )
 def test_unported_routes_raise(overrides, entry):
@@ -229,3 +227,26 @@ def test_unported_routes_raise(overrides, entry):
     with pytest.raises(NotImplementedError, match=entry):
         exact.fit(data, PortParams(min_points=3, min_cluster_size=3, **overrides),
                   device="cpu")
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [{"mst_backend": "host"}, {"dedup_points": True}, {"scan_backend": "ring"}],
+    ids=["mst_backend_host", "dedup_points", "scan_backend_ring"],
+)
+def test_formerly_refused_routes_match_reference(overrides):
+    """The three exact routes the port used to refuse now run and give the
+    reference's fit (a grid with duplicate rows: bitwise)."""
+    from hdbscan_tpu.config import HDBSCANParams as RefParams
+    from hdbscan_tpu.models import exact as ref_exact
+    from hdbscan_tpu_torch.models import exact
+
+    data = np.round(np.random.default_rng(0).normal(size=(400, 2)) * 4.0)
+    kw = dict(min_points=5, min_cluster_size=10, **overrides)
+    port = exact.fit(data, PortParams(**kw), device="cpu")
+    ref = ref_exact.fit(data, RefParams(**kw))
+    np.testing.assert_array_equal(port.labels, ref.labels)
+    np.testing.assert_array_equal(port.core_distances, ref.core_distances)
+    for a, b in zip(port.mst, ref.mst):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(port.outlier_scores, ref.outlier_scores)

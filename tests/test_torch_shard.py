@@ -219,14 +219,29 @@ def test_fit_sharding_resolution():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda: shard.ShardBoruvkaScanner(),
-        lambda: ring.RingBoruvkaScanner(),
         lambda: ring.ring_knn_core_distances_rows(np.zeros((4, 2)), np.arange(2), 2),
         lambda: shard.shard_core_distances(np.zeros((4, 2)), 2, mesh=_cpu_mesh(2),
                                            index="rpforest"),
     ],
-    ids=["shard_scanner", "ring_scanner", "ring_rows", "sharded_rpforest"],
+    ids=["ring_rows", "sharded_rpforest"],
 )
 def test_unported_sharded_pieces_raise(call):
     with pytest.raises(NotImplementedError, match="A9"):
         call()
+
+
+@pytest.mark.parametrize("kind", ["shard_scanner", "ring_scanner"])
+def test_host_round_scanners_match_reference(kind):
+    """The host-round sharded scanners, once refused: the Borůvka rounds
+    over each on four CPU shards give the reference's edges through its
+    own scanner on four of its devices (``mst_edges_from_core``)."""
+    data = _grid(30, 700, hi=9)
+    core = ref_knn(data, 8, fetch_knn=False, **TILES)[0]
+    kw = (dict(fit_sharding="sharded") if kind == "shard_scanner"
+          else dict(scan_backend="ring", fit_sharding="replicated"))
+    want = ref_exact.mst_edges_from_core(data, core, **TILES, **kw,
+                                         mesh=ref_get_mesh(jax.devices()[:4]))
+    got = port_exact.mst_edges_from_core(data, core, **TILES, **kw, mesh=_cpu_mesh(4))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert len(got[0]) == len(data) - 1
