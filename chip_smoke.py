@@ -190,6 +190,31 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    launches and the
    block and ``pool_mst`` walls printed). ``python3 chip_smoke.py 3k``
    builds the kernels and runs phases 3 and 3k alone;
+3l. the rest of the MR pipeline: first the 6,000-point card-vs-CPU checks
+   of phase 3d gain ``variant=rs``, ``dedup_points`` (every third row
+   repeated 1-6 more times), ``consensus_draws=3``, ``compat_cf_int_math``,
+   the unpruned boundary (``boundary_block_pruning=False``, at cosine, over
+   the rp-forest) and a checkpoint interrupted after level 0 then resumed,
+   each bitwise (``mr_variants_card_vs_cpu``); then the cells, each with the
+   launch counters zeroed just before its fit and read just after, its
+   wall, level stages, trace walls and launches printed: ``skin_mr_dedup``
+   (the reference bench's mr-db leg, ``bench.py:1638-1645``: min_points 8,
+   min_cluster_size 3000, processing_units 8192, k 0.03, dedup_points on
+   3k's 245,057 rows over 51,433 unique points: K2 with ids and B1; the
+   ``dedup`` event's counts, two levels or more, ARI against the full-row
+   exact fit and the MR fit without dedup, both timed), and on 3e's data
+   ``3e_rs`` (``variant=rs``: K2, B1; ARI against the truth and 3e's db
+   fit), ``3e_consensus`` (three draws: K2, B1; three ``consensus_draw``
+   events, the reference's provenance keys, labels equal
+   ``consensus_labels`` of the draws' labels), ``3e_checkpoint`` (stopped
+   by ``max_levels=1`` after K2, resumed with B1 and no K2: labels, cores,
+   level stats and edge pool equal the uninterrupted fit's) and the
+   unpruned boundary cells ``3e_boundary_unpruned``,
+   ``3e_boundary_cosine`` (the rows scan on the rectangular K2, B1) and
+   ``3e_boundary_forest`` (B5-B7, B1), where B4 must not launch; each
+   prints ``m``, the ``boundary_cores`` and glue walls and the ARI against
+   the truth. ``python3 chip_smoke.py 3l`` builds the kernels and runs
+   phases 3 and 3l alone;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -289,6 +314,32 @@ CLI_DEDUP_LEG = ("cli_dedup_sharded", N_SKIN,
                  ["minPts=16", "minClSize=3000", "dedup=true", "fit_sharding=sharded",
                   f"processing_units={N_SKIN}"], 4096,
                  ("knn_kbest_panel", "segmin_panel", "uf_scan"), False, ", exact-sharded, ")
+#: Phase 3l, the rest of the MR pipeline. The 6,000-point card-vs-CPU
+#: configurations (label, parameters beyond phase 3d's):
+MR_VARIANTS = (
+    ("variant=rs", {"variant": "rs"}),
+    ("dedup_points", {"dedup_points": True}),
+    ("consensus_draws=3", {"consensus_draws": 3}),
+    ("compat_cf_int_math", {"compat_cf_int_math": True}),
+    ("boundary unpruned", {"boundary_quality": 0.05, "boundary_block_pruning": False}),
+    ("boundary cosine", {"boundary_quality": 0.05, "dist_function": "cosine"}),
+    ("boundary rp-forest", {"boundary_quality": 0.05, "boundary_block_pruning": False,
+                            **FOREST}),
+)
+#: The reference bench's mr-db leg (bench.py:1638-1645; BASELINE.json config
+#: 3's calibrated leg, benchmarks/run_configs.py:149-158).
+MR_DB_LEG = dict(min_points=8, min_cluster_size=3000, processing_units=8192, k=0.03, seed=0,
+                 dedup_points=True)
+#: The unpruned boundary cells on 3e's data: (label, parameters, kernels).
+MR_BOUNDARY_CELLS = (
+    ("3e_boundary_unpruned", {"boundary_quality": 0.05, "boundary_block_pruning": False},
+     ("knn_kbest_panel", "segmin")),
+    ("3e_boundary_cosine", {"boundary_quality": 0.05, "dist_function": "cosine"},
+     ("knn_kbest_panel", "segmin")),
+    ("3e_boundary_forest", {"boundary_quality": 0.05, "boundary_block_pruning": False,
+                            **FOREST},
+     ("forest_leaf_topk", "forest_merge", "forest_rescan_topk", "segmin")),
+)
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -2007,7 +2058,8 @@ def sharded_card_vs_cpu(mesh) -> list[str]:
 
 def mr_fits_equal(a, b) -> bool:
     """Two MR fit results with equal labels, level stats, core distances,
-    outlier scores and condensed-tree fields (bitwise)."""
+    outlier scores, condensed-tree fields, consensus provenance and kept
+    edge pools (bitwise)."""
     import dataclasses
 
     import numpy as np
@@ -2016,18 +2068,21 @@ def mr_fits_equal(a, b) -> bool:
         return [{k: v for k, v in dataclasses.asdict(lv).items() if k != "wall_s"}
                 for lv in r.levels]
 
+    pools = (a.edge_pool is None) == (b.edge_pool is None) and (
+        a.edge_pool is None or all(np.array_equal(x, y) for x, y in zip(a.edge_pool, b.edge_pool)))
     return (
         a.n_levels == b.n_levels and stats(a) == stats(b) and trees_equal(a.tree, b.tree)
         and np.array_equal(a.labels, b.labels)
         and np.array_equal(a.core_distances, b.core_distances)
         and np.array_equal(a.outlier_scores, b.outlier_scores)
+        and a.consensus_info == b.consensus_info and pools
     )
 
 
-def run_mr(data, params):
+def run_mr(data, params, **kw):
     """One MR fit on the card with the launch counters zeroed just before
     and read just after: (result, launches, events by stage, wall s, peak
-    device bytes)."""
+    device bytes); ``kw`` goes to ``mr_hdbscan.fit``."""
     import torch
 
     from hdbscan_tpu_torch.models import mr_hdbscan
@@ -2038,7 +2093,7 @@ def run_mr(data, params):
     cuda_build.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    res = mr_hdbscan.fit(data, params, trace=lambda stage, **kw: events.append((stage, kw)))
+    res = mr_hdbscan.fit(data, params, trace=lambda stage, **f: events.append((stage, f)), **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(cuda_build.LAUNCHES)
@@ -2054,13 +2109,14 @@ def report_mr(label, res, launches, ev, wall, peak) -> None:
 
     print(f"{label} fit wall {wall:.3f} s, levels {res.n_levels}, edges {res.n_edges}, "
           f"peak device memory {peak / 2**30:.2f} GiB")
-    for lv, st in zip(res.levels, ev["level_stages"]):
+    stages = ev.get("level_stages", [])  # a resumed fit reports its new levels
+    for lv, st in zip(res.levels[len(res.levels) - len(stages):], stages):
         print(f"{label} level {lv.level}: active {lv.n_active}, small {lv.n_small_subsets}, "
               f"large {lv.n_large_subsets}, processed {lv.n_processed}, bubbles {lv.n_bubbles}, "
               f"inter edges {lv.n_inter_edges}, forced {lv.forced_splits}, wall {lv.wall_s:.3f} s "
               f"{ {k: v for k, v in st.items() if k != 'level'} }")
-    totals = {k: round(sum(st[k] for st in ev["level_stages"]), 6)
-              for k in ev["level_stages"][0] if k != "level"}
+    totals = {k: round(sum(st[k] for st in stages), 6)
+              for k in (stages[0] if stages else {}) if k != "level"}
     print(f"{label} level stages summed over levels (s): {totals}")
     for stage in ("global_cores", "boundary_select", "boundary_cores", "knn_probe_scan",
                   "knn_window_scan", "boundary_reweight", "boundary_phase", "refine",
@@ -3134,6 +3190,192 @@ def host_round_phase(here, data, res, card) -> tuple[list[str], dict]:
     return errors, launches
 
 
+def mr_variants_card_vs_cpu() -> list[str]:
+    """The MR fit's variants on phase 3d's 6,000 points
+    (processing_units=1,024), each fit on the card equal to the same fit on
+    the CPU, bitwise: ``variant=rs``, ``dedup_points`` (every third row
+    repeated 1-6 more times), ``consensus_draws=3``, ``compat_cf_int_math``,
+    the unpruned boundary (``boundary_block_pruning=False``, at cosine, and
+    over the rp-forest), and a checkpoint interrupted after the first level
+    then resumed on the card; returns failure messages."""
+    import tempfile
+
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import mr_hdbscan
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+
+    data, _ = make_gauss(6000, **MR_DATA)
+    rng = np.random.default_rng(1)
+    idx = np.arange(0, len(data), 3)
+    dups = np.concatenate([data, np.repeat(data[idx], rng.integers(1, 7, len(idx)), axis=0)])
+    base = dict(MR_PARAMS, min_cluster_size=30, processing_units=1024)
+    errors = []
+    for label, extra in MR_VARIANTS:
+        x = dups if extra.get("dedup_points") else data
+        p = HDBSCANParams(**base, **extra)
+        t = time.perf_counter()
+        card = mr_hdbscan.fit(x, p, keep_edge_pool=True)
+        card_s = time.perf_counter() - t
+        cpu = mr_hdbscan.fit(x, p, device="cpu", keep_edge_pool=True)
+        same = mr_fits_equal(card, cpu)
+        print(f"3l MR card fit vs CPU fit on {len(x)} rows, {label}: "
+              f"{'identical' if same else 'DIFFERENT'} (card {card_s:.3f} s, CPU "
+              f"{time.perf_counter() - t - card_s:.3f} s)")
+        if not same:
+            errors.append(f"MR {label}")
+    p = HDBSCANParams(**base)
+    cpu = mr_hdbscan.fit(data, p, device="cpu", keep_edge_pool=True)
+    with tempfile.TemporaryDirectory() as ckpt:
+        try:
+            mr_hdbscan.fit(data, p, max_levels=1, checkpoint_dir=ckpt)
+            errors.append("MR checkpoint: max_levels=1 did not interrupt the fit")
+        except RuntimeError:
+            pass
+        card = mr_hdbscan.fit(data, p, checkpoint_dir=ckpt, keep_edge_pool=True)
+    same = mr_fits_equal(card, cpu)
+    print(f"3l MR card fit interrupted after level 0 and resumed vs the CPU fit on 6000 "
+          f"points: {'identical' if same else 'DIFFERENT'}")
+    if not same:
+        errors.append("MR checkpoint resume")
+    return errors
+
+
+class ResultRecorder(CallRecorder):
+    """Keeps the result of every call of ``mod.name`` during a fit."""
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.calls.append(out)
+            return out
+
+        setattr(self.mod, self.name, rec)
+        return self
+
+
+def mr_cell(label, data, params, kernels, card, absent=(), **fit_kw):
+    """One cell of phase 3l: the MR fit on the card with the launch counters
+    zeroed just before and read just after, its report (wall, level
+    stages, trace walls, launches) and the checks every cell passes
+    (finite cores, a label a row, the named kernels launched and those in
+    ``absent`` not). Returns (errors, result, launches, events, wall)."""
+    import numpy as np
+
+    res, launches, ev, wall, peak = run_mr(data, params, **fit_kw)
+    report_mr(f"3l {label}", res, launches, ev, wall, peak)
+    print(f"3l {label} ({card}): wall {wall:.3f} s")
+    errors = []
+    if not np.all(np.isfinite(res.core_distances)):
+        errors.append(f"{label}: non-finite core distances")
+    if res.labels.shape != (len(data),):
+        errors.append(f"{label}: {res.labels.shape} labels for {len(data)} rows")
+    missing = [k for k in kernels if launches[k] == 0]
+    extra = [k for k in absent if launches[k] != 0]
+    if missing or extra:
+        errors.append(f"{label}: kernels missing {missing}, unexpected {extra} ({launches})")
+    return errors, res, launches, ev, wall
+
+
+def mr_variant_phase(card) -> tuple[list[str], dict]:
+    """Phase 3l: the rest of the MR pipeline (module docstring). Returns
+    failure messages and each cell's launches."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import consensus, mr_hdbscan
+    from hdbscan_tpu_torch.ops import cuda_build
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+    from hdbscan_tpu_torch.utils.evaluation import adjusted_rand_index
+
+    errors = mr_variants_card_vs_cpu()
+    launches = {}
+
+    # skin_mr_dedup: the reference bench's mr-db leg on 3k's dedup rows.
+    rows = dedup_rows(SEED + 7)
+    p = HDBSCANParams(**MR_DB_LEG)
+    e, dres, launches["skin_mr_dedup"], dev_, dwall = mr_cell(
+        "skin_mr_dedup", rows, p, ("knn_kbest", "segmin"), card)
+    errors += e
+    dd = dev_.get("dedup", [{}])[0]
+    if (dd.get("rows"), dd.get("unique")) != (N_SKIN, N_SKIN_UNIQUE) or dres.n_levels < 2:
+        errors.append(f"skin_mr_dedup: dedup event {dd}, levels {dres.n_levels}")
+    full, _, _, fwall = run_fit(rows, HDBSCANParams(min_points=MR_DB_LEG["min_points"],
+                                                    min_cluster_size=MIN_CL_SIZE))
+    plain = dataclasses.replace(p, dedup_points=False)
+    nres, _, _, nwall, _ = run_mr(rows, plain)
+    print(f"3l skin_mr_dedup: {dd.get('unique')} unique of {dd.get('rows')} rows, "
+          f"{dres.n_levels} levels, {dwall:.3f} s; ARI vs the full-row exact fit ({fwall:.3f} s) "
+          f"{adjusted_rand_index(dres.labels, full.labels):.6f}, vs the MR fit without dedup "
+          f"({nwall:.3f} s, {nres.n_levels} levels) "
+          f"{adjusted_rand_index(dres.labels, nres.labels):.6f}")
+
+    # The 3e cells: 200,000 x 10, the default mode's parameters.
+    fdata, ftruth = make_gauss(N_FULLQ, **MR_DATA)
+    fq = HDBSCANParams(**MR_PARAMS, min_cluster_size=max(64, N_FULLQ // 200))
+    qres, _, _, qwall, _ = run_mr(fdata, fq, keep_edge_pool=True)
+    print(f"3l 3e db fit (uninterrupted, edge pool kept): {qwall:.3f} s")
+
+    e, rres, launches["3e_rs"], _, _ = mr_cell(
+        "3e_rs", fdata, dataclasses.replace(fq, variant="rs"), ("knn_kbest", "segmin"), card)
+    errors += e
+    print(f"3l 3e_rs ARI vs truth {adjusted_rand_index(rres.labels, ftruth):.6f}, vs the db fit "
+          f"{adjusted_rand_index(rres.labels, qres.labels):.6f}")
+
+    with ResultRecorder(mr_hdbscan, "fit") as draws:
+        e, cres, launches["3e_consensus"], cev, _ = mr_cell(
+            "3e_consensus", fdata, dataclasses.replace(fq, consensus_draws=3),
+            ("knn_kbest", "segmin"), card)
+    errors += e
+    labs = [r.labels for r in draws.calls if r.consensus_info is None]
+    want = consensus.consensus_labels(np.stack(labs)) if len(labs) == 3 else None
+    keys = {"draws", "cells", "clusters", "representative_draw", "representative_seed",
+            "representative_agreement_ari", "labels", "outlier_scores", "tree_and_hierarchy"}
+    ok = (len(cev.get("consensus_draw", [])) == 3 and want is not None
+          and np.array_equal(cres.labels, want) and set(cres.consensus_info or {}) == keys)
+    print(f"3l 3e_consensus: {len(cev.get('consensus_draw', []))} draws, info "
+          f"{cres.consensus_info}; labels equal consensus_labels of the draws: {ok}; ARI vs "
+          f"truth {adjusted_rand_index(cres.labels, ftruth):.6f}")
+    if not ok:
+        errors.append("3e_consensus: draws, provenance or labels wrong")
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        try:
+            run_mr(fdata, fq, max_levels=1, checkpoint_dir=ckpt)
+            errors.append("3e_checkpoint: max_levels=1 did not interrupt the fit")
+            first = {}
+        except RuntimeError:
+            first = dict(cuda_build.LAUNCHES)
+        e, kres, kl, kev, _ = mr_cell("3e_checkpoint", fdata, fq, ("segmin",), card,
+                                      absent=("knn_kbest",), checkpoint_dir=ckpt,
+                                      keep_edge_pool=True)
+    errors += e
+    launches["3e_checkpoint"] = {k: first.get(k, 0) + kl[k] for k in kl}
+    same = mr_fits_equal(kres, qres)
+    print(f"3l 3e_checkpoint: interrupted run's launches "
+          f"{ {k: v for k, v in first.items() if v} }; resumed "
+          f"{'resume_from_checkpoint' in kev}; resumed fit vs the uninterrupted fit "
+          f"{'identical' if same else 'DIFFERENT'}")
+    if not (same and first.get("knn_kbest") and "resume_from_checkpoint" in kev):
+        errors.append("3e_checkpoint: interrupt, resume or equality failed")
+
+    for label, extra, kernels in MR_BOUNDARY_CELLS:
+        e, bres, launches[label], bev, _ = mr_cell(
+            label, fdata, dataclasses.replace(fq, **extra), kernels, card,
+            absent=("knn_window",))
+        errors += e
+        print(f"3l {label}: m {bev['boundary_select'][0]['m']}, boundary_cores "
+              f"{bev['boundary_cores'][0]['wall_s']} s, glue (boundary_phase) "
+              f"{bev['boundary_phase'][0]['wall_s']} s, refine "
+              f"{[r['wall_s'] for r in bev.get('refine', [])]}; ARI vs truth "
+              f"{adjusted_rand_index(bres.labels, ftruth):.6f}")
+    return errors, launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "hdbscan_tpu_torch")):
@@ -3157,8 +3399,9 @@ def main() -> int:
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     only_3k = sys.argv[1:] == ["3k"]
+    only_3l = sys.argv[1:] == ["3l"]
 
-    errors = [] if only_3k else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
+    errors = [] if only_3k or only_3l else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
               + parity_leaf() + parity_metrics())
@@ -3202,6 +3445,10 @@ def main() -> int:
         errors, _ = host_round_phase(here, data, res, card)
         print(card)
         return fail(f"the host-round routes failed: {errors}") if errors else 0
+    if only_3l:  # ``python3 chip_smoke.py 3l``: phase 3 and 3l alone
+        errors, _ = mr_variant_phase(card)
+        print(card)
+        return fail(f"the MR pipeline's variant cells failed: {errors}") if errors else 0
 
     # --- 3b: the rp-forest tier on the same data --------------------------
     fparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **FOREST)
@@ -3373,6 +3620,11 @@ def main() -> int:
     if errors:
         return fail(f"the host-round routes failed: {errors}")
 
+    # --- 3l: the rest of the MR pipeline ----------------------------------
+    errors, mr_launches = mr_variant_phase(card)
+    if errors:
+        return fail(f"the MR pipeline's variant cells failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -3447,10 +3699,11 @@ def main() -> int:
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")
-    for row in rows:  # each kernel's launches in the 3k cells that ran it
-        hits = {cell: n for cell, got in host_launches.items() if (n := got.get(row["name"]))}
-        if hits:
-            row["launches_3k"] = hits
+    for row in rows:  # each kernel's launches in the 3k and 3l cells that ran it
+        for key, cells in (("launches_3k", host_launches), ("launches_3l", mr_launches)):
+            hits = {cell: n for cell, got in cells.items() if (n := got.get(row["name"]))}
+            if hits:
+                row[key] = hits
 
     print(card)
     print(json.dumps({"kernels": rows}))

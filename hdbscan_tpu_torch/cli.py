@@ -12,7 +12,8 @@ Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
         [knn_index_threshold=N] [rpf_trees=N] [rpf_leaf_size=N] [rpf_rescan=N] \
         [fit_sharding={auto,replicated,sharded}] [scan_backend={auto,host,ring}] \
         [dedup={true,false}] [tree_backend={auto,reference,vectorized}] \
-        [mst_backend={auto,host,device}] \
+        [mst_backend={auto,host,device}] [variant={db,rs}] [consensus=N] \
+        [compat_cf={true,false}] [block_pruning={true,false}] \
         [trace_rotate_bytes=N] [trace_max_events=N] \
         [--trace-out PATH] [--device DEV]
 
@@ -21,12 +22,18 @@ resolving to ``sharded`` and n <= ``processing_units``, the exact fit over
 a mesh (``models/exact.fit``, mode ``exact-sharded``); otherwise n <=
 ``processing_units`` runs the dense single-block fit (``models/hdbscan.fit``,
 mode ``exact``) and larger inputs the MR-HDBSCAN* pipeline
-(``models/mr_hdbscan.fit``, mode ``mr (<levels> levels)``). A mesh is built
+(``models/mr_hdbscan.fit``, mode ``mr (<levels> levels)``, or
+``mr-consensus (<N> draws)`` with ``consensus=N`` above 1). A mesh is built
 only when more than one card is visible. On the exact-sharded route
 ``mst_backend=host`` runs the host-round Borůvka over the sharded scanner
-and ``dedup=true`` the weighted fit over unique points; the dense route
-ignores ``dedup``, as the reference's does. Outputs are the five canonical
-files either way; the fit computes in float32.
+and ``dedup=true`` the weighted fit over unique points; on the MR route
+``variant=rs`` clusters the samples directly, ``dedup=true`` runs the
+pipeline over weighted unique points, ``consensus=N`` takes the consensus
+of N draws and ``compat_cf=true`` the Java code's CF arithmetic; the dense
+route ignores ``dedup``, as the reference's does. Outputs are the five
+canonical files either way (a consensus run adds the
+``<base>_consensus.json`` provenance sidecar); the fit computes in
+float32.
 
 ``--device DEV`` picks the device (default: the card; ``--device cpu`` runs
 every kernel's plain PyTorch version). There is no fallback: with no card
@@ -42,8 +49,8 @@ Not ported yet — each exits 2 before any data is read:
 ``--compile-cache`` / ``compile_cache=`` and the observability knobs
 ``heartbeat``, ``watchdog``, ``skew_threshold``, ``straggler_rounds``
 (A11), ``clusterName`` other than ``local`` (A9). A fit route that is not
-ported (``variant=rs`` or ``dedup=true`` on the MR route (A6), the MR route
-with ``fit_sharding=sharded`` (A9), ...) raises ``NotImplementedError``
+ported (the MR route with ``fit_sharding=sharded`` or ``scan_backend=ring``,
+or over a mesh of several cards (A9)) raises ``NotImplementedError``
 naming its item, printed the same way with exit 2.
 """
 
@@ -195,8 +202,10 @@ def _main_fit(argv: list[str]) -> int:
                 result = hdbscan.fit(data, params, device=device, trace=tracer)
                 mode = "exact"
             else:
+                # consensus_draws > 1 dispatches to consensus.fit inside.
                 result = mr_hdbscan.fit(data, params, device=device, mesh=mesh, trace=tracer)
-                mode = f"mr ({result.n_levels} levels)"
+                mode = (f"mr-consensus ({params.consensus_draws} draws)"
+                        if params.consensus_draws > 1 else f"mr ({result.n_levels} levels)")
         except NotImplementedError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
@@ -221,6 +230,14 @@ def _main_fit(argv: list[str]) -> int:
             )
         for kind, path in paths.items():
             print(f"  {kind}: {path}")
+        if getattr(result, "consensus_info", None) is not None:
+            print(
+                "note: consensus run — partition.csv and outlier scores "
+                "describe the stabilized ensemble reading; hierarchy/tree "
+                "files describe the representative draw (see the "
+                "consensus provenance sidecar).",
+                file=sys.stderr,
+            )
         summary = tracer.summary()
         if summary:
             print("phases:", file=sys.stderr)

@@ -5,8 +5,9 @@ bubble-corrected distance matrix, the expected-neighbour bubble core
 distances, noise-bubble reassignment and the inter-cluster edge mask, with
 the reference's formulas (its float-correct reading of the Java CF math).
 
-The segment sums of :func:`bubble_stats` are a fixed pairwise tree per
-bubble over its members in point order (:func:`_segment_sums`), not
+The segment sums of :func:`bubble_stats_weighted` (which
+:func:`bubble_stats` calls with unit weights) are a fixed pairwise tree
+per bubble over its members in point order (:func:`_segment_sums`), not
 atomics: the CPU and the card then add in the same order and give the
 same bits. On integer grids every sum is exact in float64 and equals the
 reference's; on continuous data the order differs from the reference's
@@ -25,6 +26,7 @@ from hdbscan_tpu_torch.ops.lexmerge import topk_lex
 
 __all__ = [
     "bubble_stats",
+    "bubble_stats_weighted",
     "bubble_distance_matrix",
     "bubble_core_distances",
     "bubble_mutual_reachability",
@@ -67,20 +69,19 @@ def _segment_sums(values: torch.Tensor, seg: torch.Tensor, num: int):
     return out, counts
 
 
-def bubble_stats(points: torch.Tensor, assign: torch.Tensor, num_bubbles: int):
-    """CF statistics per bubble: ``rep = LS/n``; ``extent = sqrt(sum_d
-    (2 n SS - 2 LS^2) / (n (n-1)))``; ``nn_dist = (1/n)^(1/d) * extent``.
-
-    ``points`` (N, d), ``assign`` (N,) bubble id per point; ids >=
-    ``num_bubbles`` (padding) are dropped. Singleton bubbles get extent =
-    nn_dist = 0; empty ones n = 0 and rep = 0. Returns (rep (m, d), extent,
-    nn_dist, n) with n as float counts.
-    """
+def bubble_stats_weighted(points: torch.Tensor, assign: torch.Tensor, weights: torch.Tensor,
+                          num_bubbles: int):
+    """:func:`bubble_stats` over weighted points (deduplicated rows carry
+    their multiplicity): LS, SS and n are the segment sums of ``points *
+    w``, ``points * points * w`` and ``w``, so a weighted point behaves as
+    that many coincident rows. Same padding and empty-bubble contract;
+    ``n`` is the float sum of the weights."""
     d = points.shape[-1]
     seg = torch.clamp(assign.to(torch.int64), max=num_bubbles)
-    sums, counts = _segment_sums(torch.cat([points, points * points], dim=1), seg, num_bubbles)
-    ls, ss = sums[:, :d], sums[:, d:]
-    n = counts.to(points.dtype)
+    w = weights.to(points.dtype)[:, None]
+    sums, _ = _segment_sums(torch.cat([points * w, points * points * w, w], dim=1), seg,
+                            num_bubbles)
+    ls, ss, n = sums[:, :d], sums[:, d : 2 * d], sums[:, 2 * d]
     n_safe = torch.clamp(n, min=1.0)
     rep = ls / n_safe[:, None]
     var = (2.0 * n[:, None] * ss - 2.0 * ls * ls) / torch.clamp(n * (n - 1.0), min=1.0)[:, None]
@@ -91,6 +92,21 @@ def bubble_stats(points: torch.Tensor, assign: torch.Tensor, num_bubbles: int):
     extent = torch.where(n > 1, extent, torch.zeros((), dtype=points.dtype, device=points.device))
     nn_dist = _pow(1.0 / n_safe, 1.0 / d) * extent
     return rep, extent, nn_dist, n
+
+
+def bubble_stats(points: torch.Tensor, assign: torch.Tensor, num_bubbles: int):
+    """CF statistics per bubble: ``rep = LS/n``; ``extent = sqrt(sum_d
+    (2 n SS - 2 LS^2) / (n (n-1)))``; ``nn_dist = (1/n)^(1/d) * extent``.
+
+    ``points`` (N, d), ``assign`` (N,) bubble id per point; ids >=
+    ``num_bubbles`` (padding) are dropped. Singleton bubbles get extent =
+    nn_dist = 0; empty ones n = 0 and rep = 0. Returns (rep (m, d), extent,
+    nn_dist, n) with n as float counts. Delegates to
+    :func:`bubble_stats_weighted` with unit weights (``p * 1 == p`` and
+    sums of ones are exact, so the results are the unweighted sums').
+    """
+    ones = torch.ones(points.shape[0], dtype=points.dtype, device=points.device)
+    return bubble_stats_weighted(points, assign, ones, num_bubbles)
 
 
 def bubble_distance_matrix(rep, extent, nn_dist, metric: str = "euclidean"):

@@ -109,7 +109,9 @@ def fit(
 
 
 def write_outputs(result: HDBSCANResult, params: HDBSCANParams) -> dict[str, str]:
-    """Emit the five canonical output files; returns {kind: path}."""
+    """Emit the five canonical output files (and, for a consensus result,
+    the ``<base>_consensus.json`` provenance sidecar); returns {kind:
+    path}."""
     from hdbscan_tpu_torch.utils import io as io_mod
 
     paths = {}
@@ -131,4 +133,16 @@ def write_outputs(result: HDBSCANResult, params: HDBSCANParams) -> dict[str, str
     vis_path = params.output_path("visualization")
     io_mod.write_visualization_file(vis_path, result.tree, result.labels)
     paths["visualization"] = vis_path
+    info = getattr(result, "consensus_info", None)
+    if info is not None:
+        # A consensus run mixes provenances (partition and scores from the
+        # draws, tree and hierarchy from the representative draw): the
+        # sidecar says so beside the files.
+        import json
+
+        prov_path = os.path.join(os.path.dirname(vis_path), params.base_name + "_consensus.json")
+        with open(prov_path, "w") as f:
+            json.dump(info, f, indent=1)
+            f.write("\n")
+        paths["consensus_provenance"] = prov_path
     return paths

@@ -1,16 +1,19 @@
 """MR-HDBSCAN* — recursive sampling with data bubbles on the card, the port
-of ``models/mr_hdbscan.py`` (the ``db`` variant).
+of ``models/mr_hdbscan.py``.
 
 Per level, subsets that fit ``processing_units`` run the exact block
 program in batches (``parallel/blocks``); an oversized subset is sampled
 (numpy RNG, the reference's draws), its points are assigned to their
-nearest sample, summarized into data bubbles (``core/bubbles``) and the
-bubbles clustered (``models/bubble_hdbscan``); each point's next-level
-subset is its bubble's flat cluster, force-split into capacity-sized
-groups along the bubble MST when the model finds a single cluster, and
+nearest sample and clustered in one of the two variants
+(``HDBSCANParams.variant``): ``db`` (default) summarizes the points into
+data bubbles (``core/bubbles``) and clusters the bubbles
+(``models/bubble_hdbscan``); ``rs`` clusters the sample points themselves
+(:func:`_fit_samples_rs`). Each point's next-level subset is its
+bubble's (or sample's) flat cluster, force-split into capacity-sized
+groups along the MST when the model finds a single cluster, and
 positionally chunked (with chain edges) when even that cannot split it.
-Bubble-MST edges crossing groups join the edge pool as sample-point edges.
-The pooled edges then run through the shared finalize tail
+MST edges crossing groups join the edge pool as sample-point edges. The
+pooled edges then run through the shared finalize tail
 (``models/_finalize``).
 
 Two modes, as in the reference:
@@ -21,21 +24,35 @@ Two modes, as in the reference:
   mutual reachability, ``refine_iterations`` rounds over the leaf
   clusters, and optional ``refine_flat_iterations`` over the flat cut;
 - boundary (``boundary_quality > 0``): per-block core distances, seam
-  margins per level, then the boundary set's exact cores through the
-  block-pruned window rescan (kernel B4, ``ops/blockscan``), the pruned
-  glue and refine rounds over the glue set.
+  margins per level, then the boundary set's exact cores — through the
+  block-pruned window rescan (kernel B4, ``ops/blockscan``) with the pruned
+  glue and refine rounds over the glue set, or, with
+  ``boundary_block_pruning=False`` or a metric without the triangle
+  inequality (cosine, pearson), through the rows scan against every column
+  (``ops/tiled.knn_core_distances_rows``: the rectangular k-best kernel, or
+  the forest's B5-B7 at ``knn_index=rpforest``) with the segment-min glue
+  and refine rounds over the whole boundary set.
 
-``dtype`` is the working type of the block programs, the bubbles and the
-sample assignment (the reference's JAX default type: float32 on a TPU,
-float64 under ``jax_enable_x64``); the scans, seam margins and block
-geometry run in float32 whatever it is, as in the reference.
+Around the level loop: ``dedup_points`` runs the pipeline over weighted
+unique points (``core/dedup``: weighted global cores, Gumbel top-k
+sampling by multiplicity, weighted bubbles, heavy groups expanded before
+the finalize); ``checkpoint_dir`` saves the level-loop state after every level
+and resumes the newest matching checkpoint (``utils/checkpoint``, the
+reference's format); ``consensus_draws > 1`` runs that many draws and
+returns their consensus (``models/consensus``); ``compat_cf_int_math``
+takes the Java code's CF and bubble core arithmetic (``core/compat``).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-entry: ``variant="rs"``, ``dedup_points``, ``consensus_draws > 1``,
-``checkpoint_dir``, ``compat_cf_int_math`` and the unpruned boundary
-rescan (``boundary_block_pruning=False`` or a non-triangle metric) (A6);
-meshes, ``fit_sharding=sharded`` and ``scan_backend=ring`` (A9). The
-reference's memory-phase auditor and progress heartbeats
+``dtype`` is the working type of the block programs, the bubbles, the RS
+sample block and the sample assignment (the reference's JAX default type:
+float32 on a TPU, float64 under ``jax_enable_x64``); the scans, seam
+margins, block geometry and the boundary rows scan run in float32 whatever
+it is, as in the reference.
+
+Not ported yet: meshes, ``fit_sharding=sharded`` and ``scan_backend=ring``
+(A9), which raise ``NotImplementedError`` naming it, and
+``MRHDBSCANResult.to_cluster_model``, which waits for ``serve/artifact``
+(A7).
+The reference's memory-phase auditor and progress heartbeats
 (``obs.mem_phase``, ``obs.beat``) have no counterpart yet (A11).
 """
 
@@ -50,7 +67,7 @@ import torch
 
 from hdbscan_tpu_torch.config import HDBSCANParams
 from hdbscan_tpu_torch.core import tree as tree_mod
-from hdbscan_tpu_torch.core.bubbles import bubble_stats
+from hdbscan_tpu_torch.core.bubbles import bubble_stats, bubble_stats_weighted
 from hdbscan_tpu_torch.core.distances import rowwise_distance_np
 from hdbscan_tpu_torch.models.bubble_hdbscan import fit_bubbles
 from hdbscan_tpu_torch.ops import cuda_build
@@ -88,8 +105,18 @@ class MRHDBSCANResult:
     n_levels: int
     n_edges: int
     levels: list = field(default_factory=list)
-    #: (u, v, w) pooled edge set, kept when fit(keep_edge_pool=True).
+    #: (u, v, w) pooled edge set, kept when fit(keep_edge_pool=True). With
+    #: ``dedup_points`` the ids (and ``levels`` counters) live in unique-
+    #: vertex space; translate rows via ``dedup_inverse`` (row -> vertex).
     edge_pool: tuple | None = None
+    #: row -> unique-vertex index map when the run deduplicated (else None).
+    dedup_inverse: np.ndarray | None = None
+    #: Set by ``models/consensus.fit``: provenance of a consensus result.
+    #: ``labels`` are the consensus cut and ``outlier_scores`` the
+    #: across-draw mean; ``tree``, ``core_distances`` and the files derived
+    #: from the hierarchy describe the representative draw, and
+    #: ``models/hdbscan.write_outputs`` writes this dict beside the files.
+    consensus_info: dict | None = None
 
 
 #: Adaptive boundary criterion: a point's per-block core is damaged iff its
@@ -263,29 +290,51 @@ def _forced_split_groups(n_b: np.ndarray, u: np.ndarray, v: np.ndarray, capacity
     return groups
 
 
-def _check_ported(params: HDBSCANParams, mesh, checkpoint_dir) -> None:
+def _rs_device_block(x: torch.Tensor, num_valid: int, min_pts: int, metric: str):
+    """The RS sample program over padded points (the first ``num_valid``
+    real): distances -> core -> MRD -> Borůvka. Returns (dist, u, v, w,
+    mask, core) as tensors; ``dist`` stays for the reassignment."""
+    from hdbscan_tpu_torch.core.distances import self_distance_matrix
+    from hdbscan_tpu_torch.core.knn import core_distances_from_matrix
+    from hdbscan_tpu_torch.models.bubble_hdbscan import _bubble_device_block_given_core
+
+    valid = torch.arange(x.shape[0], device=x.device) < num_valid
+    dist = self_distance_matrix(x, metric)
+    core = core_distances_from_matrix(dist, min_pts, valid)
+    return _bubble_device_block_given_core(dist, core, num_valid)
+
+
+def _fit_samples_rs(samp_data: np.ndarray, min_pts: int, min_cluster_size: int, metric: str,
+                    *, device, dtype):
+    """RS local model: exact HDBSCAN* on the sample points themselves (the
+    paper's recursive-sampling baseline): noise samples take their nearest
+    non-noise sample's cluster, and sample-MST edges crossing flat clusters
+    become the inter-partition candidate edges. Returns (labels, (u, v, w),
+    (iu, iv, iw)) in local sample indices."""
+    from hdbscan_tpu_torch.models.bubble_hdbscan import _bubble_reassign_block, _fetch_edges
+
+    s = len(samp_data)
+    s_pad = max(128, _next_pow2(s))
+    x = np.zeros((s_pad, samp_data.shape[1]), np.float64)
+    x[:s] = samp_data
+    x = torch.as_tensor(x.astype(dtype), device=device)
+    dist, u_d, v_d, w_d, mask_d, core_d = _rs_device_block(x, s, min_pts, metric)
+    u, v, w, mask = _fetch_edges(u_d, v_d, w_d, mask_d)
+    core_h = core_d[:s].cpu().numpy().astype(np.float64)
+    _, labels = tree_mod.extract_clusters(s, u, v, w, min_cluster_size, self_levels=core_h)
+    labels_p = torch.zeros(s_pad, dtype=torch.int64, device=device)
+    labels_p[:s] = torch.as_tensor(labels, dtype=torch.int64, device=device)
+    new, cross = _bubble_reassign_block(dist, labels_p, u_d, v_d, mask_d, s)
+    cross = cross[mask]
+    return new[:s], (u, v, w), (u[cross], v[cross], w[cross])
+
+
+def _check_ported(params: HDBSCANParams, mesh) -> None:
     if mesh is not None or params.fit_sharding == "sharded" or params.scan_backend == "ring":
         raise NotImplementedError(
             "multi-device MR fits (mesh, fit_sharding=sharded, scan_backend=ring) "
             "are not ported yet (ROADMAP A9)"
         )
-    unported = [
-        (params.variant == "rs", 'variant="rs" (recursive sampling without bubbles)'),
-        (params.dedup_points, "dedup_points (core/dedup.py)"),
-        (params.consensus_draws > 1, "consensus_draws > 1 (models/consensus.py)"),
-        (checkpoint_dir is not None, "checkpoint_dir (utils/checkpoint.py)"),
-        (params.compat_cf_int_math, "compat_cf_int_math (core/compat.py)"),
-    ]
-    from hdbscan_tpu_torch.ops.blockscan import PRUNABLE_METRICS
-
-    if params.boundary_quality > 0 and not (
-        params.boundary_block_pruning and params.dist_function in PRUNABLE_METRICS
-    ):
-        unported.append((True, "the unpruned boundary rescan (knn_core_distances_rows; "
-                               "boundary_block_pruning=False or a non-triangle metric)"))
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP A6)")
 
 
 def fit(
@@ -300,30 +349,70 @@ def fit(
     trace=None,
     keep_edge_pool: bool = False,
 ) -> MRHDBSCANResult:
-    """Run the MR-HDBSCAN* pipeline (data-bubble variant) on one device.
+    """Run the MR-HDBSCAN* pipeline on one device.
 
     Runs on the card unless ``device`` names another (``"cpu"`` runs every
     kernel's plain PyTorch version); raises when no card is present and no
     device is named. ``dtype``: working type of the block programs, bubbles
-    and sample assignment (module docstring). ``trace``: optional
-    ``trace(stage, **fields)`` callable receiving the reference's stage
-    events (``level``, ``boundary_select``, ``boundary_cores``,
-    ``boundary_reweight``, ``boundary_phase``, ``glue_round``,
-    ``knn_probe_scan``, ``knn_window_scan``, ``refine``, ``refine_flat``,
-    ``tree_*``) plus ``global_cores``, ``block_fit`` and ``level_stages``
-    (each level's glue, block-fit, sample-assignment, bubble and
-    seam-margin walls).
+    and sample assignment (module docstring). ``checkpoint_dir``: the loop
+    state is written there after every level and the newest matching
+    checkpoint resumed (``utils/checkpoint``; ignored, with a warning, under
+    ``consensus_draws > 1``). With ``params.dedup_points`` the pipeline runs
+    over weighted unique points and the result is broadcast back to rows;
+    ``consensus_draws > 1`` runs that many draws (``models/consensus``).
+    ``trace``: optional ``trace(stage, **fields)`` callable receiving the
+    reference's stage events (``level``, ``dedup``,
+    ``resume_from_checkpoint``, ``consensus_draw``, ``consensus``,
+    ``boundary_select``, ``boundary_cores``, ``boundary_reweight``,
+    ``boundary_phase``, ``glue_round``, ``knn_probe_scan``,
+    ``knn_window_scan``, ``refine``, ``refine_flat``, ``tree_*``) plus
+    ``global_cores``, ``block_fit`` and ``level_stages`` (each level's
+    glue, block-fit, sample-assignment, bubble and seam-margin walls).
     """
     params = params or HDBSCANParams()
-    _check_ported(params, mesh, checkpoint_dir)
-    return _fit_rows(
-        data, params, device=cuda_build.resolve_device(device), dtype=dtype,
-        max_levels=max_levels, trace=trace, keep_edge_pool=keep_edge_pool,
+    _check_ported(params, mesh)
+    device = cuda_build.resolve_device(device)
+    if params.consensus_draws > 1:
+        # consensus.fit re-enters here with consensus_draws=1 a draw, on
+        # this device and type.
+        if checkpoint_dir is not None:
+            import warnings
+
+            warnings.warn(
+                "checkpoint_dir is ignored under consensus_draws > 1: "
+                "consensus draws re-run from scratch on failure",
+                stacklevel=2,
+            )
+        from hdbscan_tpu_torch.models import consensus
+
+        return consensus.fit(data, params, device=device, dtype=dtype, max_levels=max_levels,
+                             trace=trace, keep_edge_pool=keep_edge_pool)
+    kw = dict(device=device, dtype=dtype, max_levels=max_levels, checkpoint_dir=checkpoint_dir,
+              trace=trace, keep_edge_pool=keep_edge_pool)
+    if not params.dedup_points:
+        return _fit_rows(data, params, **kw)
+    if not params.global_core_distances:
+        raise ValueError("dedup_points requires global_core_distances")
+    from hdbscan_tpu_torch.core.dedup import deduplicate
+
+    data = np.ascontiguousarray(np.asarray(data, np.float64))
+    uniq, counts, inverse = deduplicate(data)
+    if trace is not None:
+        trace("dedup", rows=len(data), unique=len(uniq))
+    res = _fit_rows(uniq, params, weights=counts, constraint_index_map=inverse, **kw)
+    return MRHDBSCANResult(
+        labels=res.labels[inverse], tree=res.tree,
+        core_distances=res.core_distances[inverse],
+        outlier_scores=res.outlier_scores[inverse], infinite_stability=res.infinite_stability,
+        n_levels=res.n_levels, n_edges=res.n_edges, levels=res.levels,
+        edge_pool=res.edge_pool, dedup_inverse=inverse,
     )
 
 
-def _fit_rows(data, params, *, device, dtype, max_levels, trace, keep_edge_pool):
-    """The level loop, boundary phase and refinement rounds."""
+def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
+              keep_edge_pool, weights=None, constraint_index_map=None):
+    """The level loop, boundary phase and refinement rounds over (possibly
+    weighted) vertex rows."""
     data = np.ascontiguousarray(np.asarray(data, np.float64))
     n, d = data.shape
     if n == 0:
@@ -348,20 +437,51 @@ def _fit_rows(data, params, *, device, dtype, max_levels, trace, keep_edge_pool)
     pool_v: list[np.ndarray] = []
     pool_w: list[np.ndarray] = []
     level_stats: list[LevelStats] = []
-    if global_core:
-        from hdbscan_tpu_torch.core.knn import resolve_index_for
-        from hdbscan_tpu_torch.ops.tiled import knn_core_distances
+    start_level = 0
+    resumed = False
+    if checkpoint_dir is not None:
+        from hdbscan_tpu_torch.utils import checkpoint as ckpt_mod
 
+        ckpt_digest = ckpt_mod._data_digest(data)
+        state = ckpt_mod.load_latest(checkpoint_dir, params, n, ckpt_digest)
+        if state is not None:
+            resumed = True
+            start_level = state["level"] + 1
+            subset, processed, core = state["subset"], state["processed"], state["core"]
+            pool_u, pool_v, pool_w = [state["pool_u"]], [state["pool_v"]], [state["pool_w"]]
+            rng.bit_generator.state = state["rng_state"]
+            level_stats = [LevelStats(**st) for st in state["level_stats"]]
+            if boundary and state.get("bmargin") is not None:
+                bmargin = state["bmargin"]
+            if state.get("final_block") is not None:
+                final_block = state["final_block"]
+                block_counter = int(final_block.max()) + 1
+            if trace is not None:
+                trace("resume_from_checkpoint", level=state["level"])
+    if global_core and not resumed:
+        # One pass over the whole set; a resumed run restores the cores
+        # from its checkpoint instead.
         t0 = time.monotonic()
-        index, index_opts = resolve_index_for(params, n)
-        core, _ = knn_core_distances(
-            data, params.min_points, metric, fetch_knn=False, backend=params.knn_backend,
-            index=index, index_opts=index_opts, trace=trace, device=device,
-        )
+        if weights is not None:
+            from hdbscan_tpu_torch.core.dedup import global_weighted_core_distances
+
+            core = global_weighted_core_distances(
+                data, weights, params.min_points, metric, trace=trace,
+                fit_sharding=params.fit_sharding, device=device,
+            )
+        else:
+            from hdbscan_tpu_torch.core.knn import resolve_index_for
+            from hdbscan_tpu_torch.ops.tiled import knn_core_distances
+
+            index, index_opts = resolve_index_for(params, n)
+            core, _ = knn_core_distances(
+                data, params.min_points, metric, fetch_knn=False, backend=params.knn_backend,
+                index=index, index_opts=index_opts, trace=trace, device=device,
+            )
         if trace is not None:
             trace("global_cores", n=n, wall_s=round(time.monotonic() - t0, 6))
 
-    for level in range(max_levels):
+    for level in range(start_level, max_levels):
         if processed.all():
             break
         t0 = time.monotonic()
@@ -432,33 +552,68 @@ def _fit_rows(data, params, *, device, dtype, max_levels, trace, keep_edge_pool)
             forced_before = forced
             cap_s = 1 << (params.max_samples.bit_length() - 1)
             s_count = min(size, max(2, math.ceil(params.k * size)), cap_s)
-            samp_local = rng.choice(size, s_count, replace=False)
+            if weights is not None and s_count < size:
+                # Weighted draw ∝ multiplicity (Gumbel top-k: sampling
+                # without replacement with p ∝ w), as rows would be drawn;
+                # argpartition's order is the bubble order.
+                keys = np.log(weights[ids]) + rng.gumbel(size=size)
+                samp_local = np.argpartition(-keys, s_count - 1)[:s_count]
+            else:
+                samp_local = rng.choice(size, s_count, replace=False)
             samples_global = ids[samp_local]
             mark = time.monotonic()
             assign = nearest_sample_assign(data[ids], data[samples_global], metric,
                                            device=device, dtype=dtype)
             lap("assign")
-            s_pad = _next_pow2(s_count)
-            pts = torch.as_tensor(data[ids], dtype=tdtype, device=device)
-            asg = torch.as_tensor(assign.astype(np.int64), device=device)
-            rep, extent, nn_dist, n_b = bubble_stats(pts, asg, s_pad)
-            model = fit_bubbles(rep, extent, nn_dist, n_b, params.min_points,
-                                params.min_cluster_size, metric, num_valid=s_count)
-            labels_s = model.labels
-            mu, mv, mw = model.mst
+            if params.variant == "rs":
+                # RS: cluster the sample points directly (no summarization);
+                # group sizes count members, not vertices, under dedup.
+                labels_s, (mu, mv, mw), inter = _fit_samples_rs(
+                    data[samples_global], params.min_points, params.min_cluster_size, metric,
+                    device=device, dtype=dtype,
+                )
+                weights_s = np.bincount(
+                    assign, weights=weights[ids] if weights is not None else None,
+                    minlength=s_count,
+                ).astype(np.float64)
+            else:
+                s_pad = _next_pow2(s_count)
+                if params.compat_cf_int_math:
+                    from hdbscan_tpu_torch.core.compat import combinestep_bubble_stats
+
+                    rep, extent, nn_dist, n_b = combinestep_bubble_stats(
+                        data[ids], assign, s_pad,
+                        weights=weights[ids] if weights is not None else None,
+                    )
+                    rep = torch.as_tensor(rep, dtype=tdtype, device=device)
+                else:
+                    pts = torch.as_tensor(data[ids], dtype=tdtype, device=device)
+                    asg = torch.as_tensor(assign.astype(np.int64), device=device)
+                    if weights is not None:
+                        w_t = torch.as_tensor(weights[ids], dtype=tdtype, device=device)
+                        rep, extent, nn_dist, n_b = bubble_stats_weighted(pts, asg, w_t, s_pad)
+                    else:
+                        rep, extent, nn_dist, n_b = bubble_stats(pts, asg, s_pad)
+                model = fit_bubbles(rep, extent, nn_dist, n_b, params.min_points,
+                                    params.min_cluster_size, metric, num_valid=s_count,
+                                    compat_cf_int_math=params.compat_cf_int_math)
+                labels_s = model.labels
+                mu, mv, mw = model.mst
+                inter = model.inter_edges
+                weights_s = model.weights
             n_bub += s_count
             lap("bubbles")
 
             bubble_groups = _bubble_groups_from_labels(labels_s)
             if bubble_groups.max() == 0:
-                # Single flat cluster: force-split along the bubble MST and
-                # recompute which bubble-MST edges cross the groups.
-                bubble_groups = _forced_split_groups(model.weights, mu, mv, cap)
+                # Single flat cluster: force-split along the bubble (or
+                # sample) MST and recompute which edges cross the groups.
+                bubble_groups = _forced_split_groups(weights_s, mu, mv, cap)
                 forced += 1
                 cross = bubble_groups[mu] != bubble_groups[mv]
                 iu, iv, iw = mu[cross], mv[cross], mw[cross]
             else:
-                iu, iv, iw = model.inter_edges
+                iu, iv, iw = inter
 
             su, sv = samples_global[iu], samples_global[iv]
             if params.exact_inter_edges and len(iu):
@@ -511,6 +666,18 @@ def _fit_rows(data, params, *, device, dtype, max_levels, trace, keep_edge_pool)
         if trace is not None:
             trace("level", **{k: getattr(stats, k) for k in stats.__dataclass_fields__})
             trace("level_stages", level=level, **{f"{k}_s": round(v, 6) for k, v in walls.items()})
+        if checkpoint_dir is not None:
+            from dataclasses import asdict
+
+            cu = np.concatenate(pool_u) if pool_u else np.zeros(0, np.int64)
+            cv = np.concatenate(pool_v) if pool_v else np.zeros(0, np.int64)
+            cw = np.concatenate(pool_w) if pool_w else np.zeros(0, np.float64)
+            pool_u, pool_v, pool_w = [cu], [cv], [cw]
+            ckpt_mod.save_level(
+                checkpoint_dir, level, params, ckpt_digest, subset, processed, core, cu, cv, cw,
+                rng.bit_generator.state, [asdict(st) for st in level_stats], bmargin=bmargin,
+                final_block=final_block,
+            )
     else:
         if not processed.all():
             raise RuntimeError(
@@ -530,45 +697,59 @@ def _fit_rows(data, params, *, device, dtype, max_levels, trace, keep_edge_pool)
     bset_knn = None
     geom_bset = None
     if boundary and n > cap:
+        from hdbscan_tpu_torch.core.knn import resolve_index_for
         from hdbscan_tpu_torch.ops.blockscan import (
+            PRUNABLE_METRICS,
             BlockGeometry,
             boruvka_glue_edges_blockpruned,
             knn_rows_blockpruned,
         )
+        from hdbscan_tpu_torch.ops.tiled import boruvka_glue_edges, knn_core_distances_rows
         from hdbscan_tpu_torch.utils.flops import counter as flops_counter
         from hdbscan_tpu_torch.utils.flops import phase_stats
 
+        # Block pruning needs a triangle-inequality metric; without it the
+        # rescan scans every column and the glue and refine rounds keep the
+        # whole boundary set.
+        pruned = params.boundary_block_pruning and metric in PRUNABLE_METRICS
         # 1) The boundary set (final_block: subset ids collide across levels).
         t0 = time.monotonic()
-        bset, bset_glue_sel = _select_boundary(
-            bmargin, final_block, boundary_q, core=core, max_frac=1.0, return_floor=True,
+        sel = _select_boundary(
+            bmargin, final_block, boundary_q, core=core,
+            max_frac=1.0 if pruned else params.boundary_max_frac, return_floor=pruned,
             alpha=params.boundary_alpha, glue_alpha=params.glue_alpha,
             glue_max_factor=params.glue_max_factor, glue_row_budget=params.glue_row_budget,
         )
+        bset, bset_glue_sel = sel if pruned else (sel, sel)
         if trace is not None:
             trace("boundary_select", m=len(bset), m_glue=len(bset_glue_sel),
-                  frac=round(len(bset) / n, 4), pruned=True,
+                  frac=round(len(bset) / n, 4), pruned=pruned,
                   wall_s=round(time.monotonic() - t0, 3))
-        # 2) Exact cores of the boundary rows through the pruned rescan; its
-        #    neighbour lists (glue rows only) seed the glue's edge bounds.
+        # 2) Exact cores of the boundary rows: the pruned window rescan,
+        #    whose neighbour lists (glue rows only) seed the glue's edge
+        #    bounds, or the rows scan against every column.
         t0 = time.monotonic()
         fsnap = flops_counter.snapshot()
-        from hdbscan_tpu_torch.core.knn import resolve_index_for
-
         index, index_opts = resolve_index_for(params, n)
-        bset_pos = np.full(n, -1, np.int64)
-        bset_pos[bset] = np.arange(len(bset))
-        sel_pos = bset_pos[bset_glue_sel]
-        geom_blocks = BlockGeometry.build(data, final_block, metric, device=device)
-        core_b, knn_d_g, knn_j_gl = knn_rows_blockpruned(
-            geom_blocks, bset, core[bset], params.min_points, neighbor_rows=sel_pos,
-            backend=params.knn_backend, index=index, index_opts=index_opts, trace=trace,
-        )
-        del geom_blocks
-        glue_pos = np.full(n, -1, np.int64)
-        glue_pos[bset_glue_sel] = np.arange(len(bset_glue_sel))
-        knn_j_g = np.where(knn_j_gl >= 0, glue_pos[np.maximum(knn_j_gl, 0)], -1)
-        bset_knn = (knn_d_g, knn_j_g)
+        if pruned:
+            bset_pos = np.full(n, -1, np.int64)
+            bset_pos[bset] = np.arange(len(bset))
+            sel_pos = bset_pos[bset_glue_sel]
+            geom_blocks = BlockGeometry.build(data, final_block, metric, device=device)
+            core_b, knn_d_g, knn_j_gl = knn_rows_blockpruned(
+                geom_blocks, bset, core[bset], params.min_points, neighbor_rows=sel_pos,
+                backend=params.knn_backend, index=index, index_opts=index_opts, trace=trace,
+            )
+            del geom_blocks
+            glue_pos = np.full(n, -1, np.int64)
+            glue_pos[bset_glue_sel] = np.arange(len(bset_glue_sel))
+            knn_j_g = np.where(knn_j_gl >= 0, glue_pos[np.maximum(knn_j_gl, 0)], -1)
+            bset_knn = (knn_d_g, knn_j_g)
+        else:
+            core_b = knn_core_distances_rows(
+                data, bset, params.min_points, metric, backend=params.knn_backend,
+                index=index, index_opts=index_opts, trace=trace, device=device,
+            )
         core[bset] = np.minimum(core[bset], core_b)
         if trace is not None:
             wall = time.monotonic() - t0
@@ -578,18 +759,26 @@ def _fit_rows(data, params, *, device, dtype, max_levels, trace, keep_edge_pool)
         w = _reweight_pool(u, v, w, data, core, metric)
         if trace is not None:
             trace("boundary_reweight", edges=len(w), wall_s=round(time.monotonic() - t0, 3))
-        # 4) Inter-block glue over the glue set, block-pruned.
+        # 4) Inter-block glue over the glue set (block-pruned, or Borůvka
+        #    rounds of the segment-min kernel over the whole boundary set).
         t0 = time.monotonic()
         fsnap = flops_counter.snapshot()
         bset_g = bset_glue_sel
         if len(np.unique(final_block[bset_g])) >= 2:
-            geom_bset = BlockGeometry.build(data[bset_g], final_block[bset_g], metric,
-                                            device=device)
-            gu, gv, gw = boruvka_glue_edges_blockpruned(
-                data[bset_g], final_block[bset_g], core[bset_g], metric,
-                knn_d=bset_knn[0], knn_j=bset_knn[1], geom=geom_bset, trace=trace,
-                scan_backend=params.scan_backend,
-            )
+            if pruned:
+                geom_bset = BlockGeometry.build(data[bset_g], final_block[bset_g], metric,
+                                                device=device)
+                gu, gv, gw = boruvka_glue_edges_blockpruned(
+                    data[bset_g], final_block[bset_g], core[bset_g], metric,
+                    knn_d=bset_knn[0], knn_j=bset_knn[1], geom=geom_bset, trace=trace,
+                    scan_backend=params.scan_backend,
+                )
+            else:
+                gu, gv, gw = boruvka_glue_edges(
+                    data[bset_g], final_block[bset_g], metric, core=core[bset_g],
+                    scan_backend=params.scan_backend, fit_sharding=params.fit_sharding,
+                    trace=trace, device=device,
+                )
             gw = _reweight_pool(bset_g[gu], bset_g[gv], gw, data, core, metric)
             u = np.concatenate([u, bset_g[gu]])
             v = np.concatenate([v, bset_g[gv]])
@@ -608,7 +797,23 @@ def _fit_rows(data, params, *, device, dtype, max_levels, trace, keep_edge_pool)
             # Without global cores the glue/refine harvests emit plain
             # distances: clamp the pool to mutual reachability.
             w_ = np.maximum(w_, np.maximum(core[u_], core[v_]))
-        return finalize_clustering(n, u_, v_, w_, core, params, trace=trace, device=device)
+        # Weighted vertices heavy enough to pass minClusterSize dissolve
+        # like their rows: expanded into unit pseudo-leaves first.
+        if weights is not None:
+            from hdbscan_tpu_torch.core.dedup import expand_heavy_groups
+
+            u2, v2, w2, core2, weights2 = expand_heavy_groups(
+                u_, v_, w_, core, weights, params.min_cluster_size
+            )
+        else:
+            u2, v2, w2, core2, weights2 = u_, v_, w_, core, None
+        n2 = n if weights2 is None else len(weights2)
+        tree, labels, scores, infinite = finalize_clustering(
+            n2, u2, v2, w2, core2, params, point_weights=weights2,
+            constraint_index_map=constraint_index_map, trace=trace, device=device,
+        )
+        # Pseudo-leaves alias their base vertex: slice back to vertex space.
+        return tree, labels[:n], scores[:n], infinite
 
     tree, labels, scores, infinite = build_tree(u, v, w)
 
@@ -626,14 +831,21 @@ def _fit_rows(data, params, *, device, dtype, max_levels, trace, keep_edge_pool)
                 bset_g = bset_glue_sel
                 if len(np.unique(groups_r[bset_g])) < 2:
                     break
-                from hdbscan_tpu_torch.ops.blockscan import boruvka_glue_edges_blockpruned
+                if bset_knn is not None:
+                    from hdbscan_tpu_torch.ops.blockscan import boruvka_glue_edges_blockpruned
 
-                ru, rv, rw = boruvka_glue_edges_blockpruned(
-                    data[bset_g], final_block[bset_g], core[bset_g], metric,
-                    knn_d=bset_knn[0], knn_j=bset_knn[1], init_comp=groups_r[bset_g],
-                    geom=geom_bset, trace=trace, scan_backend=params.scan_backend,
-                    device=device,
-                )
+                    ru, rv, rw = boruvka_glue_edges_blockpruned(
+                        data[bset_g], final_block[bset_g], core[bset_g], metric,
+                        knn_d=bset_knn[0], knn_j=bset_knn[1], init_comp=groups_r[bset_g],
+                        geom=geom_bset, trace=trace, scan_backend=params.scan_backend,
+                        device=device,
+                    )
+                else:
+                    ru, rv, rw = boruvka_glue_edges(
+                        data[bset_g], groups_r[bset_g], metric, core=core[bset_g],
+                        scan_backend=params.scan_backend, fit_sharding=params.fit_sharding,
+                        trace=trace, device=device,
+                    )
                 ru, rv = bset_g[ru], bset_g[rv]
             else:
                 if len(np.unique(groups_r)) < 2:

@@ -508,3 +508,21 @@ def rpforest_core_distances(
     if return_indices:
         return core, knn, best_i.cpu().numpy().astype(np.int64)
     return core, knn
+
+
+def rpforest_core_distances_rows(data, row_ids, min_pts: int, metric: str = "euclidean", *,
+                                 trees: int = 4, leaf_size: int = 1024, rescan_rounds: int = 1,
+                                 seed: int = 0, dtype=np.float32, trace=None,
+                                 knn_backend: str = "auto", knn_precision: str = "f32",
+                                 device=None):
+    """Approximate core distances of the SELECTED rows (the contract of
+    ``ops/tiled.knn_core_distances_rows``: (m,) float64): one forest pass
+    over the whole set (B5-B7 on the card), then a slice by rows — the
+    forest indexes every point either way, and the rows' neighbour-of-
+    neighbour rescans need the whole graph."""
+    core, _ = rpforest_core_distances(
+        data, min_pts, metric, trees=trees, leaf_size=leaf_size,
+        rescan_rounds=rescan_rounds, seed=seed, dtype=dtype, fetch_knn=False, trace=trace,
+        recall_sample=0, knn_backend=knn_backend, knn_precision=knn_precision, device=device,
+    )
+    return core[np.asarray(row_ids)]

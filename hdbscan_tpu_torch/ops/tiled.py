@@ -9,7 +9,9 @@ form the reference would use at the caller's tiles (:func:`scan_form`), so
 the port computes the same distances.
 
 :func:`_min_outgoing_scan` is the plain PyTorch version of the segment-min
-kernel; :func:`knn_core_distances` is the core-distance entry point;
+kernel; :func:`knn_core_distances` is the core-distance entry point and
+:func:`knn_core_distances_rows` its selected-rows twin (the MR boundary
+rescan without block pruning);
 :class:`BoruvkaScanner` and :func:`boruvka_glue_edges` run host-contracted
 Borůvka rounds over that kernel (the exact fit's host-round route, the MR
 pipeline's glue and refine harvests).
@@ -163,6 +165,73 @@ def knn_core_distances(
         data, min_pts, k, metric, form, fetch_knn, return_indices, device,
         col_tile=_tile_sizes(n, row_tile, col_tile)[1], dtype=dtype,
     )
+
+
+def knn_core_distances_rows(
+    data: np.ndarray,
+    row_ids: np.ndarray,
+    min_pts: int,
+    metric: str = "euclidean",
+    row_tile: int = 1024,
+    col_tile: int = 8192,
+    dtype=np.float32,
+    backend: str = "xla",
+    index: str = "exact",
+    index_opts: dict | None = None,
+    trace=None,
+    device=None,
+) -> np.ndarray:
+    """Exact core distances of the SELECTED rows ``row_ids`` against the
+    whole set (the MR boundary rescan without block pruning): (m,) float64,
+    aligned with ``row_ids``, zeros at ``min_pts <= 1``.
+
+    One launch of the rectangular k-best kernel
+    (``ops/cuda_knn.knn_kbest_panel``, its plain version on the CPU) scans
+    the rows against every column, k = max(min_pts - 1, 1); the core is
+    column ``min(k, n) - 1`` of the list. ``backend="fused"`` takes the
+    fused TPU kernel's dot form within its gate (euclidean, k and d <= 128,
+    float32), every other case the XLA scan's form at these tiles; zero-norm
+    columns at cosine and pearson follow that scan's tile rule at its
+    column tile. ``index="rpforest"`` slices the rows out of one forest
+    pass over the whole set (``ops/rpforest.rpforest_core_distances_rows``).
+    ``dtype`` defaults to float32 whatever the fit's type, as in the
+    reference.
+    """
+    if index == "rpforest":
+        from hdbscan_tpu_torch.ops.rpforest import rpforest_core_distances_rows
+
+        return rpforest_core_distances_rows(
+            data, row_ids, min_pts, metric, dtype=dtype, trace=trace, device=device,
+            **(index_opts or {}),
+        )
+    if index != "exact":
+        raise ValueError(f"unknown index {index!r}: exact | rpforest")
+    from hdbscan_tpu_torch.ops import cuda_build
+    from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest_panel
+    from hdbscan_tpu_torch.ops.cuda_knn_smallest import LANES
+
+    device = cuda_build.resolve_device(device)
+    check_dtype(dtype, device)
+    n, d = np.shape(data)
+    m = len(row_ids)
+    if m == 0:
+        return np.zeros(0, np.float64)
+    k = max(min_pts - 1, 1)
+    if (backend == "fused" and metric == "euclidean" and k <= LANES and d <= LANES
+            and np.dtype(dtype) == np.float32):
+        form = "dot"
+    else:
+        form = scan_form(n, d, metric, row_tile, col_tile)
+    x = torch.as_tensor(np.asarray(data, dtype), device=device)
+    q = torch.as_tensor(np.asarray(data[row_ids], dtype), device=device)
+    from hdbscan_tpu_torch.utils.flops import counter as _flops
+
+    rt, ct, n_pad = _tile_sizes(n, row_tile, col_tile)
+    _flops.add_scan(_round_up(m, rt), n_pad, d, row_tile=rt)
+    dd, _ = knn_kbest_panel(q, x, k, metric, form, col_tile=ct)
+    if min_pts <= 1:
+        return np.zeros(m, np.float64)
+    return dd[:, min(k, n) - 1].cpu().numpy().astype(np.float64)
 
 
 class BoruvkaScanner:

@@ -22,9 +22,10 @@ values agree.
 same shards (``scan_backend=ring``); :func:`resolve_scan_backend` maps the
 knob to it.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-entry: the rows scan (:func:`ring_knn_core_distances_rows`, A6 and A9) and
-the sharded rp-forest branch (A9).
+Not ported yet, each raising ``NotImplementedError`` naming ROADMAP A9:
+the rows scan (:func:`ring_knn_core_distances_rows`, which only the MR
+pipeline's ring and sharded routes would call) and the sharded rp-forest
+branch.
 """
 
 from __future__ import annotations
@@ -206,7 +207,7 @@ def ring_knn_core_distances_rows(*args, **kwargs):
     """The ring rows scan (the MR boundary rescan's sharded twin)."""
     raise NotImplementedError(
         "the ring rows scan (ring_knn_core_distances_rows) is not ported yet "
-        "(ROADMAP A6, A9)"
+        "(ROADMAP A9)"
     )
 
 

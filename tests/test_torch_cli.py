@@ -3,7 +3,9 @@ reference's (``hdbscan_tpu.cli``), on the CPU (``--device cpu``).
 
 On integer grids the five files are byte-identical to the reference CLI's,
 run at its production setting (float32: ``jax.enable_x64(False)``), on the
-dense route and on the MR route in the default and boundary modes. The
+dense route and on the MR route in the default and boundary modes and
+with ``variant=rs``, ``dedup=true``, ``compat_cf=true`` and ``consensus=3``
+(whose provenance sidecar is identical too). The
 ``exact-sharded`` route's files equal the reference's ``exact.fit`` plus
 ``write_outputs`` run in process (the reference's own sharded CLI route
 fails under the installed jax). Every ``--trace-out`` file passes
@@ -91,6 +93,45 @@ def test_files_equal_reference_cli(tmp_path, grid_file, capsys, extra, mode):
     assert sorted(port_files) == sorted(ref_files) and len(ref_files) == 5
     for name in ref_files:
         assert port_files[name] == ref_files[name], name
+    _check_trace(trace)
+
+
+@pytest.mark.parametrize(
+    "extra,mode",
+    [
+        (["variant=rs"], "mr (3 levels)"),
+        (["dedup=true"], "mr (3 levels)"),
+        (["compat_cf=true"], "mr (3 levels)"),
+        (["consensus=3"], "mr-consensus (3 draws)"),
+    ],
+    ids=["rs", "dedup", "compat_cf", "consensus"],
+)
+def test_mr_route_options_equal_reference_cli(tmp_path, grid_file, capsys, extra, mode):
+    """The MR route's ``variant=rs``, ``dedup=true``, ``compat_cf=true`` and
+    ``consensus=3``: the five files byte-identical to the reference CLI's
+    (a consensus run adds the ``grid_consensus.json`` sidecar, identical
+    too, and its stderr note)."""
+    argv = ["fit", f"file={grid_file}", *BASE, "processing_units=256", "k=0.1", *extra]
+    with jax.enable_x64(False):
+        assert ref_main(argv + [f"out_dir={tmp_path / 'ref'}"]) == 0
+    ref_out, ref_err = capsys.readouterr()
+    trace = str(tmp_path / "trace.jsonl")
+    assert port_main(argv + [f"out_dir={tmp_path / 'port'}", "--device", "cpu",
+                             "--trace-out", trace]) == 0
+    out, err = capsys.readouterr()
+    assert _summary(out) == _summary(ref_out)
+    assert f", {mode}, " in out.splitlines()[0]
+    ref_files, port_files = _files(tmp_path / "ref"), _files(tmp_path / "port")
+    assert sorted(port_files) == sorted(ref_files)
+    assert len(ref_files) == (6 if mode.startswith("mr-consensus") else 5)
+    for name in ref_files:
+        assert port_files[name] == ref_files[name], name
+    if mode.startswith("mr-consensus"):
+        import json
+
+        info = json.loads(port_files["grid_consensus.json"])
+        assert info["draws"] == 3 and info["tree_and_hierarchy"] == "representative draw only"
+        assert "note: consensus run" in err and "note: consensus run" in ref_err
     _check_trace(trace)
 
 
@@ -191,8 +232,6 @@ def test_unported_flags_exit_2_before_reading_data(tmp_path, capsys, argv, item)
 @pytest.mark.parametrize(
     "extra,item",
     [
-        (["processing_units=256", "variant=rs"], "A6"),
-        (["processing_units=256", "dedup=true"], "A6"),
         (["processing_units=256", "fit_sharding=sharded"], "A9"),
     ],
 )

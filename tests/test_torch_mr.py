@@ -17,6 +17,7 @@ rescan (kernel B4's plain version) and the pruned glue.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -37,12 +38,16 @@ def _lattice():
     return np.round(pts * 2.0)
 
 
-def _fit_both(data, **overrides):
+def _fit_both(data, fit_kw=None, **overrides):
+    """The reference and the port on ``data`` with ``BASE`` plus
+    ``overrides``; ``fit_kw`` goes to both ``fit`` calls. Returns (port,
+    ref, the port's trace stages)."""
     kw = {**BASE, **overrides}
+    fit_kw = fit_kw or {}
     events = []
-    ref = ref_mr.fit(data, RefParams(**kw))
+    ref = ref_mr.fit(data, RefParams(**kw), **fit_kw)
     port = port_mr.fit(data, PortParams(**kw), device="cpu", dtype=np.float64,
-                       trace=lambda s, **f: events.append(s))
+                       trace=lambda s, **f: events.append(s), **fit_kw)
     return port, ref, events
 
 
@@ -106,13 +111,6 @@ def test_degenerate_subset_chain():
 @pytest.mark.parametrize(
     "overrides,kw,entry",
     [
-        ({"variant": "rs"}, {}, "A6"),
-        ({"dedup_points": True}, {}, "A6"),
-        ({"consensus_draws": 3}, {}, "A6"),
-        ({}, {"checkpoint_dir": "ckpt"}, "A6"),
-        ({"compat_cf_int_math": True}, {}, "A6"),
-        ({"boundary_quality": 0.1, "boundary_block_pruning": False}, {}, "A6"),
-        ({"boundary_quality": 0.1, "dist_function": "cosine"}, {}, "A6"),
         ({"fit_sharding": "sharded"}, {}, "A9"),
         ({"scan_backend": "ring"}, {}, "A9"),
         ({}, {"mesh": object()}, "A9"),
@@ -122,6 +120,38 @@ def test_unported_options_raise(overrides, kw, entry):
     data = np.random.default_rng(0).normal(size=(50, 2))
     with pytest.raises(NotImplementedError, match=entry):
         port_mr.fit(data, PortParams(**{**BASE, **overrides}), device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "overrides,kw",
+    [
+        ({"variant": "rs"}, {}),
+        ({"dedup_points": True}, {}),
+        ({"consensus_draws": 3}, {}),
+        ({}, {"checkpoint_dir": "ckpt"}),
+        ({"compat_cf_int_math": True}, {}),
+        ({"boundary_quality": 0.1, "boundary_block_pruning": False}, {}),
+        ({"boundary_quality": 0.1, "dist_function": "cosine"}, {}),
+    ],
+    ids=["rs", "dedup", "consensus", "checkpoint", "compat", "boundary_unpruned",
+         "boundary_cosine"],
+)
+def test_options_once_refused_match_reference(tmp_path, overrides, kw):
+    """The options that raised ``NotImplementedError`` before they were
+    ported run and equal the reference on a small lattice (the dedicated
+    files ``test_torch_mr_variants.py``, ``test_torch_mr_dedup.py``,
+    ``test_torch_consensus.py`` and ``test_torch_checkpoint.py`` hold them
+    in depth)."""
+    data = _lattice()[:800]
+    if "dedup_points" in overrides:
+        data = np.concatenate([data, data[::4]])
+    params = {**BASE, "processing_units": 200, **overrides}
+    ref = ref_mr.fit(data, RefParams(**params), **{k: str(tmp_path / "ref") for k in kw})
+    port = port_mr.fit(data, PortParams(**params), device="cpu", dtype=np.float64,
+                       **{k: str(tmp_path / "port") for k in kw})
+    _assert_bitwise(port, ref)
+    if kw:
+        assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "ref"))
 
 
 def _forest_fields(f):

@@ -25,6 +25,7 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.cli",
     "hdbscan_tpu_torch.config",
     "hdbscan_tpu_torch.core.bubbles",
+    "hdbscan_tpu_torch.core.compat",
     "hdbscan_tpu_torch.core.constraints",
     "hdbscan_tpu_torch.core.dedup",
     "hdbscan_tpu_torch.core.distances",
@@ -35,6 +36,7 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.core.tree_vec",
     "hdbscan_tpu_torch.models._finalize",
     "hdbscan_tpu_torch.models.bubble_hdbscan",
+    "hdbscan_tpu_torch.models.consensus",
     "hdbscan_tpu_torch.models.exact",
     "hdbscan_tpu_torch.models.hdbscan",
     "hdbscan_tpu_torch.models.mr_hdbscan",
@@ -53,6 +55,7 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.parallel.mesh",
     "hdbscan_tpu_torch.parallel.ring",
     "hdbscan_tpu_torch.parallel.shard",
+    "hdbscan_tpu_torch.utils.checkpoint",
     "hdbscan_tpu_torch.utils.datasets",
     "hdbscan_tpu_torch.utils.evaluation",
     "hdbscan_tpu_torch.utils.flops",
