@@ -215,6 +215,41 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    prints ``m``, the ``boundary_cores`` and glue walls and the ARI against
    the truth. ``python3 chip_smoke.py 3l`` builds the kernels and runs
    phases 3 and 3l alone;
+3m. serving (``hdbscan_tpu_torch/serve``): (a) the rectangular B2 and B7
+   against their plain versions, bitwise, at the predictor's shapes: every
+   bucket of 8 to 256 query rows against the 245,057 x 3 training set at
+   k = 15 in the ``xla`` backend's form, the ``fused`` dot form and cosine
+   (also over a training set with three zero rows, and a bucket of zero
+   query rows), and B7 on each bucket's routed candidate lists of the 3b
+   forest, whole and cut short with sentinel padding; (b) ``serve_skin``:
+   phase 3's fit saved with ``to_cluster_model(...).save``, reloaded and
+   served (``auto``, the dot form on the card): all 245,057 training rows
+   must reproduce the fit's labels, and 20,000 novel queries in the bench
+   sampler's shape (training rows, every fourth a bitwise duplicate, the
+   rest jittered by a rounded N(0, 1)) are timed, also on the ``xla``
+   backend; on a 4,096-row model the card's labels, probabilities and
+   outlier scores must equal a CPU ``Predictor``'s on every backend
+   (membership within 1e-6 relative); (c) ``serve_skin_rpf``: 3b's fit,
+   whose artifact carries the forest, served with ``predict_backend=
+   rpforest``: the training rows must reproduce that fit's labels, and the
+   ARI against the exact backend is printed; (d) ``serve_http``: a
+   ``ClusterServer`` on 127.0.0.1, port 0: ``POST /predict`` of 1, 7, 256
+   and 1,000 rows and one with membership equal to the in-process predict,
+   ``/healthz``, two ``/metrics`` scrapes, ``POST /swap`` to the 3b model
+   (generation 2), then 4 client threads in a closed loop for 5 s at
+   batch sizes 1-256, every response equal to the sequential predict of
+   its rows (p50, p99 and rows/s printed, not gated), the trace
+   and scrapes through ``scripts/check_trace.py`` and
+   ``scripts/check_metrics.py``; (e) ``cli_predict``: ``fit --model-out``
+   on the first 30,000 rows, then ``predict`` of 20,000 queries, both as
+   subprocesses, whose file must equal the in-process predict. The launch
+   counters, zeroed just before each cell and read just after, must show
+   B2 and no B7 in the exact cells and B7 and no B2 in the rp-forest
+   cells; in ``serve_http`` every answer the responses are held against
+   is computed before the server starts, and the counters are zeroed just
+   before the requests and again just before the closed loop, so each
+   window counts the server's own launches. ``python3 chip_smoke.py 3m`` builds the kernels and runs phases
+   3 and 3m alone;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -243,6 +278,11 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    the hops per find; B5's row its grid
    (``blocks``); both rows the kernel's device time a call from
    ``torch.profiler`` (``device_ms``, without the wrapper's host gaps).
+   The serving rows time the rectangular B2 on one 256-row bucket against
+   the 245,057 x 3 training set (``knn_kbest_panel_predict``) and B7 on
+   one 256-row bucket of routed candidates (``forest_rescan_topk_predict``),
+   with ``torch.cdist`` + ``torch.topk`` as ``library_ms`` and each call's
+   device time from ``torch.profiler`` (``device_ms``).
 
 The second line before the last is the card's name and power limit, the
 line before the last the ``kernels`` JSON, the last line the device JSON.
@@ -340,6 +380,13 @@ MR_BOUNDARY_CELLS = (
                             **FOREST},
      ("forest_leaf_topk", "forest_merge", "forest_rescan_topk", "segmin")),
 )
+#: Phase 3m, serving: the predictor's bucket ladder, the novel queries of
+#: the bench sampler's shape, the HTTP leg's request sizes and closed loop.
+SERVE_BUCKETS = (8, 16, 32, 64, 128, 256)
+N_NOVEL = 20_000
+HTTP_SIZES = (1, 7, 256, 1000)
+HTTP_LOOP_S = 5.0
+HTTP_CLIENTS = 4
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -385,13 +432,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 3) -> float | None:
+def device_ms(fn, kernel: str, reps: int = 3, per_call: bool = False) -> float | None:
     """Device time a launch of the kernel whose name contains ``kernel``
     (``torch.profiler`` over ``reps`` calls after one warm run, averaged
-    over the launches it recorded): the kernel without the wrapper's host
-    gaps, which ``cuda_ms`` includes. A trace that records no device time
-    for it (the profiler drops one now and then) is taken again, up to
-    three times; None when none records it."""
+    over the launches it recorded; with ``per_call``, the time of every
+    matching kernel summed and averaged over the calls): the kernel without
+    the wrapper's host gaps, which ``cuda_ms`` includes. A trace that
+    records no device time for it (the profiler drops one now and then) is
+    taken again, up to three times; None when none records it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -406,7 +454,7 @@ def device_ms(fn, kernel: str, reps: int = 3) -> float | None:
         us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
                  for e in events)
         if us > 0:
-            return us / 1e3 / max(1, sum(e.count for e in events))
+            return us / 1e3 / (reps if per_call else max(1, sum(e.count for e in events)))
     return None
 
 
@@ -3376,6 +3424,478 @@ def mr_variant_phase(card) -> tuple[list[str], dict]:
     return errors, launches
 
 
+def novel_queries(data, rows: int, seed: int):
+    """Queries in the bench sampler's shape (``bench.py:187-193``) on the
+    Skin-shaped grid: training rows, every fourth a bitwise duplicate, the
+    rest jittered by a rounded N(0, 1) and kept on the 0-255 grid."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = data[rng.integers(0, len(data), rows)]
+    jitter = np.round(rng.normal(0, 1, (rows, data.shape[1])))
+    jitter[::4] = 0.0
+    return np.clip(q + jitter, 0, 255)
+
+
+def serve_parity(data, forest) -> list[str]:
+    """Phase 3m (a): the rectangular B2 and B7 against their plain versions
+    on the card, bitwise, at the predictor's shapes: every bucket (8 ... 256
+    query rows) against the 245,057 x 3 training set at k = 15 in the
+    ``xla`` backend's form (the reference's tile rule), the ``fused`` dot
+    form and cosine (with the column tile's zero-norm rule), a bucket of
+    zero-norm query rows, and a training set with zero-norm rows; B7 on
+    each bucket's routed candidate lists of the 3b forest (ids repeated
+    across trees and inside padded leaves), and on the same lists cut short
+    and padded with the sentinel."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.core.distances import euclidean_form
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.ops import cuda_knn
+    from hdbscan_tpu_torch.ops.rpforest import route_queries
+    from hdbscan_tpu_torch.ops.tiled import _tile_sizes
+
+    errors = []
+
+    def check(tag, a, b):
+        torch.cuda.synchronize()
+        ok = _bits_same(a, b)
+        print(f"parity {tag}: {'bitwise' if ok else 'MISMATCH'}")
+        if not ok:
+            errors.append(tag)
+
+    n, d = data.shape
+    k = MIN_PTS - 1
+    x = torch.as_tensor(data.astype(np.float32), device="cuda")
+    zx = x.clone()
+    zx[[5, n // 2, n - 7]] = 0.0  # zero-norm training rows in three column tiles
+    _, ct, _ = _tile_sizes(n, 128, 8192)
+    q_all = torch.as_tensor(novel_queries(data, 256, SEED + 30).astype(np.float32),
+                            device="cuda")
+    normals, thresholds, members = (torch.as_tensor(a, device="cuda") for a in (
+        forest.normals, forest.thresholds, forest.members))
+    tree = torch.arange(forest.trees, device="cuda")[:, None]
+    for bucket in SERVE_BUCKETS:
+        q = q_all[:bucket].clone()
+        form = euclidean_form(min(bucket, 128), ct, d)
+        cases = [("xla", x, "euclidean", form), ("fused", x, "euclidean", "dot"),
+                 ("cosine", x, "cosine", None), ("cosine zero-norm columns", zx, "cosine", None)]
+        for tag, cols, metric, f in cases:
+            check(f"B2 predict bucket {bucket} {tag}",
+                  cuda_knn.knn_kbest_panel(q, cols, k, metric, f, col_tile=ct),
+                  cuda_knn.knn_kbest_panel_plain(q, cols, k, metric, f, col_tile=ct))
+        leaves = route_queries(q, normals, thresholds, forest.depth)
+        cand = members[tree, leaves].permute(1, 0, 2).reshape(bucket, -1).to(torch.int32)
+        check(f"B7 predict bucket {bucket} routed ({cand.shape[1]} candidates)",
+              cf.forest_rescan_topk(q, x, cand, k, "euclidean", "f32", n),
+              cf.forest_rescan_topk_plain(q, x, cand, k, "euclidean", "f32", n))
+        short = cand.clone()
+        cut = torch.arange(bucket, device="cuda")[:, None] % 7 * 3  # 0 ... 18 live ids
+        short[torch.arange(cand.shape[1], device="cuda")[None, :] >= cut] = n
+        check(f"B7 predict bucket {bucket} short sentinel-padded lists",
+              cf.forest_rescan_topk(q, x, short, k, "euclidean", "f32", n),
+              cf.forest_rescan_topk_plain(q, x, short, k, "euclidean", "f32", n))
+    zq = q_all[:64].clone()
+    zq[::2] = 0.0
+    check("B2 predict bucket 64 zero-norm query rows cosine",
+          cuda_knn.knn_kbest_panel(zq, zx, k, "cosine", None, col_tile=ct),
+          cuda_knn.knn_kbest_panel_plain(zq, zx, k, "cosine", None, col_tile=ct))
+    return errors
+
+
+def serve_cell(label, predictor, queries, kernels, absent=(), membership=False):
+    """One serving cell on the card: the launch counters zeroed just before
+    the predict and read just after; returns (outputs, launches, wall s)
+    and prints the wall, rows/s and launches."""
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = predictor.predict(queries, with_membership=membership)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: c for name, c in cuda_build.LAUNCHES.items() if c}
+    print(f"3m {label}: {len(queries)} rows, backend {predictor.backend}, wall {wall:.3f} s, "
+          f"{len(queries) / wall:.0f} rows/s, launches {launches}")
+    missing = [name for name in kernels if not launches.get(name)]
+    extra = [name for name in absent if launches.get(name)]
+    errors = []
+    if missing or extra:
+        errors.append(f"{label}: kernels not launched {missing}, launched but not of the "
+                      f"path {extra}")
+    return out, launches, wall, errors
+
+
+def http_leg(here, model, model_b, card, tmp) -> tuple[list[str], dict]:
+    """Phase 3m (d), ``serve_http``: a ``ClusterServer`` on 127.0.0.1, port
+    0, over ``model``: ``POST /predict`` of 1, 7, 256 and 1,000 rows and
+    one with membership, each equal to the in-process predict; ``GET
+    /healthz`` and two ``GET /metrics`` scrapes; ``POST /swap`` to
+    ``model_b`` (generation 2); a closed loop of 4 client threads for 5 s
+    at batch sizes 1-256, each response equal to the sequential predict of
+    its rows (p50/p99 latency and rows/s printed, not gated);
+    the trace and the scrapes through ``scripts/check_trace.py`` and
+    ``scripts/check_metrics.py``.
+
+    Every in-process answer the responses are held against is computed
+    before the server starts, so the launch counters, zeroed just before
+    the requests and again just before the closed loop and read just after
+    each, count the server's own launches and nothing else; the swap's
+    warmup falls between the two windows."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from hdbscan_tpu_torch.ops import cuda_build
+    from hdbscan_tpu_torch.serve import ClusterModel, ClusterServer, Predictor
+    from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
+
+    errors = []
+    # The answers, from the card's in-process predictor, before any window.
+    want = Predictor(model, device="cuda")
+    asks = [novel_queries(model.data, rows, SEED + 40 + rows) for rows in HTTP_SIZES]
+    answers = [want.predict(q) for q in asks]
+    mq = novel_queries(model.data, 33, SEED + 50)
+    mvec = want.predict(mq, with_membership=True)[3]
+    pool = novel_queries(model.data, 4096, SEED + 61)
+    # The swapped-in model's sequential predict of the pool (the server's
+    # backend, ``auto``): every concurrent response must equal its slice.
+    pool_labels = Predictor(ClusterModel.load(model_b)).predict(pool)[0].tolist()
+
+    trace = os.path.join(tmp, "serve_http.jsonl")
+    tracer = Tracer(sinks=[JsonlSink(trace, static={"process": 0})])
+    t = time.perf_counter()
+    srv = ClusterServer(model, port=0, tracer=tracer)
+    start_s = time.perf_counter() - t
+    url = f"http://{srv.host}:{srv.port}"
+
+    def call(path, obj=None):
+        data = None if obj is None else json.dumps(obj).encode()
+        with urllib.request.urlopen(urllib.request.Request(url + path, data=data),
+                                    timeout=120) as r:
+            return r.status, r.read().decode()
+
+    def window_launches(label):
+        got = {name: c for name, c in cuda_build.LAUNCHES.items() if c}
+        if not got.get("knn_kbest_panel") or got.get("forest_rescan_topk"):
+            errors.append(f"{label}: the server's launches {got} are not B2 alone")
+        return got
+
+    loop = {"lat": [], "rows": 0, "bad": 0}
+    scrapes = []
+    try:
+        srv.start()
+        cuda_build.reset_launches()
+        for rows, q, (labels, prob, score) in zip(HTTP_SIZES, asks, answers):
+            status, body = call("/predict", {"points": q.tolist()})
+            out = json.loads(body)
+            ok = (status == 200 and out["labels"] == labels.tolist()
+                  and out["probabilities"] == [round(p, 6) for p in prob.tolist()]
+                  and out["outlier_scores"] == [round(s, 6) for s in score.tolist()])
+            print(f"3m serve_http POST /predict {rows} rows: "
+                  f"{'equal to the in-process predict' if ok else 'DIFFERENT'}")
+            if not ok:
+                errors.append(f"serve_http: /predict of {rows} rows differs")
+        status, body = call("/predict", {"points": mq.tolist(), "membership": True})
+        if status != 200 or json.loads(body)["membership"] != np.round(mvec, 6).tolist():
+            errors.append("serve_http: the membership response differs")
+        health = json.loads(call("/healthz")[1])
+        print(f"3m serve_http /healthz: backend {health['backend']}, device {health['device']}, "
+              f"warmup {health['warmup']}, batcher {health['batcher']}")
+        for i in range(2):
+            scrapes.append(os.path.join(tmp, f"scrape{i}.txt"))
+            with open(scrapes[-1], "w") as f:
+                f.write(call("/metrics")[1])
+            call("/predict", {"points": mq[:5].tolist()})
+        requests_launches = window_launches("serve_http requests")
+        swap = json.loads(call("/swap", {"path": model_b})[1])
+        print(f"3m serve_http POST /swap: {swap}")
+        if swap.get("generation") != 2:
+            errors.append(f"serve_http: swap gave {swap}")
+        rng = np.random.default_rng(SEED + 60)
+        stop = time.perf_counter() + HTTP_LOOP_S
+        lock = threading.Lock()
+
+        def client(seed):
+            r = np.random.default_rng(seed)
+            while time.perf_counter() < stop:
+                b = int(r.integers(1, 257))
+                a = int(r.integers(0, len(pool) - b))
+                t0 = time.perf_counter()
+                status, body = call("/predict", {"points": pool[a : a + b].tolist()})
+                same = status == 200 and json.loads(body)["labels"] == pool_labels[a : a + b]
+                with lock:
+                    loop["lat"].append(time.perf_counter() - t0)
+                    loop["rows"] += b if status == 200 else 0
+                    loop["bad"] += not same
+
+        threads = [threading.Thread(target=client, args=(int(rng.integers(1 << 30)),))
+                   for _ in range(HTTP_CLIENTS)]
+        cuda_build.reset_launches()
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        loop_wall = time.perf_counter() - t
+        loop_launches = window_launches("serve_http closed loop")
+    finally:
+        srv.close()
+        tracer.close()
+    lat = np.sort(np.array(loop["lat"]))
+    p50 = float(lat[int(0.5 * (len(lat) - 1))]) * 1e3
+    p99 = float(lat[int(np.ceil(0.99 * len(lat))) - 1]) * 1e3
+    stats = dict(requests=len(lat), p50_ms=p50, p99_ms=p99, rows_per_s=loop["rows"] / loop_wall,
+                 server_start_s=start_s, launches=requests_launches,
+                 loop_launches=loop_launches)
+    print(f"3m serve_http requests window: launches {requests_launches}")
+    print(f"3m serve_http closed loop ({HTTP_CLIENTS} clients x {HTTP_LOOP_S:.0f} s, batch "
+          f"1-256): {len(lat)} requests, p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+          f"{stats['rows_per_s']:.0f} rows/s; server start (warmup) {start_s:.3f} s; "
+          f"launches {loop_launches}; {card}")
+    print(f"3m serve_http closed loop: {loop['bad']} responses differ from the sequential "
+          "predict of the same rows")
+    if loop["bad"]:
+        errors.append(f"serve_http: {loop['bad']} concurrent responses differ")
+    msg = check_trace_file(here, trace)
+    out = subprocess.run([sys.executable, os.path.join(here, "scripts", "check_metrics.py"),
+                          *scrapes], capture_output=True, text=True, timeout=300)
+    print(f"3m serve_http trace: {'passes' if msg is None else msg}; scrapes: "
+          f"{out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-300:]}")
+    if msg is not None or out.returncode != 0:
+        errors.append("serve_http: the trace or the scrapes fail their checkers")
+    return errors, stats
+
+
+def cli_predict_leg(here, data, card, tmp) -> list[str]:
+    """Phase 3m (e), ``cli_predict``: ``fit --model-out`` on the first
+    30,000 rows of the Skin-shaped set (the dense route), then ``predict
+    --points`` of 20,000 novel queries, both as subprocesses on the card;
+    the prediction file must equal the in-process predict on the saved
+    model, written the same way."""
+    import numpy as np
+
+    from hdbscan_tpu_torch.serve import ClusterModel, Predictor
+    from hdbscan_tpu_torch.utils.io import load_points
+
+    path, qpath = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "queries.tsv")
+    model, pred = os.path.join(tmp, "cli_model.npz"), os.path.join(tmp, "cli_pred.csv")
+    train = data[:CLI_DENSE_ROWS]
+    np.savetxt(path, train, delimiter="\t", fmt="%d")
+    q = novel_queries(train, N_NOVEL, SEED + 70)
+    np.savetxt(qpath, q, delimiter="\t", fmt="%d")
+    walls = []
+    for argv in (["fit", f"file={path}", "minPts=16", "minClSize=367",
+                  f"processing_units={CLI_DENSE_ROWS}", f"out_dir={tmp}/cli_out",
+                  "--model-out", model],
+                 ["predict", "--model", model, "--points", qpath, "--out", pred]):
+        rc, so, se, wall, _, _ = run_cli(argv, here, as_subprocess=True)
+        walls.append(wall)
+        if rc != 0:
+            return [f"cli_predict: {argv[0]} exited {rc}: {se[-1500:]}"]
+        print(f"3m cli_predict {argv[0]}: {so.splitlines()[0] if so else ''} ({wall:.3f} s)")
+    labels, prob, score = Predictor(ClusterModel.load(model)).predict(load_points(qpath))
+    want = "label,probability,outlier_score\n" + "".join(
+        f"{a},{b:.6f},{c:.6f}\n" for a, b, c in zip(labels, prob, score))
+    with open(pred, encoding="utf-8") as f:
+        same = f.read() == want
+    print(f"3m cli_predict: prediction file {'equal to' if same else 'DIFFERENT from'} the "
+          f"in-process predict; fit {walls[0]:.3f} s, predict {walls[1]:.3f} s of command; "
+          f"{card}")
+    return [] if same else ["cli_predict: the prediction file differs"]
+
+
+def predict_times(data, model, forest, launches) -> list[dict]:
+    """The kernels line's serving rows: the rectangular B2 on one 256-row
+    bucket against the 245,057 x 3 training set at k = 15 in the form the
+    ``serve_skin`` cell ran (``knn_kbest_panel_predict``), and B7 on one
+    256-row bucket of the 3b forest's routed candidates
+    (``forest_rescan_topk_predict``), each beside its plain version, its
+    bound and ``torch.cdist`` + ``torch.topk`` (TF32 off)."""
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.ops import cuda_knn
+    from hdbscan_tpu_torch.ops.rpforest import route_queries
+
+    n, d = data.shape
+    k = MIN_PTS - 1
+    x = torch.as_tensor(data.astype(np.float32), device="cuda")
+    q = torch.as_tensor(novel_queries(data, 256, SEED + 80).astype(np.float32), device="cuda")
+    rows = []
+
+    def row(name, source, replaces, launch, kernel, plain, library, nbytes, ops, **extra):
+        ms = cuda_ms(kernel, 10)
+        plain_ms, b = timed_plain(plain)
+        a = kernel()
+        b_ms, by = bound_ms(nbytes, ops)
+        rows.append(dict(
+            name=name, route="cuda", source=f"hdbscan_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=launches.get(launch, 0),
+            max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=by, bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
+            library_ms=cuda_ms(library, 5), library_call=TWO_CALLS, **extra,
+        ))
+
+    form = "dot"  # serve_skin's backend: auto -> fused on the card
+    row("knn_kbest_panel_predict", "knn_kbest.cu", "hdbscan_tpu/ops/pallas_knn.py:453",
+        "knn_kbest_panel",
+        lambda: cuda_knn.knn_kbest_panel(q, x, k, "euclidean", form),
+        lambda: cuda_knn.knn_kbest_panel_plain(q, x, k, "euclidean", form),
+        lambda: torch.topk(torch.cdist(q, x), k, dim=1, largest=False),
+        (256 + n) * d * 4 + 256 * k * 8, 256.0 * n * pair_ops(d, form, root=False),
+        blocks=kbest_blocks(256, n, d, k), form=form,
+        device_ms=device_ms(lambda: cuda_knn.knn_kbest_panel(q, x, k, "euclidean", form),
+                            "knn_kbest", per_call=True))
+    normals, thresholds, members = (torch.as_tensor(a, device="cuda") for a in (
+        forest.normals, forest.thresholds, forest.members))
+    tree = torch.arange(forest.trees, device="cuda")[:, None]
+    leaves = route_queries(q, normals, thresholds, forest.depth)
+    cand = members[tree, leaves].permute(1, 0, 2).reshape(256, -1).to(torch.int32)
+    uniq = int(torch.unique(cand).numel())
+
+    def rescan_two_calls():
+        torch.topk(torch.cdist(q[:, None, :], x[cand.long()])[:, 0, :], k, dim=1,
+                   largest=False)
+
+    row("forest_rescan_topk_predict", "forest_rescan.cu", "hdbscan_tpu/ops/pallas_forest.py:411",
+        "forest_rescan_topk",
+        lambda: cf.forest_rescan_topk(q, x, cand, k, "euclidean", "f32", n),
+        lambda: cf.forest_rescan_topk_plain(q, x, cand, k, "euclidean", "f32", n),
+        rescan_two_calls,
+        256 * d * 4 + cand.numel() * 4 + uniq * d * 4 + 256 * k * 8,
+        float(cand.numel()) * pair_ops(d, "diff", root=False),
+        blocks=cf.rescan_blocks(256, cand.shape[1], d, k), candidates=int(cand.shape[1]),
+        distinct_ids=uniq,
+        device_ms=device_ms(lambda: cf.forest_rescan_topk(q, x, cand, k, "euclidean", "f32", n),
+                            "rescan_", per_call=True))
+    print(f"predict kernel shapes: 256-row bucket x {n} columns, d {d}, k {k}, form {form}; "
+          f"B7 256 rows x {cand.shape[1]} routed candidates ({uniq} distinct)")
+    return rows
+
+
+def serve_phase(here, data, res, fres, card) -> tuple[list[str], dict, list[dict]]:
+    """Phase 3m, serving (module docstring). ``res`` is phase 3's exact fit
+    and ``fres`` 3b's rp-forest fit (fitted here when None). Returns failure
+    messages, each cell's launches and the kernels line's serving rows."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.ops import rpforest
+    from hdbscan_tpu_torch.serve import ClusterModel, Predictor
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hdbscan_serve_")
+    params = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE)
+    fparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **FOREST)
+    launches = {}
+
+    # (a) the kernels at the predictor's shapes, against the 3b forest.
+    forest = rpforest.build_forest(data, trees=FOREST["rpf_trees"],
+                                   leaf_size=FOREST["rpf_leaf_size"], seed=SEED)
+    errors = serve_parity(data, forest)
+
+    # (b) serve_skin: phase 3's fit saved, reloaded and served.
+    t = time.perf_counter()
+    path = res.to_cluster_model(data, params).save(os.path.join(tmp, "skin.npz"))
+    model = ClusterModel.load(path)
+    print(f"3m serve_skin model: save + load {time.perf_counter() - t:.3f} s, "
+          f"{os.path.getsize(path)} bytes, {model.summary()}")
+    pred = Predictor(model)
+    info = pred.warmup()
+    print(f"3m serve_skin warmup: {info}")
+    out, launches["serve_skin_train"], _, e = serve_cell(
+        "serve_skin training rows", pred, data, ("knn_kbest_panel",), ("forest_rescan_topk",))
+    errors += e
+    diff = int(np.sum(out[0] != res.labels))
+    print(f"3m serve_skin round trip: {diff} of {N_SKIN} training labels differ from the fit")
+    if diff:
+        errors.append(f"serve_skin: {diff} training labels differ from the fit's")
+    queries = novel_queries(data, N_NOVEL, SEED + 20)
+    novel, launches["serve_skin"], _, e = serve_cell(
+        "serve_skin novel", pred, queries, ("knn_kbest_panel",), ("forest_rescan_topk",))
+    errors += e
+    xla = Predictor(model, backend="xla")
+    xnovel, launches["serve_skin_xla"], _, e = serve_cell(
+        "serve_skin novel (xla)", xla, queries, ("knn_kbest_panel",), ("forest_rescan_topk",))
+    errors += e
+    print(f"3m serve_skin novel: {np.bincount(novel[0]).tolist()[:8]} ... label counts; "
+          f"labels fused vs xla equal {np.array_equal(novel[0], xnovel[0])}; {card}")
+
+    # The card against the CPU on a 4,096-row model, each backend.
+    rng = np.random.default_rng(SEED + 21)
+    sub = data[rng.choice(N_SKIN, 4096, replace=False)]
+    small = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=50)
+    sres = exact.fit(sub, small)
+    sforest = rpforest.build_forest(sub, trees=4, leaf_size=1024, seed=SEED)
+    smodel = ClusterModel.from_fit_result(sres, sub, small, forest=sforest)
+    sq = np.concatenate([novel_queries(sub, 3000, SEED + 22), np.zeros((5, 3))])
+    for backend in ("xla", "fused", "rpforest"):
+        card_out = Predictor(smodel, backend=backend).predict(sq, with_membership=True)
+        cpu_out = Predictor(smodel, backend=backend, device="cpu").predict(
+            sq, with_membership=True)
+        same = all(np.array_equal(a, b, equal_nan=True) for a, b in zip(card_out[:3],
+                                                                          cpu_out[:3]))
+        merr = float(np.max(np.abs(card_out[3] - cpu_out[3]) / np.maximum(np.abs(cpu_out[3]),
+                                                                          1e-30)))
+        print(f"3m 4,096-row model {backend}: card vs CPU labels, probabilities, scores "
+              f"{'identical' if same else 'DIFFERENT'}; membership max rel err {merr:.3e}")
+        if not same or merr > 1e-6:
+            errors.append(f"card vs CPU predict differs on the 4,096-row model ({backend})")
+
+    # (c) serve_skin_rpf: 3b's fit, its artifact carrying the forest.
+    if fres is None:
+        fres, _, _, _ = run_fit(data, fparams)
+    rpath = fres.to_cluster_model(data, fparams).save(os.path.join(tmp, "skin_rpf.npz"))
+    rmodel = ClusterModel.load(rpath)
+    rpred = Predictor(rmodel, backend="rpforest")
+    print(f"3m serve_skin_rpf warmup: {rpred.warmup()}, forest {rmodel.summary()['rpf']}")
+    rout, launches["serve_skin_rpf_train"], _, e = serve_cell(
+        "serve_skin_rpf training rows", rpred, data, ("forest_rescan_topk",),
+        ("knn_kbest_panel",))
+    errors += e
+    diff = int(np.sum(rout[0] != fres.labels))
+    print(f"3m serve_skin_rpf round trip: {diff} of {N_SKIN} training labels differ from the "
+          "rp-forest fit")
+    if diff:
+        errors.append(f"serve_skin_rpf: {diff} training labels differ from the fit's")
+    rnovel, launches["serve_skin_rpf"], _, e = serve_cell(
+        "serve_skin_rpf novel", rpred, queries, ("forest_rescan_topk",), ("knn_kbest_panel",))
+    errors += e
+    exact_on_rpf = Predictor(rmodel, backend="xla").predict(queries)[0]
+    print(f"3m serve_skin_rpf: ARI of the rpforest backend's labels against the exact backend "
+          f"on the same model {ari(rnovel[0], exact_on_rpf):.6f}, against serve_skin's "
+          f"{ari(rnovel[0], novel[0]):.6f}")
+
+    # (d) serve_http and (e) cli_predict.
+    e, http_stats = http_leg(here, model, rpath, card, tmp)
+    errors += e
+    launches["serve_http"] = http_stats["launches"]
+    launches["serve_http_loop"] = http_stats["loop_launches"]
+    errors += cli_predict_leg(here, data, card, tmp)
+
+    rows = predict_times(data, model, forest, {
+        "knn_kbest_panel": launches["serve_skin"].get("knn_kbest_panel", 0),
+        "forest_rescan_topk": launches["serve_skin_rpf"].get("forest_rescan_topk", 0)})
+    for r in rows:
+        r["launches_3m"] = {cell: got[r["name"][: -len("_predict")]] for cell, got in
+                            launches.items() if got.get(r["name"][: -len("_predict")])}
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"3m serving phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return errors, launches, rows
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "hdbscan_tpu_torch")):
@@ -3400,8 +3920,9 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     only_3k = sys.argv[1:] == ["3k"]
     only_3l = sys.argv[1:] == ["3l"]
+    only_3m = sys.argv[1:] == ["3m"]
 
-    errors = [] if only_3k or only_3l else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
+    errors = [] if only_3k or only_3l or only_3m else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
               + parity_leaf() + parity_metrics())
@@ -3449,6 +3970,11 @@ def main() -> int:
         errors, _ = mr_variant_phase(card)
         print(card)
         return fail(f"the MR pipeline's variant cells failed: {errors}") if errors else 0
+    if only_3m:  # ``python3 chip_smoke.py 3m``: phase 3 and 3m alone
+        errors, _, serve_rows = serve_phase(here, data, res, None, card)
+        print(card)
+        print(json.dumps({"kernels": serve_rows}))
+        return fail(f"the serving phase failed: {errors}") if errors else 0
 
     # --- 3b: the rp-forest tier on the same data --------------------------
     fparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **FOREST)
@@ -3625,6 +4151,11 @@ def main() -> int:
     if errors:
         return fail(f"the MR pipeline's variant cells failed: {errors}")
 
+    # --- 3m: serving, model artifacts, the server and the CLI -----------
+    errors, serve_launches, serve_rows = serve_phase(here, data, res, fres, card)
+    if errors:
+        return fail(f"the serving phase failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -3696,11 +4227,13 @@ def main() -> int:
     rows += panel_times(data, sres, slaunches, mesh)
     rows += wide_rows
     rows += metric_rows
+    rows += serve_rows
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")
     for row in rows:  # each kernel's launches in the 3k and 3l cells that ran it
-        for key, cells in (("launches_3k", host_launches), ("launches_3l", mr_launches)):
+        for key, cells in (("launches_3k", host_launches), ("launches_3l", mr_launches),
+                           ("launches_3m", serve_launches)):
             hits = {cell: n for cell, got in cells.items() if (n := got.get(row["name"]))}
             if hits:
                 row[key] = hits

@@ -1,4 +1,5 @@
-"""The command line — the port of ``hdbscan_tpu/cli.py``'s ``fit`` path.
+"""The command line — the port of ``hdbscan_tpu/cli.py``'s ``fit``,
+``predict`` and ``serve``.
 
 Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
 
@@ -15,6 +16,13 @@ Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
         [mst_backend={auto,host,device}] [variant={db,rs}] [consensus=N] \
         [compat_cf={true,false}] [block_pruning={true,false}] \
         [trace_rotate_bytes=N] [trace_max_events=N] \
+        [--trace-out PATH] [--model-out MODEL.npz] [--device DEV]
+    python -m hdbscan_tpu_torch predict --model MODEL.npz --points <input> \
+        [--out PRED.csv] [predict_backend={auto,xla,fused,rpforest}] \
+        [predict_batch=N] [--trace-out PATH] [--device DEV]
+    python -m hdbscan_tpu_torch serve --model MODEL.npz [--host H] [--port P] \
+        [--port-file PATH] [predict_backend=...] [predict_batch=N] \
+        [queue_bound=N] [deadline_ms=F] [faults=SPEC] [trace_max_events=N] \
         [--trace-out PATH] [--device DEV]
 
 The dataset is routed as the reference routes it: with ``fit_sharding``
@@ -35,23 +43,34 @@ canonical files either way (a consensus run adds the
 ``<base>_consensus.json`` provenance sidecar); the fit computes in
 float32.
 
+``fit --model-out`` persists the fitted clustering as one atomic
+schema-versioned ``.npz`` (``serve/artifact.ClusterModel``, the reference's
+layout); ``predict`` classifies new points against it (labels, membership
+probabilities, GLOSH outlier scores, written as the reference's CSV);
+``serve`` starts the stdlib HTTP server (``POST /predict``, ``POST /swap``,
+``GET /healthz``, ``GET /metrics``) with micro-batched dispatch and prints
+``hdbscan-tpu serve: http://HOST:PORT ...`` on stderr once bound
+(``--port-file`` also writes the port). Both serving commands warm every
+power-of-two batch bucket and emit per-batch ``predict_batch`` events.
+
 ``--device DEV`` picks the device (default: the card; ``--device cpu`` runs
 every kernel's plain PyTorch version). There is no fallback: with no card
 and no ``--device cpu`` the command fails. ``--trace-out PATH`` writes every
-stage event as a ``hdbscan-tpu-trace/1`` JSON line (rotated at
+stage event as a ``hdbscan-tpu-trace/1`` JSON line (the fit's rotated at
 ``trace_rotate_bytes``; validate with ``scripts/check_trace.py``);
 ``HDBSCAN_TPU_TRACE=1`` streams the events as logfmt lines to stderr. The
-per-stage summary (``phases:``) always goes to stderr.
+fit's per-stage summary (``phases:``) always goes to stderr.
 
 Not ported yet — each exits 2 before any data is read:
-``predict`` and ``serve`` (ROADMAP A7), ``fleet`` (A12), ``--model-out``
-(A7), ``--report``, ``--flight-dir``, ``--assert-not-replicated``,
-``--compile-cache`` / ``compile_cache=`` and the observability knobs
-``heartbeat``, ``watchdog``, ``skew_threshold``, ``straggler_rounds``
-(A11), ``clusterName`` other than ``local`` (A9). A fit route that is not
-ported (the MR route with ``fit_sharding=sharded`` or ``scan_backend=ring``,
-or over a mesh of several cards (A9)) raises ``NotImplementedError``
-naming its item, printed the same way with exit 2.
+``fleet`` (ROADMAP A12), ``serve --ingest`` and ``--model-dir`` (A10),
+``serve --tenants-dir`` (A12), ``--report``, ``--flight-dir``,
+``--assert-not-replicated``, ``--compile-cache`` / ``compile_cache=`` and
+the observability knobs ``heartbeat``, ``watchdog``, ``skew_threshold``,
+``straggler_rounds`` (A11), ``clusterName`` other than ``local`` (A9). A
+fit route that is not ported (the MR route with ``fit_sharding=sharded``
+or ``scan_backend=ring``, or over a mesh of several cards (A9)) and a
+server knob that is not (``wal_dir``, ``maintain`` (A10)) raise
+``NotImplementedError`` naming its item, printed the same way with exit 2.
 """
 
 from __future__ import annotations
@@ -65,10 +84,14 @@ from hdbscan_tpu_torch.config import HDBSCANParams
 HELP = __doc__
 
 #: Subcommands of the reference that are not ported, with their items.
-_UNPORTED_COMMANDS = {"predict": "A7", "serve": "A7", "fleet": "A12"}
+_UNPORTED_COMMANDS = {"fleet": "A12"}
 #: ``--flag PATH`` options of the reference's fit that are not ported.
 _UNPORTED_PATH_FLAGS = (("--report", "A11"), ("--flight-dir", "A11"),
-                        ("--compile-cache", "A11"), ("--model-out", "A7"))
+                        ("--compile-cache", "A11"))
+#: The reference's ``serve`` options that are not ported: (flag, takes a
+#: PATH, item).
+_UNPORTED_SERVE_FLAGS = (("--report", True, "A11"), ("--model-dir", True, "A10"),
+                         ("--tenants-dir", True, "A12"), ("--ingest", False, "A10"))
 #: Fit parameters whose engine is not ported: (field, CLI key, item).
 _UNPORTED_FIELDS = (("compile_cache", "compile_cache", "A11"),
                     ("heartbeat_s", "heartbeat", "A11"),
@@ -114,6 +137,38 @@ def _not_ported(what: str, item: str) -> int:
     return 2
 
 
+def _refuse_fields(params) -> int:
+    """Exit 2 naming the item of the first unported knob that is set."""
+    default = HDBSCANParams()
+    for field, key, item in _UNPORTED_FIELDS:
+        if getattr(params, field) != getattr(default, field):
+            return _not_ported(f"{key}={getattr(params, field)}", item)
+    return 0
+
+
+def _device(flag):
+    """The ``--device`` flag resolved (the card by default); None, with the
+    error printed, when no card is present and none was named."""
+    from hdbscan_tpu_torch.ops import cuda_build
+
+    try:
+        return cuda_build.resolve_device(flag)
+    except RuntimeError as e:
+        print(f"error: {e} (on the command line: --device cpu)", file=sys.stderr)
+        return None
+
+
+def _serving_tracer(trace_out: str | None, max_events: int):
+    """Tracer of the serving commands: ``--trace-out`` as JSON lines,
+    ``HDBSCAN_TPU_TRACE=1`` as logfmt on stderr, the in-memory list bounded
+    by ``trace_max_events``."""
+    from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
+
+    sinks = [JsonlSink(trace_out, static={"process": 0})] if trace_out is not None else []
+    return Tracer(stream=sys.stderr if os.environ.get("HDBSCAN_TPU_TRACE") else None,
+                  sinks=sinks, max_events=max_events)
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or any(a in ("-h", "--help", "help") for a in argv):
@@ -123,6 +178,10 @@ def main(argv: list[str] | None = None) -> int:
     # means fit.
     if argv[0] in _UNPORTED_COMMANDS:
         return _not_ported(f"the {argv[0]} subcommand", _UNPORTED_COMMANDS[argv[0]])
+    if argv[0] == "predict":
+        return _main_predict(argv[1:])
+    if argv[0] == "serve":
+        return _main_serve(argv[1:])
     if argv[0] == "fit":
         argv = argv[1:]
     return _main_fit(argv)
@@ -131,6 +190,7 @@ def main(argv: list[str] | None = None) -> int:
 def _main_fit(argv: list[str]) -> int:
     try:
         trace_out = _pop_path_flag(argv, "--trace-out")
+        model_out = _pop_path_flag(argv, "--model-out")
         device_flag = _pop_path_flag(argv, "--device")
         for flag, item in _UNPORTED_PATH_FLAGS:
             if _pop_path_flag(argv, flag) is not None:
@@ -144,22 +204,17 @@ def _main_fit(argv: list[str]) -> int:
     if not params.input_file:
         print("error: file=<input> is required", file=sys.stderr)
         return 2
-    default = HDBSCANParams()
-    for field, key, item in _UNPORTED_FIELDS:
-        if getattr(params, field) != getattr(default, field):
-            return _not_ported(f"{key}={getattr(params, field)}", item)
+    refused = _refuse_fields(params)
+    if refused:
+        return refused
     if params.cluster_name != "local":
         return _not_ported(f"clusterName={params.cluster_name} (multi-process runs)", "A9")
 
     import numpy as np
     import torch
 
-    from hdbscan_tpu_torch.ops import cuda_build
-
-    try:
-        device = cuda_build.resolve_device(device_flag)
-    except RuntimeError as e:
-        print(f"error: {e} (on the command line: --device cpu)", file=sys.stderr)
+    device = _device(device_flag)
+    if device is None:
         return 1
 
     from hdbscan_tpu_torch.models import exact, hdbscan, mr_hdbscan
@@ -215,6 +270,11 @@ def _main_fit(argv: list[str]) -> int:
         t0 = time.monotonic()
         paths = hdbscan.write_outputs(result, params)
         tracer("write_outputs", wall_s=round(time.monotonic() - t0, 6))
+        if model_out is not None:
+            t0 = time.monotonic()
+            result.to_cluster_model(data, params, device=device).save(model_out)
+            tracer("model_save", wall_s=round(time.monotonic() - t0, 6))
+            paths = dict(paths, model=model_out)
         n_clusters = len(set(result.labels[result.labels > 0].tolist()))
         n_noise = int(np.sum(result.labels == 0))
         print(
@@ -243,6 +303,139 @@ def _main_fit(argv: list[str]) -> int:
             print("phases:", file=sys.stderr)
             for line in summary.splitlines():
                 print(f"  {line}", file=sys.stderr)
+    finally:
+        tracer.close()
+    return 0
+
+
+def _main_predict(argv: list[str]) -> int:
+    try:
+        model_path = _pop_path_flag(argv, "--model")
+        points_path = _pop_path_flag(argv, "--points")
+        out_path = _pop_path_flag(argv, "--out")
+        trace_out = _pop_path_flag(argv, "--trace-out")
+        device_flag = _pop_path_flag(argv, "--device")
+        if _pop_path_flag(argv, "--report") is not None:
+            return _not_ported("--report", "A11")
+        params = HDBSCANParams.from_args(argv)
+    except ValueError as e:
+        print(f"error: {e}\n{HELP}", file=sys.stderr)
+        return 2
+    if not model_path or not points_path:
+        print("error: predict requires --model MODEL.npz and --points <input>",
+              file=sys.stderr)
+        return 2
+    refused = _refuse_fields(params)
+    if refused:
+        return refused
+
+    import numpy as np
+
+    device = _device(device_flag)
+    if device is None:
+        return 1
+
+    from hdbscan_tpu_torch.serve.artifact import ClusterModel
+    from hdbscan_tpu_torch.serve.predict import Predictor
+    from hdbscan_tpu_torch.utils.io import load_points
+
+    tracer = _serving_tracer(trace_out, params.trace_max_events)
+    try:
+        t0 = time.monotonic()
+        try:
+            model = ClusterModel.load(model_path)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"error: cannot load model: {e}", file=sys.stderr)
+            return 2
+        tracer("model_load", n_train=model.n_train, mode=model.mode,
+               wall_s=round(time.monotonic() - t0, 6))
+        t0 = time.monotonic()
+        points = load_points(points_path)
+        if points.ndim == 1:
+            points = points[:, None]
+        tracer("load_points", rows=len(points), dims=int(points.shape[1]),
+               wall_s=round(time.monotonic() - t0, 6))
+        predictor = Predictor(model, backend=params.predict_backend,
+                              max_batch=params.predict_max_batch, tracer=tracer,
+                              device=device)
+        predictor.warmup()
+        try:
+            labels, prob, score = predictor.predict(points)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if out_path is not None:
+            with open(out_path, "w", encoding="utf-8") as f:
+                f.write("label,probability,outlier_score\n")
+                for row in zip(labels, prob, score):
+                    f.write(f"{row[0]},{row[1]:.6f},{row[2]:.6f}\n")
+        n_clusters = len(set(labels[labels > 0].tolist()))
+        n_noise = int(np.sum(labels == 0))
+        print(f"hdbscan-tpu predict: {len(points)} points, {n_clusters} clusters, "
+              f"{n_noise} noise ({predictor.backend} backend)")
+        if out_path is not None:
+            print(f"  predictions: {out_path}")
+    finally:
+        tracer.close()
+    return 0
+
+
+def _main_serve(argv: list[str]) -> int:
+    try:
+        model_path = _pop_path_flag(argv, "--model")
+        host = _pop_path_flag(argv, "--host") or "127.0.0.1"
+        port = _pop_path_flag(argv, "--port")
+        trace_out = _pop_path_flag(argv, "--trace-out")
+        port_file = _pop_path_flag(argv, "--port-file")
+        device_flag = _pop_path_flag(argv, "--device")
+        for flag, takes_path, item in _UNPORTED_SERVE_FLAGS:
+            given = (_pop_path_flag(argv, flag) is not None if takes_path
+                     else _pop_bool_flag(argv, flag))
+            if given:
+                return _not_ported(f"serve {flag}", item)
+        params = HDBSCANParams.from_args(argv)
+        port = int(port) if port is not None else 8799
+    except ValueError as e:
+        print(f"error: {e}\n{HELP}", file=sys.stderr)
+        return 2
+    if not model_path:
+        print("error: serve requires --model MODEL.npz", file=sys.stderr)
+        return 2
+    refused = _refuse_fields(params)
+    if refused:
+        return refused
+    device = _device(device_flag)
+    if device is None:
+        return 1
+
+    from hdbscan_tpu_torch.serve.artifact import ClusterModel
+    from hdbscan_tpu_torch.serve.server import ClusterServer
+
+    tracer = _serving_tracer(trace_out, params.trace_max_events)
+    try:
+        try:
+            model = ClusterModel.load(model_path)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"error: cannot load model: {e}", file=sys.stderr)
+            return 2
+        try:
+            server = ClusterServer(model, backend=params.predict_backend,
+                                   max_batch=params.predict_max_batch, host=host, port=port,
+                                   tracer=tracer, params=params, device=device)
+        except NotImplementedError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if port_file is not None:
+            # Written only after the socket is bound (serve --port 0).
+            with open(port_file, "w", encoding="utf-8") as f:
+                f.write(f"{server.port}\n")
+        print(
+            f"hdbscan-tpu serve: http://{server.host}:{server.port} "
+            f"(model {model_path}, {model.n_train} train points, "
+            f"{server.predictor.backend} backend, buckets {server.predictor.buckets})",
+            file=sys.stderr, flush=True,
+        )
+        server.serve_forever()
     finally:
         tracer.close()
     return 0

@@ -597,7 +597,9 @@ class HDBSCANParams:
                 f"got {self.serve_deadline_ms!r}"
             )
         if self.fault_spec:
-            _check_fault_spec(self.fault_spec)  # bad specs fail here
+            from hdbscan_tpu_torch.fault.inject import parse_spec
+
+            parse_spec(self.fault_spec)  # bad specs fail here
         if self.circuit_failures < 1:
             raise ValueError(
                 f"circuit_failures must be >= 1, got {self.circuit_failures!r}"
@@ -786,57 +788,6 @@ class HDBSCANParams:
 
 def _bool(s: str) -> bool:
     return s.lower() == "true"
-
-
-#: Injection sites of the reference's chaos harness (``fault/inject.py``):
-#: the ``faults=`` flag is validated against the same grammar so a spec one
-#: package accepts the other accepts too.
-FAULT_SITES = (
-    "predict_dispatch", "artifact_save", "artifact_load", "refit_fit",
-    "batcher_submit", "http_reset", "slow_request", "phase_stall",
-)
-
-
-def _check_fault_spec(text: str) -> None:
-    """Validate a ``site:key=val,...;site2:...`` fault spec (raises
-    ``ValueError`` on unknown sites/keys, bad values, repeated sites)."""
-    seen: set[str] = set()
-    for clause in text.split(";"):
-        clause = clause.strip()
-        if not clause:
-            continue
-        site, _, rest = clause.partition(":")
-        site = site.strip()
-        vals = {"p": 1.0, "delay_s": 0.05}
-        for pair in rest.split(","):
-            pair = pair.strip()
-            if not pair:
-                continue
-            key, eq, value = pair.partition("=")
-            key, value = key.strip(), value.strip()
-            if not eq or not value:
-                raise ValueError(
-                    f"fault spec clause {clause!r}: expected key=value, got {pair!r}"
-                )
-            if key in ("p", "delay_s"):
-                vals[key] = float(value)
-            elif key in ("count", "seed"):
-                int(value)
-            elif key != "mode":
-                raise ValueError(f"fault spec clause {clause!r}: unknown key {key!r}")
-        if site in seen:
-            raise ValueError(f"fault spec names site {site!r} twice")
-        seen.add(site)
-        if site not in FAULT_SITES:
-            raise ValueError(
-                f"unknown fault site {site!r}; expected one of {sorted(FAULT_SITES)}"
-            )
-        if not 0.0 <= vals["p"] <= 1.0:
-            raise ValueError(f"fault site {site}: p must be in [0, 1], got {vals['p']}")
-        if vals["delay_s"] < 0.0:
-            raise ValueError(
-                f"fault site {site}: delay_s must be >= 0, got {vals['delay_s']}"
-            )
 
 
 #: CLI flag -> (dataclass field, converter). Module-level so harnesses that

@@ -45,6 +45,34 @@ def resolve_tree_backend(
     )
 
 
+def serving_tables(
+    tree: tree_mod.CondensedTree, labels: np.ndarray | None = None
+) -> dict:
+    """Prediction-time views of a propagated condensed tree — the arrays
+    ``serve/artifact.ClusterModel`` persists beyond the raw tree fields
+    (the reference's ``serving_tables``):
+
+    - ``sel_anc``: per-label nearest selected ancestor-or-self (the flat-label
+      jump table, ``core/tree_vec.selected_ancestors``), indexed at serve time
+      with the *query's* attachment cluster;
+    - ``eps_min``: per-selected-cluster minimum member exit eps ("max
+      lambda", ``core/tree.cluster_eps_min``) backing membership
+      probabilities;
+    - ``eps_max``: per-cluster lowest descendant death (GLOSH numerator,
+      ``propagate_tree``'s ``lowest_child_death``).
+
+    ``labels``: the fit's flat labels in the tree's point space (vertex
+    space for deduplicated fits); recomputed when omitted.
+    """
+    if tree.selected is None:
+        raise ValueError("propagate_tree() must run before serving_tables()")
+    return {
+        "sel_anc": tree_vec.selected_ancestors(tree),
+        "eps_min": tree_mod.cluster_eps_min(tree, labels),
+        "eps_max": np.asarray(tree.lowest_child_death, np.float64),
+    }
+
+
 def finalize_clustering(
     n: int,
     u: np.ndarray,

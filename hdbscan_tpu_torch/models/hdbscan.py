@@ -40,6 +40,15 @@ class HDBSCANResult:
     #: row -> unique-vertex index map when the run deduplicated (else None).
     dedup_inverse: np.ndarray | None = None
 
+    def to_cluster_model(self, data: np.ndarray, params, *, device=None):
+        """Serving artifact for this fit (``serve/artifact.ClusterModel``);
+        ``data``/``params`` must be the ones the fit ran with — they feed
+        the artifact's fingerprint. ``device`` builds the serving forest of
+        an rp-forest fit (the card unless the caller names another)."""
+        from hdbscan_tpu_torch.serve.artifact import ClusterModel
+
+        return ClusterModel.from_fit_result(self, data, params, device=device)
+
 
 def hdbscan_block_edges(
     x: torch.Tensor, min_pts: int, metric: str = "euclidean"

@@ -118,6 +118,15 @@ class MRHDBSCANResult:
     #: ``models/hdbscan.write_outputs`` writes this dict beside the files.
     consensus_info: dict | None = None
 
+    def to_cluster_model(self, data: np.ndarray, params, *, device=None):
+        """Serving artifact for this fit (``serve/artifact.ClusterModel``);
+        consensus results persist the representative draw's tree with the
+        consensus flat labels (the provenance split of ``write_outputs``).
+        ``device`` builds the serving forest of an rp-forest fit."""
+        from hdbscan_tpu_torch.serve.artifact import ClusterModel
+
+        return ClusterModel.from_fit_result(self, data, params, device=device)
+
 
 #: Adaptive boundary criterion: a point's per-block core is damaged iff its
 #: k-NN ball reaches across a seam, i.e. margin <= ALPHA * core.

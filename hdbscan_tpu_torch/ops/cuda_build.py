@@ -11,7 +11,8 @@ hash, so an edited source is rebuilt and a stale library never loads.
 
 A failed build raises: there is no fallback for CUDA tensors.
 
-``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
+``LAUNCHES`` counts kernel launches by name and ``BUILDS`` the sources
+this process compiled; each wrapper adds one where it
 launches its kernel and nowhere else. A launch past k or d = 128 (a
 kernel's wide mode) counts under ``<name>_wide`` instead.
 """
@@ -108,6 +109,10 @@ WIDE_KERNELS = ("segmin", "segmin_panel", "knn_kbest", "knn_kbest_panel", "knn_w
 
 LAUNCHES = {name: 0 for name in (*KERNELS, *(f"{k}_wide" for k in WIDE_KERNELS))}
 
+#: Sources compiled by this process (a library already on disk is not
+#: counted): the serving warmup's ``jit_compiles``.
+BUILDS = 0
+
 _libs: dict = {}  # source -> loaded library
 _fns: dict = {}  # (source, symbol) -> ctypes function
 
@@ -173,6 +178,7 @@ def _start(src: str):
 
 
 def _finish(src: str, job) -> None:
+    global BUILDS
     if job is None:
         return
     proc, tmp, so = job
@@ -182,6 +188,7 @@ def _finish(src: str, job) -> None:
             os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {src} ({proc.returncode}):\n{out}{err}")
     os.replace(tmp, so)
+    BUILDS += 1
 
 
 def build_all() -> None:

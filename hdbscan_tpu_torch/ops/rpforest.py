@@ -401,6 +401,36 @@ def _sampled_recall(data_dev, best_i, k: int, metric: str, sample: int):
 
 
 # ---------------------------------------------------------------------------
+# Routing queries down a stored forest (serving).
+
+
+def route_queries(queries: torch.Tensor, normals: torch.Tensor, thresholds: torch.Tensor,
+                  depth: int) -> torch.Tensor:
+    """Leaf id per query: ``depth`` gather + dot + compare steps down the
+    heap-indexed planes, projections >= threshold going right (the
+    rank-split midpoint recorded at build time). ``normals`` (T, 2^depth -
+    1, d) and ``thresholds`` (T, 2^depth - 1) route every tree at once into
+    (T, B) int64 leaves; without the T axis, one tree into (B,). The
+    projection accumulates the features one at a time (:func:`_project`'s
+    order, the reference's ``jnp.einsum`` at 3 <= d <= 8). Used by
+    ``serve/predict`` to query a stored forest."""
+    one = normals.dim() == 2
+    if one:
+        normals, thresholds = normals[None], thresholds[None]
+    trees, b = normals.shape[0], queries.shape[0]
+    tree = torch.arange(trees, device=queries.device)[:, None]
+    node = torch.zeros((trees, b), dtype=torch.int64, device=queries.device)
+    for level in range(depth):
+        heap = _heap_base(level) + node
+        plane = normals[tree, heap]  # (T, B, d)
+        proj = queries[None, :, 0] * plane[..., 0]
+        for f in range(1, queries.shape[1]):
+            proj = proj + queries[None, :, f] * plane[..., f]
+        node = node * 2 + (proj >= thresholds[tree, heap]).long()
+    return node[0] if one else node
+
+
+# ---------------------------------------------------------------------------
 # The core-distance entry point (the ``ops/tiled`` return contract).
 
 

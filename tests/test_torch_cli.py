@@ -9,8 +9,11 @@ with ``variant=rs``, ``dedup=true``, ``compat_cf=true`` and ``consensus=3``
 ``exact-sharded`` route's files equal the reference's ``exact.fit`` plus
 ``write_outputs`` run in process (the reference's own sharded CLI route
 fails under the installed jax). Every ``--trace-out`` file passes
-``scripts/check_trace.py``; every flag, subcommand and ``clusterName`` that
-is not ported exits 2 naming its ROADMAP item before any data is read.
+``scripts/check_trace.py``; ``fit --model-out`` then ``predict --out``
+write a prediction file byte-identical to the reference CLI's on the dense
+and MR routes and on the ``fused`` and ``rpforest`` backends; every flag,
+subcommand and ``clusterName`` that is not ported exits 2 naming its
+ROADMAP item before any data is read.
 """
 
 import os
@@ -201,12 +204,56 @@ def test_trace_file_records_the_cli_events(tmp_path, grid_file, capsys):
 
 
 @pytest.mark.parametrize(
+    "fit_extra,predict_extra",
+    [
+        (["processing_units=2000"], []),
+        (["processing_units=256", "k=0.1"], ["predict_batch=64"]),
+        (["processing_units=2000"], ["predict_backend=fused"]),
+        (["processing_units=2000", "knn_index=rpforest", "rpf_trees=3", "rpf_leaf_size=256"],
+         ["predict_backend=rpforest"]),
+    ],
+    ids=["dense", "mr", "fused", "rpforest"],
+)
+def test_fit_predict_cli_equals_reference(tmp_path, grid_file, capsys, fit_extra,
+                                          predict_extra):
+    """``fit --model-out`` then ``predict --out`` in both packages: the two
+    model files hold the same arrays and the prediction files are
+    byte-identical; the predict trace passes ``scripts/check_trace.py``."""
+    rng = np.random.default_rng(9)
+    x = ref_load(grid_file)
+    q = np.round(x[rng.integers(0, len(x), 300)] + rng.normal(0, 1, size=(300, 3)))
+    points = str(tmp_path / "queries.tsv")
+    np.savetxt(points, np.concatenate([q, x[:40]]), delimiter="\t", fmt="%d")
+    for who, run, flags in (("ref", ref_main, []), ("port", port_main, ["--device", "cpu"])):
+        model = str(tmp_path / f"{who}.npz")
+        with jax.enable_x64(False):
+            assert run(["fit", f"file={grid_file}", *BASE, *fit_extra,
+                        f"out_dir={tmp_path / who}", "--model-out", model, *flags]) == 0
+            argv = ["predict", "--model", model, "--points", points,
+                    "--out", str(tmp_path / f"{who}.csv"), *predict_extra, *flags]
+            if who == "port":
+                argv += ["--trace-out", str(tmp_path / "predict.jsonl")]
+            assert run(argv) == 0
+        out = capsys.readouterr().out
+        assert "hdbscan-tpu predict: 340 points" in out
+    with np.load(tmp_path / "ref.npz") as r, np.load(tmp_path / "port.npz") as p:
+        assert sorted(r.files) == sorted(p.files)
+        for key in r.files:
+            np.testing.assert_array_equal(p[key], r[key], err_msg=key)
+    with open(tmp_path / "ref.csv", "rb") as f1, open(tmp_path / "port.csv", "rb") as f2:
+        assert f2.read() == f1.read()
+    _check_trace(str(tmp_path / "predict.jsonl"))
+
+
+@pytest.mark.parametrize(
     "argv,item",
     [
-        (["predict", "--model", "m.npz", "--points", "MISSING"], "A7"),
-        (["serve", "--model", "m.npz"], "A7"),
+        (["serve", "--model", "m.npz", "--ingest"], "A10"),
+        (["serve", "--model", "m.npz", "--tenants-dir", "tenants"], "A12"),
+        (["serve", "--model", "m.npz", "--model-dir", "models"], "A10"),
+        (["serve", "--model", "m.npz", "--report", "r.json"], "A11"),
+        (["predict", "--model", "m.npz", "--points", "MISSING", "--report", "r.json"], "A11"),
         (["fleet", "--model", "m.npz"], "A12"),
-        (["fit", "file=MISSING", "--model-out", "m.npz"], "A7"),
         (["fit", "file=MISSING", "--report", "r.json"], "A11"),
         (["fit", "file=MISSING", "--flight-dir", "fl"], "A11"),
         (["fit", "file=MISSING", "--assert-not-replicated"], "A11"),

@@ -34,6 +34,9 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.core.mst_device",
     "hdbscan_tpu_torch.core.tree",
     "hdbscan_tpu_torch.core.tree_vec",
+    "hdbscan_tpu_torch.fault",
+    "hdbscan_tpu_torch.fault.inject",
+    "hdbscan_tpu_torch.fault.policy",
     "hdbscan_tpu_torch.models._finalize",
     "hdbscan_tpu_torch.models.bubble_hdbscan",
     "hdbscan_tpu_torch.models.consensus",
@@ -55,11 +58,17 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.parallel.mesh",
     "hdbscan_tpu_torch.parallel.ring",
     "hdbscan_tpu_torch.parallel.shard",
+    "hdbscan_tpu_torch.serve",
+    "hdbscan_tpu_torch.serve.artifact",
+    "hdbscan_tpu_torch.serve.batcher",
+    "hdbscan_tpu_torch.serve.predict",
+    "hdbscan_tpu_torch.serve.server",
     "hdbscan_tpu_torch.utils.checkpoint",
     "hdbscan_tpu_torch.utils.datasets",
     "hdbscan_tpu_torch.utils.evaluation",
     "hdbscan_tpu_torch.utils.flops",
     "hdbscan_tpu_torch.utils.io",
+    "hdbscan_tpu_torch.utils.metrics",
     "hdbscan_tpu_torch.utils.telemetry",
     "hdbscan_tpu_torch.utils.tracing",
     "hdbscan_tpu_torch.utils.unionfind",
