@@ -250,6 +250,25 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    before the requests and again just before the closed loop, so each
    window counts the server's own launches. ``python3 chip_smoke.py 3m`` builds the kernels and runs phases
    3 and 3m alone;
+3n. multi-GPU fits from one process, on the sharded fit's mesh (four
+   shards of the first card, or one a card from four cards on): first each
+   configuration on the card equal to the same over four CPU shards, bitwise
+   (the MR cells on 6,000 rows of 3e's shape, the forest cells on the first
+   4,096 Skin-shaped rows); then, each with the launch counters zeroed just
+   before its fit and read just after and gated on the kernels it must
+   launch and on those it must not, on 3e's 200,000 rows ``3n_mr_sharded``
+   and ``3n_mr_ring`` (ring cores on the rectangular B2, B9 glue; equal to
+   the one-device 3e fit), ``3n_mr_sharded_boundary`` (the ring rows scan,
+   the full-sweep B9 glue; equal to the one-device unpruned boundary fit,
+   3l's ``3e_boundary_unpruned``) and ``3n_mr_ring_boundary`` (B4, the
+   pruned glue with ring dense rounds; equal to the one-device pruned
+   boundary fit), and on the Skin-shaped set ``3n_skin_shard_forest`` (the
+   sharded rp-forest: per-shard trees, B7 a shard visit, then B9 and K3;
+   its recall and ARI against 3b printed) and ``3n_skin_ring_forest`` (B5
+   and B6 over the shards' leaf batches, B7 rescans on row shards, B9
+   rounds; equal to 3b). The kernels line gains
+   ``forest_rescan_topk_shard``, B7 at one recorded shard visit. ``python3
+   chip_smoke.py 3n`` builds the kernels and runs phases 3 and 3n alone;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -387,6 +406,34 @@ N_NOVEL = 20_000
 HTTP_SIZES = (1, 7, 256, 1000)
 HTTP_LOOP_S = 5.0
 HTTP_CLIENTS = 4
+#: Phase 3n, multi-GPU fits from one process (four shards of one card, or
+#: one a card from four cards on). The MR cells on 3e's data: (label,
+#: parameters beyond 3e's, kernels it must launch, kernels it must not).
+#: BOUNDARY is 3l's unpruned cells' mode without the fused backend, so the
+#: sharded boundary fit's single-device twin is ``3e_boundary_unpruned``.
+BOUNDARY = dict(boundary_quality=0.05)
+_NO_SINGLE = ("knn_kbest", "segmin", "knn_smallest", "forest_leaf_topk", "forest_merge",
+              "forest_rescan_topk")
+MESH_MR_CELLS = (
+    ("3n_mr_sharded", dict(fit_sharding="sharded"), ("knn_kbest_panel", "segmin_panel"),
+     _NO_SINGLE + ("knn_window",)),
+    ("3n_mr_ring", dict(scan_backend="ring"), ("knn_kbest_panel", "segmin_panel"),
+     _NO_SINGLE + ("knn_window",)),
+    ("3n_mr_sharded_boundary", dict(fit_sharding="sharded", **BOUNDARY),
+     ("knn_kbest_panel", "segmin_panel"), _NO_SINGLE + ("knn_window",)),
+    ("3n_mr_ring_boundary", dict(scan_backend="ring", **BOUNDARY), ("knn_window",),
+     _NO_SINGLE + ("knn_kbest_panel",)),
+)
+#: The forest cells on phase 3's Skin-shaped set, 3b's forest parameters.
+MESH_FOREST_CELLS = (
+    ("3n_skin_shard_forest", dict(fit_sharding="sharded"),
+     ("forest_rescan_topk", "segmin_panel", "uf_scan"),
+     ("forest_leaf_topk", "forest_merge", "knn_kbest", "knn_kbest_panel", "segmin")),
+    ("3n_skin_ring_forest", dict(scan_backend="ring"),
+     ("forest_leaf_topk", "forest_merge", "forest_rescan_topk", "segmin_panel", "uf_scan"),
+     ("knn_kbest", "knn_kbest_panel", "segmin")),
+)
+MESH_SUB_MR = 6000
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -834,7 +881,7 @@ def cell_components(x):
 
 def leaf_stacks(leaf_fn, x, forest, members, mask, kk, form, prec, metric="euclidean"):
     """(T, n, kk) per-tree lists of B5's (``leaf_fn``) leaf lists, scattered
-    to point-major rows as ``cuda_forest.forest_knn_fused`` does."""
+    to point-major rows as ``rpforest.forest_knn_shards`` does."""
     import torch
 
     n = x.shape[0]
@@ -3896,6 +3943,213 @@ def serve_phase(here, data, res, fres, card) -> tuple[list[str], dict, list[dict
     return errors, launches, rows
 
 
+class ShardVisitRecorder(CallRecorder):
+    """Keeps the arguments of the sharded forest's first B7 call on another
+    shard's panel (the query rows and the panel in different storage): the
+    first chunk of shard 0's rows visiting shard 3's panel."""
+
+    def __init__(self):
+        from hdbscan_tpu_torch.ops import cuda_forest
+
+        super().__init__(cuda_forest, "forest_rescan_topk")
+        self.kept = None
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            q, panel = args[0], args[1]
+            if (self.kept is None and q.untyped_storage().data_ptr()
+                    != panel.untyped_storage().data_ptr()):
+                self.kept = (args, kw)
+            return self.orig(*args, **kw)
+
+        setattr(self.mod, self.name, rec)
+        return self
+
+
+def shard_visit_row(visit, launches) -> dict:
+    """The kernels line's ``forest_rescan_topk_shard`` row: B7 on one
+    recorded visit of the sharded forest (a shard's rows against another
+    shard's panel, T x max-leaf panel-local candidates a row) beside its
+    plain version, its bound and ``torch.cdist`` + ``torch.topk``."""
+    import torch
+
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+
+    (q, panel, cids, k, metric), kw = visit
+    m, d = q.shape
+    sentinel = kw["sentinel"]
+    live = cids[cids != sentinel]
+    uniq = int(torch.unique(live).numel())
+
+    def kernel():
+        return cf.forest_rescan_topk(q, panel, cids, k, metric, "f32", sentinel)
+
+    def two_calls():
+        step = max(1, (1 << 26) // (cids.shape[1] * d))
+        for a in range(0, m, step):
+            pts = panel[cids[a : a + step].clamp(max=sentinel - 1).long()]
+            torch.topk(torch.cdist(q[a : a + step, None, :], pts), k, dim=2, largest=False)
+
+    ms = cuda_ms(kernel, 3)
+    plain_ms, b = timed_plain(lambda: cf.forest_rescan_topk_plain(q, panel, cids, k, metric,
+                                                                  "f32", sentinel))
+    a = kernel()
+    ops = float(live.numel()) * pair_ops(d, metric_form(metric, "diff"), root=False)
+    b_ms, by = bound_ms(m * d * 4 + cids.numel() * 4 + uniq * d * 4 + m * k * 8, ops)
+    print(f"3n B7 shard visit: {m} rows x {cids.shape[1]} candidates ({live.numel()} live, "
+          f"{uniq} distinct panel rows), d {d}, k {k}")
+    return dict(
+        name="forest_rescan_topk_shard", route="cuda",
+        source="hdbscan_tpu_torch/csrc/forest_rescan.cu",
+        replaces="hdbscan_tpu/ops/pallas_forest.py:411", launches=launches,
+        max_abs_err=max_err(a[0], b[0], a[1], b[1]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=by, bound_separate_ms=ops / H100_FP32_INSTR_PER_S * 1e3,
+        library_ms=cuda_ms(two_calls, 2), library_call=TWO_CALLS,
+        blocks=cf.rescan_blocks(m, cids.shape[1], d, k), candidates=int(cids.shape[1]),
+        device_ms=device_ms(kernel, "rescan_", per_call=True),
+    )
+
+
+def mesh_cell(label, fit, data, params, need, absent, card, mesh):
+    """One cell of phase 3n: ``fit`` ("mr" or "exact") over ``mesh`` with
+    the launch counters zeroed just before and read just after; checks
+    finite cores, a label a row, the kernels in ``need`` launched and those
+    in ``absent`` not. Returns (errors, result, launches, events, wall)."""
+    import numpy as np
+    import torch
+
+    if fit == "mr":
+        res, launches, ev, wall, peak = run_mr(data, params, mesh=mesh)
+        report_mr(label, res, launches, ev, wall, peak)
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        res, launches, ev, wall = run_fit(data, params, mesh=mesh)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{label} walls (s): " + (fit_walls(ev, wall) if "forest_events" in ev else
+              f"core_distances {ev['core_distances'][-1]['wall_s']}, boruvka_mst "
+              f"{ev['boruvka_mst'][0]['wall_s']} in {ev['boruvka_mst'][0]['rounds']} rounds, "
+              f"total {wall:.3f}"))
+    print(f"{label} ({card}, {len(mesh.devices)} shards on "
+          f"{sorted({str(d) for d in mesh.devices})}): wall {wall:.3f} s, peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    errors = []
+    if not np.all(np.isfinite(res.core_distances)):
+        errors.append(f"{label}: non-finite core distances")
+    if res.labels.shape != (len(data),):
+        errors.append(f"{label}: {res.labels.shape} labels for {len(data)} rows")
+    missing = [k for k in need if launches[k] == 0]
+    extra = [k for k in absent if launches[k] != 0]
+    if missing or extra:
+        errors.append(f"{label}: kernels missing {missing}, unexpected {extra}")
+    return errors, res, launches, ev, wall
+
+
+def mesh_phase(data, card, fres=None, qres=None) -> tuple[list[str], dict, list[dict]]:
+    """Phase 3n, multi-GPU fits from one process (module docstring).
+    ``data`` is phase 3's Skin-shaped set; ``fres`` and ``qres`` are 3b's
+    forest fit and 3e's default MR fit (fitted here when None). Returns
+    failure messages, each cell's launches and the ``forest_rescan_topk_
+    shard`` kernel row."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact, mr_hdbscan
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+    from hdbscan_tpu_torch.utils.datasets import make_gauss
+    from hdbscan_tpu_torch.utils.evaluation import adjusted_rand_index
+
+    t_phase = time.perf_counter()
+    mesh = shard_mesh()
+    cpu = get_mesh([torch.device("cpu")] * N_SHARDS)
+    errors, launches = [], {}
+
+    # (a) Each configuration on the card equal to the same over CPU shards.
+    mdata, _ = make_gauss(MESH_SUB_MR, **MR_DATA)
+    msmall = HDBSCANParams(**dict(MR_PARAMS, min_cluster_size=30, processing_units=1024))
+    for label, extra, _, _ in MESH_MR_CELLS:
+        p = dataclasses.replace(msmall, **extra)
+        same = mr_fits_equal(mr_hdbscan.fit(mdata, p, mesh=mesh),
+                             mr_hdbscan.fit(mdata, p, mesh=cpu))
+        print(f"3n {label} on {MESH_SUB_MR} rows, card vs CPU shards: "
+              f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            errors.append(f"{label}: the {MESH_SUB_MR}-row fit differs card vs CPU")
+    fsmall = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=50, **FOREST)
+    for label, extra, _, _ in MESH_FOREST_CELLS:
+        p = dataclasses.replace(fsmall, **extra)
+        a, b = exact.fit(data[:CLI_SUB_ROWS], p, mesh=mesh), exact.fit(data[:CLI_SUB_ROWS], p,
+                                                                       mesh=cpu)
+        same = fits_equal(a, b) and trees_equal(a.tree, b.tree)
+        print(f"3n {label} on {CLI_SUB_ROWS} rows, card vs CPU shards: "
+              f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            errors.append(f"{label}: the {CLI_SUB_ROWS}-row fit differs card vs CPU")
+    print(f"3n card-vs-CPU slices: {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) The MR cells on 3e's 200,000 rows, each against its one-device twin.
+    fdata, ftruth = make_gauss(N_FULLQ, **MR_DATA)
+    fq = HDBSCANParams(**MR_PARAMS, min_cluster_size=max(64, N_FULLQ // 200))
+    if qres is None:
+        qres, _, _, qwall, _ = run_mr(fdata, fq)
+        print(f"3n 3e default, one device: {qwall:.3f} s")
+    twins = {"": qres}
+    for tag, extra in (("pruned", BOUNDARY),
+                       ("unpruned", dict(BOUNDARY, boundary_block_pruning=False))):
+        twins[tag], _, _, twall, _ = run_mr(fdata, dataclasses.replace(fq, **extra))
+        print(f"3n 3e boundary {tag}, one device: {twall:.3f} s")
+    for label, extra, need, absent in MESH_MR_CELLS:
+        e, mres, launches[label], mev, _ = mesh_cell(
+            label, "mr", fdata, dataclasses.replace(fq, **extra), need, absent, card, mesh)
+        errors += e
+        twin = ("" if "boundary" not in label else
+                "unpruned" if "sharded" in label else "pruned")
+        same = mr_fits_equal(mres, twins[twin])
+        print(f"{label} vs the one-device fit (3e{' boundary ' + twin if twin else ''}): "
+              f"{'identical' if same else 'DIFFERENT'}; ARI vs truth "
+              f"{adjusted_rand_index(mres.labels, ftruth):.6f}")
+        if not same:
+            errors.append(f"{label}: differs from its one-device twin")
+    del twins, fdata
+
+    # (c) The forest cells on the Skin-shaped set.
+    fparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **FOREST)
+    if fres is None:
+        fres, _, _, bwall = run_fit(data, fparams)
+        print(f"3n 3b rp-forest fit, one device: {bwall:.3f} s")
+    rows = []
+    for label, extra, need, absent in MESH_FOREST_CELLS:
+        with ShardVisitRecorder() as visit:
+            e, sres, launches[label], sev, _ = mesh_cell(
+                label, "exact", data, dataclasses.replace(fparams, **extra), need, absent,
+                card, mesh)
+        errors += e
+        if "shard" in label:
+            ex = sev["shard_knn_exchange"][0]
+            print(f"{label}: shard_knn_build {sev['shard_knn_build'][0]['wall_s']} s (depth "
+                  f"{sev['shard_knn_build'][0]['depth']}, max leaf "
+                  f"{sev['shard_knn_build'][0]['max_leaf']}), shard_panel_sweep "
+                  f"{sev['shard_panel_sweep'][0]['wall_s']} s, recall@{ex['k']} "
+                  f"{ex['recall_at_k']:.6f} on {ex['recall_rows']} rows; ARI vs 3b "
+                  f"{adjusted_rand_index(sres.labels, fres.labels):.6f}, core distances equal "
+                  f"3b's on {np.mean(sres.core_distances == fres.core_distances):.4f} of rows")
+            rows.append(shard_visit_row(visit.kept, launches[label]["forest_rescan_topk"]))
+        else:
+            same = (np.array_equal(sres.core_distances, fres.core_distances)
+                    and np.array_equal(sorted_mst(sres.mst), sorted_mst(fres.mst))
+                    and np.array_equal(sres.labels, fres.labels)
+                    and np.array_equal(sres.outlier_scores, fres.outlier_scores))
+            print(f"{label} vs 3b (one device): {'identical' if same else 'DIFFERENT'} "
+                  f"(cores, MST edge set, labels, outlier scores)")
+            if not same:
+                errors.append(f"{label}: differs from 3b")
+    print(f"3n multi-GPU phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return errors, launches, rows
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "hdbscan_tpu_torch")):
@@ -3921,8 +4175,9 @@ def main() -> int:
     only_3k = sys.argv[1:] == ["3k"]
     only_3l = sys.argv[1:] == ["3l"]
     only_3m = sys.argv[1:] == ["3m"]
+    only_3n = sys.argv[1:] == ["3n"]
 
-    errors = [] if only_3k or only_3l or only_3m else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
+    errors = [] if only_3k or only_3l or only_3m or only_3n else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
               + parity_leaf() + parity_metrics())
@@ -3975,6 +4230,11 @@ def main() -> int:
         print(card)
         print(json.dumps({"kernels": serve_rows}))
         return fail(f"the serving phase failed: {errors}") if errors else 0
+    if only_3n:  # ``python3 chip_smoke.py 3n``: phase 3 and 3n alone
+        errors, _, mesh_rows = mesh_phase(data, card)
+        print(card)
+        print(json.dumps({"kernels": mesh_rows}))
+        return fail(f"the multi-GPU phase failed: {errors}") if errors else 0
 
     # --- 3b: the rp-forest tier on the same data --------------------------
     fparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **FOREST)
@@ -4156,6 +4416,11 @@ def main() -> int:
     if errors:
         return fail(f"the serving phase failed: {errors}")
 
+    # --- 3n: multi-GPU fits from one process -----------------------------
+    errors, mesh_launches, mesh_rows = mesh_phase(data, card, fres, qres)
+    if errors:
+        return fail(f"the multi-GPU phase failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -4228,12 +4493,13 @@ def main() -> int:
     rows += wide_rows
     rows += metric_rows
     rows += serve_rows
+    rows += mesh_rows
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")
     for row in rows:  # each kernel's launches in the 3k and 3l cells that ran it
         for key, cells in (("launches_3k", host_launches), ("launches_3l", mr_launches),
-                           ("launches_3m", serve_launches)):
+                           ("launches_3m", serve_launches), ("launches_3n", mesh_launches)):
             hits = {cell: n for cell, got in cells.items() if (n := got.get(row["name"]))}
             if hits:
                 row[key] = hits

@@ -31,8 +31,15 @@ a mesh (``models/exact.fit``, mode ``exact-sharded``); otherwise n <=
 ``processing_units`` runs the dense single-block fit (``models/hdbscan.fit``,
 mode ``exact``) and larger inputs the MR-HDBSCAN* pipeline
 (``models/mr_hdbscan.fit``, mode ``mr (<levels> levels)``, or
-``mr-consensus (<N> draws)`` with ``consensus=N`` above 1). A mesh is built
-only when more than one card is visible. On the exact-sharded route
+``mr-consensus (<N> draws)`` with ``consensus=N`` above 1; ``mr-sharded``
+and ``mr-consensus-sharded`` under ``fit_sharding`` resolving to
+``sharded``). A mesh is built when more than one card is visible (one
+shard a card), or from ``--device DEV,DEV,...`` (one shard per listed
+device, e.g. ``--device cpu,cpu,cpu,cpu`` or four shards of one card as
+``--device cuda:0,cuda:0,cuda:0,cuda:0``; a list mixing the CPU and cards
+exits 2); the MR route runs its sharded
+or ring engine over it (``fit_sharding=sharded``, ``scan_backend=ring``)
+and splits its block batches over it. On the exact-sharded route
 ``mst_backend=host`` runs the host-round Borůvka over the sharded scanner
 and ``dedup=true`` the weighted fit over unique points; on the MR route
 ``variant=rs`` clusters the samples directly, ``dedup=true`` runs the
@@ -54,7 +61,8 @@ probabilities, GLOSH outlier scores, written as the reference's CSV);
 power-of-two batch bucket and emit per-batch ``predict_batch`` events.
 
 ``--device DEV`` picks the device (default: the card; ``--device cpu`` runs
-every kernel's plain PyTorch version). There is no fallback: with no card
+every kernel's plain PyTorch version; a comma list names a mesh's shards,
+the first one the device of everything not sharded). There is no fallback: with no card
 and no ``--device cpu`` the command fails. ``--trace-out PATH`` writes every
 stage event as a ``hdbscan-tpu-trace/1`` JSON line (the fit's rotated at
 ``trace_rotate_bytes``; validate with ``scripts/check_trace.py``);
@@ -66,11 +74,10 @@ Not ported yet — each exits 2 before any data is read:
 ``serve --tenants-dir`` (A12), ``--report``, ``--flight-dir``,
 ``--assert-not-replicated``, ``--compile-cache`` / ``compile_cache=`` and
 the observability knobs ``heartbeat``, ``watchdog``, ``skew_threshold``,
-``straggler_rounds`` (A11), ``clusterName`` other than ``local`` (A9). A
-fit route that is not ported (the MR route with ``fit_sharding=sharded``
-or ``scan_backend=ring``, or over a mesh of several cards (A9)) and a
-server knob that is not (``wal_dir``, ``maintain`` (A10)) raise
-``NotImplementedError`` naming its item, printed the same way with exit 2.
+``straggler_rounds`` (A11), ``clusterName`` other than ``local``
+(multi-process runs, A9b). A server knob that is not ported (``wal_dir``,
+``maintain`` (A10)) raises ``NotImplementedError`` naming its item, printed
+the same way with exit 2.
 """
 
 from __future__ import annotations
@@ -147,15 +154,30 @@ def _refuse_fields(params) -> int:
 
 
 def _device(flag):
-    """The ``--device`` flag resolved (the card by default); None, with the
-    error printed, when no card is present and none was named."""
+    """The ``--device`` flag resolved (the card by default; of a comma list,
+    the first entry); None, with the error printed, when no card is
+    present and none was named."""
     from hdbscan_tpu_torch.ops import cuda_build
 
     try:
-        return cuda_build.resolve_device(flag)
+        return cuda_build.resolve_device(flag.split(",")[0] if flag else flag)
     except RuntimeError as e:
         print(f"error: {e} (on the command line: --device cpu)", file=sys.stderr)
         return None
+
+
+def _mesh(flag, device):
+    """The fit's mesh: one shard per device of a ``--device`` comma list,
+    else one shard per card when more than one is visible, else none."""
+    import torch
+
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    if flag and "," in flag:
+        return get_mesh([torch.device(d) for d in flag.split(",")])
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        return get_mesh()
+    return None
 
 
 def _serving_tracer(trace_out: str | None, max_events: int):
@@ -208,10 +230,9 @@ def _main_fit(argv: list[str]) -> int:
     if refused:
         return refused
     if params.cluster_name != "local":
-        return _not_ported(f"clusterName={params.cluster_name} (multi-process runs)", "A9")
+        return _not_ported(f"clusterName={params.cluster_name} (multi-process runs)", "A9b")
 
     import numpy as np
-    import torch
 
     device = _device(device_flag)
     if device is None:
@@ -222,11 +243,11 @@ def _main_fit(argv: list[str]) -> int:
     from hdbscan_tpu_torch.utils.io import load_points
     from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
 
-    mesh = None
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        from hdbscan_tpu_torch.parallel.mesh import get_mesh
-
-        mesh = get_mesh()
+    try:
+        mesh = _mesh(device_flag, device)
+    except ValueError as e:
+        print(f"error: --device: {e}", file=sys.stderr)
+        return 2
 
     # Always collected, so the end-of-run summary shows the phase walls;
     # --trace-out persists the events, HDBSCAN_TPU_TRACE=1 streams them.
@@ -259,8 +280,9 @@ def _main_fit(argv: list[str]) -> int:
             else:
                 # consensus_draws > 1 dispatches to consensus.fit inside.
                 result = mr_hdbscan.fit(data, params, device=device, mesh=mesh, trace=tracer)
-                mode = (f"mr-consensus ({params.consensus_draws} draws)"
-                        if params.consensus_draws > 1 else f"mr ({result.n_levels} levels)")
+                tag = "-sharded" if sharded else ""
+                mode = (f"mr-consensus{tag} ({params.consensus_draws} draws)"
+                        if params.consensus_draws > 1 else f"mr{tag} ({result.n_levels} levels)")
         except NotImplementedError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2

@@ -113,6 +113,7 @@ def fit(
     *,
     device,
     dtype=np.float32,
+    mesh=None,
     max_levels: int = 64,
     trace=None,
     keep_edge_pool: bool = False,
@@ -121,9 +122,9 @@ def fit(
 
     Draw i uses seed ``params.seed * n_draws + i`` — disjoint seed blocks
     across sweep seeds, so a 45-seed stability protocol over consensus runs
-    never reuses a draw. Every draw runs on ``device`` in ``dtype`` (the
-    caller's; ``mr_hdbscan.fit`` resolves the device once before it
-    dispatches here). Checkpointing is per-draw-disabled (a consensus run
+    never reuses a draw. Every draw runs on ``device`` in ``dtype`` over
+    ``mesh`` (the caller's; ``mr_hdbscan.fit`` resolves the device once
+    before it dispatches here). Checkpointing is per-draw-disabled (a consensus run
     is cheap multiples of a cheap run; re-running a lost draw is simpler
     than resuming five).
     """
@@ -140,8 +141,8 @@ def fit(
         p = params.replace(consensus_draws=1, seed=params.seed * b + i)
         results.append(
             mr_hdbscan.fit(
-                data, p, device=device, dtype=dtype, max_levels=max_levels, trace=trace,
-                keep_edge_pool=keep_edge_pool,
+                data, p, device=device, dtype=dtype, mesh=mesh, max_levels=max_levels,
+                trace=trace, keep_edge_pool=keep_edge_pool,
             )
         )
         if trace is not None:

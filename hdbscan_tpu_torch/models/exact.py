@@ -40,8 +40,11 @@ are float32 only, like the reference's Pallas kernels
 (``hdbscan_tpu/ops/pallas_segmin.py`` ``_pallas_eligible``): float64 with
 the card raises ``ValueError`` at the entry, before any work.
 
-The sharded rp-forest tier raises ``NotImplementedError`` naming its
-ROADMAP entry (A9).
+At ``knn_index=rpforest`` the sharded fit's cores come from the
+row-sharded forest (``parallel/shard.shard_forest_core_distances``: its own
+approximation, per-shard trees and a ring exchange through B7), and the
+ring route's from the forest over the mesh (``ops/rpforest``, equal to the
+one-device forest).
 """
 
 from __future__ import annotations
@@ -56,16 +59,6 @@ from hdbscan_tpu_torch.models.hdbscan import HDBSCANResult
 from hdbscan_tpu_torch.ops import cuda_build
 
 
-def _check_ported(params: HDBSCANParams, n: int, sharded: bool) -> None:
-    from hdbscan_tpu_torch.core.knn import resolve_index_for
-
-    if sharded and resolve_index_for(params, n)[0] == "rpforest":
-        raise NotImplementedError(
-            "the sharded fit's rp-forest tier (fit_sharding=sharded with "
-            "knn_index=rpforest) is not ported yet (ROADMAP A9)"
-        )
-
-
 def _engine(fit_sharding: str, scan_backend: str, mesh, device):
     """The scan engine of a run — "sharded", "ring" or "host" — resolved
     once from the two knobs and the caller's mesh, with the mesh it runs on
@@ -74,7 +67,7 @@ def _engine(fit_sharding: str, scan_backend: str, mesh, device):
     shard's). Callees get the engine back as literal knobs
     (:data:`_KNOBS`), so a default mesh of several cards cannot turn a ring
     run into a sharded one."""
-    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+    from hdbscan_tpu_torch.ops.tiled import scan_mesh
     from hdbscan_tpu_torch.parallel.ring import resolve_scan_backend
     from hdbscan_tpu_torch.parallel.shard import resolve_fit_sharding
 
@@ -88,7 +81,7 @@ def _engine(fit_sharding: str, scan_backend: str, mesh, device):
         engine = "host"
     if engine != "host" and mesh is None:
         device = cuda_build.resolve_device(device)
-        mesh = get_mesh() if device.type == "cuda" else get_mesh([device])
+        mesh = scan_mesh(None, device)
     return engine, mesh, device
 
 
@@ -456,7 +449,6 @@ def fit(
     if params.dedup_points:
         return _fit_dedup(data, params, engine, device=device, mesh=mesh, **kw)
     sharded = engine == "sharded"
-    _check_ported(params, n, sharded)
     if resolve_mst_backend(params, n) == "device" and engine != "ring":
         return _fit_device(data, params, device=mesh.root if sharded else device,
                            mesh=mesh if sharded else None, **kw)

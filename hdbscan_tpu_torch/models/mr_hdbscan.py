@@ -48,10 +48,18 @@ float32 on a TPU, float64 under ``jax_enable_x64``); the scans, seam
 margins, block geometry and the boundary rows scan run in float32 whatever
 it is, as in the reference.
 
-Not ported yet: meshes, ``fit_sharding=sharded`` and ``scan_backend=ring``
-(A9), which raise ``NotImplementedError`` naming it, and
-``MRHDBSCANResult.to_cluster_model``, which waits for ``serve/artifact``
-(A7).
+Over a mesh (``parallel/mesh.Mesh``), in the reference's order: the
+engine (``models/exact._engine``: ``fit_sharding=sharded``, else
+``scan_backend=ring``, else the host scanner) takes the global cores
+(``parallel/shard.shard_core_distances``, the ring k-NN scan, or at
+``knn_index=rpforest`` the sharded forest or the forest over the mesh),
+every glue and refine harvest (the sharded or ring Borůvka scanners, B9),
+and the boundary rows (``shard_core_distances_rows`` /
+``ring_knn_core_distances_rows``); the block batches split over the
+shards (``parallel/blocks.run_packed_blocks(batch_pad=D)``), and a sharded
+boundary fit takes the full-sweep (unpruned) glue. Sampling, bubbles and
+the finalize run on the mesh's first shard's device.
+
 The reference's memory-phase auditor and progress heartbeats
 (``obs.mem_phase``, ``obs.beat``) have no counterpart yet (A11).
 """
@@ -338,14 +346,6 @@ def _fit_samples_rs(samp_data: np.ndarray, min_pts: int, min_cluster_size: int, 
     return new[:s], (u, v, w), (u[cross], v[cross], w[cross])
 
 
-def _check_ported(params: HDBSCANParams, mesh) -> None:
-    if mesh is not None or params.fit_sharding == "sharded" or params.scan_backend == "ring":
-        raise NotImplementedError(
-            "multi-device MR fits (mesh, fit_sharding=sharded, scan_backend=ring) "
-            "are not ported yet (ROADMAP A9)"
-        )
-
-
 def fit(
     data: np.ndarray,
     params: HDBSCANParams | None = None,
@@ -358,12 +358,17 @@ def fit(
     trace=None,
     keep_edge_pool: bool = False,
 ) -> MRHDBSCANResult:
-    """Run the MR-HDBSCAN* pipeline on one device.
+    """Run the MR-HDBSCAN* pipeline.
 
     Runs on the card unless ``device`` names another (``"cpu"`` runs every
     kernel's plain PyTorch version); raises when no card is present and no
-    device is named. ``dtype``: working type of the block programs, bubbles
-    and sample assignment (module docstring). ``checkpoint_dir``: the loop
+    device is named. ``mesh`` (``parallel/mesh.get_mesh``): the mesh the
+    sharded and ring engines and the block batches run over (module
+    docstring; ``device`` defaults to its first shard's); without one, a
+    sharded or ring engine runs over every visible card, or one shard on
+    ``device`` when that is not a card. ``dtype``: working type of the
+    block programs, bubbles and sample assignment (module docstring).
+    ``checkpoint_dir``: the loop
     state is written there after every level and the newest matching
     checkpoint resumed (``utils/checkpoint``; ignored, with a warning, under
     ``consensus_draws > 1``). With ``params.dedup_points`` the pipeline runs
@@ -378,8 +383,11 @@ def fit(
     ``global_cores``, ``block_fit`` and ``level_stages`` (each level's
     glue, block-fit, sample-assignment, bubble and seam-margin walls).
     """
+    from hdbscan_tpu_torch.models.exact import _engine
+
     params = params or HDBSCANParams()
-    _check_ported(params, mesh)
+    if device is None and mesh is not None:
+        device = mesh.root
     device = cuda_build.resolve_device(device)
     if params.consensus_draws > 1:
         # consensus.fit re-enters here with consensus_draws=1 a draw, on
@@ -394,10 +402,12 @@ def fit(
             )
         from hdbscan_tpu_torch.models import consensus
 
-        return consensus.fit(data, params, device=device, dtype=dtype, max_levels=max_levels,
-                             trace=trace, keep_edge_pool=keep_edge_pool)
-    kw = dict(device=device, dtype=dtype, max_levels=max_levels, checkpoint_dir=checkpoint_dir,
-              trace=trace, keep_edge_pool=keep_edge_pool)
+        return consensus.fit(data, params, device=device, dtype=dtype, mesh=mesh,
+                             max_levels=max_levels, trace=trace,
+                             keep_edge_pool=keep_edge_pool)
+    engine, mesh, _ = _engine(params.fit_sharding, params.scan_backend, mesh, device)
+    kw = dict(device=device, dtype=dtype, mesh=mesh, engine=engine, max_levels=max_levels,
+              checkpoint_dir=checkpoint_dir, trace=trace, keep_edge_pool=keep_edge_pool)
     if not params.dedup_points:
         return _fit_rows(data, params, **kw)
     if not params.global_core_distances:
@@ -418,10 +428,16 @@ def fit(
     )
 
 
-def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
+def _fit_rows(data, params, *, device, dtype, mesh, engine, max_levels, checkpoint_dir, trace,
               keep_edge_pool, weights=None, constraint_index_map=None):
     """The level loop, boundary phase and refinement rounds over (possibly
-    weighted) vertex rows."""
+    weighted) vertex rows; ``engine`` and ``mesh`` are
+    ``models/exact._engine``'s, every scan below getting the engine as
+    literal knobs."""
+    from hdbscan_tpu_torch.models.exact import _KNOBS
+
+    knobs = dict(_KNOBS[engine], mesh=mesh)
+    n_dev = 1 if mesh is None else len(mesh.devices)
     data = np.ascontiguousarray(np.asarray(data, np.float64))
     n, d = data.shape
     if n == 0:
@@ -475,18 +491,30 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
             from hdbscan_tpu_torch.core.dedup import global_weighted_core_distances
 
             core = global_weighted_core_distances(
-                data, weights, params.min_points, metric, trace=trace,
-                fit_sharding=params.fit_sharding, device=device,
+                data, weights, params.min_points, metric, trace=trace, mesh=mesh,
+                fit_sharding=knobs["fit_sharding"], device=device,
             )
         else:
             from hdbscan_tpu_torch.core.knn import resolve_index_for
-            from hdbscan_tpu_torch.ops.tiled import knn_core_distances
 
             index, index_opts = resolve_index_for(params, n)
-            core, _ = knn_core_distances(
-                data, params.min_points, metric, fetch_knn=False, backend=params.knn_backend,
-                index=index, index_opts=index_opts, trace=trace, device=device,
-            )
+            scan = dict(index=index, index_opts=index_opts, trace=trace)
+            if engine == "sharded":
+                from hdbscan_tpu_torch.parallel.shard import shard_core_distances
+
+                core = shard_core_distances(data, params.min_points, metric, mesh=mesh,
+                                            knn_backend=params.knn_backend, **scan)
+            elif engine == "ring":
+                from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances
+
+                core, _ = ring_knn_core_distances(data, params.min_points, metric,
+                                                  fetch_knn=False, mesh=mesh,
+                                                  knn_backend=params.knn_backend, **scan)
+            else:
+                from hdbscan_tpu_torch.ops.tiled import knn_core_distances
+
+                core, _ = knn_core_distances(data, params.min_points, metric, fetch_knn=False,
+                                             backend=params.knn_backend, device=device, **scan)
         if trace is not None:
             trace("global_cores", n=n, wall_s=round(time.monotonic() - t0, 6))
 
@@ -519,8 +547,7 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
             act = np.nonzero(~processed)[0]
             gu_l, gv_l, gw_l = boruvka_glue_edges(
                 data[act], subset[act], metric, core=core[act] if global_core else None,
-                scan_backend=params.scan_backend, fit_sharding=params.fit_sharding,
-                trace=trace, device=device,
+                trace=trace, device=device, **knobs,
             )
             pool_u.append(act[gu_l])
             pool_v.append(act[gv_l])
@@ -539,7 +566,8 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
                 group = buckets[cap_b]
                 packed = pack_blocks(data, group, cap_b, core=core if global_core else None)
                 u, v, w, core_b = run_packed_blocks(
-                    packed, params.min_points, metric, device=device, dtype=dtype, trace=trace,
+                    packed, params.min_points, metric, device=device, mesh=mesh,
+                    batch_pad=n_dev, dtype=dtype, trace=trace,
                 )
                 pool_u.append(u)
                 pool_v.append(v)
@@ -719,8 +747,10 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
 
         # Block pruning needs a triangle-inequality metric; without it the
         # rescan scans every column and the glue and refine rounds keep the
-        # whole boundary set.
-        pruned = params.boundary_block_pruning and metric in PRUNABLE_METRICS
+        # whole boundary set. Its windowed scans hold one device's copy of
+        # the geometry, so the sharded engine takes the full sweep.
+        pruned = (params.boundary_block_pruning and metric in PRUNABLE_METRICS
+                  and engine != "sharded")
         # 1) The boundary set (final_block: subset ids collide across levels).
         t0 = time.monotonic()
         sel = _select_boundary(
@@ -754,6 +784,20 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
             glue_pos[bset_glue_sel] = np.arange(len(bset_glue_sel))
             knn_j_g = np.where(knn_j_gl >= 0, glue_pos[np.maximum(knn_j_gl, 0)], -1)
             bset_knn = (knn_d_g, knn_j_g)
+        elif engine == "sharded":
+            from hdbscan_tpu_torch.parallel.shard import shard_core_distances_rows
+
+            core_b = shard_core_distances_rows(
+                data, bset, params.min_points, metric, mesh=mesh, trace=trace, index=index,
+                index_opts=index_opts,
+            )
+        elif engine == "ring":
+            from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances_rows
+
+            core_b = ring_knn_core_distances_rows(
+                data, bset, params.min_points, metric, mesh=mesh, trace=trace, index=index,
+                index_opts=index_opts,
+            )
         else:
             core_b = knn_core_distances_rows(
                 data, bset, params.min_points, metric, backend=params.knn_backend,
@@ -780,13 +824,12 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
                 gu, gv, gw = boruvka_glue_edges_blockpruned(
                     data[bset_g], final_block[bset_g], core[bset_g], metric,
                     knn_d=bset_knn[0], knn_j=bset_knn[1], geom=geom_bset, trace=trace,
-                    scan_backend=params.scan_backend,
+                    scan_backend=knobs["scan_backend"], mesh=mesh,
                 )
             else:
                 gu, gv, gw = boruvka_glue_edges(
                     data[bset_g], final_block[bset_g], metric, core=core[bset_g],
-                    scan_backend=params.scan_backend, fit_sharding=params.fit_sharding,
-                    trace=trace, device=device,
+                    trace=trace, device=device, **knobs,
                 )
             gw = _reweight_pool(bset_g[gu], bset_g[gv], gw, data, core, metric)
             u = np.concatenate([u, bset_g[gu]])
@@ -846,14 +889,13 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
                     ru, rv, rw = boruvka_glue_edges_blockpruned(
                         data[bset_g], final_block[bset_g], core[bset_g], metric,
                         knn_d=bset_knn[0], knn_j=bset_knn[1], init_comp=groups_r[bset_g],
-                        geom=geom_bset, trace=trace, scan_backend=params.scan_backend,
-                        device=device,
+                        geom=geom_bset, trace=trace, scan_backend=knobs["scan_backend"],
+                        device=device, mesh=mesh,
                     )
                 else:
                     ru, rv, rw = boruvka_glue_edges(
                         data[bset_g], groups_r[bset_g], metric, core=core[bset_g],
-                        scan_backend=params.scan_backend, fit_sharding=params.fit_sharding,
-                        trace=trace, device=device,
+                        trace=trace, device=device, **knobs,
                     )
                 ru, rv = bset_g[ru], bset_g[rv]
             else:
@@ -861,8 +903,7 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
                     break
                 ru, rv, rw = boruvka_glue_edges(
                     data, groups_r, metric, core=core if global_core else None,
-                    scan_backend=params.scan_backend, fit_sharding=params.fit_sharding,
-                    trace=trace, device=device,
+                    trace=trace, device=device, **knobs,
                 )
             if len(ru) == 0:
                 break
@@ -893,8 +934,7 @@ def _fit_rows(data, params, *, device, dtype, max_levels, checkpoint_dir, trace,
             if len(np.unique(g)) < 2:
                 break
             ru, rv, rw = boruvka_glue_edges(
-                data, g, metric, core=core, scan_backend=params.scan_backend,
-                fit_sharding=params.fit_sharding, trace=trace, device=device,
+                data, g, metric, core=core, trace=trace, device=device, **knobs,
             )
             if len(ru) == 0:
                 break

@@ -22,7 +22,8 @@ grain decides which id wins an exact tie:
 - :func:`boruvka_glue_edges_blockpruned`: exact inter-block Borůvka glue
   whose window scans (``_min_out_window_merge_chunk``) run as plain
   PyTorch ops on the device, and whose dense fallback rounds run the
-  segment-min kernel (``ops/tiled.BoruvkaScanner``).
+  segment-min kernel (``ops/tiled.BoruvkaScanner``), or under
+  ``scan_backend=ring`` the ring scanner's panel kernel over a mesh.
 
 Where the reference's tile loop is sequential (a row can sit in several
 tiles of one chunk), the port runs tiles in *waves*: a tile's wave is one
@@ -709,6 +710,7 @@ def boruvka_glue_edges_blockpruned(
     scan_backend: str = "host",
     *,
     device=None,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Exact inter-group MST glue with block-candidate column windows (the
     semantics of ``ops/tiled.boruvka_glue_edges`` at a fraction of the
@@ -722,13 +724,12 @@ def boruvka_glue_edges_blockpruned(
     the dense segment-min scan instead. ``init_comp`` decouples the initial
     components from the geometry blocks; ``geom`` is a pre-built
     :class:`BlockGeometry` over (``data``, ``groups``), whose device the
-    scans run on (``device`` when none is given)."""
+    scans run on (``device`` when none is given). A dense round takes
+    ``parallel/ring.RingBoruvkaScanner`` over ``mesh`` where
+    ``scan_backend`` resolves "ring" (``ops/tiled.scan_mesh``), else
+    ``ops/tiled.BoruvkaScanner`` on that device."""
     from hdbscan_tpu_torch.utils.unionfind import contract_min_edges
 
-    if scan_backend == "ring":
-        raise NotImplementedError(
-            "the ring Borůvka scanner (scan_backend=ring) is not ported yet (ROADMAP A9)"
-        )
     m = len(data)
     if m == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0)
@@ -924,9 +925,20 @@ def boruvka_glue_edges_blockpruned(
             if win_work > dense_work_ratio * dense_work:
                 dense_round = True
                 if dense_scanner is None:
-                    from hdbscan_tpu_torch.ops.tiled import BoruvkaScanner
+                    from hdbscan_tpu_torch.parallel.ring import (
+                        RingBoruvkaScanner,
+                        resolve_scan_backend,
+                    )
 
-                    dense_scanner = BoruvkaScanner(data, core, metric, device=dev)
+                    if resolve_scan_backend(scan_backend, mesh) == "ring":
+                        from hdbscan_tpu_torch.ops.tiled import scan_mesh
+
+                        dense_scanner = RingBoruvkaScanner(
+                            data, core, metric, mesh=scan_mesh(mesh, dev), trace=trace)
+                    else:
+                        from hdbscan_tpu_torch.ops.tiled import BoruvkaScanner
+
+                        dense_scanner = BoruvkaScanner(data, core, metric, device=dev)
                 bestB_w, bestB_j = dense_scanner.min_outgoing(comp)
             else:
                 scan_window_pairs(pair_rows, pair_blocks)
@@ -949,6 +961,8 @@ def boruvka_glue_edges_blockpruned(
         eu.append(emit)
         ev.append(best_j[emit])
         ew.append(best_w[emit])
+    if dense_scanner is not None and hasattr(dense_scanner, "close"):
+        dense_scanner.close()
     return (
         np.concatenate(eu) if eu else np.zeros(0, np.int64),
         np.concatenate(ev) if ev else np.zeros(0, np.int64),

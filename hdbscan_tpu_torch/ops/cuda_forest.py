@@ -42,14 +42,13 @@ B8 the mean of the query rows' tile of :data:`RESCAN_ROW_TILE` consecutive rows
 (the leaf zero-padded to 128 rows; 8-row tiles zero-padded), so bf16 is
 held to it only by recall and ARI.
 
-:func:`forest_knn_fused` and :func:`rescan_round_fused` drive the kernels
-for ``ops/rpforest``.
+``ops/rpforest.forest_knn_shards`` and ``rescan_round_shards`` drive the
+kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import time
 
 import numpy as np
 import torch
@@ -534,67 +533,3 @@ def minout_splits(m: int, c: int) -> int:
     into (``forest_minout_splits`` of the kernel)."""
     fn = cuda_build.function("forest_rescan.cu", "forest_minout_splits", [ctypes.c_int] * 2)
     return fn(m, c)
-
-
-# ---------------------------------------------------------------------------
-# The query and the rescan rounds through the kernels.
-
-
-def _sync(t: torch.Tensor) -> None:
-    if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
-
-
-def forest_knn_fused(data_dev, forest, k: int, metric: str = "euclidean",
-                     precision: str = "f32", trace=None, recall_sample: int = 256):
-    """The forest query through B5 and B6: per tree, B5 over the same leaf
-    batches as the unfused path (``rpforest._LEAF_ELEM_BUDGET``), each
-    batch's real slots copied into the tree's point-major lists; then one
-    B6 across the trees. Emits ``knn_index_query`` (sampled recall
-    included). Returns (n, kk) lists, kk = min(k, max leaf)."""
-    from hdbscan_tpu_torch.ops import rpforest as _rpf
-
-    t0 = time.monotonic()
-    dev = data_dev.device
-    n, lmax = forest.n, forest.max_leaf
-    kk = min(k, lmax)
-    sentinel = n
-    form = euclid_form(lmax, lmax, forest.d)
-    members = torch.as_tensor(forest.members, device=dev)
-    mask = torch.as_tensor(forest.leaf_mask, device=dev)
-    stack_d = torch.full((forest.trees, n, kk), float("inf"), dtype=torch.float32, device=dev)
-    stack_i = torch.full((forest.trees, n, kk), sentinel, dtype=torch.int32, device=dev)
-    batches = _rpf.leaf_batches(forest, dev)
-    for t in range(forest.trees):
-        for a, b, real in batches:
-            nd, ni = forest_leaf_topk(data_dev, members[t, a:b], mask[a:b], kk, metric=metric,
-                                      form=form, precision=precision, sentinel=sentinel)
-            rows = members[t, a:b].reshape(-1)[real].long()
-            stack_d[t].index_copy_(0, rows, nd.reshape(-1, kk)[real])
-            stack_i[t].index_copy_(0, rows, ni.reshape(-1, kk)[real])
-    best_d, best_i = forest_merge(stack_d, stack_i, kk, sentinel)
-    _sync(best_d)
-    if trace is not None:
-        _rpf.trace_query(trace, data_dev, forest, best_i, kk, metric, recall_sample, t0)
-    return best_d, best_i
-
-
-def rescan_round_fused(data_dev, best_d, best_i, k: int, metric: str, rnd: int,
-                       rescan_rounds: int, sentinel: int | None = None,
-                       precision: str = "f32", trace=None):
-    """One rescan round through B7: the unfused round's chunks
-    (``rpforest._RESCAN_ELEM_BUDGET``), each chunk's k^2 candidate panel
-    reduced by B7 to k per row, then merged into the running lists by
-    ``dedup_lex_merge``. Emits ``knn_index_rescan``."""
-    from hdbscan_tpu_torch.ops import rpforest as _rpf
-
-    sentinel = data_dev.shape[0] if sentinel is None else sentinel
-
-    def chunk_fn(q, bd, bi, cand):
-        td, ti = forest_rescan_topk(q, data_dev, cand, k, metric=metric, precision=precision,
-                                    sentinel=sentinel)
-        return dedup_lex_merge(torch.cat([bd, td], 1), torch.cat([bi, ti], 1), k, sentinel)
-
-    return _rpf.run_rescan(data_dev, best_d, best_i, k, rnd, rescan_rounds, sentinel,
-                           trace, chunk_fn)
-

@@ -16,13 +16,16 @@ by (node, projection), and a rank split at the static segment midpoint.
 Normals come from the reference's numpy generator and seed, so a seed
 reproduces the reference's forest.
 
-The query has two routes with one result at f32:
+The query is one loop over row shards (one device is one shard): the leaf
+scans through B5 (``ops/cuda_forest``; its plain version for CPU tensors),
+then two routes with one result at f32:
 
-* the unfused route here (:func:`_leaf_scan`, the dedup merge, and
-  :func:`_rescan_chunk`) — plain PyTorch, for CPU tensors;
-* the fused route (``ops/cuda_forest``): kernels B5-B7 on the card, their
-  plain versions on the CPU. On the card every ``knn_backend`` takes it;
-  ``knn_precision=bf16`` applies under ``knn_backend=fused`` only.
+* the fused route: the trees folded by B6 and the rescans reduced by B7
+  (their plain versions on the CPU). On the card every ``knn_backend``
+  takes it; ``knn_precision=bf16`` applies under ``knn_backend=fused``
+  only;
+* the unfused route, for CPU tensors: one dedup merge of the trees and
+  whole-panel rescans (:func:`_rescan_chunk`), plain PyTorch.
 
 Trace events, with the reference's names and fields: ``knn_index_build``,
 ``knn_index_query`` (with a sampled ``recall_at_k``), ``knn_index_rescan``
@@ -42,6 +45,7 @@ from hdbscan_tpu_torch.core.distances import METRICS, euclidean_form, pairwise_d
 from hdbscan_tpu_torch.ops import cuda_build
 from hdbscan_tpu_torch.ops import cuda_forest as cf
 from hdbscan_tpu_torch.ops.lexmerge import dedup_lex_merge, lex_kbest
+from hdbscan_tpu_torch.parallel.mesh import block_shards, fetch
 
 #: The ``knn_index`` vocabulary (``HDBSCANParams.knn_index``).
 KNN_INDEXES = ("auto", "exact", "rpforest")
@@ -146,6 +150,31 @@ def forest_from_numpy(*, n, d, trees, depth, leaf_size, normals, thresholds,
     return forest
 
 
+def _normals(seed: int, n: int, depth: int, trees: int, d: int) -> np.ndarray:
+    """(T, max(2^depth - 1, 1), d) float64 unit Gaussian routing normals from
+    ``np.random.default_rng(SeedSequence([seed, n, depth]))``, the
+    reference's draw (the sharded forest passes its shard size as n)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, n, depth]))
+    normals = rng.standard_normal((trees, max(_heap_base(depth), 1), d))
+    normals /= np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True), 1e-12)
+    return normals
+
+
+def _leaf_layout(n: int, depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """The leaves' positions in a tree's permutation, (L, Lmax) int64, a
+    leaf padded by repeating its last position, and the (L, Lmax) mask of
+    its real slots."""
+    leaves = _level_segments(n, depth)[depth]
+    lmax = max(e - s for s, e in leaves)
+    pos_idx = np.zeros((len(leaves), lmax), np.int64)
+    leaf_mask = np.zeros((len(leaves), lmax), bool)
+    for j, (s, e) in enumerate(leaves):
+        pos_idx[j, : e - s] = np.arange(s, e)
+        pos_idx[j, e - s :] = e - 1
+        leaf_mask[j, : e - s] = True
+    return pos_idx, leaf_mask
+
+
 def _geometry(n: int, depth: int, device):
     """Per level: each position's node, the split's two neighbour ranks,
     and whether the node splits (size >= 2), as device tensors."""
@@ -206,25 +235,15 @@ def build_forest(data, trees: int = 4, leaf_size: int = 1024, seed: int = 0,
     if leaf_size < 2:
         raise ValueError(f"leaf_size must be >= 2, got {leaf_size}")
     depth = forest_depth(n, leaf_size)
-    rng = np.random.default_rng(np.random.SeedSequence([seed, n, depth]))
     num_nodes = _heap_base(depth)
-    normals = rng.standard_normal((trees, max(num_nodes, 1), d))
-    normals /= np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True), 1e-12)
-    normals = normals.astype(dtype)
+    normals = _normals(seed, n, depth, trees, d).astype(dtype)
     data_dev = torch.as_tensor(data.astype(dtype), device=device)
     geom = _geometry(n, depth, device)
-
-    leaves = _level_segments(n, depth)[depth]
-    lmax = max(e - s for s, e in leaves)
-    pos_idx = np.zeros((len(leaves), lmax), np.int64)
-    leaf_mask = np.zeros((len(leaves), lmax), bool)
-    for j, (s, e) in enumerate(leaves):
-        pos_idx[j, : e - s] = np.arange(s, e)
-        pos_idx[j, e - s :] = e - 1  # pad by repeating the last position
-        leaf_mask[j, : e - s] = True
+    pos_idx, leaf_mask = _leaf_layout(n, depth)
+    lmax = pos_idx.shape[1]
     pos_dev = torch.as_tensor(pos_idx, device=device)
 
-    members = np.zeros((trees, len(leaves), lmax), np.int32)
+    members = np.zeros((trees, len(pos_idx), lmax), np.int32)
     thresholds = np.zeros((trees, max(num_nodes, 1)), dtype)
     for t in range(trees):
         perm, thr = _build_one_tree(data_dev, torch.as_tensor(normals[t], device=device), geom)
@@ -244,33 +263,35 @@ def build_forest(data, trees: int = 4, leaf_size: int = 1024, seed: int = 0,
 # Leaf scans and the candidate merge.
 
 
-def leaf_batches(forest: RPForest, device):
-    """The leaf batches of one tree's scan, ``(start, stop, real)``:
-    leaves [start, stop) keep the (B, Lmax, Lmax) block within
-    ``_LEAF_ELEM_BUDGET``; ``real`` indexes the batch's flattened real
-    slots (padded slots repeat a member and are dropped)."""
+def _leaf_plan(forest: RPForest, devices) -> list:
+    """One tree's leaf scans: the leaf batches that keep the (B, Lmax, Lmax)
+    block within ``_LEAF_ELEM_BUDGET``, each batch's leaves cut into one
+    contiguous slice a shard of ``devices`` (``mesh.block_shards``; one
+    device keeps the whole batch). Returns ``(start, stop, device, real)``
+    a non-empty slice: leaves [start, stop) and ``real``, the slice's
+    flattened real slots on the device (padded slots repeat a member and
+    are dropped)."""
     lmax = forest.max_leaf
     batch = max(1, _LEAF_ELEM_BUDGET // (lmax * lmax))
     out = []
     for a in range(0, forest.num_leaves, batch):
         b = min(a + batch, forest.num_leaves)
-        real = np.flatnonzero(forest.leaf_mask[a:b].reshape(-1))
-        out.append((a, b, torch.as_tensor(real, device=device)))
+        for la, lb, dev in block_shards(devices, b - a):
+            if la < lb:
+                real = np.flatnonzero(forest.leaf_mask[a + la : a + lb].reshape(-1))
+                out.append((a + la, a + lb, dev, torch.as_tensor(real, device=dev)))
     return out
 
 
-def _leaf_scan(data, members, mask, kk: int, metric: str, sentinel: int):
-    """Dense k-NN of every leaf of a batch against itself: (B, Lmax, kk)
-    ascending (distance, id) lists of global ids, masked columns at
-    (+inf, ``sentinel``) — the plain leaf scan, B5's plain version."""
-    lmax, d = members.shape[1], data.shape[1]
-    form = euclidean_form(lmax, lmax, d) if metric == "euclidean" else None
-    return cf.forest_leaf_topk_plain(data, members, mask, kk, metric, form, "f32", sentinel)
+def leaf_batches(forest: RPForest, device):
+    """The leaf batches of one tree's scan on one device, ``(start, stop,
+    real)`` (:func:`_leaf_plan`)."""
+    return [(a, b, real) for a, b, _, real in _leaf_plan(forest, [torch.device(device)])]
 
 
 def trace_query(trace, data_dev, forest: RPForest, best_i, kk: int, metric: str,
                 recall_sample: int, t0: float) -> None:
-    """The ``knn_index_query`` event of either query route."""
+    """The ``knn_index_query`` event of the forest query."""
     fields = dict(n=forest.n, k=kk, trees=forest.trees, candidates=forest.trees * kk)
     if recall_sample:
         recall, rows = _sampled_recall(data_dev[: forest.n], best_i, kk, metric, recall_sample)
@@ -279,44 +300,98 @@ def trace_query(trace, data_dev, forest: RPForest, best_i, kk: int, metric: str,
     trace("knn_index_query", wall_s=time.monotonic() - t0, **fields)
 
 
+def _fused(backend: str, device) -> bool:
+    """Whether the fold and the rescans take the kernels' route on
+    ``device``: always on a card, off it under ``backend="fused"``."""
+    return backend == "fused" or torch.device(device).type == "cuda"
+
+
 def forest_knn(data_dev, forest: RPForest, k: int, metric: str = "euclidean", trace=None,
                recall_sample: int = 256, backend: str = "xla", precision: str = "f32"):
-    """Approximate neighbor lists from the built forest: (n, kk) ascending
+    """Approximate neighbor lists from the built forest on one device:
+    (n, kk) ascending (distance, id), kk = min(k, max leaf)
+    (:func:`forest_knn_shards` over one row shard)."""
+    dev = data_dev.device
+    [lists] = forest_knn_shards({dev: data_dev}, [(0, forest.n, dev)], forest, k, metric,
+                                trace=trace, recall_sample=recall_sample, backend=backend,
+                                precision=precision)
+    return lists
+
+
+def forest_knn_shards(data_on: dict, rows, forest: RPForest, k: int, metric: str = "euclidean",
+                      *, trace=None, recall_sample: int = 256, backend: str = "xla",
+                      precision: str = "f32"):
+    """The forest query over row shards: ``rows`` lists each shard's
+    ``(lo, hi, device)`` (``mesh.block_shards`` of n; one device is
+    ``[(0, n, device)]``), ``data_on`` maps each distinct device to the
+    data on it. Returns each row shard's (hi - lo, kk) lists, ascending
     (distance, id), kk = min(k, max leaf).
 
-    Per tree, the leaf batches are scanned and copied back to point-major
-    order; then one dedup lex merge across the T per-tree lists. A CUDA
-    tensor, or ``backend="fused"``, takes the fused route
-    (``cuda_forest.forest_knn_fused``: kernels B5 and B6 on the card).
-    Emits ``knn_index_query`` with a sampled ``recall_at_k``.
+    Per tree, each leaf batch's leaves are cut into one slice a shard
+    (:func:`_leaf_plan`) and scanned on the shard's device by B5
+    (``cuda_forest.forest_leaf_topk``; its plain version for CPU tensors),
+    the real slots copied into the per-tree lists of the row shard that
+    owns them. Each row shard then folds its T lists: B6
+    (``cuda_forest.forest_merge``) on the kernels' route (:func:`_fused`),
+    else one dedup lex merge. Every op is per leaf or per row, so the lists
+    equal the one-device query's bitwise. Emits ``knn_index_query`` with a
+    sampled ``recall_at_k``.
     """
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
-    if backend == "fused" or data_dev.device.type == "cuda":
-        return cf.forest_knn_fused(data_dev, forest, k, metric, precision=precision,
-                                   trace=trace, recall_sample=recall_sample)
     t0 = time.monotonic()
-    n, lmax = forest.n, forest.max_leaf
+    n, lmax, trees = forest.n, forest.max_leaf, forest.trees
     kk = min(k, lmax)
     sentinel = n
-    dev = data_dev.device
-    members = torch.as_tensor(forest.members, device=dev)
-    mask = torch.as_tensor(forest.leaf_mask, device=dev)
-    per_d, per_i = [], []
-    for t in range(forest.trees):
-        out_d = torch.full((n, kk), float("inf"), dtype=data_dev.dtype, device=dev)
-        out_i = torch.full((n, kk), sentinel, dtype=torch.int32, device=dev)
-        for a, b, real in leaf_batches(forest, dev):
-            nd, ni = _leaf_scan(data_dev, members[t, a:b], mask[a:b], kk, metric, sentinel)
-            rows = members[t, a:b].reshape(-1)[real].long()
-            out_d[rows] = nd.reshape(-1, kk)[real]
-            out_i[rows] = ni.reshape(-1, kk)[real]
-        per_d.append(out_d)
-        per_i.append(out_i)
-    best_d, best_i = dedup_lex_merge(torch.cat(per_d, 1), torch.cat(per_i, 1), kk, sentinel)
+    form = cf.euclid_form(lmax, lmax, forest.d)
+    members = {dev: torch.as_tensor(forest.members, device=dev) for dev in data_on}
+    mask = {dev: torch.as_tensor(forest.leaf_mask, device=dev) for dev in data_on}
+    dtype = next(iter(data_on.values())).dtype
+    stacks = [(torch.full((trees, hi - lo, kk), float("inf"), dtype=dtype, device=dev),
+               torch.full((trees, hi - lo, kk), sentinel, dtype=torch.int32, device=dev))
+              for lo, hi, dev in rows]
+    plan = _leaf_plan(forest, [dev for _, _, dev in rows])
+    for t in range(trees):
+        for a, b, dev, real in plan:
+            mem = members[dev][t, a:b]
+            nd, ni = cf.forest_leaf_topk(data_on[dev], mem, mask[dev][a:b], kk, metric=metric,
+                                         form=form, precision=precision, sentinel=sentinel)
+            ids = mem.reshape(-1)[real].long()
+            nd, ni = nd.reshape(-1, kk)[real], ni.reshape(-1, kk)[real]
+            for (lo, hi, rdev), (sd, si) in zip(rows, stacks):
+                at, vd, vi = ids, nd, ni
+                if (lo, hi) != (0, n):  # the rows this shard owns
+                    sel = torch.nonzero((ids >= lo) & (ids < hi)).squeeze(1)
+                    at, vd, vi = ids[sel] - lo, nd[sel], ni[sel]
+                at = at.to(rdev)
+                sd[t].index_copy_(0, at, vd.to(rdev))
+                si[t].index_copy_(0, at, vi.to(rdev))
+    lists = []
+    for (lo, hi, dev), (sd, si) in zip(rows, stacks):
+        if hi == lo:
+            lists.append((sd[0], si[0]))
+        elif _fused(backend, dev):
+            lists.append(cf.forest_merge(sd, si, kk, sentinel))
+        else:
+            m = hi - lo
+            lists.append(dedup_lex_merge(sd.permute(1, 0, 2).reshape(m, trees * kk),
+                                         si.permute(1, 0, 2).reshape(m, trees * kk),
+                                         kk, sentinel))
+    for dev in data_on:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     if trace is not None:
-        trace_query(trace, data_dev, forest, best_i, kk, metric, recall_sample, t0)
-    return best_d, best_i
+        root = rows[0][2]
+        best_i = _gather([bi for _, bi in lists], root)
+        trace_query(trace, data_on[root], forest, best_i, kk, metric, recall_sample, t0)
+    return lists
+
+
+def _gather(parts, device):
+    """Row shards' tensors concatenated on ``device`` (one shard as is)."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts])
 
 
 def _expand(best_i, bi, k: int, sentinel: int):
@@ -329,57 +404,70 @@ def _expand(best_i, bi, k: int, sentinel: int):
     return torch.where(empty, sentinel, cand).to(torch.int32)
 
 
-def _rescan_chunk(data, q, bd, bi, cand, k: int, metric: str, sentinel: int):
-    """One unfused rescan chunk: distances to the whole (m, k^2) candidate
-    panel, then the dedup lex merge of running lists and panel."""
-    cpts = data[cand.clamp(0, sentinel - 1).long()]
-    cd = cf.rows_dist(q, cpts, metric, precision="f32")
-    cd = torch.where(cand == sentinel, torch.tensor(float("inf"), device=data.device), cd)
+def _rescan_chunk(data, q, bd, bi, cand, k: int, metric: str, sentinel: int, fused: bool,
+                  precision: str):
+    """One rescan chunk: the candidate panel reduced to k a row by B7
+    (``cuda_forest.forest_rescan_topk``) on the kernels' route, else its
+    distances taken whole; then the dedup lex merge of running lists and
+    panel."""
+    if fused:
+        cd, cand = cf.forest_rescan_topk(q, data, cand, k, metric=metric, precision=precision,
+                                         sentinel=sentinel)
+    else:
+        cpts = data[cand.clamp(0, sentinel - 1).long()]
+        cd = cf.rows_dist(q, cpts, metric, precision="f32")
+        cd = torch.where(cand == sentinel, torch.tensor(float("inf"), device=data.device), cd)
     return dedup_lex_merge(torch.cat([bd, cd], 1), torch.cat([bi, cand], 1), k, sentinel)
-
-
-def run_rescan(data_dev, best_d, best_i, k: int, rnd: int, rescan_rounds: int,
-               sentinel: int, trace, chunk_fn):
-    """One rescan round over all rows in chunks of the reference's size
-    (``_RESCAN_ELEM_BUDGET``), ``chunk_fn(q, bd, bi, cand)`` merging each
-    chunk; the count of rows whose k-th distance improved stays on the
-    device and is read once, for the ``knn_index_rescan`` event."""
-    t0 = time.monotonic()
-    n_rows, d = best_d.shape[0], data_dev.shape[1]
-    chunk = min(n_rows, max(64, _RESCAN_ELEM_BUDGET // max(1, k * k * d)))
-    parts_d, parts_i = [], []
-    improved = torch.zeros((), dtype=torch.int64, device=best_d.device)
-    for a in range(0, n_rows, chunk):
-        b = min(a + chunk, n_rows)
-        bd, bi = best_d[a:b], best_i[a:b]
-        nd, ni = chunk_fn(data_dev[a:b], bd, bi, _expand(best_i, bi, k, sentinel))
-        improved += (nd[:, k - 1] < bd[:, k - 1]).sum()
-        parts_d.append(nd)
-        parts_i.append(ni)
-    best_d, best_i = torch.cat(parts_d), torch.cat(parts_i)
-    if trace is not None:
-        trace("knn_index_rescan", wall_s=time.monotonic() - t0, round=rnd,
-              rescan_rounds=rescan_rounds, improved=int(improved), n=sentinel, k=k)
-    return best_d, best_i
 
 
 def rescan_round(data_dev, best_d, best_i, k: int, metric: str, rnd: int,
                  rescan_rounds: int, sentinel: int | None = None, trace=None,
                  backend: str = "xla", precision: str = "f32"):
-    """One neighbor-of-neighbor round over all rows: every row's candidates
-    are its neighbors' lists, merged into its own. A CUDA tensor, or
-    ``backend="fused"``, takes ``cuda_forest.rescan_round_fused`` (kernel
-    B7 on the card)."""
-    if backend == "fused" or data_dev.device.type == "cuda":
-        return cf.rescan_round_fused(data_dev, best_d, best_i, k, metric, rnd, rescan_rounds,
-                                     sentinel=sentinel, precision=precision, trace=trace)
+    """One neighbor-of-neighbor round on one device
+    (:func:`rescan_round_shards` over one row shard)."""
+    dev = data_dev.device
     sentinel = data_dev.shape[0] if sentinel is None else sentinel
+    [lists] = rescan_round_shards({dev: data_dev}, [(0, best_d.shape[0], dev)],
+                                  [(best_d, best_i)], k, metric, rnd, rescan_rounds, sentinel,
+                                  trace=trace, backend=backend, precision=precision)
+    return lists
 
-    def chunk_fn(q, bd, bi, cand):
-        return _rescan_chunk(data_dev, q, bd, bi, cand, k, metric, sentinel)
 
-    return run_rescan(data_dev, best_d, best_i, k, rnd, rescan_rounds, sentinel, trace,
-                      chunk_fn)
+def rescan_round_shards(data_on: dict, rows, lists, k: int, metric: str, rnd: int,
+                        rescan_rounds: int, sentinel: int, *, trace=None, backend: str = "xla",
+                        precision: str = "f32"):
+    """One neighbor-of-neighbor round over row shards (``rows`` and
+    ``data_on`` as for :func:`forest_knn_shards`, ``lists`` each shard's):
+    every row's candidates are its neighbors' lists, gathered from every
+    shard, merged into its own by :func:`_rescan_chunk` (B7 on the
+    kernels' route) in chunks of the reference's size
+    (``_RESCAN_ELEM_BUDGET``). The count of rows whose k-th distance
+    improved stays on the device and is read once, for the
+    ``knn_index_rescan`` event. Returns each shard's new lists."""
+    t0 = time.monotonic()
+    root = rows[0][2]
+    all_i = _gather([bi for _, bi in lists], root)
+    all_on = {dev: all_i.to(dev) for dev in data_on}
+    d = next(iter(data_on.values())).shape[1]
+    chunk = max(64, _RESCAN_ELEM_BUDGET // max(1, k * k * d))
+    out, improved = [], torch.zeros((), dtype=torch.int64, device=root)
+    for (lo, hi, dev), (bd, bi) in zip(rows, lists):
+        data, fused = data_on[dev], _fused(backend, dev)
+        parts_d, parts_i = [], []
+        for a in range(0, hi - lo, chunk):
+            b = min(a + chunk, hi - lo)
+            cd, ci = bd[a:b], bi[a:b]
+            nd, ni = _rescan_chunk(data, data[lo + a : lo + b], cd, ci,
+                                   _expand(all_on[dev], ci, k, sentinel), k, metric, sentinel,
+                                   fused, precision)
+            improved += (nd[:, k - 1] < cd[:, k - 1]).sum().to(root)
+            parts_d.append(nd)
+            parts_i.append(ni)
+        out.append((torch.cat(parts_d), torch.cat(parts_i)) if parts_d else (bd, bi))
+    if trace is not None:
+        trace("knn_index_rescan", wall_s=time.monotonic() - t0, round=rnd,
+              rescan_rounds=rescan_rounds, improved=int(improved), n=sentinel, k=k)
+    return out
 
 
 def _sampled_recall(data_dev, best_i, k: int, metric: str, sample: int):
@@ -453,6 +541,7 @@ def rpforest_core_distances(
     knn_backend: str = "auto",
     knn_precision: str = "f32",
     device=None,
+    mesh=None,
 ):
     """Approximate core distances through the forest, in the contract of
     ``ops/tiled.knn_core_distances``: ``(core, knn)`` — float64 (n,) core
@@ -479,8 +568,16 @@ def rpforest_core_distances(
     then one exact float32 refine keeps the best k. One
     ``knn_fused_forest`` event records a fused run (``interpret`` is True
     where the plain versions ran in place of the kernels).
+
+    ``mesh`` (the ``scan_backend=ring`` composition, the reference's
+    sharded ``forest_knn``): the forest is built once on the first shard's
+    device, the data lies on every distinct device, the leaf scans are cut
+    over the shards and the rows fold and rescan on their row shard
+    (:func:`forest_knn_shards`, rows split as ``mesh.block_shards`` splits
+    n), equal to the one-device run bitwise. Over two or more shards the
+    query runs at f32 whatever ``knn_precision`` asks, as the reference's,
+    whose fused route is single-device.
     """
-    device = cuda_build.resolve_device(device)
     data = np.asarray(data)
     n, d = data.shape
     k_eff = min(max(k or 0, max(min_pts - 1, 1)), n)
@@ -489,42 +586,48 @@ def rpforest_core_distances(
         raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
     if knn_precision == "bf16" and metric != "euclidean":
         raise ValueError("knn_precision='bf16' supports euclidean only (bf16 distance tiles)")
-    on_card = device.type == "cuda"
+    devices = mesh.devices if mesh is not None else (cuda_build.resolve_device(device),)
+    root = devices[0]
+    on_card = root.type == "cuda"  # a mesh never mixes the CPU and cards
     eligible = cf.fused_forest_eligible(n, d, k_eff, metric, dtype)
+    # bf16 tiles only inside the fused gate and on one device; past it the
+    # f32 kernels compute the reference's unfused route (the two routes
+    # agree bitwise at f32).
+    precision = (knn_precision if knn_backend == "fused" and eligible and len(devices) == 1
+                 else "f32")
     if on_card:
-        cf.check_card_shape(d, k_eff, metric, dtype, knn_precision)
-        use_fused = True
-    else:
-        use_fused = knn_backend == "fused" and eligible
-    # bf16 tiles only inside the fused gate; past it the f32 kernels compute
-    # the reference's unfused route (the two routes agree bitwise at f32).
-    precision = knn_precision if knn_backend == "fused" and eligible else "f32"
+        cf.check_card_shape(d, k_eff, metric, dtype, precision)
+    use_fused = on_card or (knn_backend == "fused" and eligible)
     backend = "fused" if use_fused else "xla"
     if forest is None:
         forest = build_forest(data, trees=trees, leaf_size=leaf_size, seed=seed, dtype=dtype,
-                              trace=trace, device=device)
-    data_dev = torch.as_tensor(data.astype(dtype), device=device)
-    # The kernels take pearson's rows centred once; the forest was built on
-    # the raw rows.
-    if use_fused:
-        data_dev, metric = cuda_build.kernel_points(data_dev, metric)
+                              trace=trace, device=root)
+    data_on, run_metric = {}, metric
+    for dev in dict.fromkeys(devices):
+        x = torch.as_tensor(data.astype(dtype), device=dev)
+        # The kernels take pearson's rows centred once; the forest was
+        # built on the raw rows.
+        if use_fused:
+            x, run_metric = cuda_build.kernel_points(x, metric)
+        data_on[dev] = x
+    metric = run_metric
+    rows = block_shards(devices, n)
     k_run = min(2 * k_eff, cf.LANES, n) if precision == "bf16" else k_eff
     t_fused = time.monotonic()
-    best_d, best_i = forest_knn(data_dev, forest, k_run, metric, trace=trace,
-                                recall_sample=recall_sample, backend=backend,
-                                precision=precision)
+    lists = forest_knn_shards(data_on, rows, forest, k_run, metric, trace=trace,
+                              recall_sample=recall_sample, backend=backend, precision=precision)
     for rnd in range(rescan_rounds):
-        best_d, best_i = rescan_round(data_dev, best_d, best_i, k_run, metric, rnd,
-                                      rescan_rounds, sentinel=n, trace=trace,
-                                      backend=backend, precision=precision)
+        lists = rescan_round_shards(data_on, rows, lists, k_run, metric, rnd, rescan_rounds, n,
+                                    trace=trace, backend=backend, precision=precision)
     refine_rows = 0
-    if precision == "bf16":
-        best_d, best_i = cf.refine_f32(data_dev, best_d, best_i, metric, n)
+    if precision == "bf16":  # one device
+        best_d, best_i = cf.refine_f32(data_on[root], *lists[0], metric, n)
         refine_rows = int(best_d.shape[0])
-        best_d, best_i = best_d[:, :k_eff], best_i[:, :k_eff]
+        lists = [(best_d[:, :k_eff], best_i[:, :k_eff])]
     if use_fused and trace is not None:
         if on_card:
-            torch.cuda.synchronize(device)
+            for dev in data_on:
+                torch.cuda.synchronize(dev)
         trace("knn_fused_forest", wall_s=time.monotonic() - t_fused, n=n, k=k_eff,
               trees=forest.trees, leaf_tiles=forest.trees * forest.num_leaves,
               refine_rows=refine_rows, precision=precision, interpret=not on_card)
@@ -532,11 +635,11 @@ def rpforest_core_distances(
     if not fetch_knn and not return_indices:
         if min_pts <= 1:
             return np.zeros(n, np.float64), None
-        return best_d[:, col].cpu().numpy().astype(np.float64), None
-    knn = best_d.cpu().numpy().astype(np.float64)
+        return fetch([bd[:, col] for bd, _ in lists]).astype(np.float64), None
+    knn = fetch([bd for bd, _ in lists]).astype(np.float64)
     core = np.zeros(n, np.float64) if min_pts <= 1 else knn[:, col].copy()
     if return_indices:
-        return core, knn, best_i.cpu().numpy().astype(np.int64)
+        return core, knn, fetch([bi for _, bi in lists]).astype(np.int64)
     return core, knn
 
 
@@ -544,15 +647,16 @@ def rpforest_core_distances_rows(data, row_ids, min_pts: int, metric: str = "euc
                                  trees: int = 4, leaf_size: int = 1024, rescan_rounds: int = 1,
                                  seed: int = 0, dtype=np.float32, trace=None,
                                  knn_backend: str = "auto", knn_precision: str = "f32",
-                                 device=None):
+                                 device=None, mesh=None):
     """Approximate core distances of the SELECTED rows (the contract of
     ``ops/tiled.knn_core_distances_rows``: (m,) float64): one forest pass
-    over the whole set (B5-B7 on the card), then a slice by rows — the
-    forest indexes every point either way, and the rows' neighbour-of-
-    neighbour rescans need the whole graph."""
+    over the whole set (B5-B7 on the card; over ``mesh`` when given), then
+    a slice by rows — the forest indexes every point either way, and the
+    rows' neighbour-of-neighbour rescans need the whole graph."""
     core, _ = rpforest_core_distances(
         data, min_pts, metric, trees=trees, leaf_size=leaf_size,
         rescan_rounds=rescan_rounds, seed=seed, dtype=dtype, fetch_knn=False, trace=trace,
         recall_sample=0, knn_backend=knn_backend, knn_precision=knn_precision, device=device,
+        mesh=mesh,
     )
     return core[np.asarray(row_ids)]

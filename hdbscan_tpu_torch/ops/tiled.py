@@ -14,7 +14,8 @@ kernel; :func:`knn_core_distances` is the core-distance entry point and
 rescan without block pruning);
 :class:`BoruvkaScanner` and :func:`boruvka_glue_edges` run host-contracted
 Borůvka rounds over that kernel (the exact fit's host-round route, the MR
-pipeline's glue and refine harvests).
+pipeline's glue and refine harvests); the glue takes the ring and sharded
+scanners of ``parallel/`` over a mesh as well.
 """
 
 from __future__ import annotations
@@ -293,21 +294,26 @@ def boruvka_glue_edges(
     trace=None,
     *,
     device,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Exact inter-group MST "glue" edges: Borůvka rounds seeded with
     ``groups`` as components, run to connectivity (the reference's
     ``boruvka_glue_edges``). Every harvested edge is a true MST edge of
     ``data`` under mutual reachability (plain distance when ``core`` is
     None). Returns (u, v, w) in local indices of ``data``, tie-broken by
-    (w, u, v) through ``utils/unionfind.contract_min_edges``."""
+    (w, u, v) through ``utils/unionfind.contract_min_edges``.
+
+    The engine, in the reference's order: ``fit_sharding`` resolving
+    "sharded" takes ``parallel/shard.ShardBoruvkaScanner`` over ``mesh``,
+    else ``scan_backend`` resolving "ring" ``parallel/ring.
+    RingBoruvkaScanner`` (both: B9 per shard and visiting panel; with no
+    mesh, every visible card, or one shard on ``device`` off the card),
+    else :class:`BoruvkaScanner` on ``device``. The edges are the same
+    across engines."""
+    from hdbscan_tpu_torch.parallel.ring import RingBoruvkaScanner, resolve_scan_backend
+    from hdbscan_tpu_torch.parallel.shard import ShardBoruvkaScanner, resolve_fit_sharding
     from hdbscan_tpu_torch.utils.unionfind import contract_min_edges
 
-    if scan_backend == "ring" or fit_sharding == "sharded":
-        raise NotImplementedError(
-            "the ring and sharded Borůvka glue (scan_backend=ring or "
-            "fit_sharding=sharded in the MR glue harvests) is not ported yet "
-            "(ROADMAP A9)"
-        )
     n = len(data)
     if core is None:
         core = np.zeros(n)
@@ -315,7 +321,14 @@ def boruvka_glue_edges(
     n_comp = int(dense.max()) + 1
     if n_comp == 1:
         return np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float64)
-    scanner = BoruvkaScanner(data, core, metric, row_tile, col_tile, device=device)
+    if resolve_fit_sharding(fit_sharding, mesh) == "sharded":
+        scanner = ShardBoruvkaScanner(data, core, metric, row_tile, col_tile,
+                                      mesh=scan_mesh(mesh, device), trace=trace)
+    elif resolve_scan_backend(scan_backend, mesh) == "ring":
+        scanner = RingBoruvkaScanner(data, core, metric, row_tile, col_tile,
+                                     mesh=scan_mesh(mesh, device), trace=trace)
+    else:
+        scanner = BoruvkaScanner(data, core, metric, row_tile, col_tile, device=device)
     # Seed components with the groups (first member = representative).
     order0 = np.argsort(dense, kind="stable")
     firsts = np.concatenate([[True], np.diff(dense[order0]) != 0])
@@ -331,11 +344,26 @@ def boruvka_glue_edges(
         eu.append(emit)
         ev.append(bj[emit])
         ew.append(bw[emit])
+    close = getattr(scanner, "close", None)
+    if close is not None:  # the sharded scanners' row shards go now
+        close()
     return (
         np.concatenate(eu) if eu else np.zeros(0, np.int64),
         np.concatenate(ev) if ev else np.zeros(0, np.int64),
         np.concatenate(ew) if ew else np.zeros(0, np.float64),
     )
+
+
+def scan_mesh(mesh, device):
+    """The mesh a ring or sharded scan runs on: ``mesh`` when given, else
+    every visible card, or one shard on ``device`` when that is not a
+    card."""
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    if mesh is not None:
+        return mesh
+    device = torch.device(device)
+    return get_mesh() if device.type == "cuda" else get_mesh([device])
 
 
 def _min_outgoing_panel_scan(rows, core_r, comp_r, valid_r, panel, core_c, comp_c,

@@ -1,5 +1,5 @@
 """Batched per-partition kernels over padded blocks — the port of
-``parallel/blocks.py`` (single device, no mesh).
+``parallel/blocks.py``.
 
 - :func:`block_mst_batch` / :func:`block_mst_batch_with_core`: the exact
   HDBSCAN* block program (distances -> core distances -> mutual
@@ -7,7 +7,8 @@
   as batched PyTorch ops on the fit's device.
 - :func:`run_packed_blocks`: launches of at most ``hbm_budget_bytes`` of
   block working set each (``_BLOCK_TEMPS`` copies of the (cap, cap) matrix
-  per block), edges mapped back to global point ids on the host.
+  per block), split over a mesh's shards when one is given, edges mapped
+  back to global point ids on the host.
 - :func:`nearest_sample_assign` and :func:`seam_margins`: the nearest-sample
   argmin and the seam-margin scan, tiled over the points so one (tile,
   samples) distance matrix is the only large temporary.
@@ -173,16 +174,28 @@ def run_packed_blocks(
     metric: str = "euclidean",
     hbm_budget_bytes: int = 2 << 30,
     *,
-    device,
+    device=None,
+    mesh=None,
+    batch_pad: int = 1,
     dtype=np.float32,
     trace=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Run the block program over every packed block, at most
     ``hbm_budget_bytes`` of block working set per launch (a power-of-two
-    number of blocks). Returns global-id MST edges (u, v, w) concatenated
-    over the blocks and the (B, cap) core distances aligned with
-    ``packed.point_index`` (the packed global cores when given).
-    ``trace`` receives one ``block_fit`` event per call."""
+    number of blocks, padded to a multiple of ``batch_pad``). Returns
+    global-id MST edges (u, v, w) concatenated over the blocks and the (B,
+    cap) core distances aligned with ``packed.point_index`` (the packed
+    global cores when given). ``trace`` receives one ``block_fit`` event
+    per call.
+
+    ``mesh`` (``parallel/mesh.Mesh``; the reference's block sharding):
+    each launch's blocks split over the shards (``mesh.block_shards``),
+    shard ``s``'s slice running on ``mesh.devices[s]``; every shard's
+    launch is queued before the first result is read. Every op is per
+    block, so edges and cores equal the single-device call's bitwise.
+    Without a mesh the launches run on ``device``."""
+    from hdbscan_tpu_torch.parallel.mesh import block_shards, get_mesh, pad_batch
+
     t0 = time.monotonic()
     b = len(packed.x)
     cap = packed.x.shape[1]
@@ -190,7 +203,9 @@ def run_packed_blocks(
     per_block = cap * cap * itemsize * _BLOCK_TEMPS
     chunk = max(1, hbm_budget_bytes // per_block)
     chunk = 1 << (chunk.bit_length() - 1)
-    chunk = min(chunk, _next_pow2(b))
+    chunk = min(max(batch_pad, chunk), _next_pow2(pad_batch(b, batch_pad)))
+    chunk = pad_batch(chunk, batch_pad)
+    mesh = mesh if mesh is not None else get_mesh([device])
 
     from hdbscan_tpu_torch.utils.flops import counter as _flops
 
@@ -202,24 +217,31 @@ def run_packed_blocks(
         core[:] = packed.core
     gu, gv, gw = [], [], []
     for start in range(0, b, chunk):
-        x = torch.as_tensor(packed.x[start : start + chunk].astype(dtype), device=device)
-        nv = torch.as_tensor(packed.num_valid[start : start + chunk].astype(np.int64),
-                             device=device)
-        if with_core:
-            cb = torch.as_tensor(packed.core[start : start + chunk].astype(dtype),
-                                 device=device)
-            u, v, w, mask = block_mst_batch_with_core(x, cb, nv, metric)
-        else:
-            u, v, w, mask, core_c = block_mst_batch(x, nv, min_pts, metric)
-            core[start : start + len(x)] = core_c.cpu().numpy().astype(np.float64)
-        u, v = u.cpu().numpy(), v.cpu().numpy()
-        w, mask = w.cpu().numpy().astype(np.float64), mask.cpu().numpy()
-        for i in range(len(x)):
-            m = mask[i]
-            ids = packed.point_index[start + i]
-            gu.append(ids[u[i][m]])
-            gv.append(ids[v[i][m]])
-            gw.append(w[i][m])
+        real = min(chunk, b - start)
+        outs = []
+        for lo, hi, dev in block_shards(mesh.devices, real):
+            if lo == hi:
+                continue
+            a, e = start + lo, start + hi
+            x = torch.as_tensor(packed.x[a:e].astype(dtype), device=dev)
+            nv = torch.as_tensor(packed.num_valid[a:e].astype(np.int64), device=dev)
+            if with_core:
+                cb = torch.as_tensor(packed.core[a:e].astype(dtype), device=dev)
+                outs.append((a, block_mst_batch_with_core(x, cb, nv, metric)))
+            else:
+                outs.append((a, block_mst_batch(x, nv, min_pts, metric)))
+        for a, out in outs:
+            u, v, w, mask = out[:4]
+            if not with_core:
+                core[a : a + len(u)] = out[4].cpu().numpy().astype(np.float64)
+            u, v = u.cpu().numpy(), v.cpu().numpy()
+            w, mask = w.cpu().numpy().astype(np.float64), mask.cpu().numpy()
+            for i in range(len(u)):
+                m = mask[i]
+                ids = packed.point_index[a + i]
+                gu.append(ids[u[i][m]])
+                gv.append(ids[v[i][m]])
+                gw.append(w[i][m])
     if trace is not None:
         trace("block_fit", blocks=b, cap=cap, launches=-(-b // chunk),
               wall_s=round(time.monotonic() - t0, 6))

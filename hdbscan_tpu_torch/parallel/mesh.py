@@ -39,7 +39,10 @@ class Mesh:
 
 def get_mesh(devices: list | None = None) -> Mesh:
     """1-D mesh over ``devices`` (default: every visible card, one shard
-    each). Raises when no device is given and no card is present."""
+    each). Raises when no device is given and no card is present, and on
+    a list that mixes the CPU and cards: a mesh's shards all take the
+    kernels or all their plain versions, as a JAX mesh is of one
+    platform."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -50,6 +53,9 @@ def get_mesh(devices: list | None = None) -> Mesh:
     devices = tuple(torch.device(d) for d in devices)
     if not devices:
         raise ValueError("a mesh needs at least one device")
+    if len({d.type for d in devices}) > 1:
+        raise ValueError(f"a mesh's devices must be all CPU or all CUDA, got "
+                         f"{[str(d) for d in devices]}")
     return Mesh(devices)
 
 
@@ -73,6 +79,25 @@ def ring_permutation(n_dev: int) -> list[tuple[int, int]]:
     panel that originated at (i - s) mod n_dev. The ring scans
     (``parallel/ring.py``) take exactly n_dev - 1 such steps per sweep."""
     return [(i, (i + 1) % n_dev) for i in range(n_dev)]
+
+
+def pad_batch(batch_size: int, num_devices: int) -> int:
+    """A batch axis padded up to a multiple of the shard count (the
+    reference's ``pad_batch``)."""
+    return -(-batch_size // num_devices) * num_devices
+
+
+def block_shards(devices, batch: int) -> list[tuple[int, int, torch.device]]:
+    """The reference's ``block_sharding`` of a (batch, ...) stack over the
+    shards ``devices`` (a mesh's ``devices``): the batch axis padded to a
+    multiple of the shard count (:func:`pad_batch`) and cut into equal
+    contiguous slices, shard ``s``'s on ``devices[s]``. Returns each
+    shard's ``(start, stop, device)`` over the REAL entries, clipped to
+    ``batch``; a shard whose slice is all padding gets ``start == stop``
+    and runs nothing."""
+    per = pad_batch(batch, len(devices)) // len(devices)
+    return [(min(s * per, batch), min((s + 1) * per, batch), dev)
+            for s, dev in enumerate(devices)]
 
 
 def fetch(shards) -> np.ndarray:

@@ -22,10 +22,10 @@ values agree.
 same shards (``scan_backend=ring``); :func:`resolve_scan_backend` maps the
 knob to it.
 
-Not ported yet, each raising ``NotImplementedError`` naming ROADMAP A9:
-the rows scan (:func:`ring_knn_core_distances_rows`, which only the MR
-pipeline's ring and sharded routes would call) and the sharded rp-forest
-branch.
+:func:`ring_knn_core_distances_rows` is the rows scan of the MR boundary
+rescan (query rows sharded on their own, the point set's shards
+circulating as column panels), and ``index="rpforest"`` sends both entries
+to the rp-forest over the mesh (``ops/rpforest``).
 """
 
 from __future__ import annotations
@@ -109,6 +109,33 @@ def _emit_ring_trace(trace, stage: str, wall: float, walls, n_dev: int, rnd: int
         trace("ring_device_wall", wall_s=round(w, 6), device=s, ring_stage=stage, round=rnd)
 
 
+def _ring_lists(queries, cols, parts, k: int, metric: str, form, col_tile: int, mesh):
+    """The ring sweep: shard ``me``'s query rows ``queries[me]`` against
+    the column panels ``cols`` in ring order ``(me - s) % D``, one launch of
+    the rectangular k-best kernel (B2) a panel, the lists merged under the
+    (distance, id) key (:func:`_lex_merge_k`); ``parts`` gives each panel's
+    (global offset, rows). Returns each shard's ((m, k) distances, (m, k)
+    int32 ids); a shard without query rows launches nothing."""
+    from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest_panel
+
+    n_dev = len(mesh.devices)
+    lists = []
+    for me, dev in enumerate(mesh.devices):
+        m = queries[me].shape[0]
+        bd = torch.full((m, k), float("inf"), dtype=queries[me].dtype, device=dev)
+        bi = torch.full((m, k), -1, dtype=torch.int32, device=dev)
+        for step in range(n_dev):
+            src = (me - step) % n_dev
+            off, c = parts[src]
+            if m == 0 or c == 0:
+                continue
+            td, ti = knn_kbest_panel(queries[me], cols[src].to(dev), k, metric, form,
+                                     id_offset=off, col_tile=col_tile)
+            bd, bi = _lex_merge_k(bd, bi, td, ti, k)
+        lists.append((bd, bi))
+    return lists
+
+
 def ring_knn_core_distances(
     data: np.ndarray,
     min_pts: int,
@@ -134,20 +161,24 @@ def ring_knn_core_distances(
     (:func:`_ring_geometry`), or the dot form for ``knn_backend="fused"``
     within the fused kernel's gate (k and d <= 128).
     Emits one ``ring_knn_scan`` event with per-shard walls.
+    ``index="rpforest"`` runs the rp-forest over the same mesh instead
+    (``ops/rpforest.rpforest_core_distances``, equal to its one-device
+    run), ``index_opts`` its knobs.
     """
-    from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest_panel
     from hdbscan_tpu_torch.utils.flops import counter as _flops
 
+    mesh = mesh if mesh is not None else get_mesh()
     if index == "rpforest":
-        raise NotImplementedError(
-            "the mesh-sharded rp-forest (shard_forest_core_distances) is not "
-            "ported yet (ROADMAP A9)"
+        from hdbscan_tpu_torch.ops.rpforest import rpforest_core_distances
+
+        return rpforest_core_distances(
+            data, min_pts, metric, k, dtype=dtype, return_indices=return_indices,
+            fetch_knn=fetch_knn, trace=trace, mesh=mesh, **(index_opts or {}),
         )
     if index != "exact":
         raise ValueError(f"unknown knn index {index!r}")
     n, d = np.shape(data)
     k = max(k or 0, max(min_pts - 1, 1))
-    mesh = mesh if mesh is not None else get_mesh()
     check_dtype(dtype, mesh.root)
     n_dev = device_count(mesh)
     row_tile, col_tile, shard, n_pad = _ring_geometry(n, n_dev, row_tile, col_tile)
@@ -165,20 +196,7 @@ def ring_knn_core_distances(
     upload_s = time.monotonic() - t_up
     _flops.add_scan(n_pad, n_pad, d, row_tile=row_tile)
     t0 = time.monotonic()
-    lists = []
-    for me, dev in enumerate(mesh.devices):
-        m = parts[me][1]
-        bd = torch.full((m, k), float("inf"), dtype=rows[me].dtype, device=dev)
-        bi = torch.full((m, k), -1, dtype=torch.int32, device=dev)
-        for step in range(n_dev):
-            src = (me - step) % n_dev
-            off, c = parts[src]
-            if m == 0 or c == 0:
-                continue
-            td, ti = knn_kbest_panel(rows[me], rows[src].to(dev), k, metric, form,
-                                     id_offset=off, col_tile=col_tile)
-            bd, bi = _lex_merge_k(bd, bi, td, ti, k)
-        lists.append((bd, bi))
+    lists = _ring_lists(rows, rows, parts, k, metric, form, col_tile, mesh)
     walls = _per_device_walls(mesh, t0)
     wall = time.monotonic() - t0
     fetch_knn = fetch_knn or return_indices
@@ -203,12 +221,82 @@ def ring_knn_core_distances(
     return core, knn
 
 
-def ring_knn_core_distances_rows(*args, **kwargs):
-    """The ring rows scan (the MR boundary rescan's sharded twin)."""
-    raise NotImplementedError(
-        "the ring rows scan (ring_knn_core_distances_rows) is not ported yet "
-        "(ROADMAP A9)"
+def ring_knn_core_distances_rows(
+    data: np.ndarray,
+    row_ids: np.ndarray,
+    min_pts: int,
+    metric: str = "euclidean",
+    row_tile: int = 1024,
+    col_tile: int = 8192,
+    dtype=np.float32,
+    mesh=None,
+    trace=None,
+    index: str = "exact",
+    index_opts: dict | None = None,
+) -> np.ndarray:
+    """Ring-sharded core distances of the SELECTED rows (the MR boundary
+    rescan; the contract of ``ops/tiled.knn_core_distances_rows``, (m,)
+    float64 aligned with ``row_ids``).
+
+    The m query rows shard on their own, ``q_shard = round_up(max(ceil(m /
+    D), row_tile), row_tile)`` rows a shard (the reference's padding, never
+    materialized), while the whole point set's row shards circulate as the
+    column panels (:func:`_ring_geometry`): per shard holding queries and
+    per visiting panel one launch of the rectangular k-best kernel (B2),
+    the lists merged under the (distance, id) key. A shard with no query
+    row launches nothing; only the k-th column leaves the shards. At
+    ``index="rpforest"`` the rows come from one forest pass over the mesh
+    (``ops/rpforest.rpforest_core_distances_rows``). Emits one
+    ``ring_rows_scan`` event with per-shard walls.
+    """
+    from hdbscan_tpu_torch.utils.flops import counter as _flops
+
+    n, d = np.shape(data)
+    row_ids = np.asarray(row_ids)
+    m = len(row_ids)
+    if m == 0:
+        return np.zeros(0, np.float64)
+    mesh = mesh if mesh is not None else get_mesh()
+    if index == "rpforest":
+        from hdbscan_tpu_torch.ops.rpforest import rpforest_core_distances_rows
+
+        return rpforest_core_distances_rows(data, row_ids, min_pts, metric, dtype=dtype,
+                                            trace=trace, mesh=mesh, **(index_opts or {}))
+    if index != "exact":
+        raise ValueError(f"unknown knn index {index!r}")
+    check_dtype(dtype, mesh.root)
+    k = max(min_pts - 1, 1)
+    n_dev = device_count(mesh)
+    row_tile, col_tile, shard, n_pad = _ring_geometry(n, n_dev, row_tile, col_tile)
+    q_shard = _round_up(max(-(-m // n_dev), row_tile), row_tile)
+    form = euclidean_form(row_tile, col_tile, d) if metric == "euclidean" else None
+    parts = _shard_rows(n, shard, n_dev)
+    qparts = _shard_rows(m, q_shard, n_dev)
+    x = np.asarray(data, dtype)
+    t_up = time.monotonic()
+    cols = [torch.as_tensor(x[o : o + c], device=dev)
+            for (o, c), dev in zip(parts, mesh.devices)]
+    qs = [torch.as_tensor(x[row_ids[o : o + c]], device=dev)
+          for (o, c), dev in zip(qparts, mesh.devices)]
+    upload_s = time.monotonic() - t_up
+    _flops.add_scan(q_shard * n_dev, n_pad, d, row_tile=row_tile)
+    kth_col = min(k, n) - 1
+    t0 = time.monotonic()
+    lists = _ring_lists(qs, cols, parts, k, metric, form, col_tile, mesh)
+    walls = _per_device_walls(mesh, t0)
+    wall = time.monotonic() - t0
+    t_f = time.monotonic()
+    out = fetch([bd[:, kth_col] for bd, _ in lists]).astype(np.float64)
+    fetch_s = time.monotonic() - t_f
+    _emit_ring_trace(
+        trace, "ring_rows_scan", wall, walls, n_dev, 0, rows=m, cols=n, shard=shard,
+        upload_s=round(upload_s, 6), fetch_s=round(fetch_s, 6),
+        comm_bytes=(n_dev - 1) * shard * d * np.dtype(dtype).itemsize,
+        flops=2.0 * q_shard * n_dev * n_pad * d,
     )
+    if min_pts <= 1:
+        return np.zeros(m, np.float64)
+    return out
 
 
 class RingBoruvkaScanner:

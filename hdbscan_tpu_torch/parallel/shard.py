@@ -31,8 +31,10 @@ round:
 per-point winners to the host contraction; ``parallel/ring.
 RingBoruvkaScanner`` runs steps 1 and 2 over the dense component labels.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-entry: the sharded rp-forest ``shard_forest_core_distances`` (A9). The
+The forest tier's sharded twin is :func:`shard_forest_core_distances`:
+per-shard tree builds and a ring exchange of candidate panels through the
+rescan top-k kernel (B7), with no full data copy on any shard;
+:func:`shard_core_distances_rows` is the MR boundary rescan's entry. The
 reference's partition-rule table is a JAX sharding device with no torch
 counterpart: a shard's tensors lie on its device.
 """
@@ -83,24 +85,280 @@ def shard_core_distances(
     index_opts: dict | None = None,
 ) -> np.ndarray:
     """Core distances under the sharded program, (n,) float64: the ring
-    k-NN scan with only the k-th column fetched."""
+    k-NN scan with only the k-th column fetched, or at
+    ``index="rpforest"`` the row-sharded forest
+    (:func:`shard_forest_core_distances`)."""
     from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances
 
+    mesh = mesh if mesh is not None else get_mesh()
     if index == "rpforest":
-        return shard_forest_core_distances()
+        return shard_forest_core_distances(data, min_pts, metric, dtype=dtype, mesh=mesh,
+                                           trace=trace, **(index_opts or {}))
+    if index != "exact":
+        raise ValueError(f"unknown knn index {index!r}")
     core, _ = ring_knn_core_distances(
         data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
-        fetch_knn=False, mesh=mesh, trace=trace, knn_backend=knn_backend, index=index,
+        fetch_knn=False, mesh=mesh, trace=trace, knn_backend=knn_backend,
     )
     return core
 
 
-def shard_forest_core_distances(*args, **kwargs):
-    """The row-sharded rp-forest build and panel exchange."""
-    raise NotImplementedError(
-        "the mesh-sharded rp-forest (shard_forest_core_distances, "
-        "fit_sharding=sharded with knn_index=rpforest) is not ported yet (ROADMAP A9)"
+def shard_core_distances_rows(
+    data: np.ndarray,
+    row_ids: np.ndarray,
+    min_pts: int,
+    metric: str = "euclidean",
+    *,
+    dtype=np.float32,
+    mesh=None,
+    trace=None,
+    index: str = "exact",
+    index_opts: dict | None = None,
+) -> np.ndarray:
+    """Core distances of the SELECTED rows under the sharded program (the
+    MR boundary rescan's contract: (m,) float64 aligned with ``row_ids``):
+    the ring rows scan (``parallel/ring.ring_knn_core_distances_rows``), or
+    at ``index="rpforest"`` one sharded forest pass sliced by rows."""
+    mesh = mesh if mesh is not None else get_mesh()
+    row_ids = np.asarray(row_ids)
+    if index == "rpforest":
+        core = shard_forest_core_distances(data, min_pts, metric, dtype=dtype, mesh=mesh,
+                                           trace=trace, recall_sample=0, **(index_opts or {}))
+        return core[row_ids]
+    if index != "exact":
+        raise ValueError(f"unknown knn index {index!r}")
+    from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances_rows
+
+    return ring_knn_core_distances_rows(data, row_ids, min_pts, metric, dtype=dtype, mesh=mesh,
+                                        trace=trace)
+
+
+def _shard_geometry(n: int, n_dev: int) -> tuple[int, int]:
+    """The sharded forest's rows per shard and padded total: ``shard =
+    ceil(n / n_dev)``, no tile rounding, so the fewer than ``n_dev`` pad
+    rows (zeros, as the reference pads) lie on the last shards."""
+    shard = -(-n // n_dev)
+    return shard, shard * n_dev
+
+
+def _host_recall(data: np.ndarray, best_i: np.ndarray, k: int, sample: int):
+    """Sampled recall@k against a host numpy brute-force scan (euclidean),
+    the reference's oracle: evenly spaced rows, exact ids by (distance,
+    id). The k-th distance comes from a partition and only the rows at or
+    under it are sorted: the reference's ids, without sorting all n."""
+    n = len(data)
+    rows = np.unique(np.linspace(0, n - 1, num=min(sample, n), dtype=np.int64))
+    hits = 0
+    for r in rows:
+        dist = np.linalg.norm(data - data[r], axis=1)
+        near = np.flatnonzero(dist <= np.partition(dist, k - 1)[k - 1])
+        exact = near[np.lexsort((near, dist[near]))][:k]
+        hits += len(np.intersect1d(exact, best_i[r][best_i[r] < n]))
+    return float(hits) / float(len(rows) * k), int(len(rows))
+
+
+def shard_forest_core_distances(
+    data: np.ndarray,
+    min_pts: int,
+    metric: str = "euclidean",
+    k: int | None = None,
+    *,
+    trees: int = 4,
+    leaf_size: int = 1024,
+    seed: int = 0,
+    dtype=np.float32,
+    mesh=None,
+    trace=None,
+    recall_sample: int = 256,
+    knn_precision: str = "f32",
+    **_ignored,
+) -> np.ndarray:
+    """Row-sharded rp-forest core distances, (n,) float64 (the
+    ``fetch_knn=False`` contract; zeros at ``min_pts <= 1``) — the
+    reference's per-shard tree builds and ring panel exchange.
+
+    Geometry (the reference's, copied exactly): ``shard = ceil(n / D)``
+    rows a shard, zero pad rows on the last shards; ``leaf_size`` clamped
+    at the shard's scale; the normals, shared by every shard, from
+    ``np.random.default_rng(SeedSequence([seed, shard, depth]))``, so
+    another D builds other trees. Each shard builds T trees over its own
+    padded rows (``ops/rpforest._build_one_tree``) on its device.
+
+    Exchange: every shard seeds its rows' lists with itself at distance 0,
+    then visits its own panel and the panels ``(me - s) % D``. A visit
+    routes the resident rows down the visiting shard's trees
+    (``ops/rpforest.route_queries``), takes the reached leaves' real
+    members (T x max-leaf panel-local candidates a row, one B7 launch a
+    chunk of rows within the rescan's element budget,
+    ``ops/cuda_forest.forest_rescan_topk``, with the visiting panel as its
+    data and the panel's row count as its sentinel), offsets the ids to
+    global ones and folds the k best into the running lists under
+    ``ops/lexmerge.dedup_lex_merge``. That merge keeps each id at its
+    smallest offered distance, so the seed and a computed self-distance
+    resolve as the reference's per-tree merges resolve them. There is no
+    neighbour-of-neighbour rescan: this tier is its own approximation,
+    held to the reference's own sharded run, and to recall.
+
+    ``knn_precision="bf16"`` (euclidean) runs B7's bf16 tiles, centred on
+    8-row query tiles where the reference centres each shard's block: held
+    to recall and ARI only. ``**_ignored`` takes the replicated tier's
+    other knobs (``rescan_rounds``, ``knn_backend``). Trace events:
+    ``shard_knn_build``, ``shard_panel_sweep`` (with ``ring_device_wall``
+    events) and ``shard_knn_exchange`` with a sampled host ``recall_at_k``
+    (euclidean).
+    """
+    from hdbscan_tpu_torch.core.distances import METRICS
+    from hdbscan_tpu_torch.ops.cuda_forest import (
+        RESCAN_ROW_TILE,
+        euclid_form,
+        forest_rescan_topk,
     )
+    from hdbscan_tpu_torch.ops.lexmerge import dedup_lex_merge
+    from hdbscan_tpu_torch.ops.rpforest import (
+        _RESCAN_ELEM_BUDGET,
+        _build_one_tree,
+        _geometry,
+        _heap_base,
+        _leaf_layout,
+        _normals,
+        forest_depth,
+        route_queries,
+    )
+    from hdbscan_tpu_torch.parallel.ring import _emit_ring_trace, _per_device_walls
+
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
+    if knn_precision not in ("f32", "bf16"):
+        raise ValueError(f"unknown knn_precision {knn_precision!r}: f32 | bf16")
+    if knn_precision == "bf16" and metric != "euclidean":
+        raise ValueError(f"knn_precision='bf16' supports euclidean only (got metric={metric!r})")
+    data = np.asarray(data)
+    n, d = data.shape
+    mesh = mesh if mesh is not None else get_mesh()
+    n_dev = device_count(mesh)
+    devs = mesh.devices
+    k_eff = min(max(k or 0, max(min_pts - 1, 1)), n)
+    shard, n_pad = _shard_geometry(n, n_dev)
+    leaf_size = min(max(leaf_size, 2 * k_eff + 2, 8), max(shard, 2))
+    depth = forest_depth(shard, leaf_size)
+    pos_idx, leaf_mask = _leaf_layout(shard, depth)
+    n_leaves, lmax = pos_idx.shape
+    num_nodes = _heap_base(depth)
+    normals = _normals(seed, shard, depth, trees, d).astype(dtype)
+    x = np.zeros((n_pad, d), dtype)
+    x[:n] = data
+
+    t_up = time.monotonic()
+    rows = [torch.as_tensor(x[s * shard : (s + 1) * shard], device=dev)
+            for s, dev in enumerate(devs)]
+    normals_on = {dev: torch.as_tensor(normals, device=dev) for dev in mesh.distinct()}
+    upload_s = time.monotonic() - t_up
+
+    # Per shard: T trees over its own rows, with their leaves' members
+    # (panel-local ids) and heap thresholds.
+    t0 = time.monotonic()
+    geom_on = {dev: _geometry(shard, depth, dev) for dev in mesh.distinct()}
+    pos_on = {dev: torch.as_tensor(pos_idx, device=dev) for dev in mesh.distinct()}
+    members, thresholds = [], []
+    for s, dev in enumerate(devs):
+        mem = torch.empty((trees, n_leaves, lmax), dtype=torch.int32, device=dev)
+        thr = torch.zeros((trees, max(num_nodes, 1)), dtype=rows[s].dtype, device=dev)
+        for t in range(trees):
+            perm, th = _build_one_tree(rows[s], normals_on[dev][t], geom_on[dev])
+            mem[t] = perm[pos_on[dev]].to(torch.int32)
+            thr[t, :num_nodes] = th
+        members.append(mem)
+        thresholds.append(thr)
+    if trace is not None:
+        trace("shard_knn_build", wall_s=round(time.monotonic() - t0, 6), fused=False,
+              devices=n_dev, trees=trees, depth=depth, leaf_size=leaf_size, max_leaf=lmax,
+              n=n, d=d)
+
+    from hdbscan_tpu_torch.utils.flops import counter as _flops
+
+    # Each query visits T leaves in each of D shards: T * D * Lmax candidates.
+    _flops.add_scan(n_pad * trees * n_dev, lmax, d)
+    # One B7 launch a visit when the candidate panel keeps the distance form
+    # of one tree's leaf (the reference computes a leaf at a time), else
+    # one a tree.
+    same_form = (metric != "euclidean"
+                 or euclid_form(1, trees * lmax, d) == euclid_form(1, lmax, d))
+    groups = [list(range(trees))] if same_form else [[t] for t in range(trees)]
+    t0 = time.monotonic()
+    real = [max(0, min(shard, n - s * shard)) for s in range(n_dev)]
+    lists = {}
+    for me, dev in enumerate(devs):
+        m = real[me]
+        if m == 0:
+            continue
+        bd = torch.full((m, k_eff), float("inf"), dtype=rows[me].dtype, device=dev)
+        bi = torch.full((m, k_eff), n, dtype=torch.int32, device=dev)
+        bd[:, 0] = 0.0  # self at distance 0
+        bi[:, 0] = torch.arange(me * shard, me * shard + m, dtype=torch.int32, device=dev)
+        lists[me] = (bd, bi)
+    mask_on = {dev: torch.as_tensor(leaf_mask, device=dev) for dev in mesh.distinct()}
+    # A visit's query rows go in equal chunks, of whole bf16 row tiles,
+    # whose candidate panel keeps within the rescan's element budget: rows
+    # x T x max-leaf ids on the card (B7 gathers no rows), times d where the
+    # plain version gathers the candidates' coordinates. Every step is per
+    # row, so the chunking does not change the lists.
+    per_row = trees * lmax * (d if rows[0].device.type == "cpu" else 1)
+    cap = max(RESCAN_ROW_TILE, _RESCAN_ELEM_BUDGET // per_row)
+    n_chunks = -(-max(real) // cap)
+    chunk = -(-max(real) // max(n_chunks, 1) // RESCAN_ROW_TILE) * RESCAN_ROW_TILE
+    for step in range(n_dev):
+        for me, dev in enumerate(devs):
+            if me not in lists:
+                continue
+            src = (me - step) % n_dev
+            off = src * shard
+            panel, mem_src = rows[src].to(dev), members[src].to(dev)
+            thr_src = thresholds[src].to(dev)
+            parts_d, parts_i = [], []
+            for a in range(0, real[me], chunk):
+                q = rows[me][a : min(a + chunk, real[me])]
+                node = route_queries(q, normals_on[dev], thr_src, depth)
+                bd, bi = lists[me][0][a : a + chunk], lists[me][1][a : a + chunk]
+                for grp in groups:
+                    cand = torch.cat([mem_src[t][node[t]] for t in grp], 1)
+                    ok = torch.cat([mask_on[dev][node[t]] for t in grp], 1) & (cand + off < n)
+                    cids = torch.where(ok, cand, shard).to(torch.int32)
+                    td, ti = forest_rescan_topk(q, panel, cids, k_eff, metric,
+                                                precision=knn_precision, sentinel=shard)
+                    ti = torch.where(ti == shard, n, ti + off).to(torch.int32)
+                    bd, bi = dedup_lex_merge(torch.cat([bd, td], 1), torch.cat([bi, ti], 1),
+                                             k_eff, n)
+                parts_d.append(bd)
+                parts_i.append(bi)
+            lists[me] = (torch.cat(parts_d), torch.cat(parts_i))
+    walls = _per_device_walls(mesh, t0)
+    wall = time.monotonic() - t0
+    # One visiting panel a step: the shard's points plus its trees' leaf
+    # members and heap thresholds.
+    itemsize = np.dtype(dtype).itemsize
+    panel_bytes = (shard * d * itemsize + trees * n_leaves * lmax * 4
+                   + trees * num_nodes * itemsize)
+    _emit_ring_trace(
+        trace, "shard_panel_sweep", wall, walls, n_dev, 0, rows=n, trees=trees, shard=shard,
+        upload_s=round(upload_s, 6), comm_bytes=(n_dev - 1) * panel_bytes,
+        flops=2.0 * n_pad * trees * n_dev * lmax * d,
+    )
+    kth_col = min(max(min_pts - 1, 1), n) - 1
+    t0 = time.monotonic()
+    live = sorted(lists)
+    kth = fetch([lists[s][0][:, kth_col] for s in live]).astype(np.float64)
+    if trace is not None:
+        fields = dict(n=n, k=k_eff, trees=trees, devices=n_dev,
+                      candidates=trees * n_dev * lmax)
+        if recall_sample and metric == "euclidean":
+            ids = fetch([lists[s][1] for s in live]).astype(np.int64)
+            recall, rows_used = _host_recall(data, ids, k_eff, recall_sample)
+            fields["recall_at_k"] = recall
+            fields["recall_rows"] = rows_used
+        trace("shard_knn_exchange", wall_s=round(time.monotonic() - t0, 6), **fields)
+    if min_pts <= 1:
+        return np.zeros(n, np.float64)
+    return kth
 
 
 class _Shards:

@@ -73,7 +73,7 @@ takes. Inputs are built once into ``.torch_build/bench/``. Where the tree
 has ``cuda_forest.leaf_blocks`` it reports each launch's grid.
 
 ``merge`` (B6): the fold of the per-tree lists a forest query's B5 launches
-make (``cuda_forest.forest_knn_fused``'s stacks) at the 3b fit's shape (the
+make (``rpforest.forest_knn_shards``'s stacks) at the 3b fit's shape (the
 Skin grid, 4 trees of leaf 1,024: 4 x 245,057 x 15), at the 3c fit's (the
 1,048,576 x 8 blobs: 4 x 1,048,576 x 15), on the 3b grid's bf16 stacks at
 the bf16 route's over-provisioned kk = min(2k, 128, n) = 30, and at the 3h
@@ -702,7 +702,7 @@ def merge_stacks(data: Data) -> dict:
     """Shape name -> getter of (stack_d, stack_i, kk, n): the per-tree lists
     of a forest query at kk, made by B5 over every leaf batch of every tree
     (in ``precision``) and scattered to point-major rows as
-    ``cuda_forest.forest_knn_fused`` does."""
+    ``rpforest.forest_knn_shards`` does."""
     import numpy as np
 
     from hdbscan_tpu_torch.utils.datasets import make_gauss

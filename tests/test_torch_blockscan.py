@@ -187,9 +187,20 @@ def test_single_group_and_ring_refused():
     u, v, w = port_bs.boruvka_glue_edges_blockpruned(pts, np.zeros(200, np.int64),
                                                      np.zeros(200), device="cpu")
     assert len(u) == len(v) == len(w) == 0
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_bs.boruvka_glue_edges_blockpruned(pts, np.arange(200) // 100, np.zeros(200),
-                                               device="cpu", scan_backend="ring")
+    # The ring's dense rounds (every round dense here), once refused: the
+    # host route's edges, on a mesh of three CPU shards.
+    import torch
+
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    args = (pts, np.arange(200) // 50, np.zeros(200))
+    host = port_bs.boruvka_glue_edges_blockpruned(*args, device="cpu", dense_work_ratio=0.0)
+    ring = port_bs.boruvka_glue_edges_blockpruned(
+        *args, device="cpu", dense_work_ratio=0.0, scan_backend="ring",
+        mesh=get_mesh([torch.device("cpu")] * 3))
+    assert len(host[0]) == 3
+    for a, b in zip(ring, host):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="triangle"):
         port_bs.BlockGeometry.build(pts, np.zeros(200, np.int64), "cosine", device="cpu")
 

@@ -263,8 +263,8 @@ def test_fit_predict_cli_equals_reference(tmp_path, grid_file, capsys, fit_extra
         (["file=MISSING", "watchdog=30"], "A11"),
         (["file=MISSING", "skew_threshold=3"], "A11"),
         (["file=MISSING", "straggler_rounds=5"], "A11"),
-        (["file=MISSING", "clusterName=auto"], "A9"),
-        (["file=MISSING", "clusterName=localhost:1234,0,2"], "A9"),
+        (["file=MISSING", "clusterName=auto"], "A9b"),
+        (["file=MISSING", "clusterName=localhost:1234,0,2"], "A9b"),
     ],
 )
 def test_unported_flags_exit_2_before_reading_data(tmp_path, capsys, argv, item):
@@ -277,18 +277,29 @@ def test_unported_flags_exit_2_before_reading_data(tmp_path, capsys, argv, item)
 
 
 @pytest.mark.parametrize(
-    "extra,item",
-    [
-        (["processing_units=256", "fit_sharding=sharded"], "A9"),
-    ],
+    "extra,mode",
+    [(["processing_units=256", "fit_sharding=sharded"], "mr-sharded (3 levels)")],
+    ids=["mr_sharded"],
 )
-def test_unported_routes_exit_2(tmp_path, grid_file, capsys, extra, item):
-    """A fit route that is not ported raises ``NotImplementedError``; the
-    CLI prints it and exits 2, and runs no other route instead."""
-    argv = [f"file={grid_file}", *BASE, *extra, f"out_dir={tmp_path / 'out'}", "--device", "cpu"]
-    assert port_main(argv) == 2
-    assert f"(ROADMAP {item})" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "out")
+def test_once_refused_routes_equal_reference_cli(tmp_path, grid_file, capsys, extra, mode):
+    """The MR route with ``fit_sharding=sharded``, once refused: the port on
+    a mesh of four CPU shards (``--device cpu,cpu,cpu,cpu``) writes the
+    reference CLI's five files (its 8-device mesh) byte for byte."""
+    argv = ["fit", f"file={grid_file}", *BASE, "k=0.1", *extra]
+    with jax.enable_x64(False):
+        assert ref_main(argv + [f"out_dir={tmp_path / 'ref'}"]) == 0
+    ref_out = capsys.readouterr().out
+    trace = str(tmp_path / "trace.jsonl")
+    assert port_main(argv + [f"out_dir={tmp_path / 'port'}", "--device", "cpu,cpu,cpu,cpu",
+                             "--trace-out", trace]) == 0
+    out = capsys.readouterr().out
+    assert _summary(out) == _summary(ref_out)
+    assert f", {mode}, " in out.splitlines()[0]
+    ref_files, port_files = _files(tmp_path / "ref"), _files(tmp_path / "port")
+    assert sorted(port_files) == sorted(ref_files) and len(ref_files) == 5
+    for name in ref_files:
+        assert port_files[name] == ref_files[name], name
+    _check_trace(trace)
 
 
 def test_bad_flag_missing_file_and_help(capsys):

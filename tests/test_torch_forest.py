@@ -144,7 +144,8 @@ def test_forest_knn_fused_matches_reference(integer):
     data = _data(np.random.default_rng(7), 300, 4, 4, integer)
     forest = rpf.build_forest(data, trees=3, leaf_size=32, seed=1)
     ref = rpf.forest_knn(jnp.asarray(data), forest, 6, "euclidean")
-    got = cf.forest_knn_fused(torch.as_tensor(data), _port_forest(forest), 6, "euclidean")
+    got = port_rpf.forest_knn(torch.as_tensor(data), _port_forest(forest), 6, "euclidean",
+                              backend="fused")
     _assert_lists(*got, *ref, integer=integer)
 
 
@@ -157,9 +158,10 @@ def test_rescan_round_fused_matches_reference(integer):
     dd = jnp.asarray(data)
     best_d, best_i = rpf.forest_knn(dd, forest, 5, "euclidean")
     ref = rpf.rescan_round(dd, best_d, best_i, 5, "euclidean", 0, 1, sentinel=len(data))
-    got = cf.rescan_round_fused(
+    got = port_rpf.rescan_round(
         torch.as_tensor(data), torch.as_tensor(np.asarray(best_d)),
         torch.as_tensor(np.asarray(best_i)), 5, "euclidean", 0, 1, sentinel=len(data),
+        backend="fused",
     )
     _assert_lists(*got, *ref, integer=integer)
 

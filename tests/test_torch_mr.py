@@ -109,17 +109,26 @@ def test_degenerate_subset_chain():
 
 
 @pytest.mark.parametrize(
-    "overrides,kw,entry",
-    [
-        ({"fit_sharding": "sharded"}, {}, "A9"),
-        ({"scan_backend": "ring"}, {}, "A9"),
-        ({}, {"mesh": object()}, "A9"),
-    ],
+    "overrides",
+    [{"fit_sharding": "sharded"}, {"scan_backend": "ring"}, {}],
+    ids=["sharded", "ring", "mesh"],
 )
-def test_unported_options_raise(overrides, kw, entry):
-    data = np.random.default_rng(0).normal(size=(50, 2))
-    with pytest.raises(NotImplementedError, match=entry):
-        port_mr.fit(data, PortParams(**{**BASE, **overrides}), device="cpu", **kw)
+def test_mesh_options_once_refused_match_reference(overrides):
+    """``fit_sharding=sharded``, ``scan_backend=ring`` and a mesh with the
+    host engine, once refused: bitwise equal to the reference's fit over
+    two of its devices (the wider cases are in ``tests/test_torch_mr_mesh.py``)."""
+    import jax
+    import torch
+
+    from hdbscan_tpu.parallel.mesh import get_mesh as ref_get_mesh
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    data = np.round(make_gauss(600, dims=3, n_clusters=4, separation=8.0, seed=4)[0] * 2.0)
+    kw = {**BASE, **overrides}
+    ref = ref_mr.fit(data, RefParams(**kw), mesh=ref_get_mesh(jax.devices()[:2]))
+    port = port_mr.fit(data, PortParams(**kw), dtype=np.float64,
+                       mesh=get_mesh([torch.device("cpu")] * 2))
+    _assert_bitwise(port, ref)
 
 
 @pytest.mark.parametrize(

@@ -227,18 +227,27 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 
 
 @pytest.mark.parametrize(
-    "overrides,entry",
-    [
-        ({"fit_sharding": "sharded", "knn_index": "rpforest"}, "A9"),
-    ],
+    "overrides",
+    [{"fit_sharding": "sharded", "knn_index": "rpforest", "mst_backend": "host"}],
+    ids=["sharded_rpforest"],
 )
-def test_unported_routes_raise(overrides, entry):
-    from hdbscan_tpu_torch.models import exact
+def test_once_refused_routes_match_reference(overrides):
+    """The sharded fit's rp-forest tier, once refused: the reference's fit
+    on two of its devices and the port's on two CPU shards give the same
+    labels and core distances (integer grid, d = 3)."""
+    import jax
 
-    data = np.random.default_rng(0).normal(size=(40, 2))
-    with pytest.raises(NotImplementedError, match=entry):
-        exact.fit(data, PortParams(min_points=3, min_cluster_size=3, **overrides),
-                  device="cpu")
+    from hdbscan_tpu.models import exact as ref_exact
+    from hdbscan_tpu.parallel.mesh import get_mesh as ref_get_mesh
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.parallel.mesh import get_mesh
+
+    data = np.random.default_rng(0).integers(0, 12, size=(400, 3)).astype(float)
+    kw = dict(min_points=5, min_cluster_size=10, rpf_trees=2, rpf_leaf_size=32, **overrides)
+    ref = ref_exact.fit(data, RefParams(**kw), mesh=ref_get_mesh(jax.devices()[:2]))
+    port = exact.fit(data, PortParams(**kw), mesh=get_mesh([torch.device("cpu")] * 2))
+    np.testing.assert_array_equal(port.core_distances, ref.core_distances)
+    np.testing.assert_array_equal(port.labels, ref.labels)
 
 
 @pytest.mark.parametrize(

@@ -216,18 +216,27 @@ def test_fit_sharding_resolution():
         np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize(
-    "call",
-    [
-        lambda: ring.ring_knn_core_distances_rows(np.zeros((4, 2)), np.arange(2), 2),
-        lambda: shard.shard_core_distances(np.zeros((4, 2)), 2, mesh=_cpu_mesh(2),
-                                           index="rpforest"),
-    ],
-    ids=["ring_rows", "sharded_rpforest"],
-)
-def test_unported_sharded_pieces_raise(call):
-    with pytest.raises(NotImplementedError, match="A9"):
-        call()
+@pytest.mark.parametrize("piece", ["ring_rows", "sharded_rpforest"])
+def test_once_refused_sharded_pieces_match_reference(piece):
+    """The ring rows scan and the sharded rp-forest, once refused: bitwise
+    equal to the reference's on two of its devices (the wider cases are in
+    ``tests/test_torch_shard_forest.py``)."""
+    from hdbscan_tpu.parallel import ring as ref_ring_mod
+    from hdbscan_tpu.parallel import shard as ref_shard_mod
+
+    data = _grid(5, 300)
+    ref_mesh = ref_get_mesh(jax.devices()[:2])
+    if piece == "ring_rows":
+        rows = np.arange(0, 300, 7)
+        want = ref_ring_mod.ring_knn_core_distances_rows(data, rows, 6, mesh=ref_mesh, **TILES)
+        got = ring.ring_knn_core_distances_rows(data, rows, 6, mesh=_cpu_mesh(2), **TILES)
+    else:
+        opts = dict(trees=2, leaf_size=32, seed=1)
+        want = ref_shard_mod.shard_core_distances(data, 6, mesh=ref_mesh, index="rpforest",
+                                                  index_opts=opts)
+        got = shard.shard_core_distances(data, 6, mesh=_cpu_mesh(2), index="rpforest",
+                                         index_opts=opts)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("kind", ["shard_scanner", "ring_scanner"])
