@@ -269,6 +269,30 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    rounds; equal to 3b). The kernels line gains
    ``forest_rescan_topk_shard``, B7 at one recorded shard visit. ``python3
    chip_smoke.py 3n`` builds the kernels and runs phases 3 and 3n alone;
+3o. streaming ingest and incremental maintenance
+   (``hdbscan_tpu_torch/stream``, ``incremental``): ``3o_stream_skin``,
+   the 3m serve_skin model served with ``ingest=True`` and a WAL, one
+   client's ``POST /ingest`` batches of 256 rows: 128 novel queries of
+   the bench sampler's shape, then rows moved off the grid until the
+   drift they flag has kicked one background re-fit on the card, it has
+   published, and 64 batches more; ``POST /swap`` swaps it in; each
+   batch's labels equal the sequential predict of the generation that
+   served it, the window launches B2 and no B7, and the ``/ingest`` p50,
+   p99 and rows/s (the requests with the re-fit running apart from the
+   rest), WAL append time, re-fit wall and swap wall are printed;
+   ``3o_stream_card_vs_cpu``, a 4,096-row model under the ``xla``,
+   ``fused`` and ``rpforest`` backends, one ingest script on the card and
+   on the CPU with equal responses, buffer and drift state;
+   ``3o_maintain``, ``stream_maintain=incremental`` on a 4,096-row model
+   (the host bootstrap timed), the maintained model (padded to its
+   capacity with sentinel rows) swapping in, its MST digests and its
+   predict after every batch equal to a CPU-only server's fed the same
+   rows, the card server reopened on its WAL verifying the watermark, and
+   a ``serve --ingest`` subprocess killed with SIGKILL and restarted
+   recovering its acknowledged state. B2 and B7 are held against their
+   plain versions on the ingest path's own recorded calls, every B2 call
+   of the maintained cell's card server among them. ``python3
+   chip_smoke.py 3o`` builds the kernels and runs phases 3 and 3o alone;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -434,6 +458,24 @@ MESH_FOREST_CELLS = (
      ("knn_kbest", "knn_kbest_panel", "segmin")),
 )
 MESH_SUB_MR = 6000
+#: Phase 3o, streaming: the Skin stream's batches in distribution, then
+#: shifted ones (moved off the 0-255 grid) until the drift-kicked re-fit
+#: has published and STREAM_TAIL more (at most STREAM_SHIFT_MAX). The drift
+#: sketch counts every row since the last swap, so the shifted stretch
+#: flags at about an eighth of the rows, and the re-fit pool holds every
+#: novel row (about 70% of an in-distribution batch): 128 batches give a
+#: pool near 38,000 rows, whose dense (n, n) float32 matrices take 5.8 GB
+#: each; 256 would near 65,000 rows and 17 GB a matrix. The maintenance
+#: cell's model rows (its host bootstrap is O(n^2 d): 8,192 rows take ~20 s
+#: a bootstrap, and the cell bootstraps five times) and novel batches.
+STREAM_IN = 128
+STREAM_TAIL = 64
+STREAM_SHIFT_MAX = 1024
+STREAM_ROWS = 256
+STREAM_SHIFT = 300.0
+N_MAINTAIN = 4096
+MAINTAIN_BATCHES = 8
+MAINTAIN_ROWS = 48
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -2251,17 +2293,20 @@ def mr_card_vs_cpu() -> list[str]:
 
 
 class CallRecorder:
-    """Wraps ``mod.name`` during a fit to keep the arguments of every call;
-    the wrapped call runs (and launches and counts) as before."""
+    """Wraps ``mod.name`` during a window to count its calls and keep the
+    arguments ``(args, kw)`` of the first ``keep`` (of every call when
+    None); the wrapped call runs (and launches and counts) as before."""
 
-    def __init__(self, mod, name: str):
-        self.mod, self.name = mod, name
+    def __init__(self, mod, name: str, keep: int | None = None):
+        self.mod, self.name, self.keep = mod, name, keep
         self.orig = getattr(mod, name)
-        self.calls = []
+        self.calls, self.count = [], 0
 
     def __enter__(self):
         def rec(*args, **kw):
-            self.calls.append(args)
+            self.count += 1
+            if self.keep is None or len(self.calls) < self.keep:
+                self.calls.append((args, kw))
             return self.orig(*args, **kw)
 
         setattr(self.mod, self.name, rec)
@@ -2282,7 +2327,7 @@ class WindowRecorder(CallRecorder):
     def main_chunk(self, ev):
         """The largest (most row tiles) chunk of the rescan's main phase:
         its calls are the last ``chunks`` of the ``knn_window_scan`` event."""
-        main = self.calls[-ev["knn_window_scan"][0]["chunks"]:]
+        main = [args for args, _ in self.calls[-ev["knn_window_scan"][0]["chunks"]:]]
         return max(main, key=lambda args: args[2].shape[0])
 
 
@@ -2933,8 +2978,8 @@ def wide_phase(launches_out: dict) -> tuple[list[str], list[dict]]:
     ))
     rows += panel_times(s129, cards["sharded 4000x129"], launches, mesh, k=15, suffix="_wide")
     # The largest recorded window call (at this size the probe phase's).
-    rows.append(window_time(max(recorder.calls, key=lambda args: args[2].shape[0]), launches,
-                            "knn_window_wide"))
+    rows.append(window_time(max((args for args, _ in recorder.calls),
+                                key=lambda args: args[2].shape[0]), launches, "knn_window_wide"))
     return errors, rows
 
 
@@ -4150,6 +4195,536 @@ def mesh_phase(data, card, fres=None, qres=None) -> tuple[list[str], dict, list[
     return errors, launches, rows
 
 
+def ingest_kernels_check(label, recorders, required) -> list[str]:
+    """Each kept stream-path call of B2 (``knn_kbest_panel``), B7
+    (``forest_rescan_topk``) and K3 (``uf_scan``, the re-fit's finalize)
+    again through the kernel and through its plain version on the same
+    card tensors: bitwise equal, or an error; an error too when the
+    recorder of a kernel in ``required`` kept no call."""
+    import torch
+
+    from hdbscan_tpu_torch.core import mst_device
+    from hdbscan_tpu_torch.ops import cuda_forest as cf
+    from hdbscan_tpu_torch.ops import cuda_knn
+
+    plain = {"knn_kbest_panel": cuda_knn.knn_kbest_panel_plain,
+             "forest_rescan_topk": cf.forest_rescan_topk_plain,
+             "uf_scan": mst_device.uf_scan_plain}
+    errors, held = [], 0
+    for rec in recorders:
+        for args, kw in rec.calls:
+            got = rec.orig(*args, **kw)
+            want = plain[rec.name](*args, **kw)
+            torch.cuda.synchronize()
+            held += 1
+            if not _bits_same(got, want):
+                errors.append(f"{label}: {rec.name} differs from its plain version on a "
+                              f"stream-path call ({tuple(args[0].shape)})")
+    errors += [f"{label}: no {r.name} call recorded on the stream path" for r in recorders
+               if r.name in required and not r.calls]
+    names = ", ".join(f"{r.name} {len(r.calls)} of {r.count} calls" for r in recorders)
+    print(f"3o {label}: kernel vs plain on the stream path's own calls ({names}): "
+          f"{'bitwise' if not errors else 'FAILED'} ({held} held)")
+    return errors
+
+
+def _json_state(obj) -> str:
+    return json.dumps(obj.state_dict(), sort_keys=True)
+
+
+def latency_stats(lat, rows: int) -> dict:
+    """One stretch of sequential single-client requests: its count, p50 and
+    nearest-rank p99 (the maximum when fewer than 100 requests), and rows
+    a second over the summed request walls."""
+    import numpy as np
+
+    ms = np.sort(np.array(lat)) * 1e3
+    n = len(ms)
+    if not n:
+        return dict(requests=0)
+    return dict(requests=n, p50_ms=float(ms[int(0.5 * (n - 1))]),
+                p99_ms=float(ms[int(np.ceil(0.99 * n)) - 1]),
+                p99_is_max=n < 100, rows_per_s=n * rows / float(np.sum(lat)))
+
+
+def _lat_text(st) -> str:
+    if not st["requests"]:
+        return "no requests"
+    tail = f"max of {st['requests']}" if st["p99_is_max"] else "p99"
+    return (f"{st['requests']} requests, p50 {st['p50_ms']:.3f} ms, {tail} "
+            f"{st['p99_ms']:.3f} ms, {st['rows_per_s']:.0f} rows/s")
+
+
+def stream_skin_cell(here, data, res, card, tmp) -> tuple[list[str], dict]:
+    """Phase 3o (a), ``3o_stream_skin``: the 3m serve_skin model served
+    with ``ingest=True``, a WAL and ``stream_reload=manual`` over HTTP, one
+    client sending 256-row ``POST /ingest`` batches one at a time:
+    STREAM_IN novel queries of the bench sampler's shape, then the same
+    shape moved off the grid (+300 on every axis), which flags drift and
+    kicks one background re-fit (the dense fit of the re-fit pool on the
+    card, beside the ingest traffic) that publishes into ``model_dir`` and
+    is staged; the shifted batches go on until the re-fit has published
+    and STREAM_TAIL more. ``POST /swap`` then swaps it in. Latency and
+    rows a second are reported for the requests with the re-fit running
+    and for the rest. Every batch's labels (kept at the buffer's absorb)
+    must equal the sequential predict of the served model, and a ``POST
+    /predict`` after the swap the re-fit artifact's; the launch window (the
+    stream, the re-fit and the swap) must launch B2 and K3 (the re-fit's
+    finalize builds its merge forest on the card) and no B7; B2's own
+    ingest calls and K3's call on the re-fit's pool are held against their
+    plain versions."""
+    import urllib.request
+
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.core import mst_device
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_forest, cuda_knn
+    from hdbscan_tpu_torch.serve import ClusterModel, ClusterServer, Predictor
+    from hdbscan_tpu_torch.utils.tracing import Tracer
+
+    errors = []
+    params = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE,
+                           stream_refit_budget=10**9, stream_reload="manual")
+    model = ClusterModel.load(res.to_cluster_model(data, params).save(
+        os.path.join(tmp, "skin.npz")))
+    ins = np.split(novel_queries(data, STREAM_IN * STREAM_ROWS, SEED + 90), STREAM_IN)
+    shifted = np.split(novel_queries(data, STREAM_SHIFT_MAX * STREAM_ROWS, SEED + 94)
+                       + STREAM_SHIFT, STREAM_SHIFT_MAX)
+    tracer = Tracer()
+    t = time.perf_counter()
+    srv = ClusterServer(model, port=0, tracer=tracer, ingest=True, params=params,
+                        model_dir=os.path.join(tmp, "skin_models"),
+                        wal_dir=os.path.join(tmp, "skin_wal"))
+    start_s = time.perf_counter() - t
+    kept, wal_s, span, snaps = [], [], [], []
+    absorb, append = srv.buffer.absorb, srv.journal.append_ingest
+    snapshot = srv.journal.maybe_snapshot
+    request, on_publish = srv.refitter.request, srv.refitter.on_publish
+
+    def absorb_kept(points, labels, prob):
+        kept.append((np.array(points), np.array(labels), np.array(prob)))
+        return absorb(points, labels, prob)
+
+    def append_timed(*a):
+        t0 = time.perf_counter()
+        out = append(*a)
+        wal_s.append(time.perf_counter() - t0)
+        return out
+
+    def snapshot_timed(*a, **kw):
+        t0 = time.perf_counter()
+        took = snapshot(*a, **kw)
+        if took:
+            snaps.append((len(outs), time.perf_counter() - t0))
+        return took
+
+    def request_timed(*a):
+        started = request(*a)
+        if started:
+            span.append(time.perf_counter())
+        return started
+
+    def publish_timed(*a):
+        out = on_publish(*a)
+        span.append(time.perf_counter())
+        return out
+
+    srv.buffer.absorb, srv.journal.append_ingest = absorb_kept, append_timed
+    srv.journal.maybe_snapshot = snapshot_timed
+    srv.refitter.request, srv.refitter.on_publish = request_timed, publish_timed
+    url = f"http://{srv.host}:{srv.port}"
+
+    def post(route, obj):
+        req = urllib.request.Request(url + route, data=json.dumps(obj).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    lat, when, outs = [], [], []
+    probe = ins[0] + STREAM_SHIFT
+
+    def send(pts):
+        t0 = time.perf_counter()
+        outs.append(post("/ingest", {"points": pts.tolist()}))
+        lat.append(time.perf_counter() - t0)
+        when.append((t0, t0 + lat[-1]))
+
+    try:
+        srv.start()
+        with CallRecorder(cuda_knn, "knn_kbest_panel", keep=4) as b2, \
+                CallRecorder(cuda_forest, "forest_rescan_topk", keep=4) as b7, \
+                CallRecorder(mst_device, "uf_scan", keep=1) as k3:
+            cuda_build.reset_launches()
+            t_all = time.perf_counter()
+            for pts in ins:
+                send(pts)
+            tail = 0
+            for pts in shifted:
+                send(pts)
+                if span and not srv.refitter.busy:
+                    tail += 1
+                    if tail == STREAM_TAIL:
+                        break
+            wall = time.perf_counter() - t_all
+            t0 = time.perf_counter()
+            srv.refitter.join(timeout=300)
+            refit_tail_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            swap = post("/swap", {})
+            swap_s = time.perf_counter() - t0
+            after = post("/predict", {"points": probe.tolist()})
+            torch_sync()
+            launches = {name: c for name, c in cuda_build.LAUNCHES.items() if c}
+        errors += ingest_kernels_check("3o_stream_skin", [b2, b7, k3],
+                                       ("knn_kbest_panel", "uf_scan"))
+    finally:
+        srv.close()
+    kicks = [i for i, o in enumerate(outs) if o["refit_started"]]
+    psi = [o["drift"]["value"] for o in outs]
+    print(f"3o_stream_skin: server start {start_s:.3f} s; {len(outs)} batches of {STREAM_ROWS} "
+          f"rows ({STREAM_IN} in distribution, then {len(outs) - STREAM_IN} shifted), absorbed "
+          f"a batch in distribution {np.mean([o['absorbed'] for o in outs[:STREAM_IN]]):.1f}, "
+          f"shifted {np.mean([o['absorbed'] for o in outs[STREAM_IN:]]):.1f}; drift psi at "
+          f"the last in-distribution batch {psi[STREAM_IN - 1]}, then "
+          f"{psi[STREAM_IN:STREAM_IN + 32]}; re-fit kicked at batch {kicks}; "
+          f"POST /swap {swap}")
+    if (len(kicks) != 1 or kicks[0] < STREAM_IN or len(span) != 2
+            or srv.refitter.refits_ok != 1 or swap.get("generation") != 2
+            or after.get("generation") != 2):
+        errors.append(f"3o_stream_skin: expected one re-fit in the shifted stretch and one "
+                      f"swap, got kicks {kicks}, re-fits {srv.refitter.refits_ok} "
+                      f"({srv.refitter.last_error}), swap {swap}")
+    # Every batch's answer against the sequential predict of the served
+    # model, and the swapped-in model's against the re-fit artifact's.
+    pred = Predictor(model)
+    bad = sum(not (np.array_equal(w[0], labels) and np.array_equal(w[1], prob))
+              for pts, labels, prob in kept for w in [pred.predict(pts)])
+    swapped = Predictor(ClusterModel.load(srv.refitter.last_path)).predict(probe)[0]
+    same_after = after.get("labels") == swapped.tolist()
+    print(f"3o_stream_skin: {len(kept)} batches' labels and probabilities vs the sequential "
+          f"predict: {bad} differ; after the swap /predict "
+          f"{'equals' if same_after else 'DIFFERS from'} the re-fit artifact's predict")
+    if bad or not same_after or len(kept) != len(outs):
+        errors.append(f"3o_stream_skin: {bad} of {len(kept)} ingest batches differ from the "
+                      f"sequential predict, after the swap equal {same_after}")
+    if (not launches.get("knn_kbest_panel") or not launches.get("uf_scan")
+            or launches.get("forest_rescan_topk")):
+        errors.append(f"3o_stream_skin: launches {launches} are not B2 and K3 alone")
+    # A request ran beside the re-fit when its wall overlaps the re-fit's,
+    # from the kick to the staged publish.
+    t0, t1 = (span + [float("inf")] * 2)[:2]
+    beside = [(a < t1 and b > t0) for a, b in when]
+    refit = next((e for e in tracer.events if e.name == "model_refit"), None)
+    wal = np.sort(np.array(wal_s)) * 1e3
+    stats = dict(in_distribution=latency_stats(lat[:STREAM_IN], STREAM_ROWS),
+                 no_refit=latency_stats([x for x, b in zip(lat, beside) if not b], STREAM_ROWS),
+                 refit_running=latency_stats([x for x, b in zip(lat, beside) if b],
+                                             STREAM_ROWS),
+                 window_rows_per_s=len(outs) * STREAM_ROWS / wall,
+                 wal_append_ms=float(np.median(wal)),
+                 wal_append_p99_ms=float(wal[int(np.ceil(0.99 * len(wal))) - 1]),
+                 wal_snapshots_ms={i: w * 1e3 for i, w in snaps},
+                 refit_wall_s=refit.wall_s if refit else None,
+                 refit_rows=refit.fields.get("rows") if refit else None,
+                 swap_wall_s=swap_s, swap_pause_s=swap.get("pause_s"), launches=launches)
+    print(f"3o_stream_skin /ingest, one client, one request at a time: in distribution "
+          f"{_lat_text(stats['in_distribution'])}; every request without the re-fit "
+          f"{_lat_text(stats['no_refit'])}; with the re-fit running "
+          f"{_lat_text(stats['refit_running'])}; the whole window {len(outs)} requests, "
+          f"{stats['window_rows_per_s']:.0f} rows/s; WAL append {stats['wal_append_ms']:.3f} ms "
+          f"a batch (median of {len(wal)}), p99 {stats['wal_append_p99_ms']:.3f} ms; WAL "
+          f"snapshots (every {srv.journal.snapshot_every} appends, the buffer's whole state) "
+          f"at batch: ms {({i: round(w, 3) for i, w in stats['wal_snapshots_ms'].items()})}; "
+          f"re-fit "
+          f"{stats['refit_rows']} rows in {stats['refit_wall_s']} s (its tail after the last "
+          f"batch {refit_tail_s:.3f} s); POST /swap {swap_s:.3f} s (build + warm + install + "
+          f"re-key), pause {swap.get('pause_s')} s; launches {launches}; {card}")
+    return errors, stats
+
+
+def stream_card_vs_cpu_cell(data, card, tmp) -> tuple[list[str], dict]:
+    """Phase 3o (b), ``3o_stream_card_vs_cpu``: a 4,096-row integer-grid
+    model with a forest, one ingest script (novel queries, then shifted
+    rows) on the card and on ``device="cpu"`` under the ``xla``, ``fused``
+    and ``rpforest`` backends: every response, the buffer's and the drift
+    detector's state equal; the card's window launches B2 (B7 under
+    ``rpforest``) alone, each kernel's ingest calls held against its plain
+    version."""
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_forest, cuda_knn, rpforest
+    from hdbscan_tpu_torch.serve import ClusterModel, ClusterServer
+
+    errors, launches = [], {}
+    rng = np.random.default_rng(SEED + 91)
+    sub = data[rng.choice(N_SKIN, 4096, replace=False)]
+    small = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=50,
+                          stream_refit_budget=10**9, stream_drift_threshold=1e9)
+    sforest = rpforest.build_forest(sub, trees=4, leaf_size=1024, seed=SEED)
+    smodel = ClusterModel.from_fit_result(exact.fit(sub, small), sub, small, forest=sforest)
+    ins = novel_queries(sub, 6 * STREAM_ROWS, SEED + 92)
+    batches = np.split(np.concatenate([ins, ins + STREAM_SHIFT]), 12)
+    for backend in ("xla", "fused", "rpforest"):
+        want_k = "forest_rescan_topk" if backend == "rpforest" else "knn_kbest_panel"
+        other = "knn_kbest_panel" if backend == "rpforest" else "forest_rescan_topk"
+        servers = []
+        try:
+            for device in ("cuda", "cpu"):
+                servers.append(ClusterServer(
+                    smodel, backend=backend, port=0, ingest=True, params=small, device=device,
+                    model_dir=os.path.join(tmp, f"cvc_{backend}_{device}")))
+            card_srv, cpu_srv = servers
+            with CallRecorder(cuda_knn, "knn_kbest_panel", keep=2) as b2, \
+                    CallRecorder(cuda_forest, "forest_rescan_topk", keep=2) as b7:
+                cuda_build.reset_launches()
+                card_out = [card_srv.ingest(pts) for pts in batches]
+                torch_sync()
+                got = {name: c for name, c in cuda_build.LAUNCHES.items() if c}
+            cpu_out = [cpu_srv.ingest(pts) for pts in batches]
+            errors += ingest_kernels_check(f"3o_stream_card_vs_cpu {backend}",
+                                           [b7 if backend == "rpforest" else b2], (want_k,))
+            same = (card_out == cpu_out
+                    and _json_state(card_srv.buffer) == _json_state(cpu_srv.buffer)
+                    and _json_state(card_srv.drift) == _json_state(cpu_srv.drift))
+        finally:
+            for s in servers:
+                s.close()
+        launches[f"3o_stream_card_vs_cpu_{backend}"] = got
+        print(f"3o_stream_card_vs_cpu {backend}: {len(batches)} batches, responses, buffer and "
+              f"drift state card vs CPU {'identical' if same else 'DIFFERENT'}; absorbed "
+              f"{[o['absorbed'] for o in card_out]}; card launches {got}")
+        if not same:
+            errors.append(f"3o_stream_card_vs_cpu: card and CPU differ under {backend}")
+        if not got.get(want_k) or got.get(other):
+            errors.append(f"3o_stream_card_vs_cpu {backend}: launches {got}, want {want_k} "
+                          f"alone")
+    print(f"3o_stream_card_vs_cpu: {card}")
+    return errors, launches
+
+
+def _restored(health) -> dict:
+    """The /healthz stream fields the WAL restores."""
+    st = health["stream"]
+    return dict({k: st[k] for k in ("rows_seen", "absorbed_exact", "absorbed_near", "buffered",
+                                    "bubbles", "drift_rows")},
+                maintain={k: st["maintain"][k] for k in ("active", "fallbacks", "n", "inserts",
+                                                         "splices", "pending_edges")})
+
+
+def maintain_cell(here, data, card, tmp) -> tuple[list[str], dict]:
+    """Phase 3o (c), ``3o_maintain``: ``stream_maintain=incremental`` on a
+    model of N_MAINTAIN Skin-shaped rows (its O(n^2 d) host bootstrap
+    timed), fed batches of novel rows off the grid, each in a region of its
+    own: the maintained model
+    swaps in, the maintainer's digests after every batch equal a CPU-only
+    port server's fed the same rows, and so does the served predict of
+    the batch and a fixed probe (labels, probabilities and scores,
+    bitwise) on the model padded to the maintainer's capacity with
+    sentinel rows; every B2 call of the card server's ingests (their
+    predicts, the refreshes' warmups) and of those predicts is held
+    against its plain version; the card server closed and reopened
+    on its WAL verifies the watermark, and a ``serve --ingest`` subprocess
+    of the command line on the card, killed with SIGKILL and restarted on
+    its WAL, recovers to the state it acknowledged."""
+    import signal
+    import urllib.request
+
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_knn
+    from hdbscan_tpu_torch.serve import ClusterServer
+
+    errors = []
+    rng = np.random.default_rng(SEED + 93)
+    sub = data[rng.choice(N_SKIN, N_MAINTAIN, replace=False)]
+    params = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=50,
+                           stream_maintain="incremental", maintain_refresh_every=64,
+                           stream_snapshot_every=4, stream_drift_threshold=1e9)
+    path = exact.fit(sub, params).to_cluster_model(sub, params).save(
+        os.path.join(tmp, "maintain.npz"))
+    # Each batch a 40-wide cube of its own off the grid, so each stays novel
+    # after the last refresh took in the ones before it.
+    batches = [(rng.integers(0, 40, (MAINTAIN_ROWS, 3)) + STREAM_SHIFT + 50 * i).astype(
+        np.float64) for i in range(MAINTAIN_BATCHES)]
+    from hdbscan_tpu_torch.serve import ClusterModel
+
+    def server(device, wal):
+        t0 = time.perf_counter()
+        srv = ClusterServer(ClusterModel.load(path), port=0, ingest=True, params=params,
+                            device=device, model_dir=os.path.join(tmp, f"mm_{device}"),
+                            wal_dir=os.path.join(tmp, wal))
+        return srv, time.perf_counter() - t0
+
+    card_srv, boot_s = server("cuda", "m_card_wal")
+    cpu_srv = None
+    stats = {"bootstrap_s": boot_s}
+    probe = novel_queries(sub, 64, SEED + 95)
+    b2 = CallRecorder(cuda_knn, "knn_kbest_panel")
+    try:
+        cpu_srv, _ = server("cpu", "m_cpu_wal")
+        cuda_build.reset_launches()
+        same, same_pred, walls = True, True, []
+        for pts in batches:
+            # Only the card server's calls are recorded: the CPU server's
+            # predict reaches the same wrapper with host tensors.
+            with b2:
+                t0 = time.perf_counter()
+                got = card_srv.ingest(pts)
+                walls.append(time.perf_counter() - t0)
+                card_pred = card_srv.predictor.predict(np.concatenate([pts, probe]))
+            want = cpu_srv.ingest(pts)
+            same &= (got == want
+                     and card_srv.maintainer.state_dict() == cpu_srv.maintainer.state_dict())
+            cpu_pred = cpu_srv.predictor.predict(np.concatenate([pts, probe]))
+            same_pred &= all(np.array_equal(a, b, equal_nan=True)
+                              for a, b in zip(card_pred, cpu_pred))
+        torch_sync()
+        stats["launches"] = {name: c for name, c in cuda_build.LAUNCHES.items() if c}
+        mark = card_srv.maintainer.state_dict()
+        ms = card_srv.maintain_stats()
+        gen = card_srv.generation
+        padded = len(card_srv.model.data)
+        errors += ingest_kernels_check("3o_maintain", [b2], ("knn_kbest_panel",))
+    finally:
+        card_srv.close()
+        if cpu_srv is not None:
+            cpu_srv.close()
+    print(f"3o_maintain: {N_MAINTAIN}-row model, bootstrap (host k-NN + Prim) in server start "
+          f"{boot_s:.3f} s; {len(batches)} batches of {MAINTAIN_ROWS} novel rows, ingest wall "
+          f"a batch {[round(w, 4) for w in walls]} s; maintain {ms}; generation {gen}; "
+          f"digests card vs CPU after every batch {'identical' if same else 'DIFFERENT'}; "
+          f"predict of each batch and a {len(probe)}-row probe on the served model "
+          f"({padded} rows with the sentinels) card vs CPU "
+          f"{'identical' if same_pred else 'DIFFERENT'}; mst_sha {mark['mst_sha'][:16]}; "
+          f"launches {stats['launches']}; {card}")
+    if not same:
+        errors.append("3o_maintain: the card server's maintainer differs from the CPU's")
+    if not same_pred:
+        errors.append("3o_maintain: the card server's predict differs from the CPU's")
+    if gen < 2 or ms["refreshes"] < 2 or ms["fallbacks"]:
+        errors.append(f"3o_maintain: the maintained model did not swap in ({ms}, gen {gen})")
+    if not stats["launches"].get("knn_kbest_panel"):
+        errors.append(f"3o_maintain: launches {stats['launches']} lack B2")
+    reopened, reopen_s = server("cuda", "m_card_wal")
+    try:
+        ok = (reopened.maintainer is not None and reopened.maintainer.state_dict() == mark)
+    finally:
+        reopened.close()
+    print(f"3o_maintain reopen on the WAL: {reopen_s:.3f} s, watermark "
+          f"{'verified' if ok else 'NOT verified'}")
+    if not ok:
+        errors.append("3o_maintain: the reopened server did not verify the watermark")
+
+    # The command line on the card: SIGKILL mid-stream, restart on the WAL.
+    port_file = os.path.join(tmp, "maintain_port.txt")
+    argv = [sys.executable, "-m", "hdbscan_tpu_torch", "serve", "--model", path, "--ingest",
+            "--model-dir", os.path.join(tmp, "mm_cli"), f"wal_dir={tmp}/m_cli_wal",
+            "maintain=incremental", "maintain_refresh=64", "snapshot_every=4",
+            "drift_threshold=1e9", "--port", "0", "--port-file", port_file]
+
+    def start():
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        while not os.path.exists(port_file):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                proc.kill()
+                raise RuntimeError(f"serve --ingest did not start: {proc.communicate()[1][-1500:]}")
+            time.sleep(0.05)
+        time.sleep(0.05)
+        with open(port_file) as f:
+            return proc, f"http://127.0.0.1:{int(f.read())}", time.perf_counter() - t0
+
+    def call(url, route, obj=None):
+        data_ = None if obj is None else json.dumps(obj).encode()
+        with urllib.request.urlopen(urllib.request.Request(url + route, data=data_),
+                                    timeout=300) as r:
+            return json.loads(r.read())
+
+    procs = []
+    try:
+        proc, url, cli_s = start()
+        procs.append(proc)
+        for pts in batches:
+            call(url, "/ingest", {"points": pts.tolist()})
+        before = _restored(call(url, "/healthz"))
+        proc.send_signal(signal.SIGKILL)
+        proc.communicate(timeout=60)
+        os.unlink(port_file)
+        proc, url, restart_s = start()
+        procs.append(proc)
+        health = call(url, "/healthz")
+        after = _restored(health)
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=120)
+        rc = proc.returncode
+    except Exception as e:  # noqa: BLE001 - the cell's failure, reported below
+        errors.append(f"3o_maintain CLI: {type(e).__name__}: {e}")
+        return errors, stats
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ok = (after == before and after["maintain"]["active"]
+          and after["maintain"]["inserts"] == mark["inserts"] and rc == 0
+          and health["stream"]["wal"]["last_recover"]["snapshot"])
+    print(f"3o_maintain CLI serve --ingest on the card: start {cli_s:.3f} s, SIGKILL after "
+          f"{len(batches)} batches, restart {restart_s:.3f} s, recovered "
+          f"{'the acknowledged state' if ok else 'ANOTHER state'} ({after}); SIGTERM exit {rc}")
+    if not ok:
+        errors.append(f"3o_maintain CLI: recovery {after} != {before} or exit {rc}: "
+                      f"{err[-800:]}")
+    stats.update(cli_start_s=cli_s, cli_restart_s=restart_s)
+    return errors, stats
+
+
+def add_launches(rows, phases) -> None:
+    """Each kernel row's launches in the cells of each phase that ran it
+    (``phases``: key -> {cell: launches}); the serving rows (``_predict``)
+    take their kernel's launches in the streaming cells, and keep the 3m
+    launches their phase set."""
+    for row in rows:
+        for key, cells in phases.items():
+            name = row["name"].removesuffix("_predict") if key == "launches_3o" else row["name"]
+            hits = {cell: n for cell, got in cells.items() if (n := got.get(name))}
+            if hits and key not in row:
+                row[key] = hits
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def stream_phase(here, data, res, card) -> tuple[list[str], dict]:
+    """Phase 3o, streaming ingest and incremental maintenance (module
+    docstring): its three cells. Returns failure messages and each cell's
+    launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hdbscan_stream_")
+    try:
+        errors, skin = stream_skin_cell(here, data, res, card, tmp)
+        e, launches = stream_card_vs_cpu_cell(data, card, tmp)
+        errors += e
+        e, maintain = maintain_cell(here, data, card, tmp)
+        errors += e
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches["3o_stream_skin"] = skin["launches"]
+    launches["3o_maintain"] = maintain.get("launches", {})
+    print(f"3o streaming phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return errors, launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "hdbscan_tpu_torch")):
@@ -4176,8 +4751,9 @@ def main() -> int:
     only_3l = sys.argv[1:] == ["3l"]
     only_3m = sys.argv[1:] == ["3m"]
     only_3n = sys.argv[1:] == ["3n"]
+    only_3o = sys.argv[1:] == ["3o"]
 
-    errors = [] if only_3k or only_3l or only_3m or only_3n else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
+    errors = [] if only_3k or only_3l or only_3m or only_3n or only_3o else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
               + parity_leaf() + parity_metrics())
@@ -4235,6 +4811,20 @@ def main() -> int:
         print(card)
         print(json.dumps({"kernels": mesh_rows}))
         return fail(f"the multi-GPU phase failed: {errors}") if errors else 0
+    if only_3o:  # ``python3 chip_smoke.py 3o``: phase 3 and 3o alone
+        from hdbscan_tpu_torch.ops import rpforest
+
+        errors, stream_launches = stream_phase(here, data, res, card)
+        forest = rpforest.build_forest(data, trees=FOREST["rpf_trees"],
+                                       leaf_size=FOREST["rpf_leaf_size"], seed=SEED)
+        rows = predict_times(data, None, forest, {
+            "knn_kbest_panel": stream_launches["3o_stream_skin"].get("knn_kbest_panel", 0),
+            "forest_rescan_topk": stream_launches["3o_stream_card_vs_cpu_rpforest"].get(
+                "forest_rescan_topk", 0)})
+        add_launches(rows, {"launches_3o": stream_launches})
+        print(card)
+        print(json.dumps({"kernels": rows}))
+        return fail(f"the streaming phase failed: {errors}") if errors else 0
 
     # --- 3b: the rp-forest tier on the same data --------------------------
     fparams = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE, **FOREST)
@@ -4348,7 +4938,7 @@ def main() -> int:
                  ("3c 1M x 8 exact fit MST", N_BLOBS, *eres.mst),
                  ("3f 500k x 28 fit MST", N_HIGHD, *hres.mst)]
     fit_pools += [("3d MR host pool (cycle and duplicate edges)", int(a[0]), a[1], a[2], a[3])
-                  for a in mr_pools.calls]
+                  for a, _ in mr_pools.calls]
     for label, pn, u, v, w in fit_pools:
         order = np.lexsort((np.asarray(v), np.asarray(u), np.asarray(w)))  # the scan's order
         merges = uf_pairs_check(label, np.asarray(u)[order], np.asarray(v)[order], pn, errors)
@@ -4420,6 +5010,11 @@ def main() -> int:
     errors, mesh_launches, mesh_rows = mesh_phase(data, card, fres, qres)
     if errors:
         return fail(f"the multi-GPU phase failed: {errors}")
+
+    # --- 3o: streaming ingest and incremental maintenance -----------------
+    errors, stream_launches = stream_phase(here, data, res, card)
+    if errors:
+        return fail(f"the streaming phase failed: {errors}")
 
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
@@ -4497,12 +5092,9 @@ def main() -> int:
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")
-    for row in rows:  # each kernel's launches in the 3k and 3l cells that ran it
-        for key, cells in (("launches_3k", host_launches), ("launches_3l", mr_launches),
-                           ("launches_3m", serve_launches), ("launches_3n", mesh_launches)):
-            hits = {cell: n for cell, got in cells.items() if (n := got.get(row["name"]))}
-            if hits:
-                row[key] = hits
+    add_launches(rows, {"launches_3k": host_launches, "launches_3l": mr_launches,
+                        "launches_3m": serve_launches, "launches_3n": mesh_launches,
+                        "launches_3o": stream_launches})
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -23,6 +23,11 @@ Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
     python -m hdbscan_tpu_torch serve --model MODEL.npz [--host H] [--port P] \
         [--port-file PATH] [predict_backend=...] [predict_batch=N] \
         [queue_bound=N] [deadline_ms=F] [faults=SPEC] [trace_max_events=N] \
+        [--ingest] [--model-dir DIR] [absorb_eps=F] [drift_stat={psi,ks}] \
+        [drift_threshold=F] [refit_budget=N] [stream_reload={auto,manual}] \
+        [circuit_failures=N] [circuit_reset=F] [wal_dir=DIR] [snapshot_every=N] \
+        [maintain={off,incremental}] [maintain_budget=F] \
+        [maintain_dirty_frac=F] [maintain_refresh=N] \
         [--trace-out PATH] [--device DEV]
 
 The dataset is routed as the reference routes it: with ``fit_sharding``
@@ -60,6 +65,23 @@ probabilities, GLOSH outlier scores, written as the reference's CSV);
 (``--port-file`` also writes the port). Both serving commands warm every
 power-of-two batch bucket and emit per-batch ``predict_batch`` events.
 
+``serve --ingest`` additionally opens ``POST /ingest``: arriving points
+route through the predict path, duplicates and near-duplicates (within
+``absorb_eps`` of their cluster's density level) fold into per-cluster
+bubble summaries, a GLOSH-score drift detector (``drift_stat`` /
+``drift_threshold``) watches for distribution shift, and on drift or
+``refit_budget`` buffered novel rows a background re-fit on the serving
+device publishes a new artifact under ``--model-dir`` that hot-swaps in
+(``stream_reload=auto``; ``manual`` stages it for ``POST /swap``).
+``circuit_failures`` / ``circuit_reset`` tune the breaker that pins the
+served generation after repeated re-fit failures; ``wal_dir=DIR`` makes
+``/ingest`` crash-safe (an fsync'd JSONL write-ahead log, snapshotted
+every ``snapshot_every`` appends, replayed bit-identically on restart, in
+the reference's format). ``maintain=incremental`` folds novel rows into a
+maintained mutual-reachability MST on the host and re-finalizes the served
+hierarchy every ``maintain_refresh`` inserts (``maintain_budget``,
+``maintain_dirty_frac``: the reference's knobs).
+
 ``--device DEV`` picks the device (default: the card; ``--device cpu`` runs
 every kernel's plain PyTorch version; a comma list names a mesh's shards,
 the first one the device of everything not sharded). There is no fallback: with no card
@@ -70,14 +92,11 @@ stage event as a ``hdbscan-tpu-trace/1`` JSON line (the fit's rotated at
 fit's per-stage summary (``phases:``) always goes to stderr.
 
 Not ported yet — each exits 2 before any data is read:
-``fleet`` (ROADMAP A12), ``serve --ingest`` and ``--model-dir`` (A10),
-``serve --tenants-dir`` (A12), ``--report``, ``--flight-dir``,
-``--assert-not-replicated``, ``--compile-cache`` / ``compile_cache=`` and
-the observability knobs ``heartbeat``, ``watchdog``, ``skew_threshold``,
-``straggler_rounds`` (A11), ``clusterName`` other than ``local``
-(multi-process runs, A9b). A server knob that is not ported (``wal_dir``,
-``maintain`` (A10)) raises ``NotImplementedError`` naming its item, printed
-the same way with exit 2.
+``fleet`` (ROADMAP A12), ``serve --tenants-dir`` (A12), ``--report``,
+``--flight-dir``, ``--assert-not-replicated``, ``--compile-cache`` /
+``compile_cache=`` and the observability knobs ``heartbeat``,
+``watchdog``, ``skew_threshold``, ``straggler_rounds`` (A11),
+``clusterName`` other than ``local`` (multi-process runs, A9b).
 """
 
 from __future__ import annotations
@@ -95,10 +114,8 @@ _UNPORTED_COMMANDS = {"fleet": "A12"}
 #: ``--flag PATH`` options of the reference's fit that are not ported.
 _UNPORTED_PATH_FLAGS = (("--report", "A11"), ("--flight-dir", "A11"),
                         ("--compile-cache", "A11"))
-#: The reference's ``serve`` options that are not ported: (flag, takes a
-#: PATH, item).
-_UNPORTED_SERVE_FLAGS = (("--report", True, "A11"), ("--model-dir", True, "A10"),
-                         ("--tenants-dir", True, "A12"), ("--ingest", False, "A10"))
+#: The reference's ``serve --flag PATH`` options that are not ported.
+_UNPORTED_SERVE_FLAGS = (("--report", "A11"), ("--tenants-dir", "A12"))
 #: Fit parameters whose engine is not ported: (field, CLI key, item).
 _UNPORTED_FIELDS = (("compile_cache", "compile_cache", "A11"),
                     ("heartbeat_s", "heartbeat", "A11"),
@@ -410,10 +427,10 @@ def _main_serve(argv: list[str]) -> int:
         trace_out = _pop_path_flag(argv, "--trace-out")
         port_file = _pop_path_flag(argv, "--port-file")
         device_flag = _pop_path_flag(argv, "--device")
-        for flag, takes_path, item in _UNPORTED_SERVE_FLAGS:
-            given = (_pop_path_flag(argv, flag) is not None if takes_path
-                     else _pop_bool_flag(argv, flag))
-            if given:
+        model_dir = _pop_path_flag(argv, "--model-dir")
+        ingest = _pop_bool_flag(argv, "--ingest")
+        for flag, item in _UNPORTED_SERVE_FLAGS:
+            if _pop_path_flag(argv, flag) is not None:
                 return _not_ported(f"serve {flag}", item)
         params = HDBSCANParams.from_args(argv)
         port = int(port) if port is not None else 8799
@@ -443,7 +460,8 @@ def _main_serve(argv: list[str]) -> int:
         try:
             server = ClusterServer(model, backend=params.predict_backend,
                                    max_batch=params.predict_max_batch, host=host, port=port,
-                                   tracer=tracer, params=params, device=device)
+                                   tracer=tracer, ingest=ingest, params=params,
+                                   model_dir=model_dir, device=device)
         except NotImplementedError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
@@ -451,10 +469,14 @@ def _main_serve(argv: list[str]) -> int:
             # Written only after the socket is bound (serve --port 0).
             with open(port_file, "w", encoding="utf-8") as f:
                 f.write(f"{server.port}\n")
+        mode = ""
+        if ingest:
+            mode = (f", ingest on ({params.stream_drift_stat} drift @ "
+                    f"{params.stream_drift_threshold}, {params.stream_reload} reload)")
         print(
             f"hdbscan-tpu serve: http://{server.host}:{server.port} "
             f"(model {model_path}, {model.n_train} train points, "
-            f"{server.predictor.backend} backend, buckets {server.predictor.buckets})",
+            f"{server.predictor.backend} backend, buckets {server.predictor.buckets}{mode})",
             file=sys.stderr, flush=True,
         )
         server.serve_forever()

@@ -10,9 +10,9 @@ injection and resilience policy — host-only copies of the reference's
   for in the trace and metrics.
 - ``fault/policy.py`` — the resilience policies: per-request deadlines
   (``DeadlineExceeded`` → 504), bounded-queue load shedding
-  (``ShedRequest`` → 429/503 + Retry-After) and capped exponential
-  backoff with jitter (``retry_call``). The reference's circuit breaker
-  guards its streaming re-fits and comes with them (ROADMAP A10).
+  (``ShedRequest`` → 429/503 + Retry-After), capped exponential backoff
+  with jitter (``retry_call``, ``retry``) and the circuit breaker that
+  guards the streaming re-fits (``CircuitBreaker``).
 
 Stdlib-only on purpose: injection sites live on serving hot paths, and the
 no-fault fast path is a single module-attribute check.
@@ -29,8 +29,10 @@ from hdbscan_tpu_torch.fault.inject import (  # noqa: F401
     parse_spec,
 )
 from hdbscan_tpu_torch.fault.policy import (  # noqa: F401
+    CircuitBreaker,
     DeadlineExceeded,
     ShedRequest,
     backoff_s,
+    retry,
     retry_call,
 )

@@ -31,6 +31,9 @@ Trace events, with the reference's names and fields: ``knn_index_build``,
 ``knn_index_query`` (with a sampled ``recall_at_k``), ``knn_index_rescan``
 (one per round; the ``improved`` count stays on the device until the round
 ends) and ``knn_fused_forest``.
+
+:func:`leaf_members_np` routes one point on the host through a stored
+forest (the incremental maintainer's candidate query).
 """
 
 from __future__ import annotations
@@ -516,6 +519,37 @@ def route_queries(queries: torch.Tensor, normals: torch.Tensor, thresholds: torc
             proj = proj + queries[None, :, f] * plane[..., f]
         node = node * 2 + (proj >= thresholds[tree, heap]).long()
     return node[0] if one else node
+
+
+def leaf_members_np(rpf, x) -> np.ndarray:
+    """Candidate member ids for ONE point: the numpy mirror of
+    :func:`route_queries` over every tree, returning the union of the T
+    visited leaves' members (sorted unique int64).
+
+    ``rpf`` is either a built :class:`RPForest` or the ``serve/artifact``
+    packed dict (same field names). The incremental maintainer
+    (``incremental/insert.py``) routes each novel point against the
+    model's stored planes on the host: one dot + compare per level per
+    tree, O(trees · depth · d) per point.
+    """
+    get = (lambda k: getattr(rpf, k)) if isinstance(rpf, RPForest) else rpf.__getitem__
+    normals = np.asarray(get("normals"))
+    thresholds = np.asarray(get("thresholds"))
+    members = get("members")
+    leaf_mask = get("leaf_mask")
+    depth = int(get("depth"))
+    x32 = np.asarray(x, normals.dtype).reshape(-1)
+    parts = []
+    for t in range(int(get("trees"))):
+        node = 0
+        for level in range(depth):
+            heap = _heap_base(level) + node
+            proj = normals[t, heap] @ x32
+            node = node * 2 + int(proj >= thresholds[t, heap])
+        parts.append(members[t, node][leaf_mask[node]].astype(np.int64))
+    if not parts:
+        return np.zeros(0, np.int64)
+    return np.unique(np.concatenate(parts))
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ port of ``hdbscan_tpu/serve``, with the reference's exports.
 - ``serve/batcher.py`` — :class:`MicroBatcher` coalescing concurrent
   requests into padded power-of-two buckets;
 - ``serve/server.py`` — stdlib HTTP ``/predict`` + ``/healthz`` +
-  ``/metrics`` + ``/swap`` with blue/green model-handle swaps.
+  ``/metrics`` + ``/swap`` (plus ``/ingest`` in streaming mode —
+  ``hdbscan_tpu_torch/stream``) with blue/green model-handle swaps.
 """
 
 from hdbscan_tpu_torch.serve.artifact import MODEL_SCHEMA, ClusterModel  # noqa: F401

@@ -1,6 +1,5 @@
 """Stdlib HTTP inference server over a fitted ClusterModel — the port of
-``hdbscan_tpu/serve/server.py``'s predict, health, metrics, swap and close
-paths.
+``hdbscan_tpu/serve/server.py``.
 
 Endpoints:
 
@@ -10,29 +9,42 @@ Endpoints:
   ``"selected_ids"`` when requested). Plain predicts route through the
   :class:`~hdbscan_tpu_torch.serve.batcher.MicroBatcher`, so concurrent
   clients coalesce into shared bucket dispatches.
-- ``POST /swap`` — an explicit ``{"path": ...}`` artifact: the blue/green
-  hot swap.
+- ``POST /ingest`` — streaming mode only: predicts the points, absorbs
+  duplicates/near-duplicates into bubble summaries, updates the drift
+  sketches, and (on a drift flag or point budget) kicks off a background
+  re-fit on the server's device. See ``hdbscan_tpu_torch/stream/``.
+- ``POST /swap`` — apply a staged re-fit artifact (``stream_reload=manual``)
+  or an explicit ``{"path": ...}`` artifact: the blue/green hot swap.
 - ``GET /healthz`` — model summary, backend, buckets, warmup, batcher
-  coalescing stats, swap state, uptime, per-route request/error counts and
-  the current in-flight count.
+  coalescing stats, stream/swap state, uptime, per-route request/error
+  counts and the current in-flight count.
 - ``GET /metrics`` — Prometheus text exposition (``utils/metrics.py``):
   request totals by route/status, in-flight gauge, request-latency and
-  batch-size histograms, swap, shed and fault counters.
-  ``scripts/check_metrics.py`` validates the output.
+  batch-size histograms, swap, shed, fault, drift, re-fit, maintenance,
+  WAL and circuit families. ``scripts/check_metrics.py`` validates the
+  output.
 
-Per-request spans: every terminated ``/predict`` request — success or
-error — gets a process-unique request id (echoed as ``X-Request-Id``) and,
-when a tracer is attached, exactly one trace event: a ``request_shed``
-(the bounded batcher queue refused it with 503 + Retry-After) or a
-``request_span`` carrying the HTTP ``status`` and decomposing its wall into
-parse / queue-wait / batch-assembly / device-predict / respond segments
-that telescope exactly to the span wall (``scripts/check_trace.py``).
+Per-request spans: every terminated ``/predict``/``/ingest`` request —
+success or error — gets a process-unique request id (echoed as
+``X-Request-Id``) and, when a tracer is attached, exactly one trace event:
+a ``request_shed`` (the bounded batcher queue refused it with 503 +
+Retry-After) or a ``request_span`` carrying the HTTP ``status`` and
+decomposing its wall into parse / queue-wait / batch-assembly /
+device-predict / respond segments that telescope exactly to the span wall
+(``scripts/check_trace.py``).
 
 Fault tolerance: per-request deadlines (``X-Deadline-Ms`` header /
 ``serve_deadline_ms`` knob → 504 before a batch slot is spent),
-bounded-queue load shedding (``serve_queue_bound``), retried artifact
-loads on swap, and the ``HDBSCAN_TPU_FAULTS`` injection harness
-(``hdbscan_tpu_torch/fault``).
+bounded-queue load shedding (``serve_queue_bound``), a re-fit circuit
+breaker that degrades to the pinned generation after repeated re-fit/swap
+failures, crash-safe ingest durability (``stream_wal_dir`` →
+``stream/wal.StreamJournal``), retried artifact loads on swap, and the
+``HDBSCAN_TPU_FAULTS`` injection harness (``hdbscan_tpu_torch/fault``).
+
+Incremental maintenance (``stream_maintain="incremental"``): novel ingest
+rows fold into an online MST (``incremental/``) on the host, and every
+``maintain_refresh_every`` inserts the hierarchy re-finalizes into a
+padded maintained model that is installed blue/green.
 
 Blue/green serving: every model lives in an immutable ``_ModelHandle``
 (model + warmed predictor + its own MicroBatcher + generation number). A
@@ -41,13 +53,12 @@ assignment under a lock, so in-flight requests finish on the model they
 started on; the old handle's batcher is then drain-closed. Swaps are
 guarded by the artifact digest check (``ClusterModel.load``) plus a
 fingerprint-field match against the served model, and emit ``model_swap``
-trace events with a per-server monotonic generation.
+trace events with a per-server monotonic generation. Lock order: the swap
+lock before the ingest lock, never the reverse.
 
-Not ported: streaming ingest and re-fit (``ingest=True``, ``model_dir``,
-``wal_dir``; ROADMAP A10), incremental maintenance (``stream_maintain``
-other than ``off``; A10), tenants (A12) and the observability layer's
-watchdog (A11): each raises ``NotImplementedError`` before any socket
-opens. ``SIGTERM``/``close()`` drains in-flight work before exiting.
+Not ported: tenants (ROADMAP A12) and the observability layer's watchdog
+(A11): each raises ``NotImplementedError`` before any socket opens.
+``SIGTERM``/``close()`` drains in-flight work before exiting.
 """
 
 from __future__ import annotations
@@ -63,7 +74,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from hdbscan_tpu_torch.fault import inject
-from hdbscan_tpu_torch.fault.policy import DeadlineExceeded, ShedRequest, retry_call
+from hdbscan_tpu_torch.fault.policy import (
+    CIRCUIT_STATE_VALUES,
+    CircuitBreaker,
+    DeadlineExceeded,
+    ShedRequest,
+    retry_call,
+)
 from hdbscan_tpu_torch.serve.artifact import _FINGERPRINT_FIELDS, ClusterModel
 from hdbscan_tpu_torch.serve.batcher import MicroBatcher
 from hdbscan_tpu_torch.serve.predict import Predictor
@@ -80,24 +97,19 @@ _PIN_RETRIES = 8
 #: servers share one process and one trace file.
 _REQUEST_IDS = itertools.count(1)
 
+#: Inert-row sentinel for maintained models: padded rows sit at this
+#: coordinate with this core distance, so they can never be a query's
+#: nearest neighbor and never attach. Fits float32 comfortably (squared
+#: distances stay below f32 max), which the predict kernels rely on.
+_INERT_FILL = 1e18
 
-def _refuse_unported(ingest, params, model_dir, wal_dir, tenants) -> None:
+
+def _refuse_unported(params, tenants) -> None:
     """The server's features that are not ported, each named with its
     ROADMAP item; raised before any model is staged or socket opened."""
-    def knob(name, default):
-        return getattr(params, name, default) if params is not None else default
-
-    if ingest or model_dir:
-        raise NotImplementedError(
-            "streaming ingest (ingest=True, model_dir) is not ported yet (ROADMAP A10)")
-    if wal_dir or knob("stream_wal_dir", ""):
-        raise NotImplementedError("the ingest WAL (wal_dir) is not ported yet (ROADMAP A10)")
-    if str(knob("stream_maintain", "off")) != "off":
-        raise NotImplementedError(
-            "incremental maintenance (stream_maintain) is not ported yet (ROADMAP A10)")
     if tenants is not None:
         raise NotImplementedError("tenants are not ported yet (ROADMAP A12)")
-    if float(knob("watchdog_s", 0.0)) > 0:
+    if float(getattr(params, "watchdog_s", 0.0) if params is not None else 0.0) > 0:
         raise NotImplementedError("the watchdog (watchdog_s) is not ported yet (ROADMAP A11)")
 
 
@@ -221,7 +233,10 @@ class _Handler(BaseHTTPRequestHandler):
                     )
                     rows = len(out["labels"])
                 elif path == "/ingest":
-                    raise RuntimeError("ingest is not ported yet (ROADMAP A10)")
+                    points = np.asarray(payload["points"], np.float64)
+                    meta["t_parse"] = time.perf_counter()
+                    out = srv.ingest(points, meta=meta)
+                    rows = out["rows"]
                 elif path == "/swap":
                     out = srv.swap(payload.get("path"))
                 else:
@@ -252,7 +267,7 @@ class _Handler(BaseHTTPRequestHandler):
                 code = 400
                 self._json(code, {"error": str(e)})
                 return
-            except RuntimeError as e:  # mode errors (nothing to swap, unported)
+            except RuntimeError as e:  # mode errors (ingest off, nothing staged, unported)
                 code = 409
                 self._json(code, {"error": str(e)})
                 return
@@ -284,10 +299,22 @@ class ClusterServer:
     Construction builds the predictor on ``device`` (the card unless the
     caller passes another, e.g. ``"cpu"``) and warms every bucket, so the
     first real request finds every kernel built; ``port=0`` binds an
-    ephemeral port (tests). ``ingest``, ``model_dir``, ``wal_dir``,
-    ``stream_maintain`` other than ``off`` (in ``params``), ``tenants`` and
-    a watchdog are not ported: each raises ``NotImplementedError`` naming
-    its ROADMAP item before anything else happens.
+    ephemeral port (tests).
+
+    ``ingest=True`` turns on the streaming subsystem: ``/ingest`` routes
+    arriving points through the predict path into an
+    :class:`~hdbscan_tpu_torch.stream.IngestBuffer`, a
+    :class:`~hdbscan_tpu_torch.stream.DriftDetector` watches the GLOSH-score
+    and assignment-rate distributions, and a
+    :class:`~hdbscan_tpu_torch.stream.Refitter` re-fits on ``device`` in the
+    background on drift or point budget, publishing generation-numbered
+    artifacts under ``model_dir`` that hot-swap in (``stream_reload="auto"``)
+    or stage for ``POST /swap`` (``"manual"``). Stream knobs come from
+    ``params`` (``HDBSCANParams`` ``stream_*`` and ``maintain_*`` fields);
+    ``wal_dir`` (or ``stream_wal_dir``) journals every accepted batch.
+    ``tenants`` and a watchdog are not ported: each raises
+    ``NotImplementedError`` naming its ROADMAP item before anything else
+    happens.
     """
 
     def __init__(
@@ -311,7 +338,7 @@ class ClusterServer:
         tenants=None,
         device=None,
     ):
-        _refuse_unported(ingest, params, model_dir, wal_dir, tenants)
+        _refuse_unported(params, tenants)
         self.tracer = tracer
         self.device = device
         self._backend_req = backend
@@ -322,6 +349,7 @@ class ClusterServer:
         self._closed = False
         self._swap_count = 0
         self.last_swap: dict | None = None
+        self.pending: dict | None = None  # staged artifact (manual reload)
         # Distinguishes servers sharing one trace file: check_trace enforces
         # monotonic swap generations per (process, server).
         self._server_id = f"{os.getpid():x}.{id(self) & 0xFFFFFF:06x}"
@@ -337,6 +365,7 @@ class ClusterServer:
         self._deadline_ms = float(
             deadline_ms if deadline_ms is not None else knob("serve_deadline_ms", 0.0)
         )
+        self._wal_dir = wal_dir or str(knob("stream_wal_dir", "") or "")
 
         # Fault harness: an explicit/config spec installs the process plan;
         # either way an already-installed plan gets this server's tracer and
@@ -409,6 +438,11 @@ class ClusterServer:
         self._handle = self._build_handle(model, generation=1)
         self._m_generation.set(1.0)
 
+        self.ingest_enabled = bool(ingest)
+        self._params = params
+        if self.ingest_enabled:
+            self._init_stream(params, model_dir)
+
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
         self._httpd.cluster_server = self
         self._httpd.verbose = verbose
@@ -421,6 +455,312 @@ class ClusterServer:
         """Fault-plan hook: count every injected fault so /metrics accounts
         for each one the harness fires."""
         self._m_faults.inc(site=site)
+
+    def _on_circuit_state(self, name: str, state: str) -> None:
+        self._m_circuit.set(float(CIRCUIT_STATE_VALUES[state]), name=name)
+
+    def _on_refit_result(self, ok: bool, error: str | None) -> None:
+        """Refitter outcome hook → the refit circuit breaker."""
+        if ok:
+            self._refit_circuit.record_success()
+        else:
+            self._refit_circuit.record_failure()
+
+    # -- stream wiring -----------------------------------------------------
+
+    def _init_stream(self, params, model_dir) -> None:
+        from hdbscan_tpu_torch.stream import (
+            DriftDetector,
+            IngestBuffer,
+            Refitter,
+            StreamJournal,
+        )
+
+        def knob(name, default):
+            return getattr(params, name, default) if params is not None else default
+
+        self.reload_mode = knob("stream_reload", "auto")
+        self._refit_budget = int(knob("stream_refit_budget", 2048))
+        self._absorb_frac = float(knob("stream_absorb_eps_frac", 0.25))
+        self._drift_stat = knob("stream_drift_stat", "psi")
+        self._drift_threshold = float(knob("stream_drift_threshold", 2.0))
+        self.model_dir = model_dir or "stream_models"
+        self._ingest_lock = threading.Lock()
+        self._m_drift_checks = self.metrics.counter(
+            "hdbscan_tpu_drift_checks_total", "Drift detector checks run."
+        )
+        self._m_drift_flags = self.metrics.counter(
+            "hdbscan_tpu_drift_flags_total", "Drift checks that flagged shift."
+        )
+        self._m_refit_kicks = self.metrics.counter(
+            "hdbscan_tpu_refit_kicks_total",
+            "Background re-fits kicked from the ingest path, by trigger.",
+            labelnames=("trigger",),
+        )
+        self.buffer = IngestBuffer(
+            self.model, absorb_eps_frac=self._absorb_frac, metrics=self.metrics
+        )
+        self.drift = DriftDetector(
+            *DriftDetector.baseline_from_model(self.model, self._handle.predictor),
+            stat=self._drift_stat,
+            threshold=self._drift_threshold,
+            tracer=self.tracer,
+        )
+        # Refit circuit breaker: repeated fit/swap failures trip it open and
+        # the server degrades to serving the pinned generation — no refit
+        # kicks until reset_s has elapsed (state in /healthz + /metrics).
+        self._m_circuit = self.metrics.gauge(
+            "hdbscan_tpu_circuit_state",
+            "Circuit breaker state (0 closed, 1 half-open, 2 open).",
+            labelnames=("name",),
+        )
+        self._m_circuit.set(0.0, name="refit")
+        self._refit_circuit = CircuitBreaker(
+            "refit",
+            failures=int(knob("circuit_failures", 3)),
+            reset_s=float(knob("circuit_reset_s", 30.0)),
+            tracer=self.tracer,
+            on_state=self._on_circuit_state,
+        )
+        refit_params = self._refit_params(params)
+        self.refitter = Refitter(
+            refit_params,
+            self.model_dir,
+            tracer=self.tracer,
+            on_publish=self._on_publish,
+            metrics=self.metrics,
+            on_result=self._on_refit_result,
+            device=self.device,
+        )
+        # Crash-safe durability: recover buffer/drift state from the WAL
+        # directory (if it belongs to this model's digest), then keep
+        # journaling every accepted ingest batch.
+        self.journal = None
+        wal_info = None
+        if self._wal_dir:
+            self.journal = StreamJournal(
+                self._wal_dir,
+                snapshot_every=int(knob("stream_snapshot_every", 64)),
+                tracer=self.tracer,
+                metrics=self.metrics,
+            )
+            wal_info = self.journal.open(
+                str(self.model.fingerprint.get("data") or ""),
+                self.buffer,
+                self.drift,
+            )
+        # Incremental hierarchy maintenance (``stream_maintain=incremental``):
+        # novel rows fold into an online MST + dirty-subtree finalize instead
+        # of waiting for a full re-fit; the re-fit path demotes to the
+        # fallback ladder (drift / maintainer failure / circuit breaker).
+        self.maintain_mode = str(knob("stream_maintain", "off"))
+        self._maintain_budget_ms = float(knob("maintain_budget_ms", 0.0))
+        self._maintain_dirty_frac = float(knob("maintain_dirty_max_frac", 1.0))
+        self._maintain_refresh = int(knob("maintain_refresh_every", 64))
+        self.maintainer = None
+        self._finalizer = None
+        self.maintain_refreshes = 0
+        self.maintain_fallbacks = 0
+        self.maintain_last_error: str | None = None
+        if self.maintain_mode == "incremental":
+            self._init_maintainer(wal_info)
+
+    def _refit_params(self, params):
+        """Re-fit params: caller's knobs where given, but the fingerprint
+        fields pinned to the served model's so the swap guard passes."""
+        from hdbscan_tpu_torch.config import HDBSCANParams
+
+        base = params if params is not None else HDBSCANParams()
+        return base.replace(**dict(self.model.params))
+
+    # -- incremental maintenance -------------------------------------------
+
+    def _init_maintainer(self, wal_info=None) -> None:
+        """Bootstrap the online hierarchy maintainer from the served model
+        (O(n² d) host k-NN + Prim, as the reference's: artifacts store no
+        MST), then replay any WAL-recovered novel rows through the
+        deterministic maintenance fold and verify the persisted watermark
+        digests. Any failure (``MaintainFallback`` included) demotes to the
+        re-fit ladder instead of raising into server construction."""
+        from hdbscan_tpu_torch.incremental import DirtySubtreeFinalizer, HierarchyMaintainer
+
+        model = self._handle.model
+        try:
+            self.maintainer = HierarchyMaintainer(
+                model.data,
+                min_pts=int(model.params.get("min_points", 2)),
+                metric=str(model.params.get("dist_function", "euclidean")),
+                rpf=model.rpf,
+                budget_ms=self._maintain_budget_ms,
+                dirty_max_frac=self._maintain_dirty_frac,
+                refresh_every=self._maintain_refresh,
+                tracer=self.tracer,
+                metrics=self.metrics,
+                name=self._server_id,
+            )
+            self._finalizer = DirtySubtreeFinalizer(
+                self._refit_params(self._params),
+                dirty_max_frac=self._maintain_dirty_frac,
+                tracer=self.tracer,
+                name=self._server_id,
+            )
+        except Exception as exc:
+            self._maintain_disable(f"bootstrap: {type(exc).__name__}: {exc}")
+            return
+        # WAL recovery: maintainer state is never journaled as events — it
+        # is a deterministic fold over the buffer's novel chunks, which
+        # ``journal.open()`` above just replayed (stream/wal.py docstring).
+        # Re-run the fold; the snapshot's "maintain" watermark (journal +
+        # MST sha256) must reproduce bitwise at the recorded insert count,
+        # else the maintainer stands down rather than serve a silently
+        # diverged hierarchy.
+        watermark = (wal_info or {}).get("maintain") or None
+        verify = None
+        if watermark and int(watermark.get("inserts", 0)) > 0:
+            verify = (int(watermark["inserts"]), watermark)
+        try:
+            for chunk in self.buffer.novel_chunks():
+                self.maintainer.rebuild(chunk, verify_at=verify)
+        except Exception as exc:
+            self._maintain_disable(f"recovery: {type(exc).__name__}: {exc}")
+
+    def _maintain_disable(self, error) -> None:
+        """Demote the stream to the re-fit ladder: drop the maintainer (the
+        ``budget`` trigger un-suppresses on the next ingest), record and
+        trace the demotion. Caller decides whether to kick a re-fit."""
+        m, self.maintainer, self._finalizer = self.maintainer, None, None
+        self.maintain_fallbacks += 1
+        self.maintain_last_error = str(error)
+        if m is not None:
+            m._count("fallback")
+        if self.tracer is not None:
+            self.tracer(
+                "maintain_fallback",
+                maintainer=self._server_id,
+                generation=int(self._handle.generation),
+                n=int(m.n) if m is not None else 0,
+                inserts=int(m.inserts) if m is not None else 0,
+                error=str(error),
+            )
+
+    def _maintain_batch(self, chunk_start: int):
+        """Fold this batch's novel rows into the maintainer (caller holds
+        ``_ingest_lock``). Per row: bounded insert; when the splice cadence
+        fires, MST splice + dirty-subtree finalize + maintained-model build
+        — but NOT the handle swap, which needs ``_swap_lock`` and is done
+        by the caller after releasing the ingest lock (lock order:
+        ``swap_model`` takes swap → ingest, so never the reverse).
+
+        The per-row cadence check mirrors ``HierarchyMaintainer.rebuild``
+        exactly — live fold and WAL recovery fold are the same function of
+        the novel-row sequence, which is what makes the snapshot watermark
+        verifiable bitwise.
+
+        Returns ``(stats_dict, maintained_model_or_None)``; a failure
+        (``MaintainFallback`` or any other) demotes via
+        :meth:`_maintain_disable` and reports ``fallback`` in the stats —
+        ingest itself never fails on maintenance."""
+        m = self.maintainer
+        inserted = spliced = 0
+        over_budget = False
+        new_model = None
+        try:
+            for idx in range(chunk_start, self.buffer.novel_chunk_count):
+                for row in self.buffer.novel_chunk(idx):
+                    info = m.insert(row)
+                    inserted += 1
+                    over_budget = over_budget or info["over_budget"]
+                    if m._since_splice >= m.refresh_every:
+                        m.splice()
+                        spliced += 1
+            if spliced:
+                lo, hi, w = m.mst_arrays()
+                tree, labels, _scores, _inf = self._finalizer.finalize(
+                    m.n, lo, hi, w, m.core[: m.n]
+                )
+                new_model = self._maintained_model(tree, labels)
+        except Exception as exc:
+            self._maintain_disable(f"{type(exc).__name__}: {exc}")
+            return (
+                {"inserted": inserted, "spliced": spliced, "fallback": True},
+                None,
+            )
+        return (
+            {
+                "inserted": inserted,
+                "spliced": spliced,
+                "over_budget": over_budget,
+                "fallback": False,
+            },
+            new_model,
+        )
+
+    def _maintained_model(self, tree, labels):
+        """Serving artifact for the maintained hierarchy, shape-padded.
+
+        Rows pad to the maintainer's power-of-two capacity with inert
+        sentinels (coordinates and core at 1e18 — never the nearest
+        neighbor, never attach) so the predictor's train-side shapes stay
+        constant across maintenance refreshes until the capacity doubles,
+        and the served artifact (and its data digest) is the reference's
+        for the same rows. ``rpf=None``: the stored planes only
+        index the bootstrap rows, so the padded model serves through the
+        exhaustive backend."""
+        from hdbscan_tpu_torch.models._finalize import serving_tables
+        from hdbscan_tpu_torch.utils.checkpoint import _data_digest
+
+        m = self.maintainer
+        base = self._handle.model
+        n, cap = m.n, m._cap
+        labels = np.asarray(labels, np.int64)
+        tables = serving_tables(tree, labels)
+        data = np.full((cap, m.dims), _INERT_FILL, np.float64)
+        data[:n] = m.data[:n]
+        core = np.full(cap, _INERT_FILL, np.float64)
+        core[:n] = m.core[:n]
+        lab = np.zeros(cap, np.int64)
+        lab[:n] = labels
+        last = np.zeros(cap, np.int64)
+        last[:n] = np.asarray(tree.point_last_cluster, np.int64)
+        fingerprint = dict(base.fingerprint)
+        fingerprint["n"] = int(cap)
+        fingerprint["data"] = _data_digest(data)
+        return ClusterModel(
+            mode=base.mode,
+            params=dict(base.params),
+            fingerprint=fingerprint,
+            data=data,
+            core=core,
+            labels=lab,
+            last_cluster=last,
+            parent=np.asarray(tree.parent, np.int64),
+            birth=np.asarray(tree.birth, np.float64),
+            selected=np.asarray(tree.selected, bool),
+            sel_anc=np.asarray(tables["sel_anc"], np.int64),
+            eps_min=np.asarray(tables["eps_min"], np.float64),
+            eps_max=np.asarray(tables["eps_max"], np.float64),
+            rpf=None,
+        )
+
+    def maintain_stats(self) -> dict:
+        """Maintenance block of ``/healthz``'s stream dict."""
+        out = {
+            "mode": self.maintain_mode,
+            "active": self.maintainer is not None,
+            "refreshes": int(self.maintain_refreshes),
+            "fallbacks": int(self.maintain_fallbacks),
+            "last_error": self.maintain_last_error,
+        }
+        if self.maintainer is not None:
+            m = self.maintainer
+            out.update(
+                n=int(m.n),
+                inserts=int(m.inserts),
+                splices=int(m.splices),
+                pending_edges=int(m.pending_edges),
+                over_budget=int(m.over_budget),
+            )
+        return out
 
     # -- handles -----------------------------------------------------------
 
@@ -467,6 +807,20 @@ class ClusterServer:
             )
         old.batcher.close()  # graceful: every in-flight future completes
         return new_handle, pause_s
+
+    def _publish_maintained(self, new_model) -> None:
+        """Handle refresh for a maintained model — NOT a swap: buffer,
+        drift sketches and journal keep their state, because the WAL
+        replay base is the bootstrap model plus the grow-only novel-chunk
+        log. Called with no locks held."""
+        try:
+            self._install_handle(new_model, reason="maintain")
+        except Exception as exc:
+            self._maintain_disable(f"publish: {type(exc).__name__}: {exc}")
+        else:
+            self.maintain_refreshes += 1
+            if self.maintainer is not None:
+                self.maintainer._count("refresh")
 
     @property
     def model(self):
@@ -605,16 +959,143 @@ class ClusterServer:
             "generation": handle.generation,
         }
 
+    def ingest(self, points: np.ndarray, meta: dict | None = None) -> dict:
+        """Streaming entry: predict → absorb/buffer → drift check → maybe
+        kick a background re-fit. Returns per-batch routing + drift info."""
+        if not self.ingest_enabled:
+            raise RuntimeError("server started without ingest mode")
+        t0 = time.perf_counter()
+        points = np.asarray(points, np.float64)
+        if points.ndim == 1:
+            points = points[None, :]
+        scored = False
+        for _ in range(_PIN_RETRIES):
+            handle = self._handle
+            try:
+                labels, prob, score = handle.batcher.predict(points, meta=meta)
+            except RuntimeError as e:
+                if "closed" not in str(e) or self._closed:
+                    raise
+                continue
+            scored = True
+            if handle is self._handle:
+                break
+            # A swap landed mid-predict: the buffer/drift state now keys to
+            # the new model, so this batch's scores are stale — redo on the
+            # current handle rather than polluting the fresh sketches.
+        if not scored:
+            raise RuntimeError("ingest retries exhausted during model swaps")
+        maintained = None
+        new_model = None
+        with self._ingest_lock:
+            chunk_start = (
+                self.buffer.novel_chunk_count
+                if self.maintainer is not None else 0
+            )
+            absorbed, buffered = self.buffer.absorb(points, labels, prob)
+            self.drift.update(labels, score)
+            if self.maintainer is not None:
+                maintained, new_model = self._maintain_batch(chunk_start)
+            if self.journal is not None:
+                # Write-ahead relative to the HTTP ack: the batch (with its
+                # predicted labels/prob/scores, so replay never re-predicts)
+                # is fsync'd before the 200 goes out. The maintain watermark
+                # captures the state AFTER this batch's fold, so recovery
+                # verifies its replay at exactly this insert count.
+                self.journal.append_ingest(points, labels, prob, score)
+                self.journal.maybe_snapshot(
+                    self.buffer,
+                    self.drift,
+                    maintain=(
+                        self.maintainer.state_dict()
+                        if self.maintainer is not None else None
+                    ),
+                )
+            check = self.drift.check(generation=handle.generation)
+            self._m_drift_checks.inc()
+            if check["drifted"]:
+                self._m_drift_flags.inc()
+            trigger = None
+            if maintained is not None and maintained["fallback"]:
+                trigger = "maintain_fallback"
+            elif check["drifted"]:
+                trigger = "drift"
+            elif (
+                self.maintainer is None
+                and self.buffer.buffered_rows >= self._refit_budget
+            ):
+                # An active maintainer suppresses the point-budget trigger:
+                # novel rows are already folded into the served hierarchy,
+                # so the full re-fit is reserved for drift and the fallback
+                # ladder (maintain_fallback / circuit breaker).
+                trigger = "budget"
+            refit_started = False
+            # Circuit gate: after repeated refit/swap failures the breaker
+            # is open and triggers are suppressed — the server degrades to
+            # serving the pinned generation instead of burning fit cycles.
+            if (
+                trigger
+                and self.pending is None
+                and not self.refitter.busy
+                and self._refit_circuit.allow()
+            ):
+                pool = self.buffer.refit_points(
+                    originals=min(self.model.n_train, 8192)
+                )
+                refit_started = self.refitter.request(pool, trigger)
+                if refit_started:
+                    self._m_refit_kicks.inc(trigger=trigger)
+        if new_model is not None:
+            # Outside the ingest lock by necessity: the handle refresh takes
+            # _swap_lock, and swap_model's order is swap → ingest.
+            self._publish_maintained(new_model)
+        if self.tracer is not None:
+            self.tracer(
+                "stream_ingest",
+                rows=int(len(points)),
+                absorbed=int(absorbed),
+                buffered=int(buffered),
+                generation=int(handle.generation),
+                wall_s=round(time.perf_counter() - t0, 6),
+            )
+        out = {
+            "rows": int(len(points)),
+            "absorbed": int(absorbed),
+            "buffered": int(buffered),
+            "generation": int(self._handle.generation),
+            "drift": check,
+            "refit_started": bool(refit_started),
+        }
+        if maintained is not None:
+            out["maintained"] = maintained
+        return out
+
     # -- blue/green swap ---------------------------------------------------
 
+    def _on_publish(self, path: str, model, reason: str) -> None:
+        """Refitter callback (worker thread): hot-swap, or stage for
+        ``POST /swap`` in manual reload mode."""
+        staged = {"path": path, "reason": reason, "n_train": int(model.n_train)}
+        if self.reload_mode == "manual":
+            self.pending = staged
+            return
+        try:
+            self.swap_model(model, reason=reason, path=path)
+        except Exception as exc:  # guard failure: keep serving the old model
+            self.last_swap = {"ok": False, "error": f"{type(exc).__name__}: {exc}"}
+            self._refit_circuit.record_failure()
+
     def swap(self, path: str | None = None) -> dict:
-        """HTTP-facing swap: an explicit artifact ``path`` (staged re-fit
-        publications come with streaming, ROADMAP A10)."""
+        """HTTP-facing swap: explicit artifact ``path``, else the staged
+        re-fit publication."""
         if path is None:
-            raise RuntimeError("no staged artifact to swap in")
+            if self.pending is None:
+                raise RuntimeError("no staged artifact to swap in")
+            path = self.pending["path"]
         return self.swap_model(path, reason="manual")
 
-    def swap_model(self, model_or_path, reason: str = "manual") -> dict:
+    def swap_model(self, model_or_path, reason: str = "manual",
+                   path: str | None = None) -> dict:
         """Atomically replace the served model (blue/green).
 
         Accepts a :class:`ClusterModel` or an artifact path. Path loads run
@@ -622,8 +1103,10 @@ class ClusterServer:
         corrupt or mismatched files; transient IO faults retry with
         backoff); either way the fingerprint fields must match the served
         model — a swap may change the data, not the clustering contract.
+        In ingest mode the buffer, drift baseline, journal and maintainer
+        re-key to the new model under the ingest lock, after the swap lock
+        is released.
         """
-        path = None
         if isinstance(model_or_path, (str, os.PathLike)):
             path = str(model_or_path)
             new_model = retry_call(
@@ -643,6 +1126,24 @@ class ClusterServer:
                     f"{old_model.params.get(f)!r} — refusing to swap"
                 )
         new_handle, pause_s = self._install_handle(new_model, reason)
+        if self.ingest_enabled:
+            with self._ingest_lock:
+                self.buffer.reset(new_model)
+                self.drift.rebaseline(
+                    *type(self.drift).baseline_from_model(new_model, new_handle.predictor)
+                )
+                self.pending = None
+                if self.journal is not None:
+                    # The old generation's stream state was consumed by the
+                    # re-fit; re-key the journal to the new digest.
+                    self.journal.restart(str(new_handle.digest or ""))
+                if self.maintain_mode == "incremental":
+                    # A real swap resets the maintenance fold's base: re-
+                    # bootstrap over the new fit (O(n² d) host pass) under
+                    # the ingest lock so no batch folds into a stale
+                    # maintainer meanwhile.
+                    self.maintainer = self._finalizer = None
+                    self._init_maintainer()
         info = {
             "ok": True,
             "generation": int(new_handle.generation),
@@ -690,6 +1191,29 @@ class ClusterServer:
         }
         if self.last_swap is not None:
             out["last_swap"] = self.last_swap
+        if self.ingest_enabled:
+            stats = self.buffer.stats()
+            out["stream"] = {
+                "rows_seen": stats["rows_seen"],
+                "absorbed_exact": stats["absorbed_exact"],
+                "absorbed_near": stats["absorbed_near"],
+                "buffered": stats["buffered"],
+                "bubbles": len(stats["bubbles"]),
+                "drift_rows": self.drift.rows,
+                "drift_checks": self.drift.checks,
+                "refits_ok": self.refitter.refits_ok,
+                "refits_failed": self.refitter.refits_failed,
+                "refit_busy": self.refitter.busy,
+                "refit_last_error": self.refitter.last_error,
+                "refit_last_error_at": self.refitter.last_error_at,
+                "refit_backoff_s": round(self.refitter.backoff_remaining_s(), 3),
+                "circuit": self._refit_circuit.state_info(),
+                "reload": self.reload_mode,
+                "pending": self.pending,
+                "maintain": self.maintain_stats(),
+            }
+            if self.journal is not None:
+                out["stream"]["wal"] = self.journal.stats()
         return out
 
     # -- lifecycle ---------------------------------------------------------
@@ -734,6 +1258,10 @@ class ClusterServer:
         if self._thread is not None:
             self._thread.join(timeout=5.0)
         self._handle.batcher.close()
+        if self.ingest_enabled:
+            self.refitter.join(timeout=0.5)  # daemon thread; don't block long
+            if self.journal is not None:
+                self.journal.close()
 
     def __enter__(self) -> "ClusterServer":
         return self

@@ -24,6 +24,8 @@ from hdbscan_tpu_torch.core.knn import core_distances_from_matrix
 from hdbscan_tpu_torch.core.mst import boruvka_mst as port_boruvka
 from hdbscan_tpu_torch.models.bubble_hdbscan import fit_bubbles as port_fit_bubbles
 from hdbscan_tpu_torch.parallel import blocks as port_blocks
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 CPU = torch.device("cpu")
 

@@ -13,7 +13,9 @@ import pytest
 
 import hdbscan_tpu.ops.blockscan as ref_bs
 import hdbscan_tpu_torch.ops.blockscan as port_bs
+import torch
 from hdbscan_tpu.ops import tiled as ref_tiled
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _blocky_data(rng, n=3000, d=5, n_blocks=12):

@@ -18,6 +18,7 @@ from hdbscan_tpu_torch.config import HDBSCANParams as PortParams
 from hdbscan_tpu_torch.models import mr_hdbscan as port_mr
 from hdbscan_tpu_torch.utils import checkpoint as port_ckpt
 from tests.test_torch_mr import BASE, _assert_bitwise, _lattice
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _port_fit(data, ckpt=None, max_levels=64, events=None, **overrides):

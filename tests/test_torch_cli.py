@@ -31,6 +31,8 @@ from hdbscan_tpu.models import exact as ref_exact
 from hdbscan_tpu.models.hdbscan import write_outputs as ref_write
 from hdbscan_tpu.utils.io import load_points as ref_load
 from hdbscan_tpu_torch.cli import main as port_main
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECK_TRACE = os.path.join(REPO, "scripts", "check_trace.py")
@@ -248,9 +250,7 @@ def test_fit_predict_cli_equals_reference(tmp_path, grid_file, capsys, fit_extra
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["serve", "--model", "m.npz", "--ingest"], "A10"),
         (["serve", "--model", "m.npz", "--tenants-dir", "tenants"], "A12"),
-        (["serve", "--model", "m.npz", "--model-dir", "models"], "A10"),
         (["serve", "--model", "m.npz", "--report", "r.json"], "A11"),
         (["predict", "--model", "m.npz", "--points", "MISSING", "--report", "r.json"], "A11"),
         (["fleet", "--model", "m.npz"], "A12"),

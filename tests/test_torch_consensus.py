@@ -21,6 +21,8 @@ from hdbscan_tpu_torch.models import mr_hdbscan as port_mr
 from hdbscan_tpu_torch.models.hdbscan import write_outputs as port_write
 from hdbscan_tpu_torch.ops import cuda_build
 from tests.test_torch_mr import BASE, _assert_bitwise, _fit_both, _lattice
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 _SPLIT = np.array([1, 1, 1, 1, 2, 2, 2, 2])
 _MERGED = np.ones(8, np.int64)

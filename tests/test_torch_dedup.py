@@ -24,6 +24,8 @@ from hdbscan_tpu_torch.models import exact as port_exact
 from hdbscan_tpu_torch.models import hdbscan as port_dense
 from hdbscan_tpu_torch.parallel.mesh import get_mesh
 from hdbscan_tpu_torch.utils.evaluation import adjusted_rand_index
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 TILES = dict(row_tile=64, col_tile=128)
 _TREE_FIELDS = (

@@ -30,6 +30,8 @@ from hdbscan_tpu_torch.core import knn as port_knn
 from hdbscan_tpu_torch.models import hdbscan as port_hdbscan
 from hdbscan_tpu_torch.models import mr_hdbscan as port_mr
 from hdbscan_tpu_torch.parallel.blocks import block_mst_batch
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 _TREE_FIELDS = (
     "parent", "birth", "death", "stability", "has_children", "num_members",

@@ -22,6 +22,8 @@ from hdbscan_tpu.models.hdbscan import write_outputs as ref_write
 from hdbscan_tpu_torch.config import HDBSCANParams as PortParams
 from hdbscan_tpu_torch.models import exact as port_exact
 from hdbscan_tpu_torch.models.hdbscan import write_outputs as port_write
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 _TREE_FIELDS = (
     "parent", "birth", "death", "stability", "has_children", "num_members",

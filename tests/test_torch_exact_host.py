@@ -32,6 +32,8 @@ from hdbscan_tpu_torch.models import exact as port_exact
 from hdbscan_tpu_torch.ops.tiled import BoruvkaScanner
 from hdbscan_tpu_torch.parallel import ring, shard
 from hdbscan_tpu_torch.parallel.mesh import Mesh, get_mesh
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 TILES = dict(row_tile=64, col_tile=128)
 _TREE_FIELDS = (

@@ -19,6 +19,8 @@ from hdbscan_tpu_torch.config import HDBSCANParams
 from hdbscan_tpu_torch.fault import inject as port_inject
 from hdbscan_tpu_torch.fault import policy as port_policy
 from hdbscan_tpu_torch.utils import metrics as port_metrics
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 _GOOD_SPECS = [
     "",

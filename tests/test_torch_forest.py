@@ -26,6 +26,7 @@ from hdbscan_tpu_torch.ops import cuda_forest as cf
 from hdbscan_tpu_torch.ops import lexmerge as port_lex
 from hdbscan_tpu_torch.ops import rpforest as port_rpf
 from tests.conftest import make_blobs
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _port_forest(ref_forest):

@@ -24,6 +24,8 @@ from hdbscan_tpu.ops import pallas_forest as pf
 from hdbscan_tpu_torch.ops import cuda_forest as cf
 from hdbscan_tpu_torch.ops import lexmerge as port_lex
 from tests.conftest import make_blobs
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 #: The reference's merge over row tiles of 8 (the kernel's contract does not
 #: depend on the tile; a small tile keeps interpret mode quick).

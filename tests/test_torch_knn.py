@@ -23,6 +23,7 @@ from hdbscan_tpu.ops.tiled import knn_core_distances as ref_knn
 from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest
 from hdbscan_tpu_torch.ops.lexmerge import lex_kbest
 from hdbscan_tpu_torch.ops.tiled import knn_core_distances as port_knn
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _grid(seed, n, d, hi):

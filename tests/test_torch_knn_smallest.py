@@ -33,6 +33,8 @@ from hdbscan_tpu_torch.ops.cuda_knn_smallest import (
     morton_order,
 )
 from hdbscan_tpu_torch.ops.tiled import knn_core_distances as port_knn
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 _TREE_FIELDS = (
     "parent", "birth", "death", "stability", "has_children", "num_members",

@@ -16,6 +16,8 @@ import torch
 
 from hdbscan_tpu.ops.pallas_knn import LANES, knn_window_fused_pallas
 from hdbscan_tpu_torch.ops.cuda_knn_window import knn_window, knn_window_plain
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 COL_TILE = 128
 

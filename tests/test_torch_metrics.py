@@ -39,6 +39,8 @@ from hdbscan_tpu_torch.ops import cuda_forest as cf
 from hdbscan_tpu_torch.ops import cuda_knn, cuda_segmin
 from hdbscan_tpu_torch.ops import tiled as port_tiled
 from hdbscan_tpu_torch.parallel.mesh import get_mesh
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 METRICS = ("cosine", "pearson")
 _TREE_FIELDS = ("parent", "birth", "death", "stability", "num_members", "selected")

@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from hdbscan_tpu.config import HDBSCANParams as RefParams
 from hdbscan_tpu.models import mr_hdbscan as ref_mr
@@ -29,6 +30,8 @@ from hdbscan_tpu_torch.core import mst_device
 from hdbscan_tpu_torch.core import tree as port_tree
 from hdbscan_tpu_torch.models import mr_hdbscan as port_mr
 from hdbscan_tpu_torch.utils.datasets import make_gauss
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 BASE = dict(min_points=6, min_cluster_size=20, processing_units=256, k=0.1, seed=0)
 

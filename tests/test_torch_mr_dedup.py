@@ -19,6 +19,7 @@ from hdbscan_tpu.models import mr_hdbscan as ref_mr
 from hdbscan_tpu_torch.config import HDBSCANParams as PortParams
 from hdbscan_tpu_torch.models import mr_hdbscan as port_mr
 from tests.test_torch_mr import BASE, _assert_bitwise, _fit_both, _lattice
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _rows(heavy: bool = False):

@@ -29,10 +29,13 @@ from hdbscan_tpu_torch.models import mr_hdbscan as port_mr
 from hdbscan_tpu_torch.models.hdbscan import write_outputs as port_write
 from hdbscan_tpu_torch.parallel.mesh import get_mesh
 
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    """The mesh programs run many small per-shard ops: one intra-op thread
-    keeps them from contending with the suite's other workers for cores."""
+    """One torch intra-op thread for the module: the suite runs six
+    workers at once, and a worker's small torch ops spread over every core
+    only contend with the others'. The port's other test files import
+    this fixture, which applies to each importing module."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

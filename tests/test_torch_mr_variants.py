@@ -36,6 +36,8 @@ from hdbscan_tpu_torch.models import mr_hdbscan as port_mr
 from hdbscan_tpu_torch.ops import rpforest as port_rpf
 from hdbscan_tpu_torch.ops import tiled as port_tiled
 from tests.test_torch_mr import BASE, _assert_bitwise, _fit_both, _lattice
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 pytestmark = pytest.mark.filterwarnings("ignore:boundary set capped")
 

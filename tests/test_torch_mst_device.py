@@ -13,6 +13,8 @@ import torch
 from hdbscan_tpu.core import mst_device as RM
 from hdbscan_tpu.ops.tiled import knn_core_distances as ref_knn
 from hdbscan_tpu_torch.core import mst_device as PM
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 # (seed, n, d, grid, min_pts, row_tile, col_tile): ragged n, duplicate-heavy
 # grids (tie groups), default and small tiles.

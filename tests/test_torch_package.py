@@ -15,6 +15,8 @@ import torch
 
 from hdbscan_tpu.config import HDBSCANParams as RefParams
 from hdbscan_tpu_torch.config import HDBSCANParams as PortParams
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hdbscan_tpu_torch")
@@ -37,6 +39,9 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.fault",
     "hdbscan_tpu_torch.fault.inject",
     "hdbscan_tpu_torch.fault.policy",
+    "hdbscan_tpu_torch.incremental",
+    "hdbscan_tpu_torch.incremental.insert",
+    "hdbscan_tpu_torch.incremental.subtree",
     "hdbscan_tpu_torch.models._finalize",
     "hdbscan_tpu_torch.models.bubble_hdbscan",
     "hdbscan_tpu_torch.models.consensus",
@@ -63,6 +68,11 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.serve.batcher",
     "hdbscan_tpu_torch.serve.predict",
     "hdbscan_tpu_torch.serve.server",
+    "hdbscan_tpu_torch.stream",
+    "hdbscan_tpu_torch.stream.buffer",
+    "hdbscan_tpu_torch.stream.drift",
+    "hdbscan_tpu_torch.stream.refit",
+    "hdbscan_tpu_torch.stream.wal",
     "hdbscan_tpu_torch.utils.checkpoint",
     "hdbscan_tpu_torch.utils.datasets",
     "hdbscan_tpu_torch.utils.evaluation",

@@ -17,6 +17,7 @@ from hdbscan_tpu.ops.tiled import _knn_core_scan
 from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest_panel
 from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_panel, panel_form
 from hdbscan_tpu_torch.ops.tiled import _min_outgoing_scan
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _side(rng, m, m_pad, d, grid, n_comp, p_valid=1.0, core_hi=3):

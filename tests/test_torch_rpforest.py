@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from hdbscan_tpu.config import HDBSCANParams as RefParams
 from hdbscan_tpu.core.knn import resolve_index_for as ref_resolve
@@ -32,6 +33,8 @@ from hdbscan_tpu_torch.models import exact as port_exact
 from hdbscan_tpu_torch.models.hdbscan import write_outputs as port_write
 from hdbscan_tpu_torch.ops import rpforest as port_rpf
 from hdbscan_tpu_torch.ops.tiled import knn_core_distances as port_knn
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 16

@@ -17,6 +17,7 @@ import torch
 from hdbscan_tpu.ops.pallas_segmin import min_outgoing_pallas, min_outgoing_xla_reference
 from hdbscan_tpu_torch.core.distances import euclidean_form
 from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows, min_outgoing_plain
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _inputs(seed, n, n_pad, d, grid, n_comp):

@@ -50,6 +50,8 @@ from hdbscan_tpu_torch.serve import (
     outlier_scores,
 )
 from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECK_TRACE = os.path.join(REPO, "scripts", "check_trace.py")

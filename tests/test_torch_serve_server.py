@@ -3,8 +3,10 @@
 predict on the same model, the trace passes ``scripts/check_trace.py`` and
 two scrapes pass ``scripts/check_metrics.py``, swaps are blue/green under
 load and refuse a fingerprint mismatch or a corrupt artifact, and the
-features that are not ported refuse by name (ROADMAP A10, A11, A12)
-before any socket opens. Servers bind port 0 and close in a ``finally``;
+features that are not ported refuse by name (ROADMAP A11, A12) before
+any socket opens; ``/ingest`` on a server started without ingest mode
+answers as the reference's does (the streaming server itself is held to
+the reference by ``test_torch_stream_server.py``). Servers bind port 0 and close in a ``finally``;
 every HTTP call has a timeout.
 
 Against the reference: the port's server and ``hdbscan_tpu.serve``'s
@@ -33,6 +35,8 @@ from hdbscan_tpu_torch.config import HDBSCANParams
 from hdbscan_tpu_torch.models import exact
 from hdbscan_tpu_torch.serve import ClusterModel, ClusterServer, Predictor
 from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(REPO, "scripts")
@@ -201,11 +205,6 @@ def test_swap_refusals(models, bad):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"ingest": True}, "A10"),
-        ({"model_dir": "models"}, "A10"),
-        ({"wal_dir": "wal"}, "A10"),
-        ({"params": HDBSCANParams(stream_maintain="incremental")}, "A10"),
-        ({"params": HDBSCANParams(stream_wal_dir="wal")}, "A10"),
         ({"tenants": "tenants"}, "A12"),
         ({"params": HDBSCANParams(watchdog_s=5.0)}, "A11"),
     ],
@@ -223,8 +222,8 @@ def test_http_refusals_deadlines_and_close(models):
         srv.start()
         url = f"http://{srv.host}:{srv.port}"
         pts = {"points": [[1.0, 2.0, 3.0]]}
-        status, _, body = _call(url, "/ingest", pts)
-        assert status == 409 and "ROADMAP A10" in body
+        status, _, body = _call(url, "/ingest", pts)  # the reference's answer
+        assert status == 409 and json.loads(body) == {"error": "server started without ingest mode"}
         status, _, body = _call(url, "/predict", {**pts, "tenant": "t0"})
         assert status == 409 and "ROADMAP A12" in body
         assert _call(url, "/predict", pts, {"X-Deadline-Ms": "0.000001"})[0] == 504
@@ -321,6 +320,7 @@ _TWIN_REQUESTS = {
     "unknown_get": ("/nowhere", None, None),
     "unknown_post": ("/nowhere", {"rows": 1}, None),
     "swap_nothing_staged": ("/swap", {}, None),
+    "ingest_off": ("/ingest", {"rows": 3}, None),
 }
 
 

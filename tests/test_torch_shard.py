@@ -33,6 +33,8 @@ from hdbscan_tpu_torch.models.hdbscan import write_outputs as port_write
 from hdbscan_tpu_torch.ops.tiled import knn_core_distances as port_knn
 from hdbscan_tpu_torch.parallel import ring, shard
 from hdbscan_tpu_torch.parallel.mesh import fetch, get_mesh, ring_permutation
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 TILES = dict(row_tile=64, col_tile=128)
 _TREE_FIELDS = (

@@ -35,16 +35,7 @@ from hdbscan_tpu_torch.ops import rpforest
 from hdbscan_tpu_torch.parallel import blocks as port_blocks
 from hdbscan_tpu_torch.parallel import ring, shard
 from hdbscan_tpu_torch.parallel.mesh import block_shards, get_mesh, pad_batch
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The mesh programs run many small per-shard ops: one intra-op thread
-    keeps them from contending with the suite's other workers for cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _cpu_mesh(d):

@@ -15,6 +15,8 @@ import torch
 from hdbscan_tpu.utils import tracing as ref_tracing
 from hdbscan_tpu_torch.utils import tracing as port_tracing
 from hdbscan_tpu_torch.utils.telemetry import json_sanitize
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
+
 
 #: Instant events (explicit walls, so every line is deterministic) with the
 #: field types the fits emit: numpy scalars and arrays, tuples, nested

@@ -32,6 +32,7 @@ from hdbscan_tpu_torch.ops import rpforest as port_rpf
 from hdbscan_tpu_torch.ops import tiled as port_tiled
 from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows
 from hdbscan_tpu_torch.utils.datasets import make_gauss
+from tests.test_torch_mr_mesh import _one_thread  # noqa: F401
 
 
 def _grid(seed, n, d, hi=3):
