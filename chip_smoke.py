@@ -293,6 +293,31 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    plain versions on the ingest path's own recorded calls, every B2 call
    of the maintained cell's card server among them. ``python3
    chip_smoke.py 3o`` builds the kernels and runs phases 3 and 3o alone;
+3p. the observability layer (``hdbscan_tpu_torch/obs``) around the card's
+   paths, each command run in this process with the launch counters zeroed
+   just before and read just after: ``3p_cli_skin_obs``, 3j's cli_mr
+   command on the Skin-shaped file in turns without, with, with and
+   without ``--trace-out --report --flight-dir --assert-not-replicated
+   heartbeat=0.2 watchdog=30``: the five files equal, the traces and reports pass
+   ``scripts/check_trace.py`` and the empty flight directory
+   ``check_flight.py --allow-empty``; it prints the per-phase watermarks
+   (``memory_stats``: the card's allocator) and the median fit wall with
+   and without the layer; ``3p_cli_sharded_obs``, the same over
+   ``--device cuda:0,cuda:0,cuda:0,cuda:0`` (3j's cli_exact_sharded
+   flags): the report's timeline and roofline sections, valid
+   ``device_timeline`` rows, the gate's single-device answer, the roofline
+   rows printed; ``3p_watchdog``, a ``phase_stall`` fault in a 4,096-row
+   card fit with ``watchdog=1``: a ``watchdog_stall`` event and bundle
+   (``check_flight.py``); ``3p_serve_obs``, a process that fits the first
+   30,000 rows with the memory auditor installed and serves the fit with
+   ``watchdog_s``: 300 ``/predict`` requests equal to the in-process
+   predict, two ``/metrics`` scrapes (``check_metrics.py``, a non-zero
+   ``hdbscan_tpu_device_peak_bytes``), ``/healthz``'s watchdog block, the
+   serving report's ``predict_latency`` through ``check_trace.py``, then
+   ``predict --report``. The kept calls of B1, K2, the rectangular B2, B9
+   and K3 on these paths are held against their plain versions, bitwise.
+   The kernels line gains ``launches_3p``. ``python3 chip_smoke.py 3p``
+   builds the kernels and runs phases 3 and 3p alone;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -476,6 +501,17 @@ STREAM_SHIFT = 300.0
 N_MAINTAIN = 4096
 MAINTAIN_BATCHES = 8
 MAINTAIN_ROWS = 48
+#: Phase 3p, observability: the flags every 3p command-line cell adds
+#: beside ``--trace-out --report --flight-dir``, the watchdog cell's rows
+#: and injected stall, and the serving cell's model rows and requests.
+OBS_FLAGS = ["--assert-not-replicated", "heartbeat=0.2", "watchdog=30"]
+#: The Skin cell's runs without (False) and with (True) the layer, in turns
+#: so neither side holds every early run; the sharded cell runs each once.
+OBS_TURNS = (False, True, True, False)
+OBS_SUB_ROWS = 4096
+OBS_STALL_S = 3.0
+OBS_SERVE_ROWS = 30_000
+OBS_REQUESTS = 300
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -3051,14 +3087,6 @@ def cli_twin(name, path, flags, out_dir, device):
     return dict(cuda_build.LAUNCHES)
 
 
-def check_trace_file(here, path) -> str | None:
-    """``scripts/check_trace.py`` on a trace file (stdlib only, run as a
-    subprocess): None when it passes, else its output."""
-    out = subprocess.run([sys.executable, os.path.join(here, "scripts", "check_trace.py"), path],
-                         capture_output=True, text=True, timeout=300)
-    return None if out.returncode == 0 else (out.stdout + out.stderr)[-2000:]
-
-
 def cli_leg(here, root, data, card, leg, phase="3j") -> list[str]:
     """One leg of phase 3j (see the module docstring); ``phase`` prefixes
     its lines."""
@@ -3086,7 +3114,7 @@ def cli_leg(here, root, data, card, leg, phase="3j") -> list[str]:
             return None, launches, peak
         if mode not in first:
             errors.append(f"{tag}: the stdout line does not name the route {mode!r}: {first}")
-        bad = check_trace_file(here, trace)
+        bad = validator(here, "check_trace.py", trace)
         if bad:
             errors.append(f"{tag}: check_trace.py failed: {bad}")
         digests = file_digests(out_dir)
@@ -3755,7 +3783,7 @@ def http_leg(here, model, model_b, card, tmp) -> tuple[list[str], dict]:
           "predict of the same rows")
     if loop["bad"]:
         errors.append(f"serve_http: {loop['bad']} concurrent responses differ")
-    msg = check_trace_file(here, trace)
+    msg = validator(here, "check_trace.py", trace)
     out = subprocess.run([sys.executable, os.path.join(here, "scripts", "check_metrics.py"),
                           *scrapes], capture_output=True, text=True, timeout=300)
     print(f"3m serve_http trace: {'passes' if msg is None else msg}; scrapes: "
@@ -4683,6 +4711,378 @@ def maintain_cell(here, data, card, tmp) -> tuple[list[str], dict]:
     return errors, stats
 
 
+def validator(here, script, *args) -> str | None:
+    """One of ``scripts/``' stdlib validators as a subprocess: None when it
+    passes, else the end of its output."""
+    out = subprocess.run([sys.executable, os.path.join(here, "scripts", script), *args],
+                         capture_output=True, text=True, timeout=300)
+    return None if out.returncode == 0 else (out.stdout + out.stderr)[-2000:]
+
+
+def obs_kernels_check(label, recorders, required) -> list[str]:
+    """Each kept call of B1 (``segmin``), K2 (``knn_kbest``), the
+    rectangular B2 (``knn_kbest_panel``), B9 (``min_outgoing_panel``) and
+    K3 (``uf_scan``) on a 3p path again through the kernel and through its
+    plain version on the same card tensors: bitwise equal, or an error; an
+    error too when a recorder of a kernel in ``required`` kept no call."""
+    import inspect
+
+    import torch
+
+    from hdbscan_tpu_torch.core import mst_device
+    from hdbscan_tpu_torch.ops import cuda_knn, cuda_segmin
+
+    def plain(name, a):
+        if name == "segmin":
+            return cuda_segmin.min_outgoing_plain(a["data"], a["core"], a["comp"], a["valid"],
+                                                  a["metric"], a["form"], a["col_tile"])
+        if name == "knn_kbest":
+            return cuda_knn.knn_kbest_plain(a["x"], a["k"], a["metric"], a["form"],
+                                            a["col_tile"])
+        if name == "knn_kbest_panel":
+            x = a["x"]
+            if a["n_cols"] is not None:
+                x = x[: max(0, min(x.shape[0], a["n_cols"] - a["id_offset"]))]
+            return cuda_knn.knn_kbest_panel_plain(a["q"], x, a["k"], a["metric"], a["form"],
+                                                  a["id_offset"], a["col_tile"])
+        if name == "min_outgoing_panel":
+            form = a["form"]
+            if form is None:
+                form = cuda_segmin.panel_form(a["rows"].shape[1], a["metric"], a["row_tile"],
+                                              a["col_tile"])
+            return cuda_segmin.min_outgoing_panel_plain(
+                a["rows"], a["core_r"], a["comp_r"], a["valid_r"], a["panel"], a["core_c"],
+                a["comp_c"], a["valid_c"], a["metric"], form, a["col_tile"], a["col_offset"])
+        return mst_device.uf_scan_plain(a["su"], a["sv"], a["n"])
+
+    errors, held = [], 0
+    for rec in recorders:
+        for args, kw in rec.calls:
+            bound = inspect.signature(rec.orig).bind(*args, **kw)
+            bound.apply_defaults()
+            got = rec.orig(*args, **kw)
+            want = plain(rec.name, bound.arguments)
+            torch.cuda.synchronize()
+            held += 1
+            if not _bits_same(got, want):
+                errors.append(f"{label}: {rec.name} differs from its plain version on a "
+                              f"3p call ({tuple(args[0].shape)})")
+    errors += [f"{label}: no {r.name} call recorded on the path" for r in recorders
+               if r.name in required and not r.calls]
+    names = ", ".join(f"{r.name} {len(r.calls)} of {r.count} calls" for r in recorders)
+    print(f"3p {label}: kernel vs plain on the path's own calls ({names}): "
+          f"{'bitwise' if not errors else 'FAILED'} ({held} held)")
+    return errors
+
+
+def obs_recorders(names, keep):
+    """CallRecorders of the 3p kernels' wrappers, by kernel name."""
+    from hdbscan_tpu_torch.core import mst_device
+    from hdbscan_tpu_torch.ops import cuda_knn, cuda_segmin
+
+    mods = {"segmin": cuda_segmin, "min_outgoing_panel": cuda_segmin, "knn_kbest": cuda_knn,
+            "knn_kbest_panel": cuda_knn, "uf_scan": mst_device}
+    return [CallRecorder(mods[n], n, keep=keep) for n in names]
+
+
+def fit_wall(err: str) -> float | None:
+    """The ``fit`` event's wall from a command's ``phases:`` summary."""
+    for line in err.split("phases:\n", 1)[-1].splitlines():
+        if line.strip().startswith("fit: n=1 wall_s="):
+            return float(line.split("wall_s=")[1])
+    return None
+
+
+def obs_cli_cell(here, root, label, path, flags, kernels, keep, card,
+                 turns=OBS_TURNS) -> tuple[list[str], dict]:
+    """One 3p command-line cell: the fit in turns without the
+    observability flags and with every one (``--trace-out --report
+    --flight-dir`` and :data:`OBS_FLAGS`), as ``turns`` says, each in this
+    process with the launch counters zeroed just before and read just
+    after; the overhead compares the sides' median fit walls. The five
+    files must be equal across the runs, each trace and report pass
+    ``check_trace.py``, the empty flight directories ``check_flight.py
+    --allow-empty``, the gate pass, and the first traced run's kept kernel
+    calls equal their plain versions. Returns (errors, stats)."""
+    from contextlib import ExitStack
+
+    errors, runs = [], []
+    argv = ["fit", f"file={path}", *flags]
+    recorders = obs_recorders(kernels, keep)
+    for i, traced in enumerate(turns):
+        tag = f"{label}_{i}"
+        extra = [f"out_dir={root}/{tag}"]
+        if traced:
+            extra += ["--trace-out", f"{root}/{tag}.jsonl", "--report", f"{root}/{tag}.json",
+                      "--flight-dir", f"{root}/{tag}_flight", *OBS_FLAGS]
+        with ExitStack() as stack:
+            if traced and not any(r["traced"] for r in runs):
+                for rec in recorders:
+                    stack.enter_context(rec)
+            rc, out, err, wall, launches, peak = run_cli(argv + extra, here, False)
+        if rc != 0:
+            return [f"{tag}: exit {rc}: {err[-2000:]}"], {}
+        runs.append(dict(tag=tag, traced=traced, out=out, fit=fit_wall(err), wall=wall,
+                         launches=launches, peak=peak, files=file_digests(f"{root}/{tag}")))
+    if any(r["files"] != runs[0]["files"] for r in runs):
+        errors.append(f"{label}: the five files differ with the observability flags")
+    for r in (r for r in runs if r["traced"]):
+        tag = r["tag"]
+        bad = validator(here, "check_trace.py", f"{root}/{tag}.jsonl", f"{root}/{tag}.json")
+        if bad:
+            errors.append(f"{tag}: check_trace.py failed on the trace and report: {bad}")
+        flight = f"{root}/{tag}_flight"
+        os.makedirs(flight, exist_ok=True)
+        bad = validator(here, "check_flight.py", "--allow-empty", flight)
+        if bad or os.listdir(flight):
+            errors.append(f"{tag}: the healthy run left flight bundles or failed "
+                          f"check_flight.py: {bad or os.listdir(flight)}")
+    first = next(r for r in runs if r["traced"])
+    with open(f"{root}/{first['tag']}.json") as f:
+        rep = json.load(f)
+    with open(f"{root}/{first['tag']}.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    gate = [e for e in events if e["stage"] == "replication_gate"]
+    if len(gate) != 1 or not gate[0]["ok"]:
+        errors.append(f"{label}: no passing replication_gate event")
+    plain = [r["fit"] for r in runs if not r["traced"]]
+    traced = [r["fit"] for r in runs if r["traced"]]
+    print(f"3p {label} ({card}): {first['out'].splitlines()[0] if first['out'] else ''}")
+    if None not in plain + traced:
+        import statistics
+
+        med_p, med_t = round(statistics.median(plain), 6), round(statistics.median(traced), 6)
+        print(f"3p {label}: fit walls in turns {[r['fit'] for r in runs]} s "
+              f"({'/'.join('with' if t else 'without' for t in turns)}); median without "
+              f"the layer {med_p} s, with it {med_t} s (overhead "
+              f"{(med_t / med_p - 1) * 100:+.2f}%); commands "
+              f"{[round(r['wall'], 3) for r in runs]} s; files "
+              f"{'identical' if not errors else 'see errors'}; peak allocated "
+              f"{[round(r['peak'] / 2**30, 3) for r in runs]} GiB; launches "
+              f"{ {k: v for k, v in first['launches'].items() if v} }")
+    wm = rep.get("memory", {}).get("watermarks", {})
+    print(f"3p {label} watermarks (bytes, source, samples, devices): "
+          f"{ {k: (v['max_device_bytes'], v['source'], v['samples'], v['devices'])
+               for k, v in wm.items()} }")
+    mem = rep.get("memory", {})
+    print(f"3p {label} memory start/end: {mem.get('start')} / {mem.get('end')}")
+    missing = [k for k in kernels if first["launches"].get(k if k != "min_outgoing_panel"
+                                                           else "segmin_panel", 0) == 0]
+    if missing:
+        errors.append(f"{label}: kernels of the path never launched: {missing}")
+    errors += obs_kernels_check(label, recorders, kernels)
+    return errors, dict(launches=first["launches"], report=rep, events=events, gate=gate)
+
+
+def obs_phase(here, data, card) -> tuple[list[str], dict]:
+    """Phase 3p, the observability layer (module docstring): its four
+    cells. Returns failure messages and each cell's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hdbscan_tpu_torch import obs
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="hdbscan_obs_")
+    errors, launches = [], {}
+    try:
+        path = os.path.join(root, "skin.tsv")
+        np.savetxt(path, data, delimiter="\t", fmt="%d")
+        # (a) the CLI's Skin fit, the MR route of 3j's cli_mr.
+        e, skin = obs_cli_cell(here, root, "3p_cli_skin_obs", path, CLI_LEGS[0][2],
+                               ("knn_kbest", "segmin"), 1, card)
+        errors += e
+        launches["3p_cli_skin_obs"] = skin.get("launches", {})
+        # (b) the exact fit over four shards of the card.
+        e, shard = obs_cli_cell(
+            here, root, "3p_cli_sharded_obs", path,
+            [*CLI_LEGS[1][2], "--device", ",".join(["cuda:0"] * N_SHARDS)],
+            ("knn_kbest_panel", "min_outgoing_panel", "uf_scan"), 2, card, turns=(False, True))
+        errors += e
+        launches["3p_cli_sharded_obs"] = shard.get("launches", {})
+        if shard:
+            rep, gate = shard["report"], shard["gate"]
+            tl = [ev for ev in shard["events"] if ev["stage"] == "device_timeline"]
+            wm = rep.get("memory", {}).get("watermarks", {})
+            single = (bool(gate) and gate[0]["worst_fraction"] == 0.0
+                      and all(row["devices"] == 1 for row in wm.values()))
+            print(f"3p 3p_cli_sharded_obs: {len(tl)} device_timeline rows over devices "
+                  f"{sorted({ev['device'] for ev in tl})}; gate single_device: {single}")
+            print(f"3p 3p_cli_sharded_obs timeline: {rep.get('timeline')}")
+            print(f"3p 3p_cli_sharded_obs roofline: {rep.get('roofline')}")
+            if "timeline" not in rep or "roofline" not in rep or not tl:
+                errors.append("3p_cli_sharded_obs: the report lacks its timeline or roofline")
+            if not single:
+                errors.append("3p_cli_sharded_obs: the gate did not answer single_device on "
+                              "one card")
+        e, launches["3p_watchdog"] = obs_watchdog_cell(here, root, data, card)
+        errors += e
+        e, launches["3p_serve_obs"] = obs_serve_cell(here, root, data, card)
+        errors += e
+    finally:
+        obs.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"3p observability phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return errors, launches
+
+
+def obs_watchdog_cell(here, root, data, card) -> tuple[list[str], dict]:
+    """``3p_watchdog``: a ``phase_stall`` fault (OBS_STALL_S) in the level
+    beat of an MR fit of OBS_SUB_ROWS Skin-shaped rows on the card with
+    ``watchdog=1``: a ``watchdog_stall`` event and bundle, valid under
+    ``check_flight.py``, and the fit still exits 0."""
+    import numpy as np
+
+    from hdbscan_tpu_torch.fault import inject
+
+    path = os.path.join(root, "watchdog.tsv")
+    np.savetxt(path, data[:OBS_SUB_ROWS], delimiter="\t", fmt="%d")
+    trace, flight = os.path.join(root, "watchdog.jsonl"), os.path.join(root, "watchdog_flight")
+    inject.install(f"phase_stall:count=1,delay_s={OBS_STALL_S}")
+    try:
+        rc, out, err, wall, launches, _ = run_cli(
+            ["fit", f"file={path}", "minPts=16", "minClSize=50", "processing_units=1024",
+             "k=0.01", "seed=0", "watchdog=1", "heartbeat=0.1", f"out_dir={root}/watchdog",
+             "--trace-out", trace, "--flight-dir", flight], here, False)
+    finally:
+        inject.clear()
+    if rc != 0:
+        return [f"3p_watchdog: exit {rc}: {err[-2000:]}"], launches or {}
+    errors = []
+    with open(trace) as f:
+        stalls = [json.loads(line) for line in f if '"watchdog_stall"' in line]
+    bundles = sorted(os.listdir(flight)) if os.path.isdir(flight) else []
+    bad = validator(here, "check_flight.py", flight) if bundles else "no bundle"
+    if not stalls or not bundles or bad or not all(b.endswith("-watchdog_stall.json")
+                                                   for b in bundles):
+        errors.append(f"3p_watchdog: stall events {len(stalls)}, bundles {bundles}: {bad}")
+    bad = validator(here, "check_trace.py", trace)
+    if bad:
+        errors.append(f"3p_watchdog: check_trace.py failed: {bad}")
+    missing = [k for k in ("knn_kbest", "segmin") if launches.get(k, 0) == 0]
+    if missing:
+        errors.append(f"3p_watchdog: kernels of the fit never launched: {missing}")
+    print(f"3p 3p_watchdog ({card}): exit {rc}, wall {wall:.3f} s; {len(stalls)} stall(s) "
+          f"({[s.get('stalled_s') for s in stalls]} s), bundles {bundles}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return errors, launches
+
+
+def obs_serve_cell(here, root, data, card) -> tuple[list[str], dict]:
+    """``3p_serve_obs``: a process that fits (the dense fit of the first
+    OBS_SERVE_ROWS Skin-shaped rows, its phases audited through the card's
+    allocator) then serves the fit with ``watchdog_s`` set (the server
+    arms its heartbeat hub): OBS_REQUESTS ``POST /predict`` of 1-256
+    novel rows, each answer equal to the in-process predict, two
+    ``/metrics`` scrapes (``check_metrics.py``, a non-zero
+    ``hdbscan_tpu_device_peak_bytes``) and ``/healthz`` with its
+    ``watchdog`` block; the run report ``serve --report`` writes
+    (``cli._write_serving_report``) recomputes its ``predict_latency`` from
+    the trace; then ``predict --report`` of 20,000 queries. B2's kept calls
+    equal their plain versions."""
+    import urllib.request
+
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams, cli, obs
+    from hdbscan_tpu_torch.models import hdbscan
+    from hdbscan_tpu_torch.obs.audit import MemoryAuditor
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_knn
+    from hdbscan_tpu_torch.serve import ClusterModel, ClusterServer, Predictor
+    from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
+
+    errors = []
+    x = data[:OBS_SERVE_ROWS]
+    params = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=367, watchdog_s=30.0,
+                           heartbeat_s=1.0)
+    obs.install(auditor=MemoryAuditor())
+    try:
+        res = hdbscan.fit(x, params)
+        path = res.to_cluster_model(x, params).save(os.path.join(root, "serve.npz"))
+        model = ClusterModel.load(path)
+        rng = np.random.default_rng(SEED + 30)
+        sizes = [int(s) for s in rng.integers(1, 257, OBS_REQUESTS)]
+        queries = novel_queries(x, sum(sizes), SEED + 31)
+        want = Predictor(model).predict(queries)[0]
+        trace, report = os.path.join(root, "serve.jsonl"), os.path.join(root, "serve.json")
+        tracer = Tracer(sinks=[JsonlSink(trace, static={"process": 0})],
+                        counters=cli._telemetry_counters())
+        b2 = CallRecorder(cuda_knn, "knn_kbest_panel", keep=4)
+        srv = ClusterServer(model, port=0, tracer=tracer, params=params)
+        scrapes, lat = [], []
+        try:
+            srv.start()
+            url = f"http://{srv.host}:{srv.port}"
+
+            def call(route, obj=None):
+                body = None if obj is None else json.dumps(obj).encode()
+                with urllib.request.urlopen(urllib.request.Request(url + route, data=body),
+                                            timeout=120) as r:
+                    return r.status, r.read().decode()
+
+            torch_sync()
+            cuda_build.reset_launches()
+            off = 0
+            with b2:
+                for i, rows in enumerate(sizes):
+                    t = time.perf_counter()
+                    status, body = call("/predict", {"points": queries[off:off + rows].tolist()})
+                    lat.append(time.perf_counter() - t)
+                    if status != 200 or json.loads(body)["labels"] != want[off:off + rows].tolist():
+                        errors.append(f"3p_serve_obs: request {i} ({rows} rows) answered "
+                                      f"{status} or other labels")
+                        break
+                    off += rows
+                    if i in (OBS_REQUESTS // 2, OBS_REQUESTS - 1):
+                        scrapes.append(os.path.join(root, f"scrape{len(scrapes)}.txt"))
+                        with open(scrapes[-1], "w") as f:
+                            f.write(call("/metrics")[1])
+            torch_sync()
+            launches = dict(cuda_build.LAUNCHES)
+            health = json.loads(call("/healthz")[1])
+        finally:
+            srv.close()
+            tracer.close()
+        cli._write_serving_report(report, tracer, params, ["serve", "--model", path])
+    finally:
+        obs.clear()
+    bad = validator(here, "check_metrics.py", *scrapes)
+    with open(scrapes[-1]) as f:
+        peaks = [line for line in f if line.startswith("hdbscan_tpu_device_peak_bytes{")]
+    peak_ok = any(float(p.rsplit(" ", 1)[1]) > 0 for p in peaks)
+    if bad or not peak_ok:
+        errors.append(f"3p_serve_obs: check_metrics.py {bad}; device peaks {peaks}")
+    if "watchdog" not in health:
+        errors.append("3p_serve_obs: /healthz carries no watchdog block")
+    bad = validator(here, "check_trace.py", trace, report)
+    if bad:
+        errors.append(f"3p_serve_obs: check_trace.py failed on the trace and report: {bad}")
+    with open(report) as f:
+        latency = json.load(f).get("predict_latency", {})
+    st = latency_stats(lat, sum(sizes))
+    print(f"3p 3p_serve_obs ({card}): {len(lat)} requests, {_lat_text(st)}; report "
+          f"predict_latency {latency}; device peaks {[p.strip() for p in peaks]}; healthz "
+          f"watchdog {health.get('watchdog')}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if launches.get("knn_kbest_panel", 0) == 0:
+        errors.append("3p_serve_obs: B2 never launched while serving")
+    errors += obs_kernels_check("3p_serve_obs", [b2], ("knn_kbest_panel",))
+    qpath = os.path.join(root, "queries.tsv")
+    np.savetxt(qpath, novel_queries(x, N_NOVEL, SEED + 32), delimiter="\t", fmt="%d")
+    ptrace, preport = os.path.join(root, "predict.jsonl"), os.path.join(root, "predict.json")
+    rc, out, err, wall, plaunches, _ = run_cli(
+        ["predict", "--model", path, "--points", qpath, "--out", os.path.join(root, "p.csv"),
+         "--trace-out", ptrace, "--report", preport], here, False)
+    bad = validator(here, "check_trace.py", ptrace, preport) if rc == 0 else err[-2000:]
+    if bad:
+        errors.append(f"3p_serve_obs predict --report: {bad}")
+    print(f"3p predict --report ({card}): exit {rc}, {wall:.3f} s; "
+          f"{out.splitlines()[0] if out else ''}")
+    return errors, launches
+
+
 def add_launches(rows, phases) -> None:
     """Each kernel row's launches in the cells of each phase that ran it
     (``phases``: key -> {cell: launches}); the serving rows (``_predict``)
@@ -4752,8 +5152,10 @@ def main() -> int:
     only_3m = sys.argv[1:] == ["3m"]
     only_3n = sys.argv[1:] == ["3n"]
     only_3o = sys.argv[1:] == ["3o"]
+    only_3p = sys.argv[1:] == ["3p"]
 
-    errors = [] if only_3k or only_3l or only_3m or only_3n or only_3o else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
+    only_phase = only_3k or only_3l or only_3m or only_3n or only_3o or only_3p
+    errors = [] if only_phase else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
               + parity_leaf() + parity_metrics())
@@ -4811,6 +5213,10 @@ def main() -> int:
         print(card)
         print(json.dumps({"kernels": mesh_rows}))
         return fail(f"the multi-GPU phase failed: {errors}") if errors else 0
+    if only_3p:  # ``python3 chip_smoke.py 3p``: phase 3 and 3p alone
+        errors, _ = obs_phase(here, data, card)
+        print(card)
+        return fail(f"the observability phase failed: {errors}") if errors else 0
     if only_3o:  # ``python3 chip_smoke.py 3o``: phase 3 and 3o alone
         from hdbscan_tpu_torch.ops import rpforest
 
@@ -5016,6 +5422,11 @@ def main() -> int:
     if errors:
         return fail(f"the streaming phase failed: {errors}")
 
+    # --- 3p: the observability layer on the card --------------------------
+    errors, obs_launches = obs_phase(here, data, card)
+    if errors:
+        return fail(f"the observability phase failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -5094,7 +5505,7 @@ def main() -> int:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")
     add_launches(rows, {"launches_3k": host_launches, "launches_3l": mr_launches,
                         "launches_3m": serve_launches, "launches_3n": mesh_launches,
-                        "launches_3o": stream_launches})
+                        "launches_3o": stream_launches, "launches_3p": obs_launches})
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -6,5 +6,7 @@ run it on the CPU with ``device="cpu"``, where every kernel's plain
 PyTorch version stands in.
 """
 
+__version__ = "0.1.0"
+
 from hdbscan_tpu_torch import models  # noqa: F401
 from hdbscan_tpu_torch.config import HDBSCANParams  # noqa: F401

@@ -15,11 +15,14 @@ Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
         [dedup={true,false}] [tree_backend={auto,reference,vectorized}] \
         [mst_backend={auto,host,device}] [variant={db,rs}] [consensus=N] \
         [compat_cf={true,false}] [block_pruning={true,false}] \
-        [trace_rotate_bytes=N] [trace_max_events=N] \
-        [--trace-out PATH] [--model-out MODEL.npz] [--device DEV]
+        [trace_rotate_bytes=N] [trace_max_events=N] [compile_cache={auto,off,DIR}] \
+        [heartbeat=F] [watchdog=F] [skew_threshold=F] [straggler_rounds=N] \
+        [--trace-out PATH] [--report PATH] [--flight-dir DIR] \
+        [--assert-not-replicated] [--compile-cache {auto,off,DIR}] \
+        [--model-out MODEL.npz] [--device DEV]
     python -m hdbscan_tpu_torch predict --model MODEL.npz --points <input> \
         [--out PRED.csv] [predict_backend={auto,xla,fused,rpforest}] \
-        [predict_batch=N] [--trace-out PATH] [--device DEV]
+        [predict_batch=N] [--trace-out PATH] [--report PATH] [--device DEV]
     python -m hdbscan_tpu_torch serve --model MODEL.npz [--host H] [--port P] \
         [--port-file PATH] [predict_backend=...] [predict_batch=N] \
         [queue_bound=N] [deadline_ms=F] [faults=SPEC] [trace_max_events=N] \
@@ -27,8 +30,8 @@ Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
         [drift_threshold=F] [refit_budget=N] [stream_reload={auto,manual}] \
         [circuit_failures=N] [circuit_reset=F] [wal_dir=DIR] [snapshot_every=N] \
         [maintain={off,incremental}] [maintain_budget=F] \
-        [maintain_dirty_frac=F] [maintain_refresh=N] \
-        [--trace-out PATH] [--device DEV]
+        [maintain_dirty_frac=F] [maintain_refresh=N] [heartbeat=F] [watchdog=F] \
+        [--trace-out PATH] [--report PATH] [--device DEV]
 
 The dataset is routed as the reference routes it: with ``fit_sharding``
 resolving to ``sharded`` and n <= ``processing_units``, the exact fit over
@@ -91,11 +94,28 @@ stage event as a ``hdbscan-tpu-trace/1`` JSON line (the fit's rotated at
 ``HDBSCAN_TPU_TRACE=1`` streams the events as logfmt lines to stderr. The
 fit's per-stage summary (``phases:``) always goes to stderr.
 
+Observability (``hdbscan_tpu_torch/obs``, the reference's flags and
+semantics): with ``--trace-out`` or ``--report`` the trace's events carry
+per-phase kernel build counts (``jit_compiles``, ``cache_hits``), and
+``--report PATH`` writes the ``hdbscan-tpu-report/3`` run report (manifest,
+per-phase aggregates, memory samples and watermarks, timeline and roofline
+sections; ``predict``/``serve``: ``predict_latency``). Either flag, or
+``--assert-not-replicated``, installs the memory auditor (the card's
+allocator, or the live tensors on the CPU), the heartbeat hub (``heartbeat``
+seconds between beats, a hang watchdog after ``watchdog`` seconds without
+one) and the timeline recorder (``skew_threshold``, ``straggler_rounds``).
+``--flight-dir DIR`` arms the flight recorder: a bundle lands in DIR on a
+watchdog stall, a gate trip, an unhandled exception or SIGTERM.
+``--assert-not-replicated`` fails the fit (exit 3) when one device's phase
+peak implies a replicated O(n) buffer; one device (a mesh of one card's
+shards included) passes it as ``single_device``. ``--compile-cache`` /
+``compile_cache=`` picks where the kernels are built and loaded from
+(``utils/cache``: ``auto``, ``off`` or a directory). Validate the files
+with ``scripts/check_trace.py TRACE REPORT`` and ``scripts/check_flight.py
+DIR``.
+
 Not ported yet — each exits 2 before any data is read:
-``fleet`` (ROADMAP A12), ``serve --tenants-dir`` (A12), ``--report``,
-``--flight-dir``, ``--assert-not-replicated``, ``--compile-cache`` /
-``compile_cache=`` and the observability knobs ``heartbeat``,
-``watchdog``, ``skew_threshold``, ``straggler_rounds`` (A11),
+``fleet`` (ROADMAP A12), ``serve --tenants-dir`` (A12),
 ``clusterName`` other than ``local`` (multi-process runs, A9b).
 """
 
@@ -111,17 +131,8 @@ HELP = __doc__
 
 #: Subcommands of the reference that are not ported, with their items.
 _UNPORTED_COMMANDS = {"fleet": "A12"}
-#: ``--flag PATH`` options of the reference's fit that are not ported.
-_UNPORTED_PATH_FLAGS = (("--report", "A11"), ("--flight-dir", "A11"),
-                        ("--compile-cache", "A11"))
 #: The reference's ``serve --flag PATH`` options that are not ported.
-_UNPORTED_SERVE_FLAGS = (("--report", "A11"), ("--tenants-dir", "A12"))
-#: Fit parameters whose engine is not ported: (field, CLI key, item).
-_UNPORTED_FIELDS = (("compile_cache", "compile_cache", "A11"),
-                    ("heartbeat_s", "heartbeat", "A11"),
-                    ("watchdog_s", "watchdog", "A11"),
-                    ("obs_skew_threshold", "skew_threshold", "A11"),
-                    ("obs_straggler_rounds", "straggler_rounds", "A11"))
+_UNPORTED_SERVE_FLAGS = (("--tenants-dir", "A12"),)
 
 
 def _pop_path_flag(argv: list[str], flag: str) -> str | None:
@@ -161,15 +172,6 @@ def _not_ported(what: str, item: str) -> int:
     return 2
 
 
-def _refuse_fields(params) -> int:
-    """Exit 2 naming the item of the first unported knob that is set."""
-    default = HDBSCANParams()
-    for field, key, item in _UNPORTED_FIELDS:
-        if getattr(params, field) != getattr(default, field):
-            return _not_ported(f"{key}={getattr(params, field)}", item)
-    return 0
-
-
 def _device(flag):
     """The ``--device`` flag resolved (the card by default; of a comma list,
     the first entry); None, with the error printed, when no card is
@@ -197,15 +199,40 @@ def _mesh(flag, device):
     return None
 
 
-def _serving_tracer(trace_out: str | None, max_events: int):
+def _telemetry_counters():
+    """The per-phase kernel build counters a traced or reported run's
+    events carry (the reference's ``jit_compiles``/``cache_hits`` fields)."""
+    from hdbscan_tpu_torch.utils import telemetry
+
+    return {"jit_compiles": telemetry.compile_counter(),
+            "cache_hits": telemetry.cache_hit_counter()}
+
+
+def _serving_tracer(trace_out: str | None, report_out: str | None, max_events: int):
     """Tracer of the serving commands: ``--trace-out`` as JSON lines,
     ``HDBSCAN_TPU_TRACE=1`` as logfmt on stderr, the in-memory list bounded
-    by ``trace_max_events``."""
+    by ``trace_max_events``; the build counters ride the events when
+    either file was asked for."""
     from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
 
     sinks = [JsonlSink(trace_out, static={"process": 0})] if trace_out is not None else []
+    counters = _telemetry_counters() if trace_out is not None or report_out is not None else None
     return Tracer(stream=sys.stderr if os.environ.get("HDBSCAN_TPU_TRACE") else None,
-                  sinks=sinks, max_events=max_events)
+                  sinks=sinks, counters=counters, max_events=max_events)
+
+
+def _write_serving_report(report_out: str, tracer, params, argv_full) -> None:
+    """The serving commands' run report: the manifest, the phases and the
+    ``predict_latency`` section over the ``predict_batch`` events."""
+    from hdbscan_tpu_torch.utils import telemetry
+
+    report = telemetry.build_report(
+        tracer, manifest=telemetry.run_manifest(params, argv=argv_full)
+    )
+    latency = telemetry.predict_latency_section(tracer)
+    if latency is not None:
+        report["predict_latency"] = latency
+    telemetry.write_report(report_out, report)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -218,34 +245,36 @@ def main(argv: list[str] | None = None) -> int:
     if argv[0] in _UNPORTED_COMMANDS:
         return _not_ported(f"the {argv[0]} subcommand", _UNPORTED_COMMANDS[argv[0]])
     if argv[0] == "predict":
-        return _main_predict(argv[1:])
+        return _main_predict(argv[1:], list(argv))
     if argv[0] == "serve":
-        return _main_serve(argv[1:])
+        return _main_serve(argv[1:], list(argv))
     if argv[0] == "fit":
         argv = argv[1:]
     return _main_fit(argv)
 
 
 def _main_fit(argv: list[str]) -> int:
+    argv_full = list(argv)  # the manifest records argv as given, flags included
     try:
         trace_out = _pop_path_flag(argv, "--trace-out")
+        report_out = _pop_path_flag(argv, "--report")
+        compile_cache_flag = _pop_path_flag(argv, "--compile-cache")
         model_out = _pop_path_flag(argv, "--model-out")
+        flight_dir = _pop_path_flag(argv, "--flight-dir")
         device_flag = _pop_path_flag(argv, "--device")
-        for flag, item in _UNPORTED_PATH_FLAGS:
-            if _pop_path_flag(argv, flag) is not None:
-                return _not_ported(flag, item)
-        if _pop_bool_flag(argv, "--assert-not-replicated"):
-            return _not_ported("--assert-not-replicated", "A11")
+        assert_not_replicated = _pop_bool_flag(argv, "--assert-not-replicated")
         params = HDBSCANParams.from_args(argv)
+        if compile_cache_flag is not None:
+            import dataclasses
+
+            # replace() re-runs __post_init__ validation on the new value.
+            params = dataclasses.replace(params, compile_cache=compile_cache_flag)
     except ValueError as e:
         print(f"error: {e}\n{HELP}", file=sys.stderr)
         return 2
     if not params.input_file:
         print("error: file=<input> is required", file=sys.stderr)
         return 2
-    refused = _refuse_fields(params)
-    if refused:
-        return refused
     if params.cluster_name != "local":
         return _not_ported(f"clusterName={params.cluster_name} (multi-process runs)", "A9b")
 
@@ -255,8 +284,11 @@ def _main_fit(argv: list[str]) -> int:
     if device is None:
         return 1
 
+    from hdbscan_tpu_torch import obs
     from hdbscan_tpu_torch.models import exact, hdbscan, mr_hdbscan
     from hdbscan_tpu_torch.parallel.shard import resolve_fit_sharding
+    from hdbscan_tpu_torch.utils import telemetry
+    from hdbscan_tpu_torch.utils.cache import enable_persistent_compilation_cache
     from hdbscan_tpu_torch.utils.io import load_points
     from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
 
@@ -265,9 +297,12 @@ def _main_fit(argv: list[str]) -> int:
     except ValueError as e:
         print(f"error: --device: {e}", file=sys.stderr)
         return 2
+    cache_dir = enable_persistent_compilation_cache(params.compile_cache)
 
     # Always collected, so the end-of-run summary shows the phase walls;
-    # --trace-out persists the events, HDBSCAN_TPU_TRACE=1 streams them.
+    # --trace-out persists the events, HDBSCAN_TPU_TRACE=1 streams them, and
+    # with --trace-out or --report the kernel build counters ride them.
+    telemetry_on = trace_out is not None or report_out is not None
     sinks = []
     if trace_out is not None:
         sinks.append(JsonlSink(trace_out, static={"process": 0},
@@ -275,8 +310,63 @@ def _main_fit(argv: list[str]) -> int:
     tracer = Tracer(
         stream=sys.stderr if os.environ.get("HDBSCAN_TPU_TRACE") else None,
         sinks=sinks,
+        counters=_telemetry_counters() if telemetry_on else None,
         max_events=params.trace_max_events,
     )
+    # The observability layer installs once per fit when telemetry is on or
+    # the replication gate was asked for (it needs audited watermarks).
+    # Uninstalled, every fit-path obs call is a no-op attribute check.
+    installed_obs = False
+    tl_rec = None
+    if (telemetry_on or assert_not_replicated) and obs.auditor() is None:
+        from hdbscan_tpu_torch.obs.audit import MemoryAuditor
+        from hdbscan_tpu_torch.obs.heartbeat import Heartbeats
+        from hdbscan_tpu_torch.obs.timeline import TimelineRecorder
+
+        tl_rec = TimelineRecorder(skew_threshold=params.obs_skew_threshold,
+                                  straggler_rounds=params.obs_straggler_rounds, trace=tracer)
+        obs.install(
+            auditor=MemoryAuditor(tracer=tracer),
+            heartbeats=Heartbeats(tracer, heartbeat_s=params.heartbeat_s,
+                                  watchdog_s=params.watchdog_s),
+            timeline=tl_rec,
+        )
+        installed_obs = True
+    # The flight recorder: a bounded ring over the trace stream that dumps a
+    # bundle to --flight-dir on a watchdog stall (sniffed from the stream),
+    # a gate trip, an unhandled exception or SIGTERM. A healthy run writes
+    # no file.
+    flight = None
+    restore_term = None
+    if flight_dir is not None:
+        import signal
+        import threading
+
+        from hdbscan_tpu_torch.obs.flightrec import FlightRecorder
+
+        flight = FlightRecorder(flight_dir, manifest=telemetry.run_manifest(params, argv=argv_full),
+                                tracer=tracer)
+        tracer.add_sink(flight)
+        obs.install(flight=flight)
+        installed_obs = True
+        if threading.current_thread() is threading.main_thread():
+            prev_term = signal.getsignal(signal.SIGTERM)
+
+            def _on_sigterm(signum, frame):
+                try:
+                    flight.dump("sigterm")
+                finally:
+                    signal.signal(signal.SIGTERM,
+                                  prev_term if callable(prev_term) else signal.SIG_DFL)
+                    signal.raise_signal(signal.SIGTERM)
+
+            signal.signal(signal.SIGTERM, _on_sigterm)
+
+            def restore_term():
+                if signal.getsignal(signal.SIGTERM) is _on_sigterm:
+                    signal.signal(signal.SIGTERM, prev_term)
+
+    mem_start = telemetry.sample_device_memory() if report_out is not None else None
     try:
         t0 = time.monotonic()
         data = load_points(params.input_file)
@@ -305,6 +395,26 @@ def _main_fit(argv: list[str]) -> int:
             return 2
         wall = time.monotonic() - t0
         tracer("fit", mode=mode.split(" ")[0], rows=n, wall_s=round(wall, 6))
+
+        if assert_not_replicated:
+            from hdbscan_tpu_torch.obs.audit import ReplicatedBufferError
+
+            try:
+                gate = obs.assert_not_replicated(n, data.dtype.itemsize)
+            except ReplicatedBufferError as e:
+                if flight is not None:
+                    try:
+                        flight.dump("replication_gate", extra={"error": str(e)})
+                    except Exception:
+                        pass
+                print(f"error: replicated device buffer: {e}", file=sys.stderr)
+                return 3
+            except RuntimeError as e:
+                # No audited phase: the gate fails loudly, never vacuously.
+                print(f"error: {e}", file=sys.stderr)
+                return 3
+            tracer("replication_gate", ok=True, threshold_bytes=int(gate["threshold_bytes"]),
+                   worst_fraction=gate["worst_fraction"], phases=len(gate["phases"]))
 
         t0 = time.monotonic()
         paths = hdbscan.write_outputs(result, params)
@@ -342,20 +452,51 @@ def _main_fit(argv: list[str]) -> int:
             print("phases:", file=sys.stderr)
             for line in summary.splitlines():
                 print(f"  {line}", file=sys.stderr)
+    except BaseException as e:
+        # An unhandled fit crash leaves a bundle behind even though the
+        # process is about to die.
+        if flight is not None and not isinstance(e, SystemExit):
+            try:
+                flight.dump("exception", extra={"error": repr(e)})
+            except Exception:
+                pass
+        raise
     finally:
+        # Uninstall the layer (stops the watchdog and sampler threads)
+        # before the tracer flushes: nothing may emit after close.
+        if installed_obs:
+            obs.clear()
+        if restore_term is not None:
+            restore_term()
         tracer.close()
+
+    if report_out is not None:
+        from hdbscan_tpu_torch.obs.roofline import default_tags
+
+        telemetry.write_report(report_out, telemetry.build_report(
+            tracer,
+            manifest=telemetry.run_manifest(params, argv=argv_full, extra={
+                "compile_cache": {
+                    "dir": cache_dir,
+                    "jit_compiles": telemetry.compile_counter()(),
+                    "cache_hits": telemetry.cache_hit_counter()(),
+                },
+            }),
+            memory={"start": mem_start, "end": telemetry.sample_device_memory()},
+            timeline=tl_rec.phase_table() if tl_rec is not None else None,
+            roofline_tags=default_tags(device),
+        ))
     return 0
 
 
-def _main_predict(argv: list[str]) -> int:
+def _main_predict(argv: list[str], argv_full: list[str]) -> int:
     try:
         model_path = _pop_path_flag(argv, "--model")
         points_path = _pop_path_flag(argv, "--points")
         out_path = _pop_path_flag(argv, "--out")
         trace_out = _pop_path_flag(argv, "--trace-out")
+        report_out = _pop_path_flag(argv, "--report")
         device_flag = _pop_path_flag(argv, "--device")
-        if _pop_path_flag(argv, "--report") is not None:
-            return _not_ported("--report", "A11")
         params = HDBSCANParams.from_args(argv)
     except ValueError as e:
         print(f"error: {e}\n{HELP}", file=sys.stderr)
@@ -364,9 +505,6 @@ def _main_predict(argv: list[str]) -> int:
         print("error: predict requires --model MODEL.npz and --points <input>",
               file=sys.stderr)
         return 2
-    refused = _refuse_fields(params)
-    if refused:
-        return refused
 
     import numpy as np
 
@@ -376,9 +514,11 @@ def _main_predict(argv: list[str]) -> int:
 
     from hdbscan_tpu_torch.serve.artifact import ClusterModel
     from hdbscan_tpu_torch.serve.predict import Predictor
+    from hdbscan_tpu_torch.utils.cache import enable_persistent_compilation_cache
     from hdbscan_tpu_torch.utils.io import load_points
 
-    tracer = _serving_tracer(trace_out, params.trace_max_events)
+    enable_persistent_compilation_cache(params.compile_cache)
+    tracer = _serving_tracer(trace_out, report_out, params.trace_max_events)
     try:
         t0 = time.monotonic()
         try:
@@ -416,15 +556,18 @@ def _main_predict(argv: list[str]) -> int:
             print(f"  predictions: {out_path}")
     finally:
         tracer.close()
+    if report_out is not None:
+        _write_serving_report(report_out, tracer, params, argv_full)
     return 0
 
 
-def _main_serve(argv: list[str]) -> int:
+def _main_serve(argv: list[str], argv_full: list[str]) -> int:
     try:
         model_path = _pop_path_flag(argv, "--model")
         host = _pop_path_flag(argv, "--host") or "127.0.0.1"
         port = _pop_path_flag(argv, "--port")
         trace_out = _pop_path_flag(argv, "--trace-out")
+        report_out = _pop_path_flag(argv, "--report")
         port_file = _pop_path_flag(argv, "--port-file")
         device_flag = _pop_path_flag(argv, "--device")
         model_dir = _pop_path_flag(argv, "--model-dir")
@@ -440,17 +583,16 @@ def _main_serve(argv: list[str]) -> int:
     if not model_path:
         print("error: serve requires --model MODEL.npz", file=sys.stderr)
         return 2
-    refused = _refuse_fields(params)
-    if refused:
-        return refused
     device = _device(device_flag)
     if device is None:
         return 1
 
     from hdbscan_tpu_torch.serve.artifact import ClusterModel
     from hdbscan_tpu_torch.serve.server import ClusterServer
+    from hdbscan_tpu_torch.utils.cache import enable_persistent_compilation_cache
 
-    tracer = _serving_tracer(trace_out, params.trace_max_events)
+    enable_persistent_compilation_cache(params.compile_cache)
+    tracer = _serving_tracer(trace_out, report_out, params.trace_max_events)
     try:
         try:
             model = ClusterModel.load(model_path)
@@ -482,4 +624,6 @@ def _main_serve(argv: list[str]) -> int:
         server.serve_forever()
     finally:
         tracer.close()
+    if report_out is not None:
+        _write_serving_report(report_out, tracer, params, argv_full)
     return 0

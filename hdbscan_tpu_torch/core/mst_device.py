@@ -369,18 +369,27 @@ def build_merge_forest_device(
         return None
     if not np.all(np.isfinite(w)):
         return None
+    from hdbscan_tpu_torch import obs
+
     dev = cuda_build.resolve_device(device)
     t0 = time.monotonic()
-    out = forest_events_device(
-        torch.as_tensor(np.asarray(u, np.int32), device=dev),
-        torch.as_tensor(np.asarray(v, np.int32), device=dev),
-        torch.as_tensor(w.astype(np.float32), device=dev),
-        n,
-    )
-    build_wall = time.monotonic() - t0
-    t0 = time.monotonic()
-    fetched = {k: t.cpu().numpy() for k, t in out.items()}
-    sync_wall = time.monotonic() - t0
+    with obs.mem_phase("tree_build_device"):
+        out = forest_events_device(
+            torch.as_tensor(np.asarray(u, np.int32), device=dev),
+            torch.as_tensor(np.asarray(v, np.int32), device=dev),
+            torch.as_tensor(w.astype(np.float32), device=dev),
+            n,
+        )
+        build_wall = time.monotonic() - t0
+        t0 = time.monotonic()
+        fetched = {k: t.cpu().numpy() for k, t in out.items()}
+        sync_wall = time.monotonic() - t0
+    tl = obs.timeline()
+    if tl is not None:
+        # One device, no panel traffic: the only host segment is the one
+        # fetch and the whole device wall attributes to compute.
+        tl.record_round("tree_build_device", 0, [(dev.index or 0, build_wall)],
+                        fetch_s=sync_wall, trace=trace)
     if trace is not None:
         trace(
             "host_sync",
@@ -546,57 +555,59 @@ def boruvka_mst_device(
     "round_syncs" and the per-round (max_rounds,) "stat_comp"/"stat_edges".
     ``trace`` receives one ``mst_round`` event per round.
     """
+    from hdbscan_tpu_torch import obs
     from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows
 
-    dev = cuda_build.resolve_device(device)
-    n = len(data)
-    data_t = torch.as_tensor(np.asarray(data, dtype), device=dev)
-    core_t = torch.as_tensor(np.asarray(core, dtype), device=dev)
-    valid = torch.ones(n, dtype=torch.bool, device=dev)
-    buf = max(n - 1, 1)
-    comp = torch.arange(n, dtype=torch.int32, device=dev)
-    # One extra slot takes the writes of non-emitting labels.
-    eu = torch.zeros(buf + 1, dtype=torch.int32, device=dev)
-    ev = torch.zeros(buf + 1, dtype=torch.int32, device=dev)
-    ew = torch.full((buf + 1,), float("inf"), dtype=data_t.dtype, device=dev)
-    stat_comp = np.zeros(max_rounds, np.int32)
-    stat_edges = np.zeros(max_rounds, np.int32)
-    count = 0
-    n_comp = n
-    rounds = 0
-    syncs = 0
-    progress = True
-    while rounds < max_rounds and n_comp > 1 and progress:
-        bw, bj = min_outgoing_all_rows(
-            data_t, core_t, comp, valid, metric, row_tile, col_tile
-        )
-        emit_mask, win_row, rep, n_comp_t, added_t = _contract_round(
-            comp, bw, bj, valid, n
-        )
-        pos = count + torch.cumsum(emit_mask.to(torch.int32), 0) - 1
-        slot = torch.where(emit_mask, pos, buf).to(torch.int64)
-        wr = torch.clamp(win_row, 0, n - 1)
-        eu[slot] = wr
-        ev[slot] = torch.clamp(bj[wr], 0, n - 1)
-        ew[slot] = bw[wr]
-        comp = rep[comp]
-        # The round's one device->host read: it drives the loop.
-        n_comp, added = torch.stack([n_comp_t, added_t]).tolist()
-        syncs += 1
-        stat_comp[rounds] = n_comp
-        stat_edges[rounds] = added
-        count += added
-        progress = added > 0
-        if trace is not None:
-            trace("mst_round", round=rounds, components=n_comp, edges_added=added)
-        rounds += 1
-    return {
-        "u": eu[:buf],
-        "v": ev[:buf],
-        "w": ew[:buf],
-        "count": count,
-        "rounds": rounds,
-        "round_syncs": syncs,
-        "stat_comp": stat_comp,
-        "stat_edges": stat_edges,
-    }
+    with obs.mem_phase("boruvka_rounds_device"):
+        dev = cuda_build.resolve_device(device)
+        n = len(data)
+        data_t = torch.as_tensor(np.asarray(data, dtype), device=dev)
+        core_t = torch.as_tensor(np.asarray(core, dtype), device=dev)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        buf = max(n - 1, 1)
+        comp = torch.arange(n, dtype=torch.int32, device=dev)
+        # One extra slot takes the writes of non-emitting labels.
+        eu = torch.zeros(buf + 1, dtype=torch.int32, device=dev)
+        ev = torch.zeros(buf + 1, dtype=torch.int32, device=dev)
+        ew = torch.full((buf + 1,), float("inf"), dtype=data_t.dtype, device=dev)
+        stat_comp = np.zeros(max_rounds, np.int32)
+        stat_edges = np.zeros(max_rounds, np.int32)
+        count = 0
+        n_comp = n
+        rounds = 0
+        syncs = 0
+        progress = True
+        while rounds < max_rounds and n_comp > 1 and progress:
+            bw, bj = min_outgoing_all_rows(
+                data_t, core_t, comp, valid, metric, row_tile, col_tile
+            )
+            emit_mask, win_row, rep, n_comp_t, added_t = _contract_round(
+                comp, bw, bj, valid, n
+            )
+            pos = count + torch.cumsum(emit_mask.to(torch.int32), 0) - 1
+            slot = torch.where(emit_mask, pos, buf).to(torch.int64)
+            wr = torch.clamp(win_row, 0, n - 1)
+            eu[slot] = wr
+            ev[slot] = torch.clamp(bj[wr], 0, n - 1)
+            ew[slot] = bw[wr]
+            comp = rep[comp]
+            # The round's one device->host read: it drives the loop.
+            n_comp, added = torch.stack([n_comp_t, added_t]).tolist()
+            syncs += 1
+            stat_comp[rounds] = n_comp
+            stat_edges[rounds] = added
+            count += added
+            progress = added > 0
+            if trace is not None:
+                trace("mst_round", round=rounds, components=n_comp, edges_added=added)
+            rounds += 1
+        return {
+            "u": eu[:buf],
+            "v": ev[:buf],
+            "w": ew[:buf],
+            "count": count,
+            "rounds": rounds,
+            "round_syncs": syncs,
+            "stat_comp": stat_comp,
+            "stat_edges": stat_edges,
+        }

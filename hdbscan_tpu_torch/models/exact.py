@@ -54,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from hdbscan_tpu_torch import obs
 from hdbscan_tpu_torch.config import HDBSCANParams
 from hdbscan_tpu_torch.models.hdbscan import HDBSCANResult
 from hdbscan_tpu_torch.ops import cuda_build
@@ -134,28 +135,29 @@ def mst_edges(
     engine, mesh, device = _engine(fit_sharding, scan_backend, mesh, device)
     t0 = time.monotonic()
     fsnap = _flops.snapshot()
-    if engine == "sharded":
-        from hdbscan_tpu_torch.parallel.shard import shard_core_distances
+    with obs.mem_phase("core_distances"):
+        if engine == "sharded":
+            from hdbscan_tpu_torch.parallel.shard import shard_core_distances
 
-        core = shard_core_distances(
-            data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
-            mesh=mesh, trace=trace, knn_backend=knn_backend, index=index,
-            index_opts=index_opts,
-        )
-    elif engine == "ring":
-        from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances
+            core = shard_core_distances(
+                data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+                mesh=mesh, trace=trace, knn_backend=knn_backend, index=index,
+                index_opts=index_opts,
+            )
+        elif engine == "ring":
+            from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances
 
-        core, _ = ring_knn_core_distances(
-            data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
-            fetch_knn=False, mesh=mesh, trace=trace, knn_backend=knn_backend,
-            index=index, index_opts=index_opts,
-        )
-    else:
-        core, _ = knn_core_distances(
-            data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
-            fetch_knn=False, backend=knn_backend, index=index, index_opts=index_opts,
-            trace=trace, device=device,
-        )
+            core, _ = ring_knn_core_distances(
+                data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+                fetch_knn=False, mesh=mesh, trace=trace, knn_backend=knn_backend,
+                index=index, index_opts=index_opts,
+            )
+        else:
+            core, _ = knn_core_distances(
+                data, min_pts, metric, row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+                fetch_knn=False, backend=knn_backend, index=index, index_opts=index_opts,
+                trace=trace, device=device,
+            )
     if trace is not None:
         wall = time.monotonic() - t0
         trace("core_distances", n=n, wall_s=round(wall, 6), **phase_stats(fsnap, wall))
@@ -213,23 +215,27 @@ def mst_edges_from_core(
     n_comp = n
     rounds = 0
     try:
-        for rnd in range(max_rounds):
-            if n_comp <= 1:
-                break
-            bw, bj = scanner.min_outgoing(comp)
-            t1 = time.monotonic()
-            emit, comp, n_comp = contract_min_edges(comp, bj, bw)
-            if len(emit) == 0:
-                break  # disconnected pool (cannot happen for a full metric space)
-            eu.append(emit)
-            ev.append(bj[emit])
-            ew.append(bw[emit])
-            rounds = rnd + 1
-            if trace is not None:
-                scan_s, fetch_s = scanner.walls
-                trace("boruvka_round", round=rnd, components=n_comp, edges_added=len(emit),
-                      scan_s=round(scan_s, 6), fetch_s=round(fetch_s, 6),
-                      contract_s=round(time.monotonic() - t1, 6))
+        # Heartbeat progress: the emitted-edge fraction (n - 1 edges
+        # complete the tree), monotone since n_comp only shrinks.
+        with obs.mem_phase("boruvka_mst"), obs.task("boruvka", total=max(n - 1, 1)) as hb:
+            for rnd in range(max_rounds):
+                if n_comp <= 1:
+                    break
+                bw, bj = scanner.min_outgoing(comp)
+                t1 = time.monotonic()
+                emit, comp, n_comp = contract_min_edges(comp, bj, bw)
+                if len(emit) == 0:
+                    break  # disconnected pool (cannot happen for a full metric space)
+                eu.append(emit)
+                ev.append(bj[emit])
+                ew.append(bw[emit])
+                rounds = rnd + 1
+                hb.beat(n - n_comp)
+                if trace is not None:
+                    scan_s, fetch_s = scanner.walls
+                    trace("boruvka_round", round=rnd, components=n_comp, edges_added=len(emit),
+                          scan_s=round(scan_s, 6), fetch_s=round(fetch_s, 6),
+                          contract_s=round(time.monotonic() - t1, 6))
     finally:
         close = getattr(scanner, "close", None)
         if close is not None:
@@ -591,72 +597,91 @@ def _fit_device(
     )
     from hdbscan_tpu_torch.ops.tiled import knn_core_distances
 
+    from hdbscan_tpu_torch.utils.flops import counter as _flops
+    from hdbscan_tpu_torch.utils.flops import phase_stats
+
     n = len(data)
     index, index_opts = resolve_index_for(params, n)
     t0 = time.monotonic()
-    if mesh is not None:
-        from hdbscan_tpu_torch.parallel.shard import shard_core_distances
+    fsnap = _flops.snapshot()
+    with obs.mem_phase("core_distances"):
+        if mesh is not None:
+            from hdbscan_tpu_torch.parallel.shard import shard_core_distances
 
-        core = shard_core_distances(
-            data, params.min_points, params.dist_function, row_tile=row_tile,
-            col_tile=col_tile, dtype=dtype, mesh=mesh, trace=trace,
-            knn_backend=params.knn_backend, index=index, index_opts=index_opts,
-        )
-    else:
-        core, _ = knn_core_distances(
-            data, params.min_points, params.dist_function,
-            row_tile=row_tile, col_tile=col_tile, dtype=dtype, fetch_knn=False,
-            backend=params.knn_backend, index=index, index_opts=index_opts,
-            trace=trace, device=device,
-        )
+            core = shard_core_distances(
+                data, params.min_points, params.dist_function, row_tile=row_tile,
+                col_tile=col_tile, dtype=dtype, mesh=mesh, trace=trace,
+                knn_backend=params.knn_backend, index=index, index_opts=index_opts,
+            )
+        else:
+            core, _ = knn_core_distances(
+                data, params.min_points, params.dist_function,
+                row_tile=row_tile, col_tile=col_tile, dtype=dtype, fetch_knn=False,
+                backend=params.knn_backend, index=index, index_opts=index_opts,
+                trace=trace, device=device,
+            )
     if trace is not None:
-        trace("core_distances", n=n, wall_s=round(time.monotonic() - t0, 6))
+        wall = time.monotonic() - t0
+        trace("core_distances", n=n, wall_s=round(wall, 6), **phase_stats(fsnap, wall))
 
     t0 = time.monotonic()
-    if mesh is not None:
-        from hdbscan_tpu_torch.parallel.mesh import device_count
-        from hdbscan_tpu_torch.parallel.ring import _emit_ring_trace, _per_device_walls
-        from hdbscan_tpu_torch.parallel.shard import shard_boruvka_mst
+    with obs.mem_phase("boruvka_mst_device"), obs.task("boruvka_device", total=1):
+        if mesh is not None:
+            from hdbscan_tpu_torch.parallel.ring import _per_device_walls
+            from hdbscan_tpu_torch.parallel.shard import shard_boruvka_mst
 
-        res = shard_boruvka_mst(
-            data, core, params.dist_function, row_tile=row_tile, col_tile=col_tile,
-            dtype=dtype, mesh=mesh, trace=trace,
-        )
-        walls = _per_device_walls(mesh, t0)
-        _emit_ring_trace(
-            trace, "shard_mst_device", time.monotonic() - t0, walls, device_count(mesh),
-            0, rounds=res["rounds"], n=n, shard=res["shard"],
-        )
-        # The union-find scan is sequential over the global edge order: the
-        # shard edge buffers gather onto the first shard's device, in shard
-        # order, for one scan there.
-        for key in ("u", "v", "w"):
-            res[key] = torch.cat([t.to(device) for t in res[key]])
-    else:
-        res = boruvka_mst_device(
-            data, core, params.dist_function, row_tile=row_tile,
-            col_tile=col_tile, dtype=dtype, device=device, trace=trace,
-        )
-    rounds_wall = time.monotonic() - t0
-    t1 = time.monotonic()
-    # Padded (+inf, self-loop) tail rows pass through the scan as non-merges.
-    events = forest_events_device(res["u"], res["v"], res["w"], n)
-    if trace is not None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)  # an honest phase wall when tracing
-        trace("forest_events", edges=int(res["u"].shape[0]),
-              wall_s=round(time.monotonic() - t1, 6))
-    t1 = time.monotonic()
-    fetched = _fetch({
-        "sw": events["sw"], "ra": events["ra"], "rb": events["rb"],
-        "u": res["u"], "v": res["v"], "w": res["w"],
-    })
-    sync_wall = time.monotonic() - t1
+            res = shard_boruvka_mst(
+                data, core, params.dist_function, row_tile=row_tile, col_tile=col_tile,
+                dtype=dtype, mesh=mesh, trace=trace,
+            )
+            walls = _per_device_walls(mesh, t0)
+            mst_wall = time.monotonic() - t0
+            # The union-find scan is sequential over the global edge order:
+            # the shard edge buffers gather onto the first shard's device, in
+            # shard order, for one scan there.
+            for key in ("u", "v", "w"):
+                res[key] = torch.cat([t.to(device) for t in res[key]])
+        else:
+            res = boruvka_mst_device(
+                data, core, params.dist_function, row_tile=row_tile,
+                col_tile=col_tile, dtype=dtype, device=device, trace=trace,
+            )
+        rounds_wall = time.monotonic() - t0
+        t1 = time.monotonic()
+        # Padded (+inf, self-loop) tail rows pass through the scan as
+        # non-merges.
+        events = forest_events_device(res["u"], res["v"], res["w"], n)
+        if trace is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)  # an honest phase wall when tracing
+            trace("forest_events", edges=int(res["u"].shape[0]),
+                  wall_s=round(time.monotonic() - t1, 6))
+        t1 = time.monotonic()
+        fetched = _fetch({
+            "sw": events["sw"], "ra": events["ra"], "rb": events["rb"],
+            "u": res["u"], "v": res["v"], "w": res["w"],
+        })
+        sync_wall = time.monotonic() - t1
     rounds, count = res["rounds"], res["count"]
     assert_rounds_converged(
         rounds, count, n, stat_comp=res["stat_comp"], stat_edges=res["stat_edges"],
         where="shard_boruvka_mst" if mesh is not None else "boruvka_mst_device",
     )
+    if mesh is not None:
+        # One wall a shard for every round: the timeline replays it as
+        # modelled per-round rows, the fetch on the last.
+        from hdbscan_tpu_torch.parallel.mesh import device_count
+        from hdbscan_tpu_torch.parallel.ring import _emit_modeled_rounds
+
+        n_dev, shard, d = device_count(mesh), res["shard"], data.shape[1]
+        n_pad = shard * n_dev
+        itemsize = np.dtype(dtype).itemsize
+        _emit_modeled_rounds(
+            trace, "shard_mst_device", mst_wall, walls, n_dev, max(rounds, 1),
+            fetch_s=sync_wall,
+            comm_bytes=max(rounds, 1) * (n_dev - 1) * (shard * (d + 1) * itemsize + shard * 4),
+            flops=2.0 * max(rounds, 1) * float(n_pad) * n_pad * d, n=n, shard=shard,
+        )
     if trace is not None:
         trace(
             "host_sync",

@@ -98,15 +98,19 @@ def fit(
         raise ValueError(f"dtype {np.dtype(dtype)}: the dense fit runs in float32 or float64")
     from hdbscan_tpu_torch.models._finalize import finalize_clustering
 
+    from hdbscan_tpu_torch import obs
+
     t0 = time.monotonic()
-    x = torch.as_tensor(data.astype(dtype), device=device)
-    u, v, w, core = hdbscan_block_edges(x, params.min_points, params.dist_function)
-    del x
+    with obs.mem_phase("block_edges"):
+        x = torch.as_tensor(data.astype(dtype), device=device)
+        u, v, w, core = hdbscan_block_edges(x, params.min_points, params.dist_function)
+        del x
     if trace is not None:
         trace("block_edges", n=n, wall_s=round(time.monotonic() - t0, 6))
-    tree, labels, scores, infinite = finalize_clustering(
-        n, u, v, w, core, params, num_constraints_satisfied, trace=trace, device=device
-    )
+    with obs.mem_phase("finalize"):
+        tree, labels, scores, infinite = finalize_clustering(
+            n, u, v, w, core, params, num_constraints_satisfied, trace=trace, device=device
+        )
     return HDBSCANResult(
         labels=labels,
         tree=tree,

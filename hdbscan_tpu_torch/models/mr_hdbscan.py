@@ -60,19 +60,22 @@ shards (``parallel/blocks.run_packed_blocks(batch_pad=D)``), and a sharded
 boundary fit takes the full-sweep (unpruned) glue. Sampling, bubbles and
 the finalize run on the mesh's first shard's device.
 
-The reference's memory-phase auditor and progress heartbeats
-(``obs.mem_phase``, ``obs.beat``) have no counterpart yet (A11).
+The observability layer (``hdbscan_tpu_torch/obs``) audits the reference's
+phases (``global_cores``, ``glue_harvest``, ``block_fit``) and beats
+``mr_levels`` once a level, the frozen-point fraction as its progress.
 """
 
 from __future__ import annotations
 
 import math
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from hdbscan_tpu_torch import obs
 from hdbscan_tpu_torch.config import HDBSCANParams
 from hdbscan_tpu_torch.core import tree as tree_mod
 from hdbscan_tpu_torch.core.bubbles import bubble_stats, bubble_stats_weighted
@@ -487,34 +490,38 @@ def _fit_rows(data, params, *, device, dtype, mesh, engine, max_levels, checkpoi
         # One pass over the whole set; a resumed run restores the cores
         # from its checkpoint instead.
         t0 = time.monotonic()
-        if weights is not None:
-            from hdbscan_tpu_torch.core.dedup import global_weighted_core_distances
+        # The ring scan audits itself (``ring_knn_scan``), as the reference's does.
+        audit = (obs.mem_phase("global_cores") if weights is not None or engine != "ring"
+                 else nullcontext())
+        with audit:
+            if weights is not None:
+                from hdbscan_tpu_torch.core.dedup import global_weighted_core_distances
 
-            core = global_weighted_core_distances(
-                data, weights, params.min_points, metric, trace=trace, mesh=mesh,
-                fit_sharding=knobs["fit_sharding"], device=device,
-            )
-        else:
-            from hdbscan_tpu_torch.core.knn import resolve_index_for
-
-            index, index_opts = resolve_index_for(params, n)
-            scan = dict(index=index, index_opts=index_opts, trace=trace)
-            if engine == "sharded":
-                from hdbscan_tpu_torch.parallel.shard import shard_core_distances
-
-                core = shard_core_distances(data, params.min_points, metric, mesh=mesh,
-                                            knn_backend=params.knn_backend, **scan)
-            elif engine == "ring":
-                from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances
-
-                core, _ = ring_knn_core_distances(data, params.min_points, metric,
-                                                  fetch_knn=False, mesh=mesh,
-                                                  knn_backend=params.knn_backend, **scan)
+                core = global_weighted_core_distances(
+                    data, weights, params.min_points, metric, trace=trace, mesh=mesh,
+                    fit_sharding=knobs["fit_sharding"], device=device,
+                )
             else:
-                from hdbscan_tpu_torch.ops.tiled import knn_core_distances
+                from hdbscan_tpu_torch.core.knn import resolve_index_for
 
-                core, _ = knn_core_distances(data, params.min_points, metric, fetch_knn=False,
-                                             backend=params.knn_backend, device=device, **scan)
+                index, index_opts = resolve_index_for(params, n)
+                scan = dict(index=index, index_opts=index_opts, trace=trace)
+                if engine == "sharded":
+                    from hdbscan_tpu_torch.parallel.shard import shard_core_distances
+
+                    core = shard_core_distances(data, params.min_points, metric, mesh=mesh,
+                                                knn_backend=params.knn_backend, **scan)
+                elif engine == "ring":
+                    from hdbscan_tpu_torch.parallel.ring import ring_knn_core_distances
+
+                    core, _ = ring_knn_core_distances(data, params.min_points, metric,
+                                                      fetch_knn=False, mesh=mesh,
+                                                      knn_backend=params.knn_backend, **scan)
+                else:
+                    from hdbscan_tpu_torch.ops.tiled import knn_core_distances
+
+                    core, _ = knn_core_distances(data, params.min_points, metric, fetch_knn=False,
+                                                 backend=params.knn_backend, device=device, **scan)
         if trace is not None:
             trace("global_cores", n=n, wall_s=round(time.monotonic() - t0, 6))
 
@@ -545,10 +552,11 @@ def _fit_rows(data, params, *, device, dtype, mesh, engine, max_levels, checkpoi
             from hdbscan_tpu_torch.ops.tiled import boruvka_glue_edges
 
             act = np.nonzero(~processed)[0]
-            gu_l, gv_l, gw_l = boruvka_glue_edges(
-                data[act], subset[act], metric, core=core[act] if global_core else None,
-                trace=trace, device=device, **knobs,
-            )
+            with obs.mem_phase("glue_harvest"):
+                gu_l, gv_l, gw_l = boruvka_glue_edges(
+                    data[act], subset[act], metric, core=core[act] if global_core else None,
+                    trace=trace, device=device, **knobs,
+                )
             pool_u.append(act[gu_l])
             pool_v.append(act[gv_l])
             pool_w.append(gw_l)
@@ -565,10 +573,11 @@ def _fit_rows(data, params, *, device, dtype, mesh, engine, max_levels, checkpoi
             for cap_b in sorted(buckets):
                 group = buckets[cap_b]
                 packed = pack_blocks(data, group, cap_b, core=core if global_core else None)
-                u, v, w, core_b = run_packed_blocks(
-                    packed, params.min_points, metric, device=device, mesh=mesh,
-                    batch_pad=n_dev, dtype=dtype, trace=trace,
-                )
+                with obs.mem_phase("block_fit"):
+                    u, v, w, core_b = run_packed_blocks(
+                        packed, params.min_points, metric, device=device, mesh=mesh,
+                        batch_pad=n_dev, dtype=dtype, trace=trace,
+                    )
                 pool_u.append(u)
                 pool_v.append(v)
                 pool_w.append(w)
@@ -700,6 +709,9 @@ def _fit_rows(data, params, *, device, dtype, mesh, engine, max_levels, checkpoi
             n_inter_edges=n_inter, forced_splits=forced, wall_s=time.monotonic() - t0,
         )
         level_stats.append(stats)
+        # Liveness and progress for the watchdog: the frozen-point fraction
+        # is monotone across levels (points only ever freeze).
+        obs.beat("mr_levels", int(processed.sum()), total=n)
         if trace is not None:
             trace("level", **{k: getattr(stats, k) for k in stats.__dataclass_fields__})
             trace("level_stages", level=level, **{f"{k}_s": round(v, 6) for k, v in walls.items()})

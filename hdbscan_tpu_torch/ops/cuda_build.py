@@ -5,14 +5,17 @@ Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for Hopper
 plain C entry point, loaded with ``ctypes``. ``-fmad=false`` keeps every
 ``a*b+c`` as two roundings, the arithmetic of the plain PyTorch versions
 (eager PyTorch and XLA on the CPU do not contract), so kernel and plain
-version agree bitwise. The libraries land in the git-ignored
-``<repo>/.torch_build/cuda`` under a name keyed by the sources' content
-hash, so an edited source is rebuilt and a stale library never loads.
+version agree bitwise. The libraries land in the build directory
+(:func:`build_dir`: the git-ignored ``<repo>/.torch_build/cuda`` unless
+``utils/cache`` points it elsewhere) under a name keyed by the sources'
+content hash, so an edited source is rebuilt and a stale library never
+loads.
 
 A failed build raises: there is no fallback for CUDA tensors.
 
-``LAUNCHES`` counts kernel launches by name and ``BUILDS`` the sources
-this process compiled; each wrapper adds one where it
+``LAUNCHES`` counts kernel launches by name, ``BUILDS`` the sources this
+process compiled and ``CACHE_HITS`` the libraries it loaded from the build
+directory without compiling them; each wrapper adds one where it
 launches its kernel and nowhere else. A launch past k or d = 128 (a
 kernel's wide mode) counts under ``<name>_wide`` instead.
 """
@@ -113,8 +116,28 @@ LAUNCHES = {name: 0 for name in (*KERNELS, *(f"{k}_wide" for k in WIDE_KERNELS))
 #: counted): the serving warmup's ``jit_compiles``.
 BUILDS = 0
 
+#: Libraries this process loaded from the build directory without
+#: compiling them: the serving warmup's ``cache_hits``.
+CACHE_HITS = 0
+
+_build_dir: list[str] = []  # the directory utils/cache chose, if any
+_built: set = set()  # sources this process compiled
+
 _libs: dict = {}  # source -> loaded library
 _fns: dict = {}  # (source, symbol) -> ctypes function
+
+
+def build_dir() -> str:
+    """The directory kernels are built into and loaded from, read at build
+    time: :data:`BUILD_DIR` unless ``utils/cache`` set another."""
+    return _build_dir[0] if _build_dir else BUILD_DIR
+
+
+def set_build_dir(path: str) -> None:
+    """Build and load this process's kernels from ``path`` from now on
+    (``utils/cache.enable_persistent_compilation_cache``). A library
+    already loaded stays loaded."""
+    _build_dir[:] = [path]
 
 
 def reset_launches() -> None:
@@ -160,7 +183,7 @@ def _so_path(src: str) -> str:
     for f in (src, *_HEADERS):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"{src[:-3]}-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"{src[:-3]}-{h.hexdigest()[:16]}.so")
 
 
 def _start(src: str):
@@ -168,7 +191,7 @@ def _start(src: str):
     so = _so_path(src)
     if os.path.exists(so):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
     proc = subprocess.Popen(
@@ -189,6 +212,7 @@ def _finish(src: str, job) -> None:
         raise RuntimeError(f"nvcc failed for {src} ({proc.returncode}):\n{out}{err}")
     os.replace(tmp, so)
     BUILDS += 1
+    _built.add(src)
 
 
 def build_all() -> None:
@@ -208,6 +232,7 @@ def build_all() -> None:
 def function(src: str, sym: str, argtypes):
     """The C function ``sym`` of ``csrc/<src>`` (returning int) through
     ctypes, building the source if needed."""
+    global CACHE_HITS
     key = (src, sym)
     fn = _fns.get(key)
     if fn is None:
@@ -215,6 +240,8 @@ def function(src: str, sym: str, argtypes):
         if lib is None:
             _finish(src, _start(src))
             lib = _libs[src] = ctypes.CDLL(_so_path(src))
+            if src not in _built:
+                CACHE_HITS += 1
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -246,13 +246,18 @@ def build_forest(data, trees: int = 4, leaf_size: int = 1024, seed: int = 0,
     lmax = pos_idx.shape[1]
     pos_dev = torch.as_tensor(pos_idx, device=device)
 
+    from hdbscan_tpu_torch import obs
+
     members = np.zeros((trees, len(pos_idx), lmax), np.int32)
     thresholds = np.zeros((trees, max(num_nodes, 1)), dtype)
-    for t in range(trees):
-        perm, thr = _build_one_tree(data_dev, torch.as_tensor(normals[t], device=device), geom)
-        members[t] = perm[pos_dev].to(torch.int32).cpu().numpy()
-        if num_nodes:
-            thresholds[t, :num_nodes] = thr.cpu().numpy()
+    with obs.mem_phase("knn_index_build"), obs.task("rpforest_build", total=trees) as hb:
+        for t in range(trees):
+            perm, thr = _build_one_tree(data_dev, torch.as_tensor(normals[t], device=device),
+                                        geom)
+            members[t] = perm[pos_dev].to(torch.int32).cpu().numpy()
+            if num_nodes:
+                thresholds[t, :num_nodes] = thr.cpu().numpy()
+            hb.beat(t + 1)
     forest = RPForest(n=n, d=d, trees=trees, depth=depth, leaf_size=leaf_size,
                       normals=normals, thresholds=thresholds, members=members,
                       leaf_mask=leaf_mask)

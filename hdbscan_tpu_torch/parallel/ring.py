@@ -35,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from hdbscan_tpu_torch import obs
 from hdbscan_tpu_torch.core.distances import euclidean_form
 from hdbscan_tpu_torch.ops.lexmerge import lexsort_rows
 from hdbscan_tpu_torch.ops.tiled import _next_pow2, _round_up, check_dtype
@@ -85,26 +86,89 @@ def _lex_merge_k(best_d, best_i, tile_d, tile_i, k: int):
     return torch.gather(cat_d, 1, order), torch.gather(cat_i, 1, order)
 
 
-def _per_device_walls(mesh, t0: float) -> list[tuple[int, float]]:
+def _per_device_walls(mesh, t0: float, beat=None) -> list[tuple[int, float]]:
     """Per-shard completion walls: wait for each shard's device in turn and
     timestamp as it finishes (the single-controller approximation of
-    per-device timelines the reference takes)."""
+    per-device timelines the reference takes). On one card the first wait
+    covers every shard's queued work, so the walls come out nearly equal.
+    ``beat(done)`` (an ``obs`` heartbeat) fires as each shard lands.
+
+    Fault site: ``phase_stall`` fires at most once a call here and sleeps
+    ``delay_s`` before the last shard's timestamp — a deterministic
+    one-shard straggler for the skew detector (``obs/timeline.py``)."""
+    from hdbscan_tpu_torch.fault import inject
+
     walls = []
+    spec = inject.maybe_fire("phase_stall")
+    last = len(mesh.devices) - 1
     for s, dev in enumerate(mesh.devices):
+        if spec is not None and s == last and spec.delay_s > 0:
+            time.sleep(spec.delay_s)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         walls.append((s, time.monotonic() - t0))
+        if beat is not None:
+            beat(s + 1)
     return walls
 
 
-def _emit_ring_trace(trace, stage: str, wall: float, walls, n_dev: int, rnd: int,
-                     **fields) -> None:
+def _emit_ring_trace(trace, stage: str, wall: float, walls, n_dev: int, rnd: int, *,
+                     upload_s: float = 0.0, fetch_s: float = 0.0, comm_bytes: int = 0,
+                     flops: float = 0.0, **fields) -> None:
     """One summary event (devices, and ``ppermute_steps = devices - 1``
-    panel hand-overs per sweep) plus one ``ring_device_wall`` per shard."""
+    panel hand-overs per sweep) plus one ``ring_device_wall`` per shard.
+
+    Also the one seam feeding the installed
+    :class:`~hdbscan_tpu_torch.obs.timeline.TimelineRecorder`: the measured
+    per-shard walls plus the host segments (``upload_s``/``fetch_s``), the
+    round's traffic (``comm_bytes`` one shard moved) and its total
+    ``flops`` become per-shard ``device_timeline`` events, and the round's
+    skew stats ride the summary event. Recording happens even when
+    ``trace`` is None — the recorder still feeds the report and
+    ``/healthz``."""
+    from hdbscan_tpu_torch import obs
+
+    tl = obs.timeline()
+    stats = None
+    if tl is not None:
+        stats = tl.record_round(stage, rnd, walls, upload_s=upload_s, fetch_s=fetch_s,
+                                comm_bytes=comm_bytes, flops=flops, trace=trace)
+    _emit_summary(trace, stage, wall, walls, n_dev, stats, comm_bytes, rnd, round=rnd,
+                  **fields)
+
+
+def _emit_modeled_rounds(trace, stage: str, wall: float, walls, n_dev: int, rounds: int, *,
+                         upload_s: float = 0.0, fetch_s: float = 0.0, comm_bytes: int = 0,
+                         flops: float = 0.0, **fields) -> None:
+    """:func:`_emit_ring_trace` for a multi-round program measured once: the
+    sharded device Borůvka (``parallel/shard.shard_boruvka_mst``) gives one
+    wall per shard for all its rounds. The installed recorder replays it as
+    ``rounds`` modelled per-round rows
+    (:meth:`~hdbscan_tpu_torch.obs.timeline.TimelineRecorder.record_modeled_rounds`),
+    and ONE summary event lands with the total wall and a ``rounds`` field."""
+    from hdbscan_tpu_torch import obs
+
+    tl = obs.timeline()
+    stats = None
+    if tl is not None:
+        stats = tl.record_modeled_rounds(stage, rounds, walls, upload_s=upload_s,
+                                         fetch_s=fetch_s, comm_bytes=comm_bytes, flops=flops,
+                                         trace=trace)
+    _emit_summary(trace, stage, wall, walls, n_dev, stats, comm_bytes, 0, rounds=int(rounds),
+                  **fields)
+
+
+def _emit_summary(trace, stage, wall, walls, n_dev, stats, comm_bytes, rnd, **fields) -> None:
+    """The summary event (with the recorder's skew stats when one ran) and
+    the per-shard ``ring_device_wall`` events, tagged ``round=rnd``."""
     if trace is None:
         return
-    trace(stage, wall_s=round(wall, 6), devices=n_dev, ppermute_steps=n_dev - 1,
-          round=rnd, **fields)
+    if stats is not None:
+        fields = dict(fields, skew=stats["skew"], max_device_wall_s=stats["max_wall_s"],
+                      median_device_wall_s=stats["median_wall_s"])
+    if comm_bytes:
+        fields.setdefault("comm_bytes", int(comm_bytes))
+    trace(stage, wall_s=round(wall, 6), devices=n_dev, ppermute_steps=n_dev - 1, **fields)
     for s, w in walls:
         trace("ring_device_wall", wall_s=round(w, 6), device=s, ring_stage=stage, round=rnd)
 
@@ -195,10 +259,11 @@ def ring_knn_core_distances(
             for (o, m), dev in zip(parts, mesh.devices)]
     upload_s = time.monotonic() - t_up
     _flops.add_scan(n_pad, n_pad, d, row_tile=row_tile)
-    t0 = time.monotonic()
-    lists = _ring_lists(rows, rows, parts, k, metric, form, col_tile, mesh)
-    walls = _per_device_walls(mesh, t0)
-    wall = time.monotonic() - t0
+    with obs.mem_phase("ring_knn_scan"), obs.task("ring_knn_scan", total=n_dev) as hb:
+        t0 = time.monotonic()
+        lists = _ring_lists(rows, rows, parts, k, metric, form, col_tile, mesh)
+        walls = _per_device_walls(mesh, t0, beat=hb.beat)
+        wall = time.monotonic() - t0
     fetch_knn = fetch_knn or return_indices
     kth_col = min(max(min_pts - 1, 1), n) - 1
     t_f = time.monotonic()
@@ -210,8 +275,8 @@ def ring_knn_core_distances(
     fetch_s = time.monotonic() - t_f
     _emit_ring_trace(
         trace, "ring_knn_scan", wall, walls, n_dev, 0, rows=n, shard=shard,
-        upload_s=round(upload_s, 6), fetch_s=round(fetch_s, 6),
-        comm_bytes=(n_dev - 1) * shard * d * 4,
+        upload_s=upload_s, fetch_s=fetch_s, comm_bytes=(n_dev - 1) * shard * d * 4,
+        flops=2.0 * n_pad * n_pad * d,
     )
     if not fetch_knn:
         return (np.zeros(n, np.float64) if min_pts <= 1 else kth), None
@@ -281,16 +346,17 @@ def ring_knn_core_distances_rows(
     upload_s = time.monotonic() - t_up
     _flops.add_scan(q_shard * n_dev, n_pad, d, row_tile=row_tile)
     kth_col = min(k, n) - 1
-    t0 = time.monotonic()
-    lists = _ring_lists(qs, cols, parts, k, metric, form, col_tile, mesh)
-    walls = _per_device_walls(mesh, t0)
-    wall = time.monotonic() - t0
+    with obs.mem_phase("ring_rows_scan"), obs.task("ring_rows_scan", total=n_dev) as hb:
+        t0 = time.monotonic()
+        lists = _ring_lists(qs, cols, parts, k, metric, form, col_tile, mesh)
+        walls = _per_device_walls(mesh, t0, beat=hb.beat)
+        wall = time.monotonic() - t0
     t_f = time.monotonic()
     out = fetch([bd[:, kth_col] for bd, _ in lists]).astype(np.float64)
     fetch_s = time.monotonic() - t_f
     _emit_ring_trace(
         trace, "ring_rows_scan", wall, walls, n_dev, 0, rows=m, cols=n, shard=shard,
-        upload_s=round(upload_s, 6), fetch_s=round(fetch_s, 6),
+        upload_s=upload_s, fetch_s=fetch_s,
         comm_bytes=(n_dev - 1) * shard * d * np.dtype(dtype).itemsize,
         flops=2.0 * q_shard * n_dev * n_pad * d,
     )
@@ -346,11 +412,14 @@ class RingBoruvkaScanner:
         n_comp = len(uniq)
         t_up = time.monotonic()
         labels_on = sh.put_labels(dense.astype(np.int32))
-        t0 = time.monotonic()
-        upload_s = t0 - t_up
-        w, lo, hi, n_cand = sh.winners(sh.scan(labels_on), labels_on, n_comp)
-        walls = _per_device_walls(sh.mesh, t0)
-        wall = time.monotonic() - t0
+        upload_s = time.monotonic() - t_up
+        with obs.mem_phase("ring_boruvka_scan"), obs.task(
+            "ring_boruvka_scan", total=self.n_dev
+        ) as hb:
+            t0 = time.monotonic()
+            w, lo, hi, n_cand = sh.winners(sh.scan(labels_on), labels_on, n_comp)
+            walls = _per_device_walls(sh.mesh, t0, beat=hb.beat)
+            wall = time.monotonic() - t0
         t_f = time.monotonic()
         w = w.cpu().numpy().astype(np.float64)
         lo, hi = torch.stack([lo, hi]).cpu().numpy().astype(np.int64)
@@ -361,8 +430,8 @@ class RingBoruvkaScanner:
         comm_bytes = (self.n_dev - 1) * sh.shard * (self.d + 1) * self._itemsize
         _emit_ring_trace(
             self.trace, "ring_boruvka_scan", wall, walls, self.n_dev, self._round,
-            n_comp=n_comp, candidates=cand, upload_s=round(upload_s, 6),
-            fetch_s=round(fetch_s, 6), comm_bytes=comm_bytes,
+            n_comp=n_comp, candidates=cand, upload_s=upload_s, fetch_s=fetch_s,
+            comm_bytes=comm_bytes, flops=2.0 * sh.n_pad * sh.n_pad * self.d,
         )
         self._round += 1
         bw = np.full(self.n, np.inf, np.float64)

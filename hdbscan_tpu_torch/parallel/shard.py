@@ -35,8 +35,9 @@ The forest tier's sharded twin is :func:`shard_forest_core_distances`:
 per-shard tree builds and a ring exchange of candidate panels through the
 rescan top-k kernel (B7), with no full data copy on any shard;
 :func:`shard_core_distances_rows` is the MR boundary rescan's entry. The
-reference's partition-rule table is a JAX sharding device with no torch
-counterpart: a shard's tensors lie on its device.
+reference pins its sharded state with JAX partition rules; the port's
+tensors simply lie where :data:`PARTITION_RULES` says, the table the run
+manifest records (:func:`partition_rule_table`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from hdbscan_tpu_torch import obs
 from hdbscan_tpu_torch.core.distances import euclidean_form
 from hdbscan_tpu_torch.parallel.mesh import device_count, fetch, get_mesh, spans_cards
 from hdbscan_tpu_torch.parallel.ring import _ring_geometry, _shard_rows
@@ -54,6 +56,22 @@ from hdbscan_tpu_torch.parallel.ring import _ring_geometry, _shard_rows
 FIT_SHARDINGS = ("auto", "replicated", "sharded")
 
 _INT32_MAX = torch.iinfo(torch.int32).max
+
+#: Where the sharded fit's state lies, as (state, placement): the record
+#: the run manifest carries (``utils/telemetry.run_manifest``).
+PARTITION_RULES = (
+    ("rows, cores, valid, global ids", "one row shard on each shard's device"),
+    ("component labels", "whole, once on each distinct device"),
+    ("visiting panel", "copied to the resident shard's device for one scan"),
+    ("per-component winners", "reduced on the first shard's device"),
+    ("edge buffers u, v, w", "whole on the first shard's device, split by shard after"),
+)
+
+
+def partition_rule_table() -> list[dict]:
+    """JSON-serializable :data:`PARTITION_RULES` for the run manifest (the
+    reference's key names)."""
+    return [{"path": state, "spec": placement} for state, placement in PARTITION_RULES]
 
 
 def resolve_fit_sharding(fit_sharding: str, mesh) -> str:
@@ -284,55 +302,56 @@ def shard_forest_core_distances(
     same_form = (metric != "euclidean"
                  or euclid_form(1, trees * lmax, d) == euclid_form(1, lmax, d))
     groups = [list(range(trees))] if same_form else [[t] for t in range(trees)]
-    t0 = time.monotonic()
-    real = [max(0, min(shard, n - s * shard)) for s in range(n_dev)]
-    lists = {}
-    for me, dev in enumerate(devs):
-        m = real[me]
-        if m == 0:
-            continue
-        bd = torch.full((m, k_eff), float("inf"), dtype=rows[me].dtype, device=dev)
-        bi = torch.full((m, k_eff), n, dtype=torch.int32, device=dev)
-        bd[:, 0] = 0.0  # self at distance 0
-        bi[:, 0] = torch.arange(me * shard, me * shard + m, dtype=torch.int32, device=dev)
-        lists[me] = (bd, bi)
-    mask_on = {dev: torch.as_tensor(leaf_mask, device=dev) for dev in mesh.distinct()}
-    # A visit's query rows go in equal chunks, of whole bf16 row tiles,
-    # whose candidate panel keeps within the rescan's element budget: rows
-    # x T x max-leaf ids on the card (B7 gathers no rows), times d where the
-    # plain version gathers the candidates' coordinates. Every step is per
-    # row, so the chunking does not change the lists.
-    per_row = trees * lmax * (d if rows[0].device.type == "cpu" else 1)
-    cap = max(RESCAN_ROW_TILE, _RESCAN_ELEM_BUDGET // per_row)
-    n_chunks = -(-max(real) // cap)
-    chunk = -(-max(real) // max(n_chunks, 1) // RESCAN_ROW_TILE) * RESCAN_ROW_TILE
-    for step in range(n_dev):
+    with obs.mem_phase("shard_knn_scan"), obs.task("shard_knn_scan", total=n_dev) as hb:
+        t0 = time.monotonic()
+        real = [max(0, min(shard, n - s * shard)) for s in range(n_dev)]
+        lists = {}
         for me, dev in enumerate(devs):
-            if me not in lists:
+            m = real[me]
+            if m == 0:
                 continue
-            src = (me - step) % n_dev
-            off = src * shard
-            panel, mem_src = rows[src].to(dev), members[src].to(dev)
-            thr_src = thresholds[src].to(dev)
-            parts_d, parts_i = [], []
-            for a in range(0, real[me], chunk):
-                q = rows[me][a : min(a + chunk, real[me])]
-                node = route_queries(q, normals_on[dev], thr_src, depth)
-                bd, bi = lists[me][0][a : a + chunk], lists[me][1][a : a + chunk]
-                for grp in groups:
-                    cand = torch.cat([mem_src[t][node[t]] for t in grp], 1)
-                    ok = torch.cat([mask_on[dev][node[t]] for t in grp], 1) & (cand + off < n)
-                    cids = torch.where(ok, cand, shard).to(torch.int32)
-                    td, ti = forest_rescan_topk(q, panel, cids, k_eff, metric,
-                                                precision=knn_precision, sentinel=shard)
-                    ti = torch.where(ti == shard, n, ti + off).to(torch.int32)
-                    bd, bi = dedup_lex_merge(torch.cat([bd, td], 1), torch.cat([bi, ti], 1),
-                                             k_eff, n)
-                parts_d.append(bd)
-                parts_i.append(bi)
-            lists[me] = (torch.cat(parts_d), torch.cat(parts_i))
-    walls = _per_device_walls(mesh, t0)
-    wall = time.monotonic() - t0
+            bd = torch.full((m, k_eff), float("inf"), dtype=rows[me].dtype, device=dev)
+            bi = torch.full((m, k_eff), n, dtype=torch.int32, device=dev)
+            bd[:, 0] = 0.0  # self at distance 0
+            bi[:, 0] = torch.arange(me * shard, me * shard + m, dtype=torch.int32, device=dev)
+            lists[me] = (bd, bi)
+        mask_on = {dev: torch.as_tensor(leaf_mask, device=dev) for dev in mesh.distinct()}
+        # A visit's query rows go in equal chunks, of whole bf16 row tiles,
+        # whose candidate panel keeps within the rescan's element budget: rows
+        # x T x max-leaf ids on the card (B7 gathers no rows), times d where the
+        # plain version gathers the candidates' coordinates. Every step is per
+        # row, so the chunking does not change the lists.
+        per_row = trees * lmax * (d if rows[0].device.type == "cpu" else 1)
+        cap = max(RESCAN_ROW_TILE, _RESCAN_ELEM_BUDGET // per_row)
+        n_chunks = -(-max(real) // cap)
+        chunk = -(-max(real) // max(n_chunks, 1) // RESCAN_ROW_TILE) * RESCAN_ROW_TILE
+        for step in range(n_dev):
+            for me, dev in enumerate(devs):
+                if me not in lists:
+                    continue
+                src = (me - step) % n_dev
+                off = src * shard
+                panel, mem_src = rows[src].to(dev), members[src].to(dev)
+                thr_src = thresholds[src].to(dev)
+                parts_d, parts_i = [], []
+                for a in range(0, real[me], chunk):
+                    q = rows[me][a : min(a + chunk, real[me])]
+                    node = route_queries(q, normals_on[dev], thr_src, depth)
+                    bd, bi = lists[me][0][a : a + chunk], lists[me][1][a : a + chunk]
+                    for grp in groups:
+                        cand = torch.cat([mem_src[t][node[t]] for t in grp], 1)
+                        ok = torch.cat([mask_on[dev][node[t]] for t in grp], 1) & (cand + off < n)
+                        cids = torch.where(ok, cand, shard).to(torch.int32)
+                        td, ti = forest_rescan_topk(q, panel, cids, k_eff, metric,
+                                                    precision=knn_precision, sentinel=shard)
+                        ti = torch.where(ti == shard, n, ti + off).to(torch.int32)
+                        bd, bi = dedup_lex_merge(torch.cat([bd, td], 1), torch.cat([bi, ti], 1),
+                                                 k_eff, n)
+                    parts_d.append(bd)
+                    parts_i.append(bi)
+                lists[me] = (torch.cat(parts_d), torch.cat(parts_i))
+        walls = _per_device_walls(mesh, t0, beat=hb.beat)
+        wall = time.monotonic() - t0
     # One visiting panel a step: the shard's points plus its trees' leaf
     # members and heap thresholds.
     itemsize = np.dtype(dtype).itemsize
@@ -340,7 +359,7 @@ def shard_forest_core_distances(
                    + trees * num_nodes * itemsize)
     _emit_ring_trace(
         trace, "shard_panel_sweep", wall, walls, n_dev, 0, rows=n, trees=trees, shard=shard,
-        upload_s=round(upload_s, 6), comm_bytes=(n_dev - 1) * panel_bytes,
+        upload_s=upload_s, comm_bytes=(n_dev - 1) * panel_bytes,
         flops=2.0 * n_pad * trees * n_dev * lmax * d,
     )
     kth_col = min(max(min_pts - 1, 1), n) - 1
@@ -505,13 +524,19 @@ class ShardBoruvkaScanner:
         sh = self._sh
         _flops.add_scan(sh.n_pad, sh.n_pad, self.d, row_tile=sh.row_tile)
         comp = np.asarray(comp)
-        t_up = time.monotonic()
-        labels_on = sh.put_labels(comp.astype(np.int32))
-        t0 = time.monotonic()
-        upload_s = t0 - t_up
-        cands = sh.scan(labels_on)
-        walls = _per_device_walls(sh.mesh, t0)
-        wall = time.monotonic() - t0
+        with obs.mem_phase("shard_boruvka_scan"), obs.task(
+            "shard_boruvka_scan", total=self.n_dev
+        ) as hb:
+            # The reference donates the label panel here and keeps the
+            # sampler out of the window (obs.donation_guard).
+            with obs.donation_guard():
+                t_up = time.monotonic()
+                labels_on = sh.put_labels(comp.astype(np.int32))
+                t0 = time.monotonic()
+                upload_s = t0 - t_up
+                cands = sh.scan(labels_on)
+                walls = _per_device_walls(sh.mesh, t0, beat=hb.beat)
+            wall = time.monotonic() - t0
         t_f = time.monotonic()
         bw = fetch([cands[s][0] for s in sh.live]).astype(np.float64)
         bj = fetch([cands[s][1] for s in sh.live]).astype(np.int64)
@@ -523,7 +548,8 @@ class ShardBoruvkaScanner:
         _emit_ring_trace(
             self.trace, "shard_boruvka_scan", wall, walls, self.n_dev, self._round,
             n_comp=int(len(np.unique(comp))), candidates=int(np.sum(bj >= 0)),
-            upload_s=round(upload_s, 6), fetch_s=round(fetch_s, 6), comm_bytes=comm_bytes,
+            upload_s=upload_s, fetch_s=fetch_s, comm_bytes=comm_bytes,
+            flops=2.0 * sh.n_pad * sh.n_pad * self.d,
         )
         self._round += 1
         return bw, bj
@@ -562,7 +588,10 @@ def shard_boruvka_mst(
     """
     from hdbscan_tpu_torch.core.mst_device import _collapse_labels
 
-    sh = _Shards(data, core, metric, row_tile, col_tile, dtype, mesh)
+    # The reference donates the uploaded rows to its program and keeps the
+    # sampler out of the upload window (obs.donation_guard).
+    with obs.donation_guard():
+        sh = _Shards(data, core, metric, row_tile, col_tile, dtype, mesh)
     n, root = sh.n, sh.root
     buf = max(n - 1, 1)
     eu = torch.zeros(buf + 1, dtype=torch.int32, device=root)

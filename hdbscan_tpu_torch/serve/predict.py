@@ -384,10 +384,15 @@ class Predictor:
         """Run zeros through every bucket (blocking), so the first real
         request finds every kernel built and loaded. Returns ``{"buckets":
         [...], "wall_s": float, "jit_compiles": int, "cache_hits": int}``,
-        the reference's keys: ``jit_compiles`` counts the kernel builds
-        (``ops/cuda_build``) this warmup paid — there is no JIT, so it is 0
-        once the kernels are built — and ``cache_hits`` is 0."""
-        before = cuda_build.BUILDS
+        the reference's keys: ``jit_compiles`` counts the kernel sources this
+        warmup built with nvcc and ``cache_hits`` the kernel libraries it
+        loaded from the build directory without a build
+        (``utils/telemetry.compile_counter``, ``cache_hit_counter``); a
+        process whose kernels are already loaded reports 0 and 0."""
+        from hdbscan_tpu_torch.utils.telemetry import cache_hit_counter, compile_counter
+
+        builds, hits = compile_counter(), cache_hit_counter()
+        before, hits_before = builds(), hits()
         t0 = time.perf_counter()
         d = self.model.data.shape[1]
         with self._lock:
@@ -398,8 +403,8 @@ class Predictor:
         info = {
             "buckets": list(self.buckets),
             "wall_s": round(time.perf_counter() - t0, 6),
-            "jit_compiles": cuda_build.BUILDS - before,
-            "cache_hits": 0,
+            "jit_compiles": builds() - before,
+            "cache_hits": hits() - hits_before,
         }
         if self.tracer is not None:
             self.tracer("predict_warmup", **info)

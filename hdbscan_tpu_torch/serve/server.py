@@ -56,9 +56,17 @@ fingerprint-field match against the served model, and emit ``model_swap``
 trace events with a per-server monotonic generation. Lock order: the swap
 lock before the ingest lock, never the reverse.
 
-Not ported: tenants (ROADMAP A12) and the observability layer's watchdog
-(A11): each raises ``NotImplementedError`` before any socket opens.
-``SIGTERM``/``close()`` drains in-flight work before exiting.
+Observability (``hdbscan_tpu_torch/obs``): with ``watchdog_s > 0`` and no
+heartbeat hub installed the server arms one (and disarms it on close), and
+an installed hub or timeline recorder feeds the
+``hdbscan_tpu_watchdog_stalls_total`` and
+``hdbscan_tpu_straggler_flags_total`` counters; ``/healthz`` carries their
+``watchdog`` and ``straggler`` blocks and ``/metrics`` the installed
+memory auditor's per-device peaks (``hdbscan_tpu_device_peak_bytes``).
+
+Not ported: tenants (ROADMAP A12), which raise ``NotImplementedError``
+before any socket opens. ``SIGTERM``/``close()`` drains in-flight work
+before exiting.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from hdbscan_tpu_torch import obs
 from hdbscan_tpu_torch.fault import inject
 from hdbscan_tpu_torch.fault.policy import (
     CIRCUIT_STATE_VALUES,
@@ -104,13 +113,11 @@ _REQUEST_IDS = itertools.count(1)
 _INERT_FILL = 1e18
 
 
-def _refuse_unported(params, tenants) -> None:
-    """The server's features that are not ported, each named with its
-    ROADMAP item; raised before any model is staged or socket opened."""
+def _refuse_unported(tenants) -> None:
+    """The server's feature that is not ported, named with its ROADMAP
+    item; raised before any model is staged or socket opened."""
     if tenants is not None:
         raise NotImplementedError("tenants are not ported yet (ROADMAP A12)")
-    if float(getattr(params, "watchdog_s", 0.0) if params is not None else 0.0) > 0:
-        raise NotImplementedError("the watchdog (watchdog_s) is not ported yet (ROADMAP A11)")
 
 
 class _ModelHandle:
@@ -312,9 +319,9 @@ class ClusterServer:
     or stage for ``POST /swap`` (``"manual"``). Stream knobs come from
     ``params`` (``HDBSCANParams`` ``stream_*`` and ``maintain_*`` fields);
     ``wal_dir`` (or ``stream_wal_dir``) journals every accepted batch.
-    ``tenants`` and a watchdog are not ported: each raises
-    ``NotImplementedError`` naming its ROADMAP item before anything else
-    happens.
+    ``params.watchdog_s > 0`` arms a heartbeat hub when none is installed.
+    ``tenants`` are not ported: they raise ``NotImplementedError`` naming
+    their ROADMAP item before anything else happens.
     """
 
     def __init__(
@@ -338,7 +345,7 @@ class ClusterServer:
         tenants=None,
         device=None,
     ):
-        _refuse_unported(params, tenants)
+        _refuse_unported(tenants)
         self.tracer = tracer
         self.device = device
         self._backend_req = backend
@@ -411,24 +418,43 @@ class ClusterServer:
             "Injected faults fired (fault harness), by site.",
             labelnames=("site",),
         )
-        # The observability layer's families (ROADMAP A11 feeds them). With
-        # no layer installed, the reference's default, they stay at zero,
-        # and a scrape names the reference's families.
-        self.metrics.counter(
+        self._m_watchdog = self.metrics.counter(
             "hdbscan_tpu_watchdog_stalls_total",
             "Watchdog stack dumps fired (no heartbeat within watchdog_s).",
         )
-        self.metrics.gauge(
+        self._m_device_peak = self.metrics.gauge(
             "hdbscan_tpu_device_peak_bytes",
             "Per-device peak resident bytes across audited fit phases.",
             labelnames=("device",),
         )
-        self.metrics.counter(
+        self._m_straggler = self.metrics.counter(
             "hdbscan_tpu_straggler_flags_total",
             "Straggler flags fired (device >= skew_threshold x round-median "
             "wall for straggler_rounds consecutive rounds), by device.",
             labelnames=("device",),
         )
+        # An installed timeline recorder (CLI- or test-built) feeds this
+        # server's straggler counter; none is created here.
+        tl = obs.timeline()
+        if tl is not None and tl.straggler_counter is None:
+            tl.straggler_counter = self._m_straggler
+        # Arm a heartbeat hub when the config asks for a watchdog and none
+        # is installed (an installed hub keeps priority); either way the
+        # installed hub feeds this server's stall counter.
+        self._armed_hub = None
+        hub = obs.heartbeats()
+        if hub is None and float(knob("watchdog_s", 0.0)) > 0:
+            from hdbscan_tpu_torch.obs.heartbeat import Heartbeats
+
+            hub = self._armed_hub = Heartbeats(
+                tracer=tracer,
+                heartbeat_s=float(knob("heartbeat_s", 1.0)),
+                watchdog_s=float(knob("watchdog_s", 0.0)),
+                stall_counter=self._m_watchdog,
+            )
+            obs.install(heartbeats=hub)
+        elif hub is not None and hub._stall_counter is None:
+            hub._stall_counter = self._m_watchdog
         plan = inject.plan()
         if plan is not None:
             if plan.tracer is None and tracer is not None:
@@ -674,11 +700,13 @@ class ClusterServer:
                         m.splice()
                         spliced += 1
             if spliced:
-                lo, hi, w = m.mst_arrays()
-                tree, labels, _scores, _inf = self._finalizer.finalize(
-                    m.n, lo, hi, w, m.core[: m.n]
-                )
-                new_model = self._maintained_model(tree, labels)
+                with obs.task("stream_maintain", total=1) as t:
+                    lo, hi, w = m.mst_arrays()
+                    tree, labels, _scores, _inf = self._finalizer.finalize(
+                        m.n, lo, hi, w, m.core[: m.n]
+                    )
+                    new_model = self._maintained_model(tree, labels)
+                    t.beat(1)
         except Exception as exc:
             self._maintain_disable(f"{type(exc).__name__}: {exc}")
             return (
@@ -1160,9 +1188,14 @@ class ClusterServer:
 
     def render_metrics(self) -> str:
         """Prometheus text exposition for ``GET /metrics``. Live-state
-        gauges (uptime, served generation) refresh at scrape time."""
+        gauges (uptime, served generation, the installed auditor's
+        per-device peaks) refresh at scrape time."""
         self._m_uptime.set(round(time.monotonic() - self._t0, 3))
         self._m_generation.set(float(self._handle.generation))
+        aud = obs.auditor()
+        if aud is not None:
+            for dev, peak in aud.device_peaks().items():
+                self._m_device_peak.set(float(peak), device=dev)
         return self.metrics.render()
 
     def health(self) -> dict:
@@ -1191,6 +1224,12 @@ class ClusterServer:
         }
         if self.last_swap is not None:
             out["last_swap"] = self.last_swap
+        wd = obs.watchdog_state()
+        if wd is not None:
+            out["watchdog"] = wd
+        sg = obs.straggler_state()
+        if sg is not None:
+            out["straggler"] = sg
         if self.ingest_enabled:
             stats = self.buffer.stats()
             out["stream"] = {
@@ -1262,6 +1301,8 @@ class ClusterServer:
             self.refitter.join(timeout=0.5)  # daemon thread; don't block long
             if self.journal is not None:
                 self.journal.close()
+        if self._armed_hub is not None:
+            obs.disarm(self._armed_hub)
 
     def __enter__(self) -> "ClusterServer":
         return self

@@ -54,15 +54,18 @@ def fit_and_publish(points, params, path, *, fit_fn=None, tracer=None,
     fit. ``fit_fn(points, params)`` replaces the dense fit (tests). Raises
     on failure; returns the published model.
     """
+    from hdbscan_tpu_torch import obs
+
     if inject.maybe_fire("refit_fit") is not None:
         raise inject.InjectedFault("injected refit_fit crash")
-    if fit_fn is not None:
-        result = fit_fn(points, params)
-    else:
-        from hdbscan_tpu_torch.models import hdbscan
+    with obs.mem_phase("model_refit"), obs.task("model_refit", total=1):
+        if fit_fn is not None:
+            result = fit_fn(points, params)
+        else:
+            from hdbscan_tpu_torch.models import hdbscan
 
-        result = hdbscan.fit(points, params, device=device)
-    model = result.to_cluster_model(points, params, device=device)
+            result = hdbscan.fit(points, params, device=device)
+        model = result.to_cluster_model(points, params, device=device)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     retry_call(
         lambda: model.save(path),

@@ -9,14 +9,22 @@ files unchanged.
 
 A :class:`Tracer` goes anywhere the port takes a ``trace`` hook
 (``models.exact.fit``, ``models.mr_hdbscan.fit``, ``models.hdbscan.fit``).
-The reference's counter deltas, ``add_sink``, ``stderr_tracer`` and
-``xla_profile`` have no caller in the port yet (ROADMAP A11).
+Counter deltas (``Tracer(counters=...)``: the kernel builds and build
+directory hits of ``utils/telemetry``) ride the phase events, and the
+observability layer (``hdbscan_tpu_torch/obs``) emits through the same
+Tracer: ``mem_sample``/``mem_phase_peak`` from the memory auditor,
+``heartbeat``/``watchdog_stall`` from the progress hub,
+``device_timeline``/``straggler_flag`` from the timeline recorder, and the
+flight recorder attaches as one more sink (:meth:`Tracer.add_sink`).
+:func:`xla_profile` (the reference's name) captures a ``torch.profiler``
+trace of the host and the card.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from contextlib import contextmanager
@@ -131,14 +139,19 @@ class Tracer:
         (``sys.stderr`` for live progress). None = collect only.
       sinks: sink objects (``emit(event)`` / ``close()``), e.g.
         :class:`JsonlSink`.
+      counters: ``{field_name: zero-arg callable -> number}``; at every emit
+        the delta since the previous emit is attached as an event field
+        when nonzero. Phase events are emitted at the end of their phase,
+        so the kernel builds a phase paid land on its own event
+        (``utils/telemetry.compile_counter``).
       max_events: bound on the in-memory ``events`` list (None or 0 =
         unbounded). Past it the oldest events drop in chunks
         (``events_dropped`` counts them); sinks still get every event.
     """
 
-    def __init__(self, stream=None, sinks=None, max_events=None):
-        # One lock keeps the in-memory event order and the sink write order
-        # (JsonlSink's seq) consistent across threads.
+    def __init__(self, stream=None, sinks=None, counters=None, max_events=None):
+        # One lock keeps the counter deltas, the in-memory event order and
+        # the sink write order (JsonlSink's seq) consistent across threads.
         self._emit_lock = threading.Lock()
         self.events: list[TraceEvent] = []
         self.max_events = int(max_events) if max_events else None
@@ -148,6 +161,11 @@ class Tracer:
         self._sinks = list(sinks or [])
         if stream is not None:
             self._sinks.append(LogfmtSink(stream))
+        self._counters = dict(counters or {})
+        self._counter_last = {k: fn() for k, fn in self._counters.items()}
+
+    def add_sink(self, sink) -> None:
+        self._sinks.append(sink)
 
     def close(self) -> None:
         """Close all sinks (flushes JSONL files). Idempotent."""
@@ -170,6 +188,12 @@ class Tracer:
 
     def _emit(self, ev: TraceEvent) -> None:
         with self._emit_lock:
+            for key, fn in self._counters.items():
+                cur = fn()
+                delta = cur - self._counter_last[key]
+                self._counter_last[key] = cur
+                if delta:
+                    ev.fields[key] = delta
             self.events.append(ev)
             if self.max_events is not None and len(self.events) > self.max_events:
                 # Trim the oldest ~1/8 of the window in one slice so the
@@ -207,3 +231,26 @@ class Tracer:
             )
         return "\n".join(lines)
 
+
+def stderr_tracer() -> Tracer:
+    """Tracer that live-streams logfmt lines to stderr."""
+    return Tracer(stream=sys.stderr)
+
+
+@contextmanager
+def xla_profile(logdir: str):
+    """Capture a ``torch.profiler`` trace of a block — the reference's
+    ``jax.profiler`` capture, under its name so a reader finds the
+    counterpart. Records the host's and (where a card is present) the
+    card's activity and writes one Chrome trace file under ``logdir``
+    (``chrome://tracing`` or Perfetto open it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace.{os.getpid()}.json"))

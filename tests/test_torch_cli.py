@@ -251,18 +251,7 @@ def test_fit_predict_cli_equals_reference(tmp_path, grid_file, capsys, fit_extra
     "argv,item",
     [
         (["serve", "--model", "m.npz", "--tenants-dir", "tenants"], "A12"),
-        (["serve", "--model", "m.npz", "--report", "r.json"], "A11"),
-        (["predict", "--model", "m.npz", "--points", "MISSING", "--report", "r.json"], "A11"),
         (["fleet", "--model", "m.npz"], "A12"),
-        (["fit", "file=MISSING", "--report", "r.json"], "A11"),
-        (["fit", "file=MISSING", "--flight-dir", "fl"], "A11"),
-        (["fit", "file=MISSING", "--assert-not-replicated"], "A11"),
-        (["fit", "file=MISSING", "--compile-cache", "off"], "A11"),
-        (["file=MISSING", "compile_cache=off"], "A11"),
-        (["file=MISSING", "heartbeat=0.5"], "A11"),
-        (["file=MISSING", "watchdog=30"], "A11"),
-        (["file=MISSING", "skew_threshold=3"], "A11"),
-        (["file=MISSING", "straggler_rounds=5"], "A11"),
         (["file=MISSING", "clusterName=auto"], "A9b"),
         (["file=MISSING", "clusterName=localhost:1234,0,2"], "A9b"),
     ],
@@ -312,7 +301,8 @@ def test_bad_flag_missing_file_and_help(capsys):
     for argv in (["--help"], ["fit", "-h"], []):
         assert port_main(argv) == 0
         out = capsys.readouterr().out
-        assert "minPts" in out and "--trace-out" in out and "(A11)" in out
+        assert "minPts" in out and "--trace-out" in out and "--report" in out
+        assert "--flight-dir" in out and "(ROADMAP A12)" in out and "(A11)" not in out
 
 
 def test_without_a_card_fails_and_writes_nothing(tmp_path, grid_file, capsys):

@@ -49,6 +49,13 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.models.hdbscan",
     "hdbscan_tpu_torch.models.mr_hdbscan",
     "hdbscan_tpu_torch.native",
+    "hdbscan_tpu_torch.obs",
+    "hdbscan_tpu_torch.obs.audit",
+    "hdbscan_tpu_torch.obs.correlate",
+    "hdbscan_tpu_torch.obs.flightrec",
+    "hdbscan_tpu_torch.obs.heartbeat",
+    "hdbscan_tpu_torch.obs.roofline",
+    "hdbscan_tpu_torch.obs.timeline",
     "hdbscan_tpu_torch.ops.blockscan",
     "hdbscan_tpu_torch.ops.cuda_build",
     "hdbscan_tpu_torch.ops.cuda_forest",
@@ -73,6 +80,7 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.stream.drift",
     "hdbscan_tpu_torch.stream.refit",
     "hdbscan_tpu_torch.stream.wal",
+    "hdbscan_tpu_torch.utils.cache",
     "hdbscan_tpu_torch.utils.checkpoint",
     "hdbscan_tpu_torch.utils.datasets",
     "hdbscan_tpu_torch.utils.evaluation",
@@ -137,6 +145,24 @@ def test_no_jax_or_reference_import(path):
     with open(path) as f:
         src = f.read()
     assert not _FORBIDDEN.search(src), f"{path} imports jax or hdbscan_tpu"
+
+
+#: The reference's TPU figures (a v5e's HBM rate and peak, one ICI link)
+#: that must not carry over into the port's observability layer.
+_TPU_FIGURES = re.compile(r"\b(819e9|45e9|197e12|819\.0e9|1\.97e14)\b")
+
+
+@pytest.mark.parametrize(
+    "path",
+    [p for p in _port_sources() if os.sep + "obs" + os.sep in p or os.sep + "utils" + os.sep in p],
+    ids=lambda p: os.path.relpath(p, REPO),
+)
+def test_observability_peaks_are_the_cards(path):
+    """The roofline, timeline and MFU figures divide by the H100's peaks
+    (``utils/flops.PEAK_FLOPS``, ``obs/roofline.PEAK_BYTES_S``,
+    ``obs/timeline.MODEL_COMM_BYTES_S``), never by a TPU's."""
+    with open(path) as f:
+        assert not _TPU_FIGURES.search(f.read()), path
 
 
 @pytest.mark.parametrize(

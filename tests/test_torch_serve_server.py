@@ -2,9 +2,10 @@
 ``serve`` command on the CPU: every response equals the in-process
 predict on the same model, the trace passes ``scripts/check_trace.py`` and
 two scrapes pass ``scripts/check_metrics.py``, swaps are blue/green under
-load and refuse a fingerprint mismatch or a corrupt artifact, and the
-features that are not ported refuse by name (ROADMAP A11, A12) before
-any socket opens; ``/ingest`` on a server started without ingest mode
+load and refuse a fingerprint mismatch or a corrupt artifact, tenants
+(not ported) refuse by name (ROADMAP A12) before any socket opens, and the
+observability layer's blocks and families (the watchdog a ``watchdog_s``
+arms, the installed auditor's device peaks) pass ``check_metrics.py``; ``/ingest`` on a server started without ingest mode
 answers as the reference's does (the streaming server itself is held to
 the reference by ``test_torch_stream_server.py``). Servers bind port 0 and close in a ``finally``;
 every HTTP call has a timeout.
@@ -202,13 +203,7 @@ def test_swap_refusals(models, bad):
         srv.close()
 
 
-@pytest.mark.parametrize(
-    "kw,item",
-    [
-        ({"tenants": "tenants"}, "A12"),
-        ({"params": HDBSCANParams(watchdog_s=5.0)}, "A11"),
-    ],
-)
+@pytest.mark.parametrize("kw,item", [({"tenants": "tenants"}, "A12")])
 def test_unported_features_refused(kw, item):
     """The refusal comes first: the model passed is not even a model."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -270,6 +265,127 @@ def test_serve_command_answers_and_drains_on_sigterm(models):
     assert proc.returncode == 0, err
     assert "hdbscan-tpu serve: http://127.0.0.1:" in err and "buckets [8, 16, 32, 64]" in err
     _run_script("check_trace.py", trace)
+
+
+# -- the observability layer on the server ----------------------------------
+
+
+def test_watchdog_straggler_and_device_peak_families(models):
+    """``watchdog_s`` arms a heartbeat hub (disarmed on close); an installed
+    auditor's peaks reach ``hdbscan_tpu_device_peak_bytes`` and a timeline
+    recorder's detector the straggler counter; ``/healthz`` carries the
+    reference's ``watchdog`` and ``straggler`` blocks; two scrapes pass
+    ``check_metrics.py``; the run report's ``request_spans`` round-trips
+    against the trace (the server legs of the reference's SLO e2e)."""
+    from hdbscan_tpu import obs as ref_obs
+    from hdbscan_tpu.config import HDBSCANParams as RefParams
+    from hdbscan_tpu.serve import ClusterModel as RefModel
+    from hdbscan_tpu.serve import ClusterServer as RefServer
+    from hdbscan_tpu_torch import obs
+    from hdbscan_tpu_torch.obs.audit import MemoryAuditor
+    from hdbscan_tpu_torch.obs.timeline import TimelineRecorder
+    from hdbscan_tpu_torch.utils import telemetry
+    from scripts import check_metrics, check_trace
+
+    d, paths, _ = models
+    model = ClusterModel.load(paths["a"])
+    trace, report = os.path.join(d, "obs_serve.jsonl"), os.path.join(d, "obs_serve.json")
+    tracer = Tracer(sinks=[JsonlSink(trace, static={"process": 0})])
+    aud = MemoryAuditor(tracer=tracer, source="live_arrays")
+    rec = TimelineRecorder(trace=tracer)
+    obs.install(auditor=aud, timeline=rec)
+    with obs.mem_phase("block_edges"):  # the audited fit phase of this process
+        keep = np.zeros((512, 64))
+        import torch
+
+        held = torch.as_tensor(keep)
+    ref = None
+    srv = ClusterServer(model, port=0, tracer=tracer, device="cpu", max_batch=64,
+                        params=HDBSCANParams(watchdog_s=30.0, heartbeat_s=0.5))
+    try:
+        hub = obs.heartbeats()
+        assert hub is not None and hub.watchdog_s == 30.0 and hub._watchdog_thread is not None
+        assert rec.straggler_counter is srv._m_straggler and hub._stall_counter is srv._m_watchdog
+        ref = RefServer(RefModel.load(paths["a"]), port=0, max_batch=64,
+                        params=RefParams(watchdog_s=30.0, heartbeat_s=0.5))
+        srv.start()
+        ref.start()
+        url, ref_url = f"http://{srv.host}:{srv.port}", f"http://{ref.host}:{ref.port}"
+        q = model.data[:40]
+        scrapes = []
+        for rows in (1, 7, 40):
+            assert _call(url, "/predict", {"points": q[:rows].tolist()})[0] == 200
+            status, _, body = _call(url, "/metrics")
+            assert status == 200
+            scrapes.append(os.path.join(d, f"obs_scrape{len(scrapes)}.txt"))
+            with open(scrapes[-1], "w") as f:
+                f.write(body)
+        parsed, errors = check_metrics.validate_exposition(body, "scrape")
+        assert errors == []
+        peak = parsed["samples"][("hdbscan_tpu_device_peak_bytes", (("device", "cpu:0"),))]
+        assert peak >= keep.nbytes
+        assert parsed["samples"].get(("hdbscan_tpu_watchdog_stalls_total", ()), 0) == 0
+        health = json.loads(_call(url, "/healthz")[2])
+        ref_health = json.loads(_call(ref_url, "/healthz")[2])
+        assert set(health["watchdog"]) == set(ref_health["watchdog"])
+        assert health["watchdog"]["watchdog_s"] == 30.0 and health["watchdog"]["stalls"] == 0
+        assert health["straggler"] == rec.state() and set(health["straggler"]) == {
+            "skew_threshold", "straggler_rounds", "rounds", "flags_total", "flags", "streaks"}
+    finally:
+        srv.close()
+        if ref is not None:
+            ref.close()
+        ref_obs.clear()
+        tracer.close()
+    assert obs.heartbeats() is None and obs.auditor() is aud  # disarmed its own hub only
+    obs.clear()
+    del held
+    _run_script("check_metrics.py", scrapes[0], scrapes[-1])
+    telemetry.write_report(report, telemetry.build_report(
+        tracer, manifest=telemetry.run_manifest(None)))
+    events, errors = check_trace.validate_trace(trace)
+    assert errors == []
+    rep, errors = check_trace.validate_report(report, trace_events=events)
+    assert errors == [] and rep["request_spans"]["count"] == 3
+
+
+def test_serve_command_report_and_watchdog(models):
+    """``serve --report`` with ``watchdog``: ``/healthz`` carries the
+    watchdog block, and on SIGTERM the report lands with a
+    ``predict_latency`` section that recomputes from the trace."""
+    d, paths, _ = models
+    port_file = os.path.join(d, "obs_port.txt")
+    trace, report = os.path.join(d, "obs_cli.jsonl"), os.path.join(d, "obs_cli.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hdbscan_tpu_torch", "serve", "--model", paths["a"],
+         "--port", "0", "--port-file", port_file, "--trace-out", trace, "--report", report,
+         "--device", "cpu", "predict_batch=16", "watchdog=30", "heartbeat=0.5"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.time() + 120
+        while not os.path.exists(port_file) and time.time() < deadline:
+            assert proc.poll() is None, proc.communicate()
+            time.sleep(0.1)
+        time.sleep(0.05)
+        with open(port_file) as f:
+            url = f"http://127.0.0.1:{int(f.read())}"
+        q = ClusterModel.load(paths["a"]).data[:20]
+        for rows in (1, 5, 20):
+            assert _call(url, "/predict", {"points": q[:rows].tolist()})[0] == 200
+        health = json.loads(_call(url, "/healthz")[2])
+        assert health["watchdog"]["watchdog_s"] == 30.0
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    _run_script("check_trace.py", trace, report)
+    with open(report) as f:
+        rep = json.load(f)
+    assert rep["predict_latency"]["count"] >= 3 and rep["manifest"]["argv"][0] == "serve"
 
 
 # -- the port's server against the reference's ------------------------------
