@@ -296,8 +296,8 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
 3p. the observability layer (``hdbscan_tpu_torch/obs``) around the card's
    paths, each command run in this process with the launch counters zeroed
    just before and read just after: ``3p_cli_skin_obs``, 3j's cli_mr
-   command on the Skin-shaped file in turns without, with, with and
-   without ``--trace-out --report --flight-dir --assert-not-replicated
+   command on the Skin-shaped file once without and once with
+   ``--trace-out --report --flight-dir --assert-not-replicated
    heartbeat=0.2 watchdog=30``: the five files equal, the traces and reports pass
    ``scripts/check_trace.py`` and the empty flight directory
    ``check_flight.py --allow-empty``; it prints the per-phase watermarks
@@ -318,6 +318,38 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    and K3 on these paths are held against their plain versions, bitwise.
    The kernels line gains ``launches_3p``. ``python3 chip_smoke.py 3p``
    builds the kernels and runs phases 3 and 3p alone;
+3q. the fleet (``hdbscan_tpu_torch/fleet``) on the card, over three
+   uncompressed Skin-shaped artifacts (phase 3's exact fit, a second
+   seed's, and phase 3's fit carrying the 3b forest). One fleet, the port's
+   router in this process over ``serve`` replica processes sharing
+   ``cuda:0`` (``consistent_hash``, ``--tenants-dir`` of 8 tenants cycling
+   the three models, ``tenant_lru=2``, ``artifact_store=shared``,
+   ``--ingest`` with a WAL a replica, every replica trace kept), runs three
+   cells: ``3q_fleet_scale``, one replica, then a scale-up whose standby's
+   ``/healthz`` reads 0 builds and more than 0 build-directory loads and
+   answers identically (its time to ready printed), drained back down at
+   the end; ``3q_fleet_tenants``, 300 ``/predict`` requests of 1-256 rows
+   cycling the tenants in runs of five, each equal to the in-process predict on its
+   artifact and each tenant on one replica, the aggregated ``/metrics``
+   through ``check_metrics.py`` with evictions counted, p50 and p99, each
+   replica's allocator bytes, and the card's free memory with no, one and
+   two replicas up; ``3q_fleet_chaos``, ingest acknowledged on both
+   replicas, then SIGKILL of one under a two-client load: the next request
+   re-routes, the replica respawns and replays its WAL to the acknowledged
+   rows, and no request fails. The router's and the replicas' traces pass
+   ``check_trace.py`` and ``--join``. A replica's launches are its
+   ``/healthz`` counts read just before and just after a cell.
+   ``3q_fit_service``, in this process: a ``TenantRegistry`` on the card
+   over four tenants hammered by three threads while a ``FitScheduler``
+   (two workers) runs two rounds of dense fits of 16,384 rows a tenant on
+   the card and publishes through the registry's swap, plus one poisoned
+   job: no request error, no generation regression, the poison fails
+   alone, each tenant answers as its last job's artifact; p50 and p99 with
+   and without fits beside; then eight ``rpforest`` tenants through an LRU
+   of two, the allocator's allocated bytes back to two tenants' worth. The
+   in-process B2, B7 and K3 calls are held against their plain versions,
+   bitwise. The kernels line gains ``launches_3q``. ``python3
+   chip_smoke.py 3q`` builds the kernels and runs phases 3 and 3q alone;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -505,13 +537,32 @@ MAINTAIN_ROWS = 48
 #: beside ``--trace-out --report --flight-dir``, the watchdog cell's rows
 #: and injected stall, and the serving cell's model rows and requests.
 OBS_FLAGS = ["--assert-not-replicated", "heartbeat=0.2", "watchdog=30"]
-#: The Skin cell's runs without (False) and with (True) the layer, in turns
-#: so neither side holds every early run; the sharded cell runs each once.
-OBS_TURNS = (False, True, True, False)
+#: The Skin cell's runs without (False) and with (True) the layer: one a
+#: side, to keep the whole script inside its time limit (the overhead is
+#: within run-to-run noise at any count this script can afford, PERF.md);
+#: the sharded cell runs each once too.
+OBS_TURNS = (False, True)
 OBS_SUB_ROWS = 4096
 OBS_STALL_S = 3.0
 OBS_SERVE_ROWS = 30_000
 OBS_REQUESTS = 300
+#: Phase 3q, the fleet: tenants (cycling phase 3's exact model, a second
+#: seed's and the forest-carrying one) over two replicas with an LRU of two
+#: each, the single client's requests (1-256 rows each, in runs of
+#: FLEET_RUN a tenant, so a run's first request pays its load), and the fit
+#: service's tenants, workers, job rows (a dense fit's float32 (n, n) block
+#: is 1 GiB at 16,384 rows), rounds of jobs and its window without fits.
+#: minClSize is 3000 scaled by 16,384 / 245,057.
+FLEET_TENANTS = 8
+FLEET_LRU = 2
+FLEET_REQUESTS = 300
+FLEET_RUN = 5
+FIT_JOB_TENANTS = 4
+FIT_JOB_WORKERS = 2
+FIT_JOB_ROWS = 16_384
+FIT_JOB_MIN_CL = 200
+FIT_JOB_ROUNDS = 2
+FIT_SERVICE_BASE_S = 3.0
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -4223,12 +4274,12 @@ def mesh_phase(data, card, fres=None, qres=None) -> tuple[list[str], dict, list[
     return errors, launches, rows
 
 
-def ingest_kernels_check(label, recorders, required) -> list[str]:
-    """Each kept stream-path call of B2 (``knn_kbest_panel``), B7
-    (``forest_rescan_topk``) and K3 (``uf_scan``, the re-fit's finalize)
-    again through the kernel and through its plain version on the same
-    card tensors: bitwise equal, or an error; an error too when the
-    recorder of a kernel in ``required`` kept no call."""
+def ingest_kernels_check(label, recorders, required, phase="3o") -> list[str]:
+    """Each kept call of B2 (``knn_kbest_panel``), B7
+    (``forest_rescan_topk``) and K3 (``uf_scan``, a re-fit's or a fit job's
+    finalize) on a ``phase`` path again through the kernel and through its
+    plain version on the same card tensors: bitwise equal, or an error; an
+    error too when the recorder of a kernel in ``required`` kept no call."""
     import torch
 
     from hdbscan_tpu_torch.core import mst_device
@@ -4247,11 +4298,11 @@ def ingest_kernels_check(label, recorders, required) -> list[str]:
             held += 1
             if not _bits_same(got, want):
                 errors.append(f"{label}: {rec.name} differs from its plain version on a "
-                              f"stream-path call ({tuple(args[0].shape)})")
-    errors += [f"{label}: no {r.name} call recorded on the stream path" for r in recorders
+                              f"{phase} path call ({tuple(args[0].shape)})")
+    errors += [f"{label}: no {r.name} call recorded on the {phase} path" for r in recorders
                if r.name in required and not r.calls]
     names = ", ".join(f"{r.name} {len(r.calls)} of {r.count} calls" for r in recorders)
-    print(f"3o {label}: kernel vs plain on the stream path's own calls ({names}): "
+    print(f"{phase} {label}: kernel vs plain on the path's own calls ({names}): "
           f"{'bitwise' if not errors else 'FAILED'} ({held} held)")
     return errors
 
@@ -4793,11 +4844,10 @@ def fit_wall(err: str) -> float | None:
     return None
 
 
-def obs_cli_cell(here, root, label, path, flags, kernels, keep, card,
-                 turns=OBS_TURNS) -> tuple[list[str], dict]:
-    """One 3p command-line cell: the fit in turns without the
-    observability flags and with every one (``--trace-out --report
-    --flight-dir`` and :data:`OBS_FLAGS`), as ``turns`` says, each in this
+def obs_cli_cell(here, root, label, path, flags, kernels, keep, card) -> tuple[list[str], dict]:
+    """One 3p command-line cell: the fit without the observability flags
+    and with every one (``--trace-out --report --flight-dir`` and
+    :data:`OBS_FLAGS`), as :data:`OBS_TURNS` says, each in this
     process with the launch counters zeroed just before and read just
     after; the overhead compares the sides' median fit walls. The five
     files must be equal across the runs, each trace and report pass
@@ -4809,7 +4859,7 @@ def obs_cli_cell(here, root, label, path, flags, kernels, keep, card,
     errors, runs = [], []
     argv = ["fit", f"file={path}", *flags]
     recorders = obs_recorders(kernels, keep)
-    for i, traced in enumerate(turns):
+    for i, traced in enumerate(OBS_TURNS):
         tag = f"{label}_{i}"
         extra = [f"out_dir={root}/{tag}"]
         if traced:
@@ -4853,7 +4903,7 @@ def obs_cli_cell(here, root, label, path, flags, kernels, keep, card,
 
         med_p, med_t = round(statistics.median(plain), 6), round(statistics.median(traced), 6)
         print(f"3p {label}: fit walls in turns {[r['fit'] for r in runs]} s "
-              f"({'/'.join('with' if t else 'without' for t in turns)}); median without "
+              f"({'/'.join('with' if t else 'without' for t in OBS_TURNS)}); median without "
               f"the layer {med_p} s, with it {med_t} s (overhead "
               f"{(med_t / med_p - 1) * 100:+.2f}%); commands "
               f"{[round(r['wall'], 3) for r in runs]} s; files "
@@ -4899,7 +4949,7 @@ def obs_phase(here, data, card) -> tuple[list[str], dict]:
         e, shard = obs_cli_cell(
             here, root, "3p_cli_sharded_obs", path,
             [*CLI_LEGS[1][2], "--device", ",".join(["cuda:0"] * N_SHARDS)],
-            ("knn_kbest_panel", "min_outgoing_panel", "uf_scan"), 2, card, turns=(False, True))
+            ("knn_kbest_panel", "min_outgoing_panel", "uf_scan"), 2, card)
         errors += e
         launches["3p_cli_sharded_obs"] = shard.get("launches", {})
         if shard:
@@ -5083,14 +5133,463 @@ def obs_serve_cell(here, root, data, card) -> tuple[list[str], dict]:
     return errors, launches
 
 
+def fleet_http(url, route, obj=None, headers=None, timeout=120):
+    """One HTTP call: (status, lower-cased headers, JSON body or text); a
+    POST when ``obj`` is given; 4xx/5xx answers are returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url + route, data=data, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, hdr, body = r.status, r.headers, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, hdr, body = e.code, e.headers, e.read().decode()
+    try:
+        body = json.loads(body)
+    except ValueError:
+        pass
+    return status, {k.lower(): v for k, v in hdr.items()}, body
+
+
+def replica_health(router, rid) -> dict:
+    """A fleet replica's own ``/healthz`` (on the card it carries the
+    process's kernel launch counts and its allocator's bytes)."""
+    return fleet_http(f"http://127.0.0.1:{router._by_rid[rid].port}", "/healthz")[2]
+
+
+def launches_since(before: dict, after: dict) -> dict:
+    """Kernel launches between two readings of replicas' ``/healthz``
+    (``{rid: health}``), summed over the replicas: each replica's counts
+    read just before and just after a cell are its counts zeroed at the
+    start of the cell."""
+    out = {}
+    for rid, h in after.items():
+        then = before.get(rid, {}).get("kernels", {}).get("launches", {})
+        for name, n in h.get("kernels", {}).get("launches", {}).items():
+            if n - then.get(name, 0):
+                out[name] = out.get(name, 0) + n - then.get(name, 0)
+    return out
+
+
+def compute_apps() -> str:
+    """Each process's memory on the card as ``nvidia-smi`` reports it (one
+    CUDA context each), or why it could not be read."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+        return out.stdout.strip().replace("\n", "; ") or "not reported (no process listed)"
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not measured ({type(e).__name__})"
+
+
+def fleet_models(data, res, tmp):
+    """Phase 3q's three Skin-shaped artifacts, saved uncompressed (what the
+    fit jobs publish and the artifact store maps): phase 3's exact fit, the
+    exact fit of a second seed's rows, and phase 3's fit carrying the 3b
+    forest (``rpforest`` serving). Returns ({name: path}, {name: rows})."""
+    import numpy as np
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.models import exact
+    from hdbscan_tpu_torch.ops import rpforest
+    from hdbscan_tpu_torch.serve import ClusterModel
+
+    params = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=MIN_CL_SIZE)
+    data2 = np.random.default_rng(SEED + 40).integers(0, 256, size=(N_SKIN, 3)).astype(
+        np.float64)
+    t = time.perf_counter()
+    res2 = exact.fit(data2, params)
+    fit2 = time.perf_counter() - t
+    forest = rpforest.build_forest(data, trees=FOREST["rpf_trees"],
+                                   leaf_size=FOREST["rpf_leaf_size"], seed=SEED)
+    paths = {
+        "exact": res.to_cluster_model(data, params).save(
+            os.path.join(tmp, "exact.npz"), compress=False),
+        "seed2": res2.to_cluster_model(data2, params).save(
+            os.path.join(tmp, "seed2.npz"), compress=False),
+        "forest": ClusterModel.from_fit_result(res, data, params, forest=forest).save(
+            os.path.join(tmp, "forest.npz"), compress=False),
+    }
+    print(f"3q models: second seed's exact fit {fit2:.3f} s; artifact bytes "
+          f"{ {k: os.path.getsize(p) for k, p in paths.items()} }")
+    return paths, {"exact": data, "seed2": data2, "forest": data}
+
+
+def fleet_cells(here, paths, rows, card, tmp) -> tuple[list[str], dict]:
+    """``3q_fleet_scale``, ``3q_fleet_tenants`` and ``3q_fleet_chaos`` on one
+    fleet (module docstring): the port's router in this process over
+    ``serve`` replica processes on the card."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch.fleet import FleetRouter
+    from hdbscan_tpu_torch.ops import cuda_knn
+    from hdbscan_tpu_torch.serve import ClusterModel, Predictor
+    from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
+
+    errors, launches = [], {}
+    tenants = {f"t{i}": ("exact", "seed2", "forest")[i % 3] for i in range(FLEET_TENANTS)}
+    tdir = os.path.join(tmp, "tenants")
+    os.makedirs(tdir)
+    for t, m in tenants.items():
+        os.link(paths[m], os.path.join(tdir, f"{t}.npz"))
+    rng = np.random.default_rng(SEED + 41)
+    sizes = [int(s) for s in rng.integers(1, 257, FLEET_REQUESTS)]
+    # Runs of FLEET_RUN requests a tenant, cycling the tenants through the LRUs.
+    order = [f"t{i // FLEET_RUN % FLEET_TENANTS}" for i in range(FLEET_REQUESTS)]
+    queries = novel_queries(rows["exact"], sum(sizes), SEED + 42)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    # The in-process answers on the card, request by request (each in its
+    # own bucket, as a replica predicts it), the rectangular B2's calls held.
+    preds = {m: Predictor(ClusterModel.load(p), max_batch=256) for m, p in paths.items()}
+    b2 = CallRecorder(cuda_knn, "knn_kbest_panel", keep=4)
+    with b2:
+        want = [preds[tenants[t]].predict(queries[a:b])
+                for t, a, b in zip(order, starts[:-1], starts[1:])]
+        standby_want = preds["exact"].predict(queries[:256])[0].tolist()
+        chaos_want = preds["exact"].predict(queries[:64])[0].tolist()
+    errors += ingest_kernels_check("3q in-process answers", [b2], ("knn_kbest_panel",),
+                                   phase="3q")
+    router_trace = os.path.join(tmp, "router.jsonl")
+    rdir = os.path.join(tmp, "replicas")
+    tracer = Tracer(sinks=[JsonlSink(router_trace, static={"process": 0})])
+    router = FleetRouter(
+        paths["exact"], replicas=1, policy="consistent_hash", health_interval_s=2.0,
+        tenants_dir=tdir, ingest=True, wal_root=os.path.join(tmp, "wal"),
+        replica_args=["predict_batch=256", f"tenant_lru={FLEET_LRU}", "artifact_store=shared",
+                      "refit_budget=1000000"],
+        replica_env={"HDBSCAN_TPU_ARTIFACT_SPOOL": os.path.join(tmp, "spool")},
+        replica_trace_dir=rdir, tracer=tracer, startup_timeout_s=300.0, run_dir=tmp)
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    t = time.perf_counter()
+    router.start()
+    up1 = time.perf_counter() - t
+    try:
+        time.sleep(1.0)
+        free1 = torch.cuda.mem_get_info()[0]
+        h0 = replica_health(router, "0")
+        # --- 3q_fleet_scale: a warm standby from one replica --------------
+        t = time.perf_counter()
+        rid = router.scale_up(reason="manual", timeout=300)
+        ready = time.perf_counter() - t
+        time.sleep(1.0)
+        free2 = torch.cuda.mem_get_info()[0]
+        h1 = replica_health(router, rid) if rid else {}
+        warm = h1.get("warmup", {})
+        base = f"http://{router.host}:{router.port}"
+        status, _, out = fleet_http(f"http://127.0.0.1:{router._by_rid[rid].port}"
+                                    if rid else base, "/predict",
+                                    {"points": queries[:256].tolist()})
+        same = status == 200 and out["labels"] == standby_want
+        print(f"3q 3q_fleet_scale ({card}): replica 0 up in {up1:.3f} s (warmup {h0['warmup']}); "
+              f"standby {rid} ready in {ready:.3f} s (spawn, every bucket warmed, healthy "
+              f"probe), warmup {warm}; its answers identical: {same}")
+        print(f"3q card memory (mem_get_info free bytes, this process's context included): "
+              f"no replica {free0}, 1 replica {free1}, 2 replicas {free2}; per replica "
+              f"{free0 - free1} and {free1 - free2}; nvidia-smi per process: {compute_apps()}")
+        if rid != "1" or warm.get("jit_compiles") != 0 or not warm.get("cache_hits") or not same:
+            errors.append(f"3q_fleet_scale: standby {rid} warmup {warm}, answers same {same}")
+        # --- 3q_fleet_tenants: eight tenants over two replicas ------------
+        before = {r.rid: replica_health(router, r.rid) for r in router.replicas}
+        lat, homes, bad = [], {}, []
+        for i, (tenant, a, b) in enumerate(zip(order, starts[:-1], starts[1:])):
+            t = time.perf_counter()
+            # "tenant" first: the router's ring reads it from the body's
+            # first 4 KiB (past that it hashes the body, as the reference's).
+            status, hdr, out = fleet_http(base, "/predict", {
+                "tenant": tenant, "points": queries[a:b].tolist()})
+            lat.append(time.perf_counter() - t)
+            w = want[i]
+            same = status == 200 and (
+                out["labels"] == w[0].tolist(),
+                out["probabilities"] == [round(p, 6) for p in w[1].tolist()],
+                out["outlier_scores"] == [round(s, 6) for s in w[2].tolist()])
+            if not (same and all(same)) or homes.setdefault(
+                    tenant, hdr.get("x-replica")) != hdr.get("x-replica"):
+                bad.append((i, tenant, status, hdr.get("x-replica"), same))
+        after = {r.rid: replica_health(router, r.rid) for r in router.replicas}
+        # The router-replica join over the traces so far (a replica killed
+        # below starts its trace afresh when it respawns).
+        time.sleep(0.5)
+        jdir = os.path.join(tmp, "join")
+        os.makedirs(jdir)
+        for path in [router_trace, *(os.path.join(rdir, f) for f in os.listdir(rdir))]:
+            shutil.copy(path, jdir)
+        bad_join = validator(here, "check_trace.py", "--join", os.path.join(jdir, "router.jsonl"),
+                             *sorted(os.path.join(jdir, f) for f in os.listdir(jdir)
+                                     if f != "router.jsonl"))
+        launches["3q_fleet_tenants"] = launches_since(before, after)
+        scrape = fleet_http(base, "/metrics")[2]
+        spath = os.path.join(tmp, "fleet_scrape.txt")
+        with open(spath, "w") as f:
+            f.write(scrape)
+        evictions = sum(float(line.rsplit(" ", 1)[1]) for line in scrape.splitlines()
+                        if line.startswith("hdbscan_tpu_tenant_evictions_total{"))
+        peaks = [line for line in scrape.splitlines()
+                 if line.startswith("hdbscan_tpu_device_peak_bytes{")]
+        st = latency_stats(lat, sum(sizes) // len(sizes))
+        print(f"3q 3q_fleet_tenants ({card}): {FLEET_TENANTS} tenants, LRU {FLEET_LRU} a "
+              f"replica, homes {homes}; {_lat_text(st)}; {len(bad)} answers off "
+              f"{bad[:5]}; evictions {evictions:.0f}; launches "
+              f"{launches['3q_fleet_tenants']}")
+        for r in sorted(after):
+            print(f"3q replica {r}: device_memory {after[r].get('device_memory')}; "
+                  f"kernels builds {after[r].get('kernels', {}).get('builds')} cache_hits "
+                  f"{after[r].get('kernels', {}).get('cache_hits')}")
+        print(f"3q hdbscan_tpu_device_peak_bytes in the aggregated scrape: "
+              f"{peaks or 'absent (no audited fit phase in a serving replica)'}")
+        bad_metrics = validator(here, "check_metrics.py", spath)
+        if bad or not evictions or bad_metrics or not launches["3q_fleet_tenants"].get(
+                "knn_kbest_panel"):
+            errors.append(f"3q_fleet_tenants: answers off {bad[:5]}, evictions {evictions}, "
+                          f"check_metrics {bad_metrics}, launches {launches['3q_fleet_tenants']}")
+        # --- 3q_fleet_chaos: SIGKILL a replica under load ------------------
+        before = {r.rid: replica_health(router, r.rid) for r in router.replicas}
+        acked = {r.rid: 0 for r in router.replicas}
+        crng = np.random.default_rng(SEED + 43)
+
+        def ingest():
+            pts = novel_queries(rows["exact"], 256, int(crng.integers(1 << 30)))
+            status, hdr, out = fleet_http(base, "/ingest", {"points": pts.tolist()})
+            if status == 200:
+                acked[hdr["x-replica"]] += out["rows"]
+            return status
+
+        codes = [ingest() for _ in range(8)]
+        outcomes = {"served": 0, "other": 0, "failed": 0}
+        lock, stop = threading.Lock(), threading.Event()
+        q = queries[:64].tolist()
+
+        def hammer():
+            while not stop.is_set():
+                status, _, out = fleet_http(base, "/predict", {"points": q})
+                with lock:
+                    if status != 200:
+                        outcomes["failed"] += 1
+                    elif out["labels"] != chaos_want:
+                        outcomes["other"] += 1
+                    else:
+                        outcomes["served"] += 1
+
+        load = [threading.Thread(target=hammer, daemon=True) for _ in range(2)]
+        for th in load:
+            th.start()
+        time.sleep(0.5)
+        victim = max(acked, key=lambda r: (acked[r], r))
+        acked_at_kill = acked[victim]
+        proc = router._by_rid[victim].proc
+        t = time.perf_counter()
+        os.kill(proc.pid, 9)
+        proc.wait(timeout=30)  # gone: a request now finds its port refused
+        status, hdr, _ = fleet_http(base, "/predict", {"points": q})
+        reroute = time.perf_counter() - t
+        codes.append(ingest())
+        deadline, back = time.monotonic() + 180, None
+        while time.monotonic() < deadline:
+            h = router.health()["replicas"][victim]
+            if h["restarts"] >= 1 and h["up"]:
+                back = time.perf_counter() - t
+                break
+            time.sleep(0.1)
+        recovered = replica_health(router, victim).get("stream", {}).get("wal", {}).get(
+            "last_recover", {}) if back else {}
+        codes.append(ingest())
+        stop.set()
+        for th in load:
+            th.join(timeout=60)
+        after = {r.rid: replica_health(router, r.rid) for r in router.replicas}
+        launches["3q_fleet_chaos"] = launches_since(
+            {k: v for k, v in before.items() if k != victim}, after)
+        print(f"3q 3q_fleet_chaos ({card}): acked rows {acked}; SIGKILL replica {victim}: the "
+              f"next request {status} from replica {hdr.get('x-replica')} in {reroute:.3f} s; "
+              f"respawned and healthy in {back} s; WAL replayed {recovered.get('rows')} rows "
+              f"(acked before the kill {acked_at_kill}); load {outcomes}; ingest codes {codes}; "
+              f"launches "
+              f"(the respawned replica's from its start) {launches['3q_fleet_chaos']}")
+        if (status != 200 or back is None or recovered.get("rows") != acked_at_kill
+                or outcomes["failed"] or outcomes["other"] or set(codes) != {200}):
+            errors.append(f"3q_fleet_chaos: reroute {status}, back {back}, recovered "
+                          f"{recovered}, acked {acked}, load {outcomes}, codes {codes}")
+        # --- 3q_fleet_scale: drain back down -------------------------------
+        t = time.perf_counter()
+        down = router.scale_down(rid, reason="manual", timeout=120) if rid else False
+        print(f"3q 3q_fleet_scale: drained replica {rid} back down: {down} in "
+              f"{time.perf_counter() - t:.3f} s; replicas {[r.rid for r in router.replicas]}")
+        if not down:
+            errors.append(f"3q_fleet_scale: scale-down of {rid} failed")
+    finally:
+        drained = router.close()
+        tracer.close()
+    traces = sorted(os.path.join(rdir, f) for f in os.listdir(rdir))
+    for path in [router_trace, *traces]:
+        bad_trace = validator(here, "check_trace.py", path)
+        if bad_trace:
+            errors.append(f"3q: check_trace.py failed on {os.path.basename(path)}: {bad_trace}")
+    print(f"3q fleet traces: {len(traces)} replica traces valid; check_trace.py --join over "
+          f"the tenants cell {'OK' if not bad_join else bad_join}; drained clean {drained}")
+    if bad_join or not drained:
+        errors.append(f"3q: the join or the drain failed: {bad_join}, drained {drained}")
+    return errors, launches
+
+
+def fit_service_cell(paths, rows, card, tmp) -> tuple[list[str], dict]:
+    """``3q_fit_service`` (module docstring): in this process, a
+    ``TenantRegistry`` on the card over four tenants and a ``FitScheduler``
+    with two workers fitting on the card; then eight rpforest tenants
+    through an LRU of two, the allocator's bytes read before and after."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from hdbscan_tpu_torch import HDBSCANParams
+    from hdbscan_tpu_torch.core import mst_device
+    from hdbscan_tpu_torch.fleet import ArtifactStore, FitScheduler, TenantRegistry
+    from hdbscan_tpu_torch.ops import cuda_build, cuda_forest, cuda_knn
+    from hdbscan_tpu_torch.serve import ClusterModel, Predictor
+
+    errors, launches = [], {}
+    tenants = [f"t{i}" for i in range(FIT_JOB_TENANTS)]
+    store = ArtifactStore(spool_dir=os.path.join(tmp, "spool_fit"))
+    reg = TenantRegistry({t: paths[("exact", "seed2")[i % 2]] for i, t in enumerate(tenants)},
+                         max_batch=256, lru_size=FIT_JOB_TENANTS, artifact_store=store)
+    params = HDBSCANParams(min_points=MIN_PTS, min_cluster_size=FIT_JOB_MIN_CL,
+                           processing_units=FIT_JOB_ROWS)
+    sched = FitScheduler(os.path.join(tmp, "jobs"), params=params,
+                         publish=lambda tenant, path, model: reg.swap(tenant, path),
+                         workers=FIT_JOB_WORKERS)
+    q = novel_queries(rows["exact"], 64, SEED + 50)
+    for t in tenants:
+        reg.predict(t, q)
+    recs = [CallRecorder(cuda_knn, "knn_kbest_panel", keep=4),
+            CallRecorder(mst_device, "uf_scan", keep=4)]
+    lat = {"without": [], "with": []}
+    gens = {(t, w): [] for t in tenants for w in range(3)}
+    errs, phase = [], ["without"]
+    stop = threading.Event()
+
+    def hammer(w):
+        hrng = np.random.default_rng(w)
+        while not stop.is_set():
+            t = tenants[int(hrng.integers(len(tenants)))]
+            t0 = time.perf_counter()
+            try:
+                out, info = reg.predict(t, q)
+                lat[phase[0]].append(time.perf_counter() - t0)
+                gens[(t, w)].append(info["generation"])
+            except Exception as e:  # noqa: BLE001 — a request error is the failure
+                errs.append(f"{t}: {type(e).__name__}: {e}")
+
+    torch_sync()
+    cuda_build.reset_launches()
+    rng = np.random.default_rng(SEED + 51)
+    with recs[0], recs[1]:
+        threads = [threading.Thread(target=hammer, args=(w,), daemon=True) for w in range(3)]
+        for th in threads:
+            th.start()
+        time.sleep(FIT_SERVICE_BASE_S)
+        phase[0] = "with"
+        t = time.perf_counter()
+        jobs = [sched.submit(tn, rows[("exact", "seed2")[i % 2]][
+            rng.choice(N_SKIN, FIT_JOB_ROWS, replace=False)], reason="drift")
+            for _ in range(FIT_JOB_ROUNDS) for i, tn in enumerate(tenants)]
+        poison = sched.submit("t0", np.array([["nope"] * 3] * 360))
+        joined = sched.join(timeout=600)
+        fits_s = time.perf_counter() - t
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        torch_sync()
+        sched.close()
+    launches["3q_fit_service"] = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    regress = [k for k, g in gens.items() if g != sorted(g)]
+    states = [j.state for j in jobs]
+    final = {t: reg.generation(t) for t in tenants}
+    peak = torch.cuda.max_memory_allocated()
+    wo, wi = latency_stats(lat["without"], 64), latency_stats(lat["with"], 64)
+    print(f"3q 3q_fit_service ({card}): {len(jobs)} jobs of {FIT_JOB_ROWS} rows on "
+          f"{FIT_JOB_WORKERS} workers in {fits_s:.3f} s (joined {joined}), states "
+          f"{sorted(set(states))}, poison {poison.state} ({(poison.error or '')[:80]}); final "
+          f"generations {final}; request errors {len(errs)} {errs[:3]}; regressions {regress}; "
+          f"predict without fits {_lat_text(wo)}; beside fits {_lat_text(wi)}; "
+          f"process peak allocated {peak} bytes; launches (B1 is segmin) "
+          f"{launches['3q_fit_service']}")
+    if (not joined or set(states) != {"published"} or poison.state != "failed" or errs
+            or regress or any(g != 1 + FIT_JOB_ROUNDS for g in final.values())):
+        errors.append(f"3q_fit_service: joined {joined}, states {states}, poison "
+                      f"{poison.state}, errors {errs[:3]}, regressions {regress}, final {final}")
+    for t in tenants:  # the served generation answers as the job that published it
+        j = max((j for j in jobs if j.tenant == t), key=lambda j: j.generation or 0)
+        got = reg.predict(t, q)[0][0]
+        if not np.array_equal(got, Predictor(ClusterModel.load(j.path)).predict(q)[0]):
+            errors.append(f"3q_fit_service: {t} answers other than {j.path}")
+    errors += ingest_kernels_check("3q_fit_service", recs, ("knn_kbest_panel", "uf_scan"),
+                                   phase="3q")
+    # Eight rpforest tenants through an LRU of two: an evicted tenant's
+    # tables go back to the allocator.
+    rq = novel_queries(rows["forest"], 256, SEED + 52)
+    want = Predictor(ClusterModel.load(paths["forest"]), backend="rpforest").predict(rq)
+    freg = TenantRegistry({f"f{i}": paths["forest"] for i in range(8)}, backend="rpforest",
+                          max_batch=256, lru_size=FLEET_LRU, artifact_store=store)
+    b7 = CallRecorder(cuda_forest, "forest_rescan_topk", keep=4)
+    torch_sync()
+    cuda_build.reset_launches()
+    base = torch.cuda.memory_allocated()
+    held, same = [], True
+    with b7:
+        for i in range(8):
+            out, _ = freg.predict(f"f{i}", rq)
+            same &= all(np.array_equal(a, b) for a, b in zip(out, want))
+            torch_sync()
+            held.append(torch.cuda.memory_allocated() - base)
+    launches["3q_fit_service_rpforest"] = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    print(f"3q 3q_fit_service rpforest tenants ({card}): allocated bytes above the start after "
+          f"each of 8 tenants (LRU {FLEET_LRU}): {held}; answers equal the in-process "
+          f"predictor: {same}; launches {launches['3q_fit_service_rpforest']}")
+    if not same or held[-1] > 1.25 * max(held[1], 1) + (1 << 20):
+        errors.append(f"3q_fit_service: rpforest tenants answer {same}, allocated {held}")
+    errors += ingest_kernels_check("3q_fit_service rpforest", [b7], ("forest_rescan_topk",),
+                                   phase="3q")
+    return errors, launches
+
+
+def fleet_phase(here, data, res, card) -> tuple[list[str], dict]:
+    """Phase 3q, the fleet (module docstring): its four cells. Returns
+    failure messages and each cell's launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hdbscan_fleet_")
+    try:
+        paths, rows = fleet_models(data, res, tmp)
+        errors, launches = fleet_cells(here, paths, rows, card, tmp)
+        e, fit_launches = fit_service_cell(paths, rows, card, tmp)
+        errors += e
+        launches.update(fit_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"3q fleet phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return errors, launches
+
+
 def add_launches(rows, phases) -> None:
     """Each kernel row's launches in the cells of each phase that ran it
     (``phases``: key -> {cell: launches}); the serving rows (``_predict``)
-    take their kernel's launches in the streaming cells, and keep the 3m
-    launches their phase set."""
+    take their kernel's launches in the streaming and fleet cells, and keep
+    the 3m launches their phase set."""
     for row in rows:
         for key, cells in phases.items():
-            name = row["name"].removesuffix("_predict") if key == "launches_3o" else row["name"]
+            name = (row["name"].removesuffix("_predict") if key in ("launches_3o", "launches_3q")
+                    else row["name"])
             hits = {cell: n for cell, got in cells.items() if (n := got.get(name))}
             if hits and key not in row:
                 row[key] = hits
@@ -5153,8 +5652,9 @@ def main() -> int:
     only_3n = sys.argv[1:] == ["3n"]
     only_3o = sys.argv[1:] == ["3o"]
     only_3p = sys.argv[1:] == ["3p"]
+    only_3q = sys.argv[1:] == ["3q"]
 
-    only_phase = only_3k or only_3l or only_3m or only_3n or only_3o or only_3p
+    only_phase = only_3k or only_3l or only_3m or only_3n or only_3o or only_3p or only_3q
     errors = [] if only_phase else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
@@ -5217,6 +5717,20 @@ def main() -> int:
         errors, _ = obs_phase(here, data, card)
         print(card)
         return fail(f"the observability phase failed: {errors}") if errors else 0
+    if only_3q:  # ``python3 chip_smoke.py 3q``: phase 3 and 3q alone
+        from hdbscan_tpu_torch.ops import rpforest
+
+        errors, fleet_launches = fleet_phase(here, data, res, card)
+        forest = rpforest.build_forest(data, trees=FOREST["rpf_trees"],
+                                       leaf_size=FOREST["rpf_leaf_size"], seed=SEED)
+        rows = predict_times(data, None, forest, {
+            "knn_kbest_panel": fleet_launches["3q_fleet_tenants"].get("knn_kbest_panel", 0),
+            "forest_rescan_topk": fleet_launches["3q_fit_service_rpforest"].get(
+                "forest_rescan_topk", 0)})
+        add_launches(rows, {"launches_3q": fleet_launches})
+        print(card)
+        print(json.dumps({"kernels": rows}))
+        return fail(f"the fleet phase failed: {errors}") if errors else 0
     if only_3o:  # ``python3 chip_smoke.py 3o``: phase 3 and 3o alone
         from hdbscan_tpu_torch.ops import rpforest
 
@@ -5427,6 +5941,11 @@ def main() -> int:
     if errors:
         return fail(f"the observability phase failed: {errors}")
 
+    # --- 3q: the fleet on the card ----------------------------------------
+    errors, fleet_launches = fleet_phase(here, data, res, card)
+    if errors:
+        return fail(f"the fleet phase failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -5505,7 +6024,8 @@ def main() -> int:
         return fail(f"kernels disagree with their plain versions at the fit's shapes: {bad}")
     add_launches(rows, {"launches_3k": host_launches, "launches_3l": mr_launches,
                         "launches_3m": serve_launches, "launches_3n": mesh_launches,
-                        "launches_3o": stream_launches, "launches_3p": obs_launches})
+                        "launches_3o": stream_launches, "launches_3p": obs_launches,
+                        "launches_3q": fleet_launches})
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,5 @@
 """The command line — the port of ``hdbscan_tpu/cli.py``'s ``fit``,
-``predict`` and ``serve``.
+``predict``, ``serve`` and ``fleet``.
 
 Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
 
@@ -31,7 +31,19 @@ Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
         [circuit_failures=N] [circuit_reset=F] [wal_dir=DIR] [snapshot_every=N] \
         [maintain={off,incremental}] [maintain_budget=F] \
         [maintain_dirty_frac=F] [maintain_refresh=N] [heartbeat=F] [watchdog=F] \
+        [--tenants-dir DIR] [tenant_lru=N] [tenant_quota=F] \
+        [artifact_store={shared,off}] [compile_cache={auto,off,DIR}] \
         [--trace-out PATH] [--report PATH] [--device DEV]
+    python -m hdbscan_tpu_torch fleet --model MODEL.npz [--host H] [--port P] \
+        [--model-dir DIR] [--tenants-dir DIR] [--ingest] [--wal-root DIR] \
+        [--trace-out PATH] [--report PATH] [--replica-trace-dir DIR] \
+        [fleet_replicas=N] [fleet_policy={consistent_hash,least_loaded}] \
+        [fleet_health_interval=F] [fleet_drain=F] \
+        [autoscale={true,false}] [fleet_min=N] [fleet_max=N] \
+        [scale_high_load=F] [scale_low_load=F] [scale_p99=F] \
+        [scale_cooldown=F] [artifact_store={shared,off}] \
+        [fit_workers=N] [fit_queue_bound=N] [fit_quota=F] [--device DEV] \
+        [<replica serve knobs, forwarded verbatim>]
 
 The dataset is routed as the reference routes it: with ``fit_sharding``
 resolving to ``sharded`` and n <= ``processing_units``, the exact fit over
@@ -114,9 +126,42 @@ shards included) passes it as ``single_device``. ``--compile-cache`` /
 with ``scripts/check_trace.py TRACE REPORT`` and ``scripts/check_flight.py
 DIR``.
 
-Not ported yet — each exits 2 before any data is read:
-``fleet`` (ROADMAP A12), ``serve --tenants-dir`` (A12),
-``clusterName`` other than ``local`` (multi-process runs, A9b).
+``serve --tenants-dir DIR`` serves every ``<tenant>.npz`` in DIR behind
+an LRU of ``tenant_lru`` warmed predictors on the serving device, with
+per-tenant generations and a ``tenant_quota`` requests/s token bucket (over
+it: 429 + ``Retry-After``); ``POST /predict`` bodies gain an optional
+``"tenant"`` field, which a server without a registry answers with 409.
+``artifact_store=shared`` loads tenant artifacts through the per-host
+digest-keyed mmap spool (``fleet/artifacts.py``): one host copy however
+many replicas serve them (each replica still holds its resident tenants'
+tables on the card).
+
+``fleet`` (``fleet/router.py``) spawns ``fleet_replicas`` ``serve``
+subprocesses over the same ``--model`` (``--device`` forwarded: the card
+unless another is named, and no replica ever moves to the CPU unasked) and
+fronts them on one asyncio accept loop: ``/predict`` and ``/ingest`` route
+by ``fleet_policy`` (``consistent_hash`` pins a tenant to a replica through
+an md5 ring; ``least_loaded`` picks the fewest in-flight requests),
+``/metrics`` serves one aggregated exposition with a ``replica`` label,
+``/swap`` broadcasts. A health loop probes ``/healthz`` every
+``fleet_health_interval`` seconds; a dead replica is routed around and
+respawned (each keeps its own ``--wal-root``/r<id> write-ahead log).
+Every replica is given the one kernel build directory ``compile_cache``
+resolves to, so a respawned or scaled-up replica builds nothing.
+``autoscale=true`` runs the hysteresis autoscaler between ``fleet_min``
+and ``fleet_max`` replicas (``scale_high_load``, ``scale_low_load``,
+``scale_p99``, ``scale_cooldown``); the remaining ``key=value`` knobs
+forward to every replica verbatim (``fit_workers``, ``fit_queue_bound`` and
+``fit_quota`` are validated and forwarded like the rest: the fit service
+is the in-process ``fleet/jobs.FitScheduler``, sized by its caller).
+``--replica-trace-dir DIR`` gives every replica its own ``--trace-out``
+file, joinable with the router's ``router_span`` events by
+``scripts/check_trace.py --join``. SIGTERM forwards to every replica and
+waits up to ``fleet_drain`` seconds: the exit status is nonzero when a
+replica had to be killed.
+
+Not ported yet — exits 2 before any data is read: ``clusterName`` other
+than ``local`` (multi-process runs, A9b).
 """
 
 from __future__ import annotations
@@ -128,12 +173,6 @@ import time
 from hdbscan_tpu_torch.config import HDBSCANParams
 
 HELP = __doc__
-
-#: Subcommands of the reference that are not ported, with their items.
-_UNPORTED_COMMANDS = {"fleet": "A12"}
-#: The reference's ``serve --flag PATH`` options that are not ported.
-_UNPORTED_SERVE_FLAGS = (("--tenants-dir", "A12"),)
-
 
 def _pop_path_flag(argv: list[str], flag: str) -> str | None:
     """Extract ``--flag PATH`` or ``--flag=PATH`` from argv (in place).
@@ -242,8 +281,8 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     # A bare key=value invocation (the reference's documented contract)
     # means fit.
-    if argv[0] in _UNPORTED_COMMANDS:
-        return _not_ported(f"the {argv[0]} subcommand", _UNPORTED_COMMANDS[argv[0]])
+    if argv[0] == "fleet":
+        return _main_fleet(argv[1:], list(argv))
     if argv[0] == "predict":
         return _main_predict(argv[1:], list(argv))
     if argv[0] == "serve":
@@ -571,10 +610,8 @@ def _main_serve(argv: list[str], argv_full: list[str]) -> int:
         port_file = _pop_path_flag(argv, "--port-file")
         device_flag = _pop_path_flag(argv, "--device")
         model_dir = _pop_path_flag(argv, "--model-dir")
+        tenants_dir = _pop_path_flag(argv, "--tenants-dir")
         ingest = _pop_bool_flag(argv, "--ingest")
-        for flag, item in _UNPORTED_SERVE_FLAGS:
-            if _pop_path_flag(argv, flag) is not None:
-                return _not_ported(f"serve {flag}", item)
         params = HDBSCANParams.from_args(argv)
         port = int(port) if port is not None else 8799
     except ValueError as e:
@@ -603,18 +640,21 @@ def _main_serve(argv: list[str], argv_full: list[str]) -> int:
             server = ClusterServer(model, backend=params.predict_backend,
                                    max_batch=params.predict_max_batch, host=host, port=port,
                                    tracer=tracer, ingest=ingest, params=params,
-                                   model_dir=model_dir, device=device)
+                                   model_dir=model_dir, tenants=tenants_dir, device=device)
         except NotImplementedError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         if port_file is not None:
-            # Written only after the socket is bound (serve --port 0).
+            # The fleet router polls this file to discover the replica's
+            # ephemeral port (serve --port 0): written only once bound.
             with open(port_file, "w", encoding="utf-8") as f:
                 f.write(f"{server.port}\n")
         mode = ""
         if ingest:
             mode = (f", ingest on ({params.stream_drift_stat} drift @ "
                     f"{params.stream_drift_threshold}, {params.stream_reload} reload)")
+        if tenants_dir is not None:
+            mode += f", tenants dir {tenants_dir} (lru {params.tenant_lru_size})"
         print(
             f"hdbscan-tpu serve: http://{server.host}:{server.port} "
             f"(model {model_path}, {model.n_train} train points, "
@@ -627,3 +667,94 @@ def _main_serve(argv: list[str], argv_full: list[str]) -> int:
     if report_out is not None:
         _write_serving_report(report_out, tracer, params, argv_full)
     return 0
+
+
+def _main_fleet(argv: list[str], argv_full: list[str]) -> int:
+    try:
+        model_path = _pop_path_flag(argv, "--model")
+        host = _pop_path_flag(argv, "--host") or "127.0.0.1"
+        port = _pop_path_flag(argv, "--port")
+        trace_out = _pop_path_flag(argv, "--trace-out")
+        report_out = _pop_path_flag(argv, "--report")
+        model_dir = _pop_path_flag(argv, "--model-dir")
+        tenants_dir = _pop_path_flag(argv, "--tenants-dir")
+        wal_root = _pop_path_flag(argv, "--wal-root")
+        replica_trace_dir = _pop_path_flag(argv, "--replica-trace-dir")
+        device_flag = _pop_path_flag(argv, "--device")
+        ingest = _pop_bool_flag(argv, "--ingest")
+        params = HDBSCANParams.from_args(argv)
+        port = int(port) if port is not None else 0
+    except ValueError as e:
+        print(f"error: {e}\n{HELP}", file=sys.stderr)
+        return 2
+    if not model_path:
+        print("error: fleet requires --model MODEL.npz", file=sys.stderr)
+        return 2
+
+    from hdbscan_tpu_torch.fleet.router import FleetRouter
+
+    tracer = _serving_tracer(trace_out, report_out, params.trace_max_events)
+    rc = 1
+    try:
+        # The remaining key=value argv forwards to every replica verbatim,
+        # so predict_batch / queue_bound / wal knobs tune the whole fleet
+        # from one command line (fleet_* keys are valid serve config too,
+        # inert in a replica).
+        try:
+            router = FleetRouter(
+                model_path,
+                replicas=params.fleet_replicas,
+                policy=params.fleet_policy,
+                health_interval_s=params.fleet_health_interval_s,
+                drain_s=params.fleet_drain_s,
+                host=host,
+                port=port,
+                replica_args=argv,
+                tenants_dir=tenants_dir,
+                model_dir=model_dir,
+                ingest=ingest,
+                wal_root=wal_root,
+                tracer=tracer,
+                replica_trace_dir=replica_trace_dir,
+                verbose=True,
+                compile_cache=params.compile_cache,
+                device=device_flag,
+            )
+            router.start()
+        except (RuntimeError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(
+            f"hdbscan-tpu fleet: http://{router.host}:{router.port} "
+            f"({params.fleet_replicas} replicas, {params.fleet_policy} "
+            f"routing, model {model_path})",
+            file=sys.stderr, flush=True,
+        )
+        scaler = None
+        if params.fleet_autoscale:
+            from hdbscan_tpu_torch.fleet.controlplane import Autoscaler
+
+            scaler = Autoscaler(
+                router,
+                min_replicas=params.fleet_min_replicas,
+                max_replicas=params.fleet_max_replicas,
+                high_load=params.fleet_scale_high_load,
+                low_load=params.fleet_scale_low_load,
+                high_p99_s=params.fleet_scale_p99_s,
+                cooldown_s=params.fleet_scale_cooldown_s,
+            ).start()
+            print(
+                f"hdbscan-tpu fleet: autoscaler on [{params.fleet_min_replicas}, "
+                f"{params.fleet_max_replicas}] replicas",
+                file=sys.stderr, flush=True,
+            )
+        try:
+            rc = router.serve_forever()
+        finally:
+            if scaler is not None:
+                scaler.stop()
+    finally:
+        tracer.close()
+    if report_out is not None:
+        _write_serving_report(report_out, tracer, params, argv_full)
+    return rc

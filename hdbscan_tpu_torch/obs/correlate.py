@@ -1,7 +1,7 @@
 """Fleet trace correlation: join router spans to replica spans — a
-host-only copy of ``hdbscan_tpu/obs/correlate.py``. Its first caller, the
-fleet router, is not ported yet (ROADMAP A12); the join works on either
-package's traces.
+host-only copy of ``hdbscan_tpu/obs/correlate.py``, joining the traces of
+the fleet router (``fleet/router.py``) and its replicas; the join works on
+either package's traces.
 
 The fleet router stamps (or propagates) an ``X-Request-Id`` on every
 proxied request and emits a ``router_span`` trace event per request

@@ -13,6 +13,13 @@ loads.
 
 A failed build raises: there is no fallback for CUDA tensors.
 
+Builds and loads are serialised within a process by one lock, so threads
+that first reach the same source together (a server's fit-job workers
+beside its batcher) run one ``nvcc`` and load one library; each build
+writes a temporary file named by process and thread, and the atomic
+``os.replace`` publishes it, so processes building into one directory
+(replicas sharing a card) never tear a library either.
+
 ``LAUNCHES`` counts kernel launches by name, ``BUILDS`` the sources this
 process compiled and ``CACHE_HITS`` the libraries it loaded from the build
 directory without compiling them; each wrapper adds one where it
@@ -27,6 +34,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -125,6 +133,8 @@ _built: set = set()  # sources this process compiled
 
 _libs: dict = {}  # source -> loaded library
 _fns: dict = {}  # (source, symbol) -> ctypes function
+#: Serialises builds and loads (and the counters they bump) in a process.
+_LOCK = threading.RLock()
 
 
 def build_dir() -> str:
@@ -192,7 +202,7 @@ def _start(src: str):
     if os.path.exists(so):
         return None
     os.makedirs(os.path.dirname(so), exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
@@ -218,13 +228,14 @@ def _finish(src: str, job) -> None:
 def build_all() -> None:
     """Build every kernel, one nvcc process per source, all at once; every
     process is waited for before a failure is raised."""
-    jobs = {src: _start(src) for src in SOURCES}
     errors = []
-    for src, job in jobs.items():
-        try:
-            _finish(src, job)
-        except RuntimeError as e:
-            errors.append(str(e))
+    with _LOCK:
+        jobs = {src: _start(src) for src in SOURCES}
+        for src, job in jobs.items():
+            try:
+                _finish(src, job)
+            except RuntimeError as e:
+                errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
 
@@ -235,17 +246,21 @@ def function(src: str, sym: str, argtypes):
     global CACHE_HITS
     key = (src, sym)
     fn = _fns.get(key)
-    if fn is None:
-        lib = _libs.get(src)
-        if lib is None:
-            _finish(src, _start(src))
-            lib = _libs[src] = ctypes.CDLL(_so_path(src))
-            if src not in _built:
-                CACHE_HITS += 1
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[key] = fn
+    if fn is not None:
+        return fn
+    with _LOCK:  # the first caller builds and loads; the rest wait for it
+        fn = _fns.get(key)
+        if fn is None:
+            lib = _libs.get(src)
+            if lib is None:
+                _finish(src, _start(src))
+                lib = _libs[src] = ctypes.CDLL(_so_path(src))
+                if src not in _built:
+                    CACHE_HITS += 1
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _fns[key] = fn
     return fn
 
 

@@ -217,10 +217,15 @@ class ClusterModel:
 
     # -- persistence -------------------------------------------------------
 
-    def save(self, path: str) -> str:
+    def save(self, path: str, *, compress: bool = True) -> str:
         """Write the artifact atomically (tempfile + ``os.replace``, the
         ``utils/checkpoint`` pattern: a crashed save never leaves a
-        half-written model where a server could load it)."""
+        half-written model where a server could load it).
+
+        ``compress=False`` stores members uncompressed (``np.savez``):
+        larger on disk, but the per-host ``fleet.artifacts.ArtifactStore``
+        can then spool and memory-map the arrays without a decompression
+        copy. Either form loads in both packages."""
         out_dir = os.path.dirname(os.path.abspath(path))
         os.makedirs(out_dir, exist_ok=True)
         meta = {
@@ -237,9 +242,10 @@ class ClusterModel:
             extra = {f"rpf_{k}": self.rpf[k] for k in _RPF_ARRAYS}
         fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".tmp")
         os.close(fd)
+        savez = np.savez_compressed if compress else np.savez
         try:
             with open(tmp, "wb") as f:
-                np.savez_compressed(
+                savez(
                     f,
                     meta=np.frombuffer(json.dumps(meta).encode(), np.uint8),
                     data=self.data,

@@ -250,22 +250,22 @@ class Predictor:
         # The tables pad to the reference's row count for this backend, so
         # an id of -1 (a slot no column filled) gathers the row the
         # reference's wrapped gather reads.
+        def put(a, dt=None):
+            a = np.ascontiguousarray(a)
+            if not a.flags.writeable:  # a memory-mapped spool member (fleet/artifacts)
+                a = a.copy()
+            return torch.as_tensor(a, dtype=dt, device=self.device)
+
         self.col_tile = None
         if self.backend == "rpforest":
             n_pad = n + 1  # the sentinel id n gathers a zero pad row
             rpf = model.rpf
-            self._rpf = tuple(
-                torch.as_tensor(np.asarray(rpf[key]), device=self.device)
-                for key in ("normals", "thresholds", "members")
-            )
+            self._rpf = tuple(put(rpf[key]) for key in ("normals", "thresholds", "members"))
             self._rpf_depth = int(rpf["depth"])
         elif self.backend == "fused":
             n_pad = _round_up(max(n, _FUSED_COL_TILE), _FUSED_COL_TILE)
         else:
             _, self.col_tile, n_pad = _tile_sizes(n, _MAX_ROW_TILE, 8192)
-
-        def put(a, dt):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=self.device)
 
         f = torch.float32
         self._tables = {

@@ -8,7 +8,12 @@ Endpoints:
   "outlier_scores", "generation"}`` (plus ``"membership"`` +
   ``"selected_ids"`` when requested). Plain predicts route through the
   :class:`~hdbscan_tpu_torch.serve.batcher.MicroBatcher`, so concurrent
-  clients coalesce into shared bucket dispatches.
+  clients coalesce into shared bucket dispatches. A body with
+  ``"tenant"`` is answered by that tenant's model through the server's
+  :class:`~hdbscan_tpu_torch.fleet.tenants.TenantRegistry` (``tenants=``,
+  ``serve --tenants-dir``; the response adds ``"tenant"`` and the
+  tenant's generation): 429 with ``Retry-After`` over the tenant's quota,
+  400 for an unknown tenant, and 409 from a server with no registry.
 - ``POST /ingest`` — streaming mode only: predicts the points, absorbs
   duplicates/near-duplicates into bubble summaries, updates the drift
   sketches, and (on a drift flag or point budget) kicks off a background
@@ -17,7 +22,10 @@ Endpoints:
   or an explicit ``{"path": ...}`` artifact: the blue/green hot swap.
 - ``GET /healthz`` — model summary, backend, buckets, warmup, batcher
   coalescing stats, stream/swap state, uptime, per-route request/error
-  counts and the current in-flight count.
+  counts and the current in-flight count; on the card also the process's
+  ``kernels`` (launches by kernel, builds, build-directory loads) and
+  ``device_memory`` (the caching allocator's allocated, peak and reserved
+  bytes), so a fleet's replica processes can be read from outside.
 - ``GET /metrics`` — Prometheus text exposition (``utils/metrics.py``):
   request totals by route/status, in-flight gauge, request-latency and
   batch-size histograms, swap, shed, fault, drift, re-fit, maintenance,
@@ -64,9 +72,7 @@ an installed hub or timeline recorder feeds the
 ``watchdog`` and ``straggler`` blocks and ``/metrics`` the installed
 memory auditor's per-device peaks (``hdbscan_tpu_device_peak_bytes``).
 
-Not ported: tenants (ROADMAP A12), which raise ``NotImplementedError``
-before any socket opens. ``SIGTERM``/``close()`` drains in-flight work
-before exiting.
+``SIGTERM``/``close()`` drains in-flight work before exiting.
 """
 
 from __future__ import annotations
@@ -111,13 +117,6 @@ _REQUEST_IDS = itertools.count(1)
 #: nearest neighbor and never attach. Fits float32 comfortably (squared
 #: distances stay below f32 max), which the predict kernels rely on.
 _INERT_FILL = 1e18
-
-
-def _refuse_unported(tenants) -> None:
-    """The server's feature that is not ported, named with its ROADMAP
-    item; raised before any model is staged or socket opened."""
-    if tenants is not None:
-        raise NotImplementedError("tenants are not ported yet (ROADMAP A12)")
 
 
 class _ModelHandle:
@@ -233,11 +232,16 @@ class _Handler(BaseHTTPRequestHandler):
                 if path == "/predict":
                     points = np.asarray(payload["points"], np.float64)
                     meta["t_parse"] = time.perf_counter()
-                    if payload.get("tenant") is not None:
-                        raise RuntimeError("tenants are not ported yet (ROADMAP A12)")
-                    out = srv.predict(
-                        points, bool(payload.get("membership", False)), meta=meta
-                    )
+                    tenant = payload.get("tenant")
+                    if tenant is not None:
+                        out = srv.tenant_predict(
+                            str(tenant), points,
+                            bool(payload.get("membership", False)), meta=meta,
+                        )
+                    else:
+                        out = srv.predict(
+                            points, bool(payload.get("membership", False)), meta=meta
+                        )
                     rows = len(out["labels"])
                 elif path == "/ingest":
                     points = np.asarray(payload["points"], np.float64)
@@ -274,7 +278,7 @@ class _Handler(BaseHTTPRequestHandler):
                 code = 400
                 self._json(code, {"error": str(e)})
                 return
-            except RuntimeError as e:  # mode errors (ingest off, nothing staged, unported)
+            except RuntimeError as e:  # mode errors (ingest off, nothing staged, no tenants)
                 code = 409
                 self._json(code, {"error": str(e)})
                 return
@@ -320,8 +324,13 @@ class ClusterServer:
     ``params`` (``HDBSCANParams`` ``stream_*`` and ``maintain_*`` fields);
     ``wal_dir`` (or ``stream_wal_dir``) journals every accepted batch.
     ``params.watchdog_s > 0`` arms a heartbeat hub when none is installed.
-    ``tenants`` are not ported: they raise ``NotImplementedError`` naming
-    their ROADMAP item before anything else happens.
+
+    ``tenants`` — a directory of ``<tenant>.npz`` artifacts, or a prebuilt
+    :class:`~hdbscan_tpu_torch.fleet.tenants.TenantRegistry` — serves many
+    models behind the same front: a directory builds a registry with this
+    server's backend, batch ceiling, metrics, tracer and ``device``, its
+    LRU and quota from ``tenant_lru_size`` / ``tenant_quota_rps``, and with
+    ``fleet_artifact_store="shared"`` the per-host artifact store.
     """
 
     def __init__(
@@ -345,7 +354,6 @@ class ClusterServer:
         tenants=None,
         device=None,
     ):
-        _refuse_unported(tenants)
         self.tracer = tracer
         self.device = device
         self._backend_req = backend
@@ -463,6 +471,38 @@ class ClusterServer:
 
         self._handle = self._build_handle(model, generation=1)
         self._m_generation.set(1.0)
+
+        # Multi-tenant registry (``fleet/tenants.py``): a directory path
+        # builds one over its artifacts with this server's metrics, tracer
+        # and device attached; a prebuilt TenantRegistry is used as-is. None
+        # keeps the single-model behavior (a request with a tenant field
+        # gets 409).
+        self.tenants = None
+        if tenants is not None:
+            if isinstance(tenants, str):
+                from hdbscan_tpu_torch.fleet.tenants import TenantRegistry
+
+                # Per-host zero-copy artifact store: with the knob on,
+                # tenant artifacts map through the digest-keyed spool
+                # (fleet/artifacts.py) shared by every replica on the host.
+                store = None
+                if str(knob("fleet_artifact_store", "off")) == "shared":
+                    from hdbscan_tpu_torch.fleet.artifacts import default_store
+
+                    store = default_store(tracer=tracer, metrics=self.metrics)
+                self.tenants = TenantRegistry.from_dir(
+                    tenants,
+                    backend=self._backend_req,
+                    max_batch=self._max_batch,
+                    lru_size=int(knob("tenant_lru_size", 8)),
+                    quota_rps=float(knob("tenant_quota_rps", 0.0)),
+                    metrics=self.metrics,
+                    tracer=tracer,
+                    artifact_store=store,
+                    device=self.device,
+                )
+            else:
+                self.tenants = tenants
 
         self.ingest_enabled = bool(ingest)
         self._params = params
@@ -987,6 +1027,42 @@ class ClusterServer:
             "generation": handle.generation,
         }
 
+    def tenant_predict(
+        self, tenant: str, points, membership: bool = False,
+        meta: dict | None = None,
+    ) -> dict:
+        """Predict against one tenant's model via the registry: quota check
+        (429 ShedRequest on exceed), LRU touch, load + warmup on a cold
+        tenant. Bypasses the micro-batcher like the membership path — the
+        tenant predictor's internal dispatch lock serializes, so the span
+        meta collapses queue/assemble to zero-width."""
+        if self.tenants is None:
+            raise RuntimeError(
+                "server started without a tenant registry (--tenants-dir)"
+            )
+        if meta is not None:
+            t = time.perf_counter()
+            meta["t_assembled"] = meta["t_dispatch"] = t
+        out, info = self.tenants.predict(
+            tenant, points, with_membership=membership
+        )
+        if meta is not None:
+            meta["t_done"] = time.perf_counter()
+            meta["coalesced"] = 1
+            meta["bucket"] = info["bucket"]
+        labels, prob, score = out[:3]
+        resp = {
+            "labels": labels.tolist(),
+            "probabilities": [round(p, 6) for p in prob.tolist()],
+            "outlier_scores": [round(s, 6) for s in score.tolist()],
+            "tenant": info["tenant"],
+            "generation": info["generation"],
+        }
+        if membership:
+            resp["membership"] = np.round(out[3], 6).tolist()
+            resp["selected_ids"] = info["selected_ids"]
+        return resp
+
     def ingest(self, points: np.ndarray, meta: dict | None = None) -> dict:
         """Streaming entry: predict → absorb/buffer → drift check → maybe
         kick a background re-fit. Returns per-batch routing + drift info."""
@@ -1230,6 +1306,22 @@ class ClusterServer:
         sg = obs.straggler_state()
         if sg is not None:
             out["straggler"] = sg
+        dev = handle.predictor.device
+        if dev.type == "cuda":
+            import torch
+
+            from hdbscan_tpu_torch.ops import cuda_build
+
+            out["kernels"] = {
+                "launches": {k: v for k, v in cuda_build.LAUNCHES.items() if v},
+                "builds": cuda_build.BUILDS,
+                "cache_hits": cuda_build.CACHE_HITS,
+            }
+            out["device_memory"] = {
+                "allocated_bytes": torch.cuda.memory_allocated(dev),
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+                "reserved_bytes": torch.cuda.memory_reserved(dev),
+            }
         if self.ingest_enabled:
             stats = self.buffer.stats()
             out["stream"] = {

@@ -45,19 +45,28 @@ __all__ = ["Refitter", "fit_and_publish"]
 
 
 def fit_and_publish(points, params, path, *, fit_fn=None, tracer=None,
-                    seed: int = 0, device=None):
+                    seed: int = 0, compress: bool = True,
+                    fault_site: str = "refit_fit",
+                    publish_name: str = "refit_publish", device=None):
     """Fit ``points`` on ``device`` (the card unless another is named),
-    distill to a ClusterModel, and publish it atomically at ``path``.
+    distill to a ClusterModel, and publish it atomically at ``path`` — the
+    shared core of :class:`Refitter` and the fleet's fit-as-a-service
+    workers (``fleet/jobs.py``).
 
-    The save is wrapped in a bounded retry so a transient publish error (an
-    injected ``artifact_save`` fault, a busy filesystem) doesn't waste the
-    fit. ``fit_fn(points, params)`` replaces the dense fit (tests). Raises
-    on failure; returns the published model.
+    The fit runs under the obs phases (``model_refit`` memory phase +
+    progress task); the save is wrapped in a bounded retry so a transient
+    publish error (an injected ``artifact_save`` fault, a busy filesystem)
+    doesn't waste the fit. ``fault_site`` names the injection site fired
+    before the fit and ``publish_name`` the retried save's trace name.
+    ``compress=False`` publishes an uncompressed artifact the per-host
+    ``fleet.artifacts.ArtifactStore`` can spool and mmap without a
+    decompression copy. ``fit_fn(points, params)`` replaces the dense fit
+    (tests). Raises on failure; returns the published model.
     """
     from hdbscan_tpu_torch import obs
 
-    if inject.maybe_fire("refit_fit") is not None:
-        raise inject.InjectedFault("injected refit_fit crash")
+    if inject.maybe_fire(fault_site) is not None:
+        raise inject.InjectedFault(f"injected {fault_site} crash")
     with obs.mem_phase("model_refit"), obs.task("model_refit", total=1):
         if fit_fn is not None:
             result = fit_fn(points, params)
@@ -67,11 +76,15 @@ def fit_and_publish(points, params, path, *, fit_fn=None, tracer=None,
             result = hdbscan.fit(points, params, device=device)
         model = result.to_cluster_model(points, params, device=device)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    # Only name the keyword when deviating from the default: save-compatible
+    # duck types (test fakes) may predate ``compress``.
+    save = (lambda: model.save(path)) if compress else (
+        lambda: model.save(path, compress=False))
     retry_call(
-        lambda: model.save(path),
+        save,
         attempts=3, base_s=0.05, cap_s=0.5, seed=seed,
         retry_on=(OSError, inject.InjectedFault),
-        tracer=tracer, name="refit_publish",
+        tracer=tracer, name=publish_name,
     )
     return model
 

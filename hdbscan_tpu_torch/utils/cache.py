@@ -33,7 +33,10 @@ def resolve_cache_dir(path: str | None = None) -> str | None:
     """The persistent build directory the ``compile_cache`` knob resolves
     to, or None when the cache is off (the process then builds into a
     fresh directory of its own). Touches neither the file system nor
-    ``ops/cuda_build``."""
+    ``ops/cuda_build``'s state. The fleet router (``fleet/router.py``)
+    calls it once and hands the directory to every replica as
+    ``compile_cache=<dir>``, so a respawned or scaled-up replica loads
+    the libraries its siblings built."""
     from hdbscan_tpu_torch.ops import cuda_build
 
     if os.environ.get("HDBSCAN_TPU_NO_CACHE") or path == "off":

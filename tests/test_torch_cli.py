@@ -11,9 +11,10 @@ with ``variant=rs``, ``dedup=true``, ``compat_cf=true`` and ``consensus=3``
 fails under the installed jax). Every ``--trace-out`` file passes
 ``scripts/check_trace.py``; ``fit --model-out`` then ``predict --out``
 write a prediction file byte-identical to the reference CLI's on the dense
-and MR routes and on the ``fused`` and ``rpforest`` backends; every flag,
-subcommand and ``clusterName`` that is not ported exits 2 naming its
-ROADMAP item before any data is read.
+and MR routes and on the ``fused`` and ``rpforest`` backends; a
+``clusterName`` that is not ported exits 2 naming its ROADMAP item before
+any data is read; ``fleet`` validates its arguments as the reference's
+does and fails fast on a model that does not exist.
 """
 
 import os
@@ -250,8 +251,6 @@ def test_fit_predict_cli_equals_reference(tmp_path, grid_file, capsys, fit_extra
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["serve", "--model", "m.npz", "--tenants-dir", "tenants"], "A12"),
-        (["fleet", "--model", "m.npz"], "A12"),
         (["file=MISSING", "clusterName=auto"], "A9b"),
         (["file=MISSING", "clusterName=localhost:1234,0,2"], "A9b"),
     ],
@@ -302,7 +301,8 @@ def test_bad_flag_missing_file_and_help(capsys):
         assert port_main(argv) == 0
         out = capsys.readouterr().out
         assert "minPts" in out and "--trace-out" in out and "--report" in out
-        assert "--flight-dir" in out and "(ROADMAP A12)" in out and "(A11)" not in out
+        assert "--flight-dir" in out and "A12" not in out and "(A11)" not in out
+        assert "(multi-process runs, A9b)" in out
 
 
 def test_without_a_card_fails_and_writes_nothing(tmp_path, grid_file, capsys):
@@ -330,3 +330,35 @@ def test_module_runs_as_a_command(tmp_path, grid_file):
     assert sorted(os.listdir(tmp_path)) == sorted(
         f"grid_{k}" for k in ("hierarchy.csv", "tree.csv", "partition.csv",
                               "outlier_scores.csv", "visualization.vis"))
+
+
+def test_fleet_cli_validates_args(capsys):
+    """``fleet`` fails fast on a missing ``--model`` or a bad fleet knob —
+    exit 2 with the reason, before any replica is spawned — as the
+    reference's does, and the help text documents the subcommand."""
+    from hdbscan_tpu.cli import HELP as REF_HELP
+    from hdbscan_tpu_torch.cli import HELP
+
+    for run in (port_main, ref_main):
+        assert run(["fleet"]) == 2
+        assert "--model" in capsys.readouterr().err
+        assert run(["fleet", "--model", "m.npz", "fleet_policy=round_robin"]) == 2
+        err = capsys.readouterr().err
+        assert "fleet_policy" in err and "round_robin" in err
+        assert run(["fleet", "--model", "m.npz", "fleet_replicas=0"]) == 2
+        assert "fleet_replicas" in capsys.readouterr().err
+    for needle in ("fleet", "fleet_replicas=N", "fleet_policy=", "--tenants-dir DIR",
+                   "tenant_quota=F", "--replica-trace-dir DIR", "artifact_store="):
+        assert needle in HELP and needle in REF_HELP, needle
+    assert "--device DEV" in HELP.split("fleet --model", 1)[1]
+
+
+def test_fleet_cli_missing_model_fails_fast(tmp_path):
+    """A model path that does not exist dies at replica startup with exit
+    2, not a hang: the router's startup deadline turns a replica that never
+    binds its port into a loud error."""
+    rc = port_main([
+        "fleet", "--model", str(tmp_path / "nope.npz"), "--device", "cpu",
+        "fleet_replicas=1", "fleet_health_interval=0.1",
+    ])
+    assert rc == 2

@@ -39,6 +39,12 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.fault",
     "hdbscan_tpu_torch.fault.inject",
     "hdbscan_tpu_torch.fault.policy",
+    "hdbscan_tpu_torch.fleet",
+    "hdbscan_tpu_torch.fleet.artifacts",
+    "hdbscan_tpu_torch.fleet.controlplane",
+    "hdbscan_tpu_torch.fleet.jobs",
+    "hdbscan_tpu_torch.fleet.router",
+    "hdbscan_tpu_torch.fleet.tenants",
     "hdbscan_tpu_torch.incremental",
     "hdbscan_tpu_torch.incremental.insert",
     "hdbscan_tpu_torch.incremental.subtree",

@@ -2,8 +2,8 @@
 ``serve`` command on the CPU: every response equals the in-process
 predict on the same model, the trace passes ``scripts/check_trace.py`` and
 two scrapes pass ``scripts/check_metrics.py``, swaps are blue/green under
-load and refuse a fingerprint mismatch or a corrupt artifact, tenants
-(not ported) refuse by name (ROADMAP A12) before any socket opens, and the
+load and refuse a fingerprint mismatch or a corrupt artifact, a tenant
+request to a server without a registry gets the reference's 409, and the
 observability layer's blocks and families (the watchdog a ``watchdog_s``
 arms, the installed auditor's device peaks) pass ``check_metrics.py``; ``/ingest`` on a server started without ingest mode
 answers as the reference's does (the streaming server itself is held to
@@ -203,13 +203,6 @@ def test_swap_refusals(models, bad):
         srv.close()
 
 
-@pytest.mark.parametrize("kw,item", [({"tenants": "tenants"}, "A12")])
-def test_unported_features_refused(kw, item):
-    """The refusal comes first: the model passed is not even a model."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ClusterServer(object(), port=0, device="cpu", **kw)
-
-
 def test_http_refusals_deadlines_and_close(models):
     _, paths, _ = models
     srv = ClusterServer(ClusterModel.load(paths["a"]), port=0, device="cpu")
@@ -219,8 +212,9 @@ def test_http_refusals_deadlines_and_close(models):
         pts = {"points": [[1.0, 2.0, 3.0]]}
         status, _, body = _call(url, "/ingest", pts)  # the reference's answer
         assert status == 409 and json.loads(body) == {"error": "server started without ingest mode"}
-        status, _, body = _call(url, "/predict", {**pts, "tenant": "t0"})
-        assert status == 409 and "ROADMAP A12" in body
+        status, _, body = _call(url, "/predict", {**pts, "tenant": "t0"})  # the reference's
+        assert status == 409 and json.loads(body) == {
+            "error": "server started without a tenant registry (--tenants-dir)"}
         assert _call(url, "/predict", pts, {"X-Deadline-Ms": "0.000001"})[0] == 504
         assert _call(url, "/predict", pts, {"X-Deadline-Ms": "bogus"})[0] == 400
         assert _call(url, "/predict", {"points": [[1.0, 2.0]]})[0] == 400  # dims
@@ -527,3 +521,87 @@ def test_queue_bound_sheds_like_reference(models):
     assert results[0] == results[1]
     assert results[0][0] == 503 and results[0][2]["reason"] == "queue_full"
     assert results[0][3] == [200, 200] and results[0][4] == 1
+
+
+def test_tenants_answer_as_reference_server(models, tmp_path):
+    """``tenants=DIR`` on both packages' servers over the same artifacts
+    (two tenants of one fit, one of another), the per-host artifact store
+    on, an LRU of 2 and a quota: every tenant answer (plain, membership)
+    has the reference's status and body, an unknown tenant the same 400,
+    the burst past the quota the same 429, body and ``Retry-After``; the
+    tenant families pass ``check_metrics.py`` with the reference's names."""
+    import shutil
+
+    from hdbscan_tpu.config import HDBSCANParams as RefParams
+    from hdbscan_tpu.serve import ClusterModel as RefModel
+    from hdbscan_tpu.serve import ClusterServer as RefServer
+
+    d, paths, _ = models
+    tdir = tmp_path / "tenants"
+    tdir.mkdir()
+    for tenant, name in (("acme", "a"), ("globex", "a"), ("initech", "b")):
+        shutil.copy(paths[name], tdir / f"{tenant}.npz")
+    # A quota of one token a thousand seconds: each tenant's first request
+    # passes, a second sheds, whatever either server's timing.
+    knobs = dict(tenant_lru_size=2, tenant_quota_rps=0.001, fleet_artifact_store="shared")
+    model = ClusterModel.load(paths["a"])
+    q = _twin_queries(model, 9, 5).tolist()
+    spools = {}
+    results, scrapes = [], []
+    for kind in ("port", "ref"):
+        spools[kind] = str(tmp_path / f"spool-{kind}")
+        os.environ["HDBSCAN_TPU_ARTIFACT_SPOOL"] = spools[kind]
+        try:
+            if kind == "port":
+                import hdbscan_tpu_torch.fleet.artifacts as arts
+
+                arts._DEFAULT = None
+                srv = ClusterServer(model, port=0, device="cpu", max_batch=64,
+                                    params=HDBSCANParams(**knobs), tenants=str(tdir))
+            else:
+                import hdbscan_tpu.fleet.artifacts as arts
+
+                arts._DEFAULT = None
+                srv = RefServer(RefModel.load(paths["a"]), port=0, max_batch=64,
+                                params=RefParams(**knobs), tenants=str(tdir))
+        finally:
+            del os.environ["HDBSCAN_TPU_ARTIFACT_SPOOL"]
+            arts._DEFAULT = None
+        try:
+            srv.start()
+            url = f"http://{srv.host}:{srv.port}"
+            got = []
+            for body in ({"points": q, "tenant": "acme"}, {"points": q, "tenant": "initech"},
+                         {"points": q, "tenant": "globex", "membership": True},
+                         {"points": q, "tenant": "nope"}, {"points": q}):
+                status, _, text = _call(url, "/predict", body)
+                got.append((status, json.loads(text)))
+            for _ in range(2):  # acme's one token is spent: shed
+                status, hdr, text = _call(url, "/predict", {"points": q[:1], "tenant": "acme"})
+                got.append((status, json.loads(text), hdr.get("Retry-After") is not None))
+            results.append(got)
+            scrapes.append(_call(url, "/metrics")[2])
+        finally:
+            srv.close()
+    port, ref = results
+    for g, w in zip(port, ref):
+        assert g[0] == w[0]
+        if g[0] == 200:
+            assert {k: v for k, v in g[1].items() if k != "generation"} == \
+                {k: v for k, v in w[1].items() if k != "generation"}
+        else:
+            assert g[1:] == w[1:]
+    assert [g[0] for g in port] == [200, 200, 200, 400, 200, 429, 429]
+    assert port[-1][2] and port[-1][1]["reason"] == "tenant_quota"
+    assert port[0][1]["tenant"] == "acme" and "membership" in port[2][1]
+    assert os.listdir(spools["port"]) and os.listdir(spools["ref"])
+    from scripts import check_metrics
+
+    for text in scrapes:
+        assert check_metrics.validate_exposition(text, "tenants")[1] == []
+
+    def families(text):
+        return {tuple(line.split()[2:4]) for line in text.splitlines()
+                if line.startswith("# TYPE ") and ("tenant" in line or "artifact" in line)}
+
+    assert families(scrapes[0]) == families(scrapes[1]) != set()
