@@ -350,6 +350,29 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    in-process B2, B7 and K3 calls are held against their plain versions,
    bitwise. The kernels line gains ``launches_3q``. ``python3
    chip_smoke.py 3q`` builds the kernels and runs phases 3 and 3q alone;
+3r. multi-process fits (``clusterName=``, ``parallel/distributed``): the
+   command line as rank processes sharing ``cuda:0``, each with its own
+   CUDA context, the hand-overs between them over gloo (the backend rule
+   for ranks that share a card; NCCL between distinct cards is not
+   exercised on one card, and the phase says so: see ``3r4`` below).
+   ``3r_cli_exact_2proc``:
+   3j's ``cli_exact_sharded`` flags on the Skin-shaped file as 2 ranks x
+   ``--device cuda:0,cuda:0``, its five files byte-identical to one
+   process over ``--device cuda:0,cuda:0,cuda:0,cuda:0`` (3p's run of that
+   command when 3p ran, else a run here);
+   ``3r_cli_mr_2proc``: 3j's ``cli_mr`` flags with ``fit_sharding=sharded``,
+   the same layout and twin; ``3r_ring_4proc``: ``scan_backend=ring`` on
+   the first 4,096 rows as 4 ranks x ``--device cuda:0``, equal to the same
+   command's 4 ranks x ``--device cpu``, run beside it. Each leg prints
+   the ranks' fit walls, each rank's launches and hand-overs (bytes, calls, wall; its
+   trace's ``rank_summary``), the backend and rank 0's mesh line; every
+   rank must launch the rectangular B2 and B9 (and K3 on the exact leg),
+   every trace pass ``check_trace.py`` and the report name every rank. The
+   kernels line gains ``launches_3r``. ``python3 chip_smoke.py 3r`` builds
+   the kernels and runs phases 3 and 3r alone; ``python3 chip_smoke.py
+   3r4``, on four cards, builds them and runs 3r's legs over the cards
+   instead: 2 ranks x 2 cards (gloo) and 4 ranks x 1 card (NCCL), each
+   against one process over the four cards;
 4. time each kernel at the fit's shapes with CUDA events beside its plain
    version and its bound (the larger of bytes over the memory rate and
    float operations over the FP32 rate of an H100 SXM: 3.35 TB/s, 67
@@ -563,6 +586,43 @@ FIT_JOB_ROWS = 16_384
 FIT_JOB_MIN_CL = 200
 FIT_JOB_ROUNDS = 2
 FIT_SERVICE_BASE_S = 3.0
+#: Phase 3r, multi-process fits: the command line as rank processes that
+#: share ``cuda:0`` (each its own CUDA context; hand-overs over gloo). A leg:
+#: (label, rows of the Skin-shaped set, flags, ranks, each rank's
+#: ``--device`` (one string for every rank, or one a rank), the twin's
+#: (ranks, ``--device``; one rank: in this process), the kernels every rank
+#: must launch, the route rank 0 names, the backend the rule must choose).
+_CARDS4 = ",".join(f"cuda:{i}" for i in range(4))
+RANK_LEGS = (
+    ("3r_cli_exact_2proc", N_SKIN, CLI_LEGS[1][2], 2, "cuda:0,cuda:0",
+     (1, ",".join(["cuda:0"] * N_SHARDS)), ("knn_kbest_panel", "segmin_panel", "uf_scan"),
+     ", exact-sharded, ", "gloo"),
+    ("3r_cli_mr_2proc", N_SKIN, [*CLI_LEGS[0][2], "fit_sharding=sharded"], 2, "cuda:0,cuda:0",
+     (1, ",".join(["cuda:0"] * N_SHARDS)), ("knn_kbest_panel", "segmin_panel"),
+     ", mr-sharded (", "gloo"),
+    ("3r_ring_4proc", CLI_SUB_ROWS, ["minPts=16", "minClSize=50", "processing_units=1024",
+                                     "k=0.01", "seed=0", "scan_backend=ring"], 4, "cuda:0",
+     (4, "cpu"), ("knn_kbest_panel", "segmin_panel"), ", mr (", "gloo"),
+)
+#: ``python3 chip_smoke.py 3r4`` on four cards: ranks over two cards each
+#: (gloo, the rule for a rank over several cards) and one card a rank
+#: (NCCL), each against one process over the four cards.
+RANK_LEGS_4CARDS = (
+    ("3r4_exact_2x2cards", N_SKIN, CLI_LEGS[1][2], 2, ("cuda:0,cuda:1", "cuda:2,cuda:3"),
+     (1, _CARDS4), RANK_LEGS[0][6], RANK_LEGS[0][7], "gloo"),
+    ("3r4_exact_4x1card", N_SKIN, CLI_LEGS[1][2], 4, tuple(_CARDS4.split(",")),
+     (1, _CARDS4), RANK_LEGS[0][6], RANK_LEGS[0][7], "nccl"),
+    ("3r4_mr_4x1card", N_SKIN, RANK_LEGS[1][2], 4, tuple(_CARDS4.split(",")),
+     (1, _CARDS4), RANK_LEGS[1][6], RANK_LEGS[1][7], "nccl"),
+    # Over distinct cards ``auto`` takes the sharded engine (the reference's
+    # multi-device rule), so this leg's route is named mr-sharded.
+    ("3r4_ring_4x1card", CLI_SUB_ROWS, RANK_LEGS[2][2], 4, tuple(_CARDS4.split(",")),
+     (1, _CARDS4), RANK_LEGS[2][6], RANK_LEGS[1][7], "nccl"),
+)
+#: Five-file digests of one-process command runs an earlier phase already
+#: made, by (rows, flags, ``--device``): 3p's exact fit over four shards is
+#: 3r's exact twin, so the whole script does not run it twice.
+TWIN_FILES: dict = {}
 #: Rows on which the slowest plain versions are timed, scaled to all rows.
 PLAIN_ROWS = 16384
 H100_BYTES_PER_S = 3.35e12
@@ -4921,7 +4981,8 @@ def obs_cli_cell(here, root, label, path, flags, kernels, keep, card) -> tuple[l
     if missing:
         errors.append(f"{label}: kernels of the path never launched: {missing}")
     errors += obs_kernels_check(label, recorders, kernels)
-    return errors, dict(launches=first["launches"], report=rep, events=events, gate=gate)
+    return errors, dict(launches=first["launches"], report=rep, events=events, gate=gate,
+                        files=first["files"])
 
 
 def obs_phase(here, data, card) -> tuple[list[str], dict]:
@@ -4952,6 +5013,9 @@ def obs_phase(here, data, card) -> tuple[list[str], dict]:
             ("knn_kbest_panel", "min_outgoing_panel", "uf_scan"), 2, card)
         errors += e
         launches["3p_cli_sharded_obs"] = shard.get("launches", {})
+        if shard:
+            TWIN_FILES[(N_SKIN, tuple(CLI_LEGS[1][2]), ",".join(["cuda:0"] * N_SHARDS))] = \
+                shard["files"]
         if shard:
             rep, gate = shard["report"], shard["gate"]
             tl = [ev for ev in shard["events"] if ev["stage"] == "device_timeline"]
@@ -5581,6 +5645,170 @@ def fleet_phase(here, data, res, card) -> tuple[list[str], dict]:
     return errors, launches
 
 
+def rank_start(here, root, tag, argv, n_ranks, device):
+    """Start ``argv`` as ``n_ranks`` rank processes of the port's command
+    line on a local coordinator, rank r with ``--device device`` (or
+    ``device[r]`` given one a rank; ranks naming one card share it, each
+    with its own CUDA context) and ``--trace-out`` / ``--report`` under
+    ``root``. Returns (processes, start time); :func:`rank_wait` ends them."""
+    from hdbscan_tpu_torch.parallel.distributed import free_local_port, hermetic_child_env
+
+    port = free_local_port()
+    devs = [device] * n_ranks if isinstance(device, str) else list(device)
+    env = hermetic_child_env(here, cpu=devs[0].startswith("cpu"))
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hdbscan_tpu_torch", *argv, f"out_dir={root}/{tag}",
+         f"clusterName=127.0.0.1:{port},{r},{n_ranks}", "--device", devs[r],
+         "--trace-out", f"{root}/{tag}.jsonl", "--report", f"{root}/{tag}.json"],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n_ranks)]
+    return procs, t
+
+
+def rank_wait(procs, t, timeout=300):
+    """(wall s since ``t``, [(exit code, stdout, stderr)] in rank order) of
+    :func:`rank_start`'s ranks; the whole set is killed past ``timeout``."""
+    from hdbscan_tpu_torch.parallel.distributed import communicate_all
+
+    outs = communicate_all(procs, timeout=timeout)
+    return time.perf_counter() - t, [(p.returncode, so, se) for p, (so, se) in zip(procs, outs)]
+
+
+def rank_check(here, root, tag, n_ranks, ranks, mode, backend) -> tuple[list[str], dict]:
+    """The checks of one multi-process run: every rank exits 0, rank 0
+    alone prints the result and names the global mesh and the ``backend``
+    hand-overs on stderr, every rank's trace passes ``check_trace.py``
+    (rank 0's with the report), the report's ``per_host`` holds every rank.
+    Prints each rank's fit wall, launches and hand-overs (its trace's
+    ``rank_summary``). Returns (errors, {rank: launches})."""
+    errors, launches = [], {}
+    for r, (rc, _, se) in enumerate(ranks):
+        if rc != 0:
+            errors.append(f"{tag} rank {r}: exit {rc}: {se[-2000:]}")
+    if errors:
+        return errors, launches
+    first = ranks[0][1].splitlines()[0] if ranks[0][1] else ""
+    mesh_line = next((ln for ln in ranks[0][2].splitlines() if "(global mesh)" in ln), "")
+    print(f"3r {tag}: {first}")
+    print(f"3r {tag} rank 0 stderr: {mesh_line}")
+    if mode not in first:
+        errors.append(f"{tag}: rank 0's stdout does not name the route {mode!r}: {first}")
+    if f"{n_ranks} processes" not in mesh_line or f"{backend} hand-overs" not in mesh_line:
+        errors.append(f"{tag}: rank 0 does not name {n_ranks} processes over {backend}: "
+                      f"{mesh_line}")
+    if any("hdbscan-tpu" in so for _, so, _ in ranks[1:]):
+        errors.append(f"{tag}: a rank other than 0 printed the result")
+    for r in range(n_ranks):
+        trace = f"{root}/{tag}.{r}.jsonl"
+        bad = validator(here, "check_trace.py", trace, *([f"{root}/{tag}.json"] if r == 0 else []))
+        if bad:
+            errors.append(f"{tag} rank {r}: check_trace.py failed: {bad}")
+        with open(trace) as f:
+            events = [json.loads(line) for line in f]
+        summ = next((e for e in events if e["stage"] == "rank_summary"), None)
+        fit = next((e["wall_s"] for e in events if e["stage"] == "fit"), None)
+        if summ is None:
+            errors.append(f"{tag} rank {r}: no rank_summary event")
+            continue
+        launches[r] = {k.removeprefix("launches_"): v for k, v in summ.items()
+                       if k.startswith("launches_")}
+        moved = {k: (summ[f"handover_{k}_bytes"], summ[f"handover_{k}_calls"],
+                     summ[f"handover_{k}_wall_s"]) for k in ("ring", "all_reduce", "gather")}
+        print(f"3r {tag} rank {r}: fit wall {fit} s, {summ['shards']} shards, backend "
+              f"{summ['backend']}; launches {launches[r]}; hand-overs (bytes, calls, wall s) "
+              f"{moved}")
+        if summ["backend"] != backend:
+            errors.append(f"{tag} rank {r}: backend {summ['backend']}, not {backend}")
+    with open(f"{root}/{tag}.json") as f:
+        rep = json.load(f)
+    hosts = sorted(rep.get("per_host", {}))
+    topo = rep.get("manifest", {}).get("topology", {})
+    print(f"3r {tag} report: per_host {hosts}; topology process_count "
+          f"{topo.get('process_count')}, device owners "
+          f"{[d['process_index'] for d in topo.get('devices', [])]}")
+    if hosts != [str(r) for r in range(n_ranks)] or topo.get("process_count") != n_ranks:
+        errors.append(f"{tag}: the report's per_host or topology does not name every rank")
+    return errors, launches
+
+
+def rank_phase(here, data, card, legs=RANK_LEGS, timeout=300) -> tuple[list[str], dict]:
+    """Phase 3r, multi-process fits (module docstring): each leg of
+    ``legs`` (:data:`RANK_LEGS`: rank processes sharing ``cuda:0`` over
+    gloo) against its twin: a one-process twin an earlier phase already
+    ran (:data:`TWIN_FILES`) is not run again, and a twin of rank processes
+    runs beside its leg. Returns failure messages and each rank's launches
+    (``<leg>_rank<r>``)."""
+    import shutil
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    root = os.path.join(here, ".torch_build", "ranks")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    errors, launches = [], {}
+    try:
+        for label, rows, flags, n_ranks, device, (twin_ranks, twin_device), kernels, mode, \
+                backend in legs:
+            # The Skin-sized legs share one file, named as 3p's (the output
+            # files carry the input's name).
+            path = os.path.join(root, "skin.tsv" if rows == N_SKIN else f"skin_{rows}.tsv")
+            if not os.path.exists(path):
+                np.savetxt(path, data[:rows], delimiter="\t", fmt="%d")
+            argv = ["fit", f"file={path}", *flags]
+            twin = f"{label}_twin"
+            side = (rank_start(here, root, twin, argv, twin_ranks, twin_device)
+                    if twin_ranks > 1 else None)
+            wall, ranks = rank_wait(*rank_start(here, root, label, argv, n_ranks, device),
+                                    timeout=timeout)
+            shown = device if isinstance(device, str) else " / ".join(device)
+            print(f"3r {label} ({card}): {n_ranks} ranks x --device {shown}, command wall "
+                  f"{wall:.3f} s{' (its twin ranks beside it)' if side else ''}")
+            e, got = rank_check(here, root, label, n_ranks, ranks, mode, backend)
+            errors += e
+            for r, counts in got.items():
+                launches[f"{label}_rank{r}"] = counts
+                missing = [k for k in kernels if not counts.get(k)]
+                if missing:
+                    errors.append(f"{label} rank {r}: kernels never launched: {missing}")
+            key = (rows, tuple(flags), twin_device)
+            if side is not None:
+                twall, tranks = rank_wait(*side, timeout=timeout)
+                print(f"3r {twin}: {twin_ranks} ranks x --device {twin_device}, command wall "
+                      f"{twall:.3f} s (beside its leg)")
+                errors += rank_check(here, root, twin, twin_ranks, tranks, mode, "gloo")[0]
+                if os.path.isdir(f"{root}/{twin}"):
+                    TWIN_FILES[key] = file_digests(f"{root}/{twin}")
+            elif key in TWIN_FILES:
+                print(f"3r {twin}: one process x --device {twin_device}: its files taken "
+                      "from the earlier run of the same command")
+            else:
+                rc, out, err, twall, tl, _ = run_cli(
+                    argv + [f"out_dir={root}/{twin}", "--device", twin_device], here, False)
+                print(f"3r {twin}: one process x --device {twin_device}: exit {rc}, wall "
+                      f"{twall:.3f} s; {out.splitlines()[0] if out else ''}; launches "
+                      f"{ {k: v for k, v in (tl or {}).items() if v} }")
+                if rc != 0:
+                    errors.append(f"{twin}: exit {rc}: {err[-2000:]}")
+                else:
+                    TWIN_FILES[key] = file_digests(f"{root}/{twin}")
+            same = (os.path.isdir(f"{root}/{label}") and key in TWIN_FILES
+                    and file_digests(f"{root}/{label}") == TWIN_FILES[key]
+                    and len(os.listdir(f"{root}/{label}")) == 5)
+            print(f"3r {label}: files vs {twin} {'identical' if same else 'DIFFERENT'}")
+            if not same:
+                errors.append(f"{label}: the five files differ from {twin}'s")
+        if all(leg[8] == "gloo" for leg in legs):
+            print("3r NCCL between distinct cards: not exercised here (one card; ranks that "
+                  "share a card take gloo by the backend rule; ``chip_smoke.py 3r4`` on four "
+                  "cards runs it)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"3r multi-process phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return errors, launches
+
+
 def add_launches(rows, phases) -> None:
     """Each kernel row's launches in the cells of each phase that ran it
     (``phases``: key -> {cell: launches}); the serving rows (``_predict``)
@@ -5646,6 +5874,13 @@ def main() -> int:
     t = time.perf_counter()
     cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    if sys.argv[1:] == ["3r4"]:  # ``python3 chip_smoke.py 3r4``: 3r over four cards
+        if torch.cuda.device_count() < 4:
+            return fail(f"3r4 needs four cards, not {torch.cuda.device_count()}")
+        data = np.random.default_rng(SEED).integers(0, 256, size=(N_SKIN, 3)).astype(np.float64)
+        errors, _ = rank_phase(here, data, card, RANK_LEGS_4CARDS, timeout=150)
+        print(card)
+        return fail(f"the four-card multi-process phase failed: {errors}") if errors else 0
     only_3k = sys.argv[1:] == ["3k"]
     only_3l = sys.argv[1:] == ["3l"]
     only_3m = sys.argv[1:] == ["3m"]
@@ -5653,8 +5888,10 @@ def main() -> int:
     only_3o = sys.argv[1:] == ["3o"]
     only_3p = sys.argv[1:] == ["3p"]
     only_3q = sys.argv[1:] == ["3q"]
+    only_3r = sys.argv[1:] == ["3r"]
 
-    only_phase = only_3k or only_3l or only_3m or only_3n or only_3o or only_3p or only_3q
+    only_phase = (only_3k or only_3l or only_3m or only_3n or only_3o or only_3p or only_3q
+                  or only_3r)
     errors = [] if only_phase else (parity() + parity_forest() + parity_fold() + fold_fits() + parity_window()
               + parity_highd() + parity_panels() + parity_segmin() + parity_kbest()
               + parity_wide() + parity_rescan() + parity_window_guard() + parity_ufscan()
@@ -5713,6 +5950,10 @@ def main() -> int:
         print(card)
         print(json.dumps({"kernels": mesh_rows}))
         return fail(f"the multi-GPU phase failed: {errors}") if errors else 0
+    if only_3r:  # ``python3 chip_smoke.py 3r``: phase 3 and 3r alone
+        errors, _ = rank_phase(here, data, card)
+        print(card)
+        return fail(f"the multi-process phase failed: {errors}") if errors else 0
     if only_3p:  # ``python3 chip_smoke.py 3p``: phase 3 and 3p alone
         errors, _ = obs_phase(here, data, card)
         print(card)
@@ -5946,6 +6187,11 @@ def main() -> int:
     if errors:
         return fail(f"the fleet phase failed: {errors}")
 
+    # --- 3r: multi-process fits, ranks sharing the card ------------------
+    errors, rank_launches = rank_phase(here, data, card)
+    if errors:
+        return fail(f"the multi-process phase failed: {errors}")
+
     # --- kernel times at the fit's shapes ---------------------------------
     n, d, k = N_SKIN, 3, MIN_PTS - 1
     form = tiled.scan_form(n, d, "euclidean", 1024, 8192)
@@ -6025,7 +6271,7 @@ def main() -> int:
     add_launches(rows, {"launches_3k": host_launches, "launches_3l": mr_launches,
                         "launches_3m": serve_launches, "launches_3n": mesh_launches,
                         "launches_3o": stream_launches, "launches_3p": obs_launches,
-                        "launches_3q": fleet_launches})
+                        "launches_3q": fleet_launches, "launches_3r": rank_launches})
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -19,7 +19,8 @@ Usage (the reference's ``key=value`` vocabulary, ``config.HDBSCANParams``)::
         [heartbeat=F] [watchdog=F] [skew_threshold=F] [straggler_rounds=N] \
         [--trace-out PATH] [--report PATH] [--flight-dir DIR] \
         [--assert-not-replicated] [--compile-cache {auto,off,DIR}] \
-        [--model-out MODEL.npz] [--device DEV]
+        [--model-out MODEL.npz] [--device DEV] \
+        [clusterName={local,auto,<host:port>,<rank>,<ranks>}]
     python -m hdbscan_tpu_torch predict --model MODEL.npz --points <input> \
         [--out PRED.csv] [predict_backend={auto,xla,fused,rpforest}] \
         [predict_batch=N] [--trace-out PATH] [--report PATH] [--device DEV]
@@ -160,8 +161,22 @@ file, joinable with the router's ``router_span`` events by
 waits up to ``fleet_drain`` seconds: the exit status is nonzero when a
 replica had to be killed.
 
-Not ported yet — exits 2 before any data is read: ``clusterName`` other
-than ``local`` (multi-process runs, A9b).
+Multi-process fits (``parallel/distributed``; the reference's Spark master
+flag re-mapped): ``clusterName=local`` (the default) is one process;
+``clusterName=<host:port>,<rank>,<ranks>`` wires this process as ``rank``
+of ``ranks`` over ``torch.distributed`` at ``tcp://host:port`` and
+``clusterName=auto`` from torchrun's environment, before any data is read
+(a malformed spec or a conflicting wiring exits 2). Every rank runs the
+same command on the same file; the global mesh is every rank's
+``--device`` list in rank order (``2 processes, 4 devices (global mesh)``
+on rank 0's stderr), each rank computes its own shards, the hand-overs
+between ranks are collectives (NCCL when each rank names one card of its
+own, else gloo: ranks on the CPU, sharing a card or over several cards;
+no fallback), and rank 0
+alone writes the five files, the model, the report (with every rank's
+phases under ``per_host``) and prints; ``--trace-out PATH`` writes
+``PATH.<rank>`` per rank (``trace.0.jsonl``). ``knn_index=rpforest`` over
+ranks exits 2 (ROADMAP A9c).
 """
 
 from __future__ import annotations
@@ -226,11 +241,15 @@ def _device(flag):
 
 def _mesh(flag, device):
     """The fit's mesh: one shard per device of a ``--device`` comma list,
-    else one shard per card when more than one is visible, else none."""
+    else one shard per card when more than one is visible, else none. In a
+    wired process, the global mesh of every rank's list (or device)."""
     import torch
 
+    from hdbscan_tpu_torch.parallel.distributed import process_count
     from hdbscan_tpu_torch.parallel.mesh import get_mesh
 
+    if process_count() > 1:
+        return get_mesh([torch.device(d) for d in flag.split(",")] if flag else [device])
     if flag and "," in flag:
         return get_mesh([torch.device(d) for d in flag.split(",")])
     if device.type == "cuda" and torch.cuda.device_count() > 1:
@@ -314,14 +333,32 @@ def _main_fit(argv: list[str]) -> int:
     if not params.input_file:
         print("error: file=<input> is required", file=sys.stderr)
         return 2
-    if params.cluster_name != "local":
-        return _not_ported(f"clusterName={params.cluster_name} (multi-process runs)", "A9b")
-
     import numpy as np
 
     device = _device(device_flag)
     if device is None:
         return 1
+    # Multi-process wiring before any data is read (the reference's Spark
+    # master flag): every rank runs this same deterministic host loop,
+    # computes its own shards and hands the rest over by collectives; rank
+    # 0 alone writes and prints.
+    from hdbscan_tpu_torch.parallel import distributed
+
+    local_devices = device_flag.split(",") if device_flag and "," in device_flag else [device]
+    already = distributed.already_initialized()
+    try:
+        wired = distributed.initialize_from_cluster_name(params.cluster_name,
+                                                         devices=local_devices)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # The group is torn down here only when this command wired it.
+    teardown = distributed.shutdown if wired and not already else (lambda: None)
+    n_proc, rank = distributed.process_count(), distributed.process_index()
+    is_main = rank == 0
+    if n_proc > 1 and params.knn_index == "rpforest":
+        teardown()
+        return _not_ported("knn_index=rpforest over several processes", "A9c")
 
     from hdbscan_tpu_torch import obs
     from hdbscan_tpu_torch.models import exact, hdbscan, mr_hdbscan
@@ -336,6 +373,9 @@ def _main_fit(argv: list[str]) -> int:
     except ValueError as e:
         print(f"error: --device: {e}", file=sys.stderr)
         return 2
+    if is_main and n_proc > 1:
+        print(f"hdbscan-tpu: {n_proc} processes, {len(mesh.devices)} devices (global mesh), "
+              f"{distributed.backend()} hand-overs", file=sys.stderr)
     cache_dir = enable_persistent_compilation_cache(params.compile_cache)
 
     # Always collected, so the end-of-run summary shows the phase walls;
@@ -344,7 +384,8 @@ def _main_fit(argv: list[str]) -> int:
     telemetry_on = trace_out is not None or report_out is not None
     sinks = []
     if trace_out is not None:
-        sinks.append(JsonlSink(trace_out, static={"process": 0},
+        sinks.append(JsonlSink(telemetry.trace_path_for_process(trace_out, rank, n_proc),
+                               static={"process": rank},
                                rotate_bytes=params.trace_rotate_bytes))
     tracer = Tracer(
         stream=sys.stderr if os.environ.get("HDBSCAN_TPU_TRACE") else None,
@@ -406,6 +447,16 @@ def _main_fit(argv: list[str]) -> int:
                     signal.signal(signal.SIGTERM, prev_term)
 
     mem_start = telemetry.sample_device_memory() if report_out is not None else None
+
+    def close_layers():
+        # Uninstall the layer (stops the watchdog and sampler threads)
+        # before the tracer flushes: nothing may emit after close.
+        if installed_obs:
+            obs.clear()
+        if restore_term is not None:
+            restore_term()
+        tracer.close()
+
     try:
         t0 = time.monotonic()
         data = load_points(params.input_file)
@@ -431,10 +482,23 @@ def _main_fit(argv: list[str]) -> int:
                         if params.consensus_draws > 1 else f"mr{tag} ({result.n_levels} levels)")
         except NotImplementedError as e:
             print(f"error: {e}", file=sys.stderr)
+            teardown()
             return 2
         wall = time.monotonic() - t0
         tracer("fit", mode=mode.split(" ")[0], rows=n, wall_s=round(wall, 6))
+        if n_proc > 1:
+            # What this rank launched and handed over (its counters live in
+            # its own process): the per-rank record a launcher reads.
+            from hdbscan_tpu_torch.ops.cuda_build import LAUNCHES
+            from hdbscan_tpu_torch.parallel.mesh import COMM
 
+            tracer("rank_summary", rank=rank, backend=distributed.backend(),
+                   shards=len(mesh.local_shards()), fit_wall_s=round(wall, 6),
+                   **{f"launches_{k}": v for k, v in LAUNCHES.items() if v},
+                   **{f"handover_{k}_{f}": (round(v[f], 6) if f == "wall_s" else v[f])
+                      for k, v in COMM.items() for f in ("bytes", "calls", "wall_s")})
+
+        gate_rc = 0
         if assert_not_replicated:
             from hdbscan_tpu_torch.obs.audit import ReplicatedBufferError
 
@@ -447,13 +511,30 @@ def _main_fit(argv: list[str]) -> int:
                     except Exception:
                         pass
                 print(f"error: replicated device buffer: {e}", file=sys.stderr)
-                return 3
+                gate_rc = 3
             except RuntimeError as e:
                 # No audited phase: the gate fails loudly, never vacuously.
                 print(f"error: {e}", file=sys.stderr)
-                return 3
-            tracer("replication_gate", ok=True, threshold_bytes=int(gate["threshold_bytes"]),
-                   worst_fraction=gate["worst_fraction"], phases=len(gate["phases"]))
+                gate_rc = 3
+            else:
+                tracer("replication_gate", ok=True,
+                       threshold_bytes=int(gate["threshold_bytes"]),
+                       worst_fraction=gate["worst_fraction"], phases=len(gate["phases"]))
+        if n_proc > 1:
+            # The exit barrier, on every rank alike right after the fit, so
+            # rank 0's writes (which grow with n) come after it and no
+            # collective timeout bounds them. A peer closes its trace first:
+            # rank 0 reads every rank's whole trace for the report.
+            import torch.distributed as dist
+
+            if not is_main:
+                close_layers()
+            dist.barrier()
+            if not is_main:
+                teardown()
+                return gate_rc
+        if gate_rc:
+            return gate_rc
 
         t0 = time.monotonic()
         paths = hdbscan.write_outputs(result, params)
@@ -499,15 +580,12 @@ def _main_fit(argv: list[str]) -> int:
                 flight.dump("exception", extra={"error": repr(e)})
             except Exception:
                 pass
+        # A rank that fails tears its group down, so its peers fail at
+        # their next collective instead of waiting out the timeout.
+        teardown()
         raise
     finally:
-        # Uninstall the layer (stops the watchdog and sampler threads)
-        # before the tracer flushes: nothing may emit after close.
-        if installed_obs:
-            obs.clear()
-        if restore_term is not None:
-            restore_term()
-        tracer.close()
+        close_layers()
 
     if report_out is not None:
         from hdbscan_tpu_torch.obs.roofline import default_tags
@@ -524,7 +602,10 @@ def _main_fit(argv: list[str]) -> int:
             memory={"start": mem_start, "end": telemetry.sample_device_memory()},
             timeline=tl_rec.phase_table() if tl_rec is not None else None,
             roofline_tags=default_tags(device),
+            per_host=(telemetry.merge_host_traces(telemetry.host_trace_paths(trace_out, n_proc))
+                      if n_proc > 1 and trace_out is not None else None),
         ))
+    teardown()
     return 0
 
 

@@ -625,6 +625,9 @@ def _fit_device(
         trace("core_distances", n=n, wall_s=round(wall, 6), **phase_stats(fsnap, wall))
 
     t0 = time.monotonic()
+    from hdbscan_tpu_torch.parallel.mesh import comm_snapshot
+
+    snap = comm_snapshot()
     with obs.mem_phase("boruvka_mst_device"), obs.task("boruvka_device", total=1):
         if mesh is not None:
             from hdbscan_tpu_torch.parallel.ring import _per_device_walls
@@ -671,16 +674,16 @@ def _fit_device(
         # One wall a shard for every round: the timeline replays it as
         # modelled per-round rows, the fetch on the last.
         from hdbscan_tpu_torch.parallel.mesh import device_count
-        from hdbscan_tpu_torch.parallel.ring import _emit_modeled_rounds
+        from hdbscan_tpu_torch.parallel.ring import _emit_modeled_rounds, _handover
 
         n_dev, shard, d = device_count(mesh), res["shard"], data.shape[1]
         n_pad = shard * n_dev
         itemsize = np.dtype(dtype).itemsize
         _emit_modeled_rounds(
             trace, "shard_mst_device", mst_wall, walls, n_dev, max(rounds, 1),
-            fetch_s=sync_wall,
-            comm_bytes=max(rounds, 1) * (n_dev - 1) * (shard * (d + 1) * itemsize + shard * 4),
-            flops=2.0 * max(rounds, 1) * float(n_pad) * n_pad * d, n=n, shard=shard,
+            fetch_s=sync_wall, flops=2.0 * max(rounds, 1) * float(n_pad) * n_pad * d, n=n,
+            shard=shard, **_handover(mesh, snap, max(rounds, 1) * (n_dev - 1)
+                                     * (shard * (d + 1) * itemsize + shard * 4)),
         )
     if trace is not None:
         trace(

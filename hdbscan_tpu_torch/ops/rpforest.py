@@ -625,6 +625,9 @@ def rpforest_core_distances(
         raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
     if knn_precision == "bf16" and metric != "euclidean":
         raise ValueError("knn_precision='bf16' supports euclidean only (bf16 distance tiles)")
+    from hdbscan_tpu_torch.parallel.mesh import refuse_multiprocess
+
+    refuse_multiprocess(mesh, "the rp-forest (knn_index=rpforest)")
     devices = mesh.devices if mesh is not None else (cuda_build.resolve_device(device),)
     root = devices[0]
     on_card = root.type == "cuda"  # a mesh never mixes the CPU and cards

@@ -357,13 +357,17 @@ def boruvka_glue_edges(
 def scan_mesh(mesh, device):
     """The mesh a ring or sharded scan runs on: ``mesh`` when given, else
     every visible card, or one shard on ``device`` when that is not a
-    card."""
+    card; in a wired process (``parallel/distributed``) the global mesh of
+    every rank's ``device``."""
+    from hdbscan_tpu_torch.parallel.distributed import already_initialized
     from hdbscan_tpu_torch.parallel.mesh import get_mesh
 
     if mesh is not None:
         return mesh
     device = torch.device(device)
-    return get_mesh() if device.type == "cuda" else get_mesh([device])
+    if device.type == "cuda" and not already_initialized():
+        return get_mesh()
+    return get_mesh([device])
 
 
 def _min_outgoing_panel_scan(rows, core_r, comp_r, valid_r, panel, core_c, comp_c,

@@ -193,8 +193,11 @@ def run_packed_blocks(
     shard ``s``'s slice running on ``mesh.devices[s]``; every shard's
     launch is queued before the first result is read. Every op is per
     block, so edges and cores equal the single-device call's bitwise.
-    Without a mesh the launches run on ``device``."""
-    from hdbscan_tpu_torch.parallel.mesh import block_shards, get_mesh, pad_batch
+    Over a multi-process mesh each rank runs only its own shards' slices
+    and the per-shard (u, v, w, mask, core) outputs are gathered, in shard
+    order, to every rank (``parallel/mesh.fetch_many``). Without a mesh the
+    launches run on ``device``."""
+    from hdbscan_tpu_torch.parallel.mesh import block_shards, fetch_many, get_mesh, pad_batch
 
     t0 = time.monotonic()
     b = len(packed.x)
@@ -218,19 +221,34 @@ def run_packed_blocks(
     gu, gv, gw = [], [], []
     for start in range(0, b, chunk):
         real = min(chunk, b - start)
-        outs = []
-        for lo, hi, dev in block_shards(mesh.devices, real):
+        outs = {}
+        for s, (lo, hi, dev) in enumerate(block_shards(mesh.devices, real)):
+            if not mesh.is_local(s):
+                continue
             if lo == hi:
+                outs[s] = None
                 continue
             a, e = start + lo, start + hi
             x = torch.as_tensor(packed.x[a:e].astype(dtype), device=dev)
             nv = torch.as_tensor(packed.num_valid[a:e].astype(np.int64), device=dev)
             if with_core:
                 cb = torch.as_tensor(packed.core[a:e].astype(dtype), device=dev)
-                outs.append((a, block_mst_batch_with_core(x, cb, nv, metric)))
+                outs[s] = block_mst_batch_with_core(x, cb, nv, metric)
             else:
-                outs.append((a, block_mst_batch(x, nv, min_pts, metric)))
-        for a, out in outs:
+                outs[s] = block_mst_batch(x, nv, min_pts, metric)
+        if mesh.multiprocess:
+            # Every rank's shards' outputs, gathered in shard order: the
+            # launch's blocks [start, start + real) on every rank.
+            got = fetch_many(outs, mesh)
+            outs = {0: tuple([torch.as_tensor(g) for g in got])}
+            firsts = {0: start}
+        else:
+            firsts = {s: start + lo for s, (lo, _, _) in
+                      enumerate(block_shards(mesh.devices, real))}
+        for s, out in sorted(outs.items()):
+            if out is None:
+                continue
+            a = firsts[s]
             u, v, w, mask = out[:4]
             if not with_core:
                 core[a : a + len(u)] = out[4].cpu().numpy().astype(np.float64)

@@ -39,7 +39,14 @@ from hdbscan_tpu_torch import obs
 from hdbscan_tpu_torch.core.distances import euclidean_form
 from hdbscan_tpu_torch.ops.lexmerge import lexsort_rows
 from hdbscan_tpu_torch.ops.tiled import _next_pow2, _round_up, check_dtype
-from hdbscan_tpu_torch.parallel.mesh import device_count, fetch, get_mesh, spans_cards
+from hdbscan_tpu_torch.parallel.mesh import (
+    comm_snapshot,
+    device_count,
+    fetch,
+    get_mesh,
+    ring_shift,
+    spans_cards,
+)
 
 #: Valid ``scan_backend`` values (``config.HDBSCANParams.scan_backend``).
 SCAN_BACKENDS = ("auto", "host", "ring")
@@ -87,11 +94,13 @@ def _lex_merge_k(best_d, best_i, tile_d, tile_i, k: int):
 
 
 def _per_device_walls(mesh, t0: float, beat=None) -> list[tuple[int, float]]:
-    """Per-shard completion walls: wait for each shard's device in turn and
-    timestamp as it finishes (the single-controller approximation of
-    per-device timelines the reference takes). On one card the first wait
-    covers every shard's queued work, so the walls come out nearly equal.
-    ``beat(done)`` (an ``obs`` heartbeat) fires as each shard lands.
+    """Per-shard completion walls of this rank's shards: wait for each
+    shard's device in turn and timestamp as it finishes (the
+    single-controller approximation of per-device timelines the reference
+    takes). On one card the first wait covers every shard's queued work, so
+    the walls come out nearly equal. ``beat(done)`` (an ``obs`` heartbeat)
+    fires as each shard lands. Only this rank's devices are waited on: the
+    walls are measurements, and no decision of the fit reads them.
 
     Fault site: ``phase_stall`` fires at most once a call here and sleeps
     ``delay_s`` before the last shard's timestamp — a deterministic
@@ -100,15 +109,16 @@ def _per_device_walls(mesh, t0: float, beat=None) -> list[tuple[int, float]]:
 
     walls = []
     spec = inject.maybe_fire("phase_stall")
-    last = len(mesh.devices) - 1
-    for s, dev in enumerate(mesh.devices):
-        if spec is not None and s == last and spec.delay_s > 0:
+    local = mesh.local_shards()
+    for i, s in enumerate(local):
+        dev = mesh.devices[s]
+        if spec is not None and s == local[-1] and spec.delay_s > 0:
             time.sleep(spec.delay_s)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         walls.append((s, time.monotonic() - t0))
         if beat is not None:
-            beat(s + 1)
+            beat(i + 1)
     return walls
 
 
@@ -173,31 +183,47 @@ def _emit_summary(trace, stage, wall, walls, n_dev, stats, comm_bytes, rnd, **fi
         trace("ring_device_wall", wall_s=round(w, 6), device=s, ring_stage=stage, round=rnd)
 
 
-def _ring_lists(queries, cols, parts, k: int, metric: str, form, col_tile: int, mesh):
-    """The ring sweep: shard ``me``'s query rows ``queries[me]`` against
-    the column panels ``cols`` in ring order ``(me - s) % D``, one launch of
+def _ring_lists(queries: dict, cols: dict, parts, k: int, metric: str, form, col_tile: int,
+                mesh):
+    """The ring sweep: every local shard ``me``'s query rows ``queries[me]``
+    against the column panels in ring order ``(me - s) % D``, one launch of
     the rectangular k-best kernel (B2) a panel, the lists merged under the
-    (distance, id) key (:func:`_lex_merge_k`); ``parts`` gives each panel's
-    (global offset, rows). Returns each shard's ((m, k) distances, (m, k)
-    int32 ids); a shard without query rows launches nothing."""
+    (distance, id) key (:func:`_lex_merge_k`); ``cols`` maps each local
+    shard to its panel, a panel of another rank's shard arriving through
+    ``parallel/mesh.ring_shift``, and ``parts`` gives each panel's (global
+    offset, rows). Returns {local shard: ((m, k) distances, (m, k) int32
+    ids)}; a shard without query rows launches nothing."""
     from hdbscan_tpu_torch.ops.cuda_knn import knn_kbest_panel
 
     n_dev = len(mesh.devices)
-    lists = []
-    for me, dev in enumerate(mesh.devices):
-        m = queries[me].shape[0]
-        bd = torch.full((m, k), float("inf"), dtype=queries[me].dtype, device=dev)
-        bi = torch.full((m, k), -1, dtype=torch.int32, device=dev)
-        for step in range(n_dev):
+    lists = {}
+    for me, q in queries.items():
+        dev = mesh.devices[me]
+        lists[me] = (torch.full((q.shape[0], k), float("inf"), dtype=q.dtype, device=dev),
+                     torch.full((q.shape[0], k), -1, dtype=torch.int32, device=dev))
+    for step in range(n_dev):
+        visiting = ring_shift(mesh, {s: (c,) for s, c in cols.items()}, step,
+                              [c for _, c in parts])
+        for me, q in queries.items():
             src = (me - step) % n_dev
             off, c = parts[src]
-            if m == 0 or c == 0:
+            if q.shape[0] == 0 or c == 0:
                 continue
-            td, ti = knn_kbest_panel(queries[me], cols[src].to(dev), k, metric, form,
-                                     id_offset=off, col_tile=col_tile)
-            bd, bi = _lex_merge_k(bd, bi, td, ti, k)
-        lists.append((bd, bi))
+            td, ti = knn_kbest_panel(q, visiting[me][0], k, metric, form, id_offset=off,
+                                     col_tile=col_tile)
+            lists[me] = _lex_merge_k(*lists[me], td, ti, k)
     return lists
+
+
+def _handover(mesh, snap, modeled: int) -> dict:
+    """The ``comm_bytes`` of a ring trace: what the mesh's helpers handed
+    to other ranks since ``snap`` (``parallel/mesh.comm_snapshot``) with
+    their wall as ``handover_s``, on a multi-process mesh; the modelled
+    panel bytes of one controller otherwise."""
+    if not mesh.multiprocess:
+        return {"comm_bytes": modeled}
+    nbytes, wall = comm_snapshot()
+    return {"comm_bytes": nbytes - snap[0], "handover_s": round(wall - snap[1], 6)}
 
 
 def ring_knn_core_distances(
@@ -254,12 +280,15 @@ def ring_knn_core_distances(
         form = euclidean_form(row_tile, col_tile, d)
     parts = _shard_rows(n, shard, n_dev)
     x = np.asarray(data, dtype)
+    snap = comm_snapshot()
     t_up = time.monotonic()
-    rows = [torch.as_tensor(x[o : o + m], device=dev)
-            for (o, m), dev in zip(parts, mesh.devices)]
+    rows = {s: torch.as_tensor(x[parts[s][0] : parts[s][0] + parts[s][1]],
+                               device=mesh.devices[s])
+            for s in mesh.local_shards()}
     upload_s = time.monotonic() - t_up
     _flops.add_scan(n_pad, n_pad, d, row_tile=row_tile)
-    with obs.mem_phase("ring_knn_scan"), obs.task("ring_knn_scan", total=n_dev) as hb:
+    with obs.mem_phase("ring_knn_scan"), obs.task("ring_knn_scan",
+                                                  total=len(rows)) as hb:
         t0 = time.monotonic()
         lists = _ring_lists(rows, rows, parts, k, metric, form, col_tile, mesh)
         walls = _per_device_walls(mesh, t0, beat=hb.beat)
@@ -268,15 +297,16 @@ def ring_knn_core_distances(
     kth_col = min(max(min_pts - 1, 1), n) - 1
     t_f = time.monotonic()
     if fetch_knn:
-        knn = fetch([bd for bd, _ in lists]).astype(np.float64)
-        idx = fetch([bi for _, bi in lists]).astype(np.int64) if return_indices else None
+        knn = fetch({s: bd for s, (bd, _) in lists.items()}, mesh).astype(np.float64)
+        idx = (fetch({s: bi for s, (_, bi) in lists.items()}, mesh).astype(np.int64)
+               if return_indices else None)
     else:
-        kth = fetch([bd[:, kth_col] for bd, _ in lists]).astype(np.float64)
+        kth = fetch({s: bd[:, kth_col] for s, (bd, _) in lists.items()}, mesh).astype(np.float64)
     fetch_s = time.monotonic() - t_f
     _emit_ring_trace(
         trace, "ring_knn_scan", wall, walls, n_dev, 0, rows=n, shard=shard,
-        upload_s=upload_s, fetch_s=fetch_s, comm_bytes=(n_dev - 1) * shard * d * 4,
-        flops=2.0 * n_pad * n_pad * d,
+        upload_s=upload_s, fetch_s=fetch_s, flops=2.0 * n_pad * n_pad * d,
+        **_handover(mesh, snap, (n_dev - 1) * shard * d * 4),
     )
     if not fetch_knn:
         return (np.zeros(n, np.float64) if min_pts <= 1 else kth), None
@@ -338,27 +368,28 @@ def ring_knn_core_distances_rows(
     parts = _shard_rows(n, shard, n_dev)
     qparts = _shard_rows(m, q_shard, n_dev)
     x = np.asarray(data, dtype)
+    snap = comm_snapshot()
     t_up = time.monotonic()
-    cols = [torch.as_tensor(x[o : o + c], device=dev)
-            for (o, c), dev in zip(parts, mesh.devices)]
-    qs = [torch.as_tensor(x[row_ids[o : o + c]], device=dev)
-          for (o, c), dev in zip(qparts, mesh.devices)]
+    local = mesh.local_shards()
+    cols = {s: torch.as_tensor(x[parts[s][0] : parts[s][0] + parts[s][1]],
+                               device=mesh.devices[s]) for s in local}
+    qs = {s: torch.as_tensor(x[row_ids[qparts[s][0] : qparts[s][0] + qparts[s][1]]],
+                             device=mesh.devices[s]) for s in local}
     upload_s = time.monotonic() - t_up
     _flops.add_scan(q_shard * n_dev, n_pad, d, row_tile=row_tile)
     kth_col = min(k, n) - 1
-    with obs.mem_phase("ring_rows_scan"), obs.task("ring_rows_scan", total=n_dev) as hb:
+    with obs.mem_phase("ring_rows_scan"), obs.task("ring_rows_scan", total=len(local)) as hb:
         t0 = time.monotonic()
         lists = _ring_lists(qs, cols, parts, k, metric, form, col_tile, mesh)
         walls = _per_device_walls(mesh, t0, beat=hb.beat)
         wall = time.monotonic() - t0
     t_f = time.monotonic()
-    out = fetch([bd[:, kth_col] for bd, _ in lists]).astype(np.float64)
+    out = fetch({s: bd[:, kth_col] for s, (bd, _) in lists.items()}, mesh).astype(np.float64)
     fetch_s = time.monotonic() - t_f
     _emit_ring_trace(
         trace, "ring_rows_scan", wall, walls, n_dev, 0, rows=m, cols=n, shard=shard,
-        upload_s=upload_s, fetch_s=fetch_s,
-        comm_bytes=(n_dev - 1) * shard * d * np.dtype(dtype).itemsize,
-        flops=2.0 * q_shard * n_dev * n_pad * d,
+        upload_s=upload_s, fetch_s=fetch_s, flops=2.0 * q_shard * n_dev * n_pad * d,
+        **_handover(mesh, snap, (n_dev - 1) * shard * d * np.dtype(dtype).itemsize),
     )
     if min_pts <= 1:
         return np.zeros(m, np.float64)
@@ -410,11 +441,12 @@ class RingBoruvkaScanner:
         _flops.add_scan(sh.n_pad, sh.n_pad, self.d, row_tile=sh.row_tile)
         uniq, dense = np.unique(np.asarray(comp), return_inverse=True)
         n_comp = len(uniq)
+        snap = comm_snapshot()
         t_up = time.monotonic()
         labels_on = sh.put_labels(dense.astype(np.int32))
         upload_s = time.monotonic() - t_up
         with obs.mem_phase("ring_boruvka_scan"), obs.task(
-            "ring_boruvka_scan", total=self.n_dev
+            "ring_boruvka_scan", total=len(sh.local)
         ) as hb:
             t0 = time.monotonic()
             w, lo, hi, n_cand = sh.winners(sh.scan(labels_on), labels_on, n_comp)
@@ -431,7 +463,8 @@ class RingBoruvkaScanner:
         _emit_ring_trace(
             self.trace, "ring_boruvka_scan", wall, walls, self.n_dev, self._round,
             n_comp=n_comp, candidates=cand, upload_s=upload_s, fetch_s=fetch_s,
-            comm_bytes=comm_bytes, flops=2.0 * sh.n_pad * sh.n_pad * self.d,
+            flops=2.0 * sh.n_pad * sh.n_pad * self.d,
+            **_handover(sh.mesh, snap, comm_bytes),
         )
         self._round += 1
         bw = np.full(self.n, np.inf, np.float64)

@@ -49,7 +49,17 @@ import torch
 
 from hdbscan_tpu_torch import obs
 from hdbscan_tpu_torch.core.distances import euclidean_form
-from hdbscan_tpu_torch.parallel.mesh import device_count, fetch, get_mesh, spans_cards
+from hdbscan_tpu_torch.parallel.mesh import (
+    all_reduce,
+    comm_snapshot,
+    device_count,
+    fetch,
+    fetch_many,
+    get_mesh,
+    refuse_multiprocess,
+    ring_shift,
+    spans_cards,
+)
 from hdbscan_tpu_torch.parallel.ring import _ring_geometry, _shard_rows
 
 #: Valid ``fit_sharding`` values (``config.HDBSCANParams.fit_sharding``).
@@ -60,11 +70,14 @@ _INT32_MAX = torch.iinfo(torch.int32).max
 #: Where the sharded fit's state lies, as (state, placement): the record
 #: the run manifest carries (``utils/telemetry.run_manifest``).
 PARTITION_RULES = (
-    ("rows, cores, valid, global ids", "one row shard on each shard's device"),
-    ("component labels", "whole, once on each distinct device"),
-    ("visiting panel", "copied to the resident shard's device for one scan"),
-    ("per-component winners", "reduced on the first shard's device"),
-    ("edge buffers u, v, w", "whole on the first shard's device, split by shard after"),
+    ("rows, cores, global ids", "one row shard on each shard's device, in its owner's process"),
+    ("component labels", "whole, once on each distinct device of each rank"),
+    ("visiting panel", "copied to the resident shard's device for one scan; between ranks "
+                       "by the ring step's send/receive"),
+    ("per-component winners", "reduced on each rank's first device, then all-reduced (MIN) "
+                              "across ranks"),
+    ("edge buffers u, v, w", "whole on each rank's first device; over one process split "
+                             "by shard after"),
 )
 
 
@@ -253,6 +266,7 @@ def shard_forest_core_distances(
     data = np.asarray(data)
     n, d = data.shape
     mesh = mesh if mesh is not None else get_mesh()
+    refuse_multiprocess(mesh, "the sharded rp-forest (knn_index=rpforest)")
     n_dev = device_count(mesh)
     devs = mesh.devices
     k_eff = min(max(k or 0, max(min_pts - 1, 1)), n)
@@ -381,11 +395,14 @@ def shard_forest_core_distances(
 
 
 class _Shards:
-    """The row shards of one Borůvka run over ``mesh``: each shard's points,
-    core distances and global row ids on its device, and the per-round
-    panel scan and per-component reduction that every sharded Borůvka engine
-    shares (:class:`ShardBoruvkaScanner`, ``parallel/ring.
-    RingBoruvkaScanner`` and :func:`shard_boruvka_mst`)."""
+    """The row shards of one Borůvka run over ``mesh``: each local shard's
+    points, core distances and global row ids on its device, and the
+    per-round panel scan and per-component reduction that every sharded
+    Borůvka engine shares (:class:`ShardBoruvkaScanner`, ``parallel/ring.
+    RingBoruvkaScanner`` and :func:`shard_boruvka_mst`). Over a
+    multi-process mesh a rank holds only its own shards; the panels of
+    other ranks' shards arrive through ``parallel/mesh.ring_shift`` and the
+    per-component keys reduce through ``parallel/mesh.all_reduce``."""
 
     def __init__(self, data, core, metric, row_tile, col_tile, dtype, mesh):
         self.n, self.d = np.shape(data)
@@ -401,63 +418,76 @@ class _Shards:
         self.form = (euclidean_form(self.row_tile, self.col_tile, self.d)
                      if metric == "euclidean" else None)
         self.parts = _shard_rows(self.n, self.shard, self.n_dev)
-        self.live = [s for s in range(self.n_dev) if self.parts[s][1] > 0]
+        self.local = self.mesh.local_shards()
+        self.live = [s for s in self.local if self.parts[s][1] > 0]
         x = np.asarray(data, dtype)
         c = np.asarray(core, dtype)
-        on = list(zip(self.parts, self.devs))
-        self.rows = [torch.as_tensor(x[o : o + m], device=dev) for (o, m), dev in on]
-        self.cores = [torch.as_tensor(c[o : o + m], device=dev) for (o, m), dev in on]
-        self.valid = [torch.ones(m, dtype=torch.bool, device=dev) for (_, m), dev in on]
-        self.gid = [torch.arange(o, o + m, dtype=torch.int32, device=dev) for (o, m), dev in on]
+        self.rows, self.cores, self.gid = {}, {}, {}
+        for s in self.local:
+            (o, m), dev = self.parts[s], self.devs[s]
+            self.rows[s] = torch.as_tensor(x[o : o + m], device=dev)
+            self.cores[s] = torch.as_tensor(c[o : o + m], device=dev)
+            self.gid[s] = torch.arange(o, o + m, dtype=torch.int32, device=dev)
+        self.dtype = self.rows[self.local[0]].dtype
 
     def put_labels(self, labels) -> dict:
         """An (n,) int32 label vector (host array or tensor) on every
-        distinct device of the mesh."""
+        distinct device of this rank."""
         t = torch.as_tensor(labels)
         return {dev: t.to(dev) for dev in self.distinct}
 
     def scan(self, labels_on: dict) -> dict:
-        """One round's panel scan: every shard ``me`` against the panels in
-        ring order ``(me - s) % D`` through the panel segment-min kernel
-        (B9), each panel-local winner made global and entered under the
-        explicit (w, j) lexicographic update, so the arrival order cannot
-        change it. Returns {shard: ((m,) best_w, (m,) int32 best_j)} with
-        global column ids, (+inf, -1) where no outgoing edge exists."""
+        """One round's panel scan: every local shard ``me`` against the
+        panels in ring order ``(me - s) % D`` through the panel segment-min
+        kernel (B9), each panel-local winner made global and entered under
+        the explicit (w, j) lexicographic update, so the arrival order
+        cannot change it. A step hands the panels over together
+        (``parallel/mesh.ring_shift``); the labels are whole on every
+        device, so only points and cores travel. Returns {local shard:
+        ((m,) best_w, (m,) int32 best_j)} with global column ids, (+inf,
+        -1) where no outgoing edge exists."""
         from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_panel
 
         out = {}
-        for me in self.live:
-            dev, (off_me, m) = self.devs[me], self.parts[me]
-            labels = labels_on[dev]
-            kr = labels[off_me : off_me + m]
-            bw = torch.full((m,), float("inf"), dtype=self.rows[me].dtype, device=dev)
-            bj = torch.full((m,), -1, dtype=torch.int32, device=dev)
-            for step in range(self.n_dev):
+        for me in self.local:
+            dev, m = self.devs[me], self.parts[me][1]
+            out[me] = (torch.full((m,), float("inf"), dtype=self.dtype, device=dev),
+                       torch.full((m,), -1, dtype=torch.int32, device=dev))
+        panels = {s: (self.rows[s], self.cores[s]) for s in self.local}
+        for step in range(self.n_dev):
+            visiting = ring_shift(self.mesh, panels, step, [m for _, m in self.parts])
+            for me in self.live:
+                dev, (off_me, m) = self.devs[me], self.parts[me]
                 src = (me - step) % self.n_dev
                 off, cnt = self.parts[src]
                 if cnt == 0:
                     continue
+                labels = labels_on[dev]
+                p_rows, p_cores = visiting[me]
                 pw, pj = min_outgoing_panel(
-                    self.rows[me], self.cores[me], kr, self.valid[me],
-                    self.rows[src].to(dev), self.cores[src].to(dev), labels[off : off + cnt],
-                    self.valid[src].to(dev), self.metric, self.row_tile, self.col_tile,
-                    form=self.form, col_offset=off,
+                    self.rows[me], self.cores[me], labels[off_me : off_me + m],
+                    torch.ones(m, dtype=torch.bool, device=dev),
+                    p_rows, p_cores, labels[off : off + cnt],
+                    torch.ones(cnt, dtype=torch.bool, device=dev), self.metric,
+                    self.row_tile, self.col_tile, form=self.form, col_offset=off,
                 )
+                bw, bj = out[me]
                 tj = torch.where(pj >= 0, pj + off, 0)
                 upd = (pw < bw) | ((pw == bw) & (tj < bj))
-                bw = torch.where(upd, pw, bw)
-                bj = torch.where(upd, tj, bj)
-            out[me] = (bw, bj)
+                out[me] = (torch.where(upd, pw, bw), torch.where(upd, tj, bj))
         return out
 
     def winners(self, cands: dict, labels_on: dict, n_seg: int):
         """Per-component winners of one round's candidates: the minimum by
         the shared key (w, lo = min(i, j), hi = max(i, j)) of
         ``utils/unionfind.contract_min_edges``, each shard's scatter-min
-        partials over the ``n_seg`` labels min-reduced across shards on the
-        first shard's device, key by key. Returns (w, lo, hi) (n_seg,) on
-        that device, (+inf, INT32_MAX, INT32_MAX) for a label without a
-        candidate, and the number of candidates (a 0-d tensor)."""
+        partials over the ``n_seg`` labels min-reduced across this rank's
+        shards on its first device, then across ranks
+        (``parallel/mesh.all_reduce``), key by key with the tie filters
+        between them, so the winner is the one-process winner bitwise.
+        Returns (w, lo, hi) (n_seg,) on that device, (+inf, INT32_MAX,
+        INT32_MAX) for a label without a candidate, and the number of
+        candidates over every rank (a 0-d tensor)."""
         from hdbscan_tpu_torch.core.mst_device import _seg_min_into
 
         st = []
@@ -471,23 +501,26 @@ class _Shards:
                            lo=torch.minimum(self.gid[me], bj_c),
                            hi=torch.maximum(self.gid[me], bj_c)))
 
-        def seg_min(key, fill):
-            return _reduce([_seg_min_into(n_seg, s["lab"], s[key], fill) for s in st],
-                           self.root, self.distinct)
+        def seg_min(key, fill, dtype):
+            parts = [_seg_min_into(n_seg, s["lab"], s[key], fill) for s in st]
+            return _reduce(parts or [torch.full((n_seg,), fill, dtype=dtype, device=self.root)],
+                           self.root, self.distinct, self.mesh)
 
-        w = seg_min("w", float("inf"))
+        w = seg_min("w", float("inf"), self.dtype)
         for s in st:
             s["lab"] = torch.where(s["w"] == w[s["dev"]][s["kr_c"]], s["lab"], n_seg)
-        lo = seg_min("lo", _INT32_MAX)
+        lo = seg_min("lo", _INT32_MAX, torch.int32)
         for s in st:
             s["lab"] = torch.where(s["lo"] == lo[s["dev"]][s["kr_c"]], s["lab"], n_seg)
-        hi = seg_min("hi", _INT32_MAX)
-        n_cand = sum(s["has"].sum().to(self.root) for s in st)
+        hi = seg_min("hi", _INT32_MAX, torch.int32)
+        n_cand = sum((s["has"].sum().to(self.root) for s in st),
+                     torch.zeros((), dtype=torch.int64, device=self.root))
+        n_cand = all_reduce(n_cand, self.mesh, op="sum")
         return w[self.root], lo[self.root], hi[self.root], n_cand
 
     def close(self) -> None:
         """Drop the shards' device tensors now."""
-        self.rows = self.cores = self.valid = self.gid = []
+        self.rows = self.cores = self.gid = {}
 
 
 class ShardBoruvkaScanner:
@@ -518,14 +551,19 @@ class ShardBoruvkaScanner:
         """Per-point (best_w float64, best_j int64): the minimum outgoing
         mutual-reachability edge of every point's component seen from that
         point, (w, j)-lex, (+inf, -1) where none."""
-        from hdbscan_tpu_torch.parallel.ring import _emit_ring_trace, _per_device_walls
+        from hdbscan_tpu_torch.parallel.ring import (
+            _emit_ring_trace,
+            _handover,
+            _per_device_walls,
+        )
         from hdbscan_tpu_torch.utils.flops import counter as _flops
 
         sh = self._sh
         _flops.add_scan(sh.n_pad, sh.n_pad, self.d, row_tile=sh.row_tile)
         comp = np.asarray(comp)
+        snap = comm_snapshot()
         with obs.mem_phase("shard_boruvka_scan"), obs.task(
-            "shard_boruvka_scan", total=self.n_dev
+            "shard_boruvka_scan", total=len(sh.local)
         ) as hb:
             # The reference donates the label panel here and keeps the
             # sampler out of the window (obs.donation_guard).
@@ -538,8 +576,8 @@ class ShardBoruvkaScanner:
                 walls = _per_device_walls(sh.mesh, t0, beat=hb.beat)
             wall = time.monotonic() - t0
         t_f = time.monotonic()
-        bw = fetch([cands[s][0] for s in sh.live]).astype(np.float64)
-        bj = fetch([cands[s][1] for s in sh.live]).astype(np.int64)
+        bw, bj = fetch_many(cands, sh.mesh)
+        bw, bj = bw.astype(np.float64), bj.astype(np.int64)
         fetch_s = time.monotonic() - t_f
         self.walls = (wall, fetch_s)
         # Two panels per hand-over: the row shard with its cores, and the
@@ -548,20 +586,22 @@ class ShardBoruvkaScanner:
         _emit_ring_trace(
             self.trace, "shard_boruvka_scan", wall, walls, self.n_dev, self._round,
             n_comp=int(len(np.unique(comp))), candidates=int(np.sum(bj >= 0)),
-            upload_s=upload_s, fetch_s=fetch_s, comm_bytes=comm_bytes,
-            flops=2.0 * sh.n_pad * sh.n_pad * self.d,
+            upload_s=upload_s, fetch_s=fetch_s, flops=2.0 * sh.n_pad * sh.n_pad * self.d,
+            **_handover(sh.mesh, snap, comm_bytes),
         )
         self._round += 1
         return bw, bj
 
 
-def _reduce(parts, root, devices):
-    """Elementwise minimum of per-shard partials on the first shard's
-    device, handed back to every distinct device of the mesh."""
+def _reduce(parts, root, devices, mesh=None):
+    """Elementwise minimum of per-shard partials on this rank's first
+    device, then across ranks (``parallel/mesh.all_reduce``), handed back
+    to every distinct device of this rank."""
     out = None
     for p in parts:
         p = p.to(root)
         out = p if out is None else torch.minimum(out, p)
+    out = all_reduce(out, mesh, op="min")
     return {dev: out.to(dev) for dev in devices}
 
 
@@ -582,9 +622,13 @@ def shard_boruvka_mst(
     "u", "v", "w" are lists of per-shard tensors, shard ``s`` holding
     positions ``[s * shard, (s + 1) * shard)`` of the (n - 1,) edge buffers
     on its device (concatenated in shard order they are the single-device
-    buffers, +inf self-loops past the count); host values "count",
-    "rounds", "round_syncs", "stat_comp", "stat_edges", "shard". ``trace``
-    gets one ``mst_round`` event per round, marked ``sharded``.
+    buffers, +inf self-loops past the count). Over a multi-process mesh
+    every rank contracts the all-reduced winners alike, so its loop's
+    decisions agree with its peers' and it holds the whole buffers: each
+    list is then the one (n - 1,) buffer on this rank's first device. Host
+    values "count", "rounds", "round_syncs", "stat_comp", "stat_edges",
+    "shard". ``trace`` gets one ``mst_round`` event per round, marked
+    ``sharded``.
     """
     from hdbscan_tpu_torch.core.mst_device import _collapse_labels
 
@@ -596,7 +640,7 @@ def shard_boruvka_mst(
     buf = max(n - 1, 1)
     eu = torch.zeros(buf + 1, dtype=torch.int32, device=root)
     ev = torch.zeros(buf + 1, dtype=torch.int32, device=root)
-    ew = torch.full((buf + 1,), float("inf"), dtype=sh.rows[0].dtype, device=root)
+    ew = torch.full((buf + 1,), float("inf"), dtype=sh.dtype, device=root)
     comp = torch.arange(n, dtype=torch.int32, device=root)
     label_ids = torch.arange(n, dtype=torch.int32, device=root)
     valid_all = torch.ones(n, dtype=torch.bool, device=root)
@@ -638,6 +682,8 @@ def shard_boruvka_mst(
         rounds += 1
 
     def split(t):
+        if sh.mesh.multiprocess:  # every rank holds the whole buffers already
+            return [t[:buf]]
         return [t[min(o, buf) : min(o + sh.shard, buf)].to(dev)
                 for (o, _), dev in zip(sh.parts, sh.devs)]
 

@@ -105,10 +105,14 @@ def cache_hit_counter():
 
 
 def device_topology() -> dict:
-    """Device/process topology from ``torch.cuda`` — enough to read a report
-    without the machine: platform (``"gpu"`` where a card is visible, else
-    ``"cpu"``), counts, and per-device kind."""
+    """Device/process topology from ``torch.cuda`` and the process group —
+    enough to read a report without the machine: platform (``"gpu"`` where
+    a card is visible, else ``"cpu"``), counts, and per-device kind and
+    owning rank. In a wired process (``parallel/distributed``) the devices
+    are every rank's, as the wiring exchanged them, in rank order."""
     import torch
+
+    from hdbscan_tpu_torch.parallel import distributed
 
     if torch.cuda.is_available():
         count = torch.cuda.device_count()
@@ -117,12 +121,19 @@ def device_topology() -> dict:
         platform = "gpu"
     else:
         count, devices, platform = 1, [{"id": 0, "kind": "cpu", "process_index": 0}], "cpu"
+    local = count
+    ranks = distributed.rank_devices()
+    if ranks:
+        devices = [{"id": i, "kind": kind, "process_index": r}
+                   for i, (r, kind) in enumerate((r, kind) for r, lst in enumerate(ranks)
+                                                 for _, kind in lst)]
+        count, local = len(devices), len(ranks[distributed.process_index()])
     return {
         "platform": platform,
         "device_count": count,
-        "local_device_count": count,
-        "process_count": 1,
-        "process_index": 0,
+        "local_device_count": local,
+        "process_count": distributed.process_count(),
+        "process_index": distributed.process_index(),
         "devices": devices,
     }
 

@@ -11,10 +11,11 @@ with ``variant=rs``, ``dedup=true``, ``compat_cf=true`` and ``consensus=3``
 fails under the installed jax). Every ``--trace-out`` file passes
 ``scripts/check_trace.py``; ``fit --model-out`` then ``predict --out``
 write a prediction file byte-identical to the reference CLI's on the dense
-and MR routes and on the ``fused`` and ``rpforest`` backends; a
-``clusterName`` that is not ported exits 2 naming its ROADMAP item before
-any data is read; ``fleet`` validates its arguments as the reference's
-does and fails fast on a model that does not exist.
+and MR routes and on the ``fused`` and ``rpforest`` backends; a malformed
+or conflicting ``clusterName`` exits 2 before any data is read (the
+multi-process runs themselves: ``tests/test_torch_multiprocess.py``);
+``fleet`` validates its arguments as the reference's does and fails fast on
+a model that does not exist.
 """
 
 import os
@@ -249,18 +250,31 @@ def test_fit_predict_cli_equals_reference(tmp_path, grid_file, capsys, fit_extra
 
 
 @pytest.mark.parametrize(
-    "argv,item",
+    "argv,wired,message",
     [
-        (["file=MISSING", "clusterName=auto"], "A9b"),
-        (["file=MISSING", "clusterName=localhost:1234,0,2"], "A9b"),
+        (["file=MISSING", "clusterName=not-a-spec,x"], False, "clusterName must be"),
+        (["file=MISSING", "clusterName=127.0.0.1:PORT,0,2"], True, "conflicting wiring"),
     ],
+    ids=["malformed_cluster_name", "conflicting_process_count"],
 )
-def test_unported_flags_exit_2_before_reading_data(tmp_path, capsys, argv, item):
+def test_unported_flags_exit_2_before_reading_data(tmp_path, capsys, argv, wired, message):
     """``file=`` names a file that does not exist: a run that read data
-    would raise instead of returning 2."""
+    would raise instead of returning 2. A malformed ``clusterName``, and
+    one that asks for two processes in a process already wired as one,
+    exit 2 before any data is read."""
+    from hdbscan_tpu_torch.parallel import distributed
+
     argv = [a.replace("MISSING", str(tmp_path / "absent.tsv")) for a in argv]
-    assert port_main(argv + ["--device", "cpu"]) == 2
-    assert f"is not ported yet (ROADMAP {item})" in capsys.readouterr().err
+    if wired:
+        port = distributed.free_local_port()
+        argv = [a.replace("PORT", str(port)) for a in argv]
+        assert distributed.initialize_from_cluster_name(f"127.0.0.1:{port},0,1",
+                                                        devices=["cpu"], timeout_s=30)
+    try:
+        assert port_main(argv + ["--device", "cpu"]) == 2
+    finally:
+        distributed.shutdown()
+    assert message in capsys.readouterr().err
     assert os.listdir(tmp_path) == []
 
 
@@ -302,7 +316,7 @@ def test_bad_flag_missing_file_and_help(capsys):
         out = capsys.readouterr().out
         assert "minPts" in out and "--trace-out" in out and "--report" in out
         assert "--flight-dir" in out and "A12" not in out and "(A11)" not in out
-        assert "(multi-process runs, A9b)" in out
+        assert "clusterName=<host:port>,<rank>,<ranks>" in out and "A9b" not in out
 
 
 def test_without_a_card_fails_and_writes_nothing(tmp_path, grid_file, capsys):

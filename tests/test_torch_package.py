@@ -73,6 +73,7 @@ _PORT_MODULES = [
     "hdbscan_tpu_torch.ops.rpforest",
     "hdbscan_tpu_torch.ops.tiled",
     "hdbscan_tpu_torch.parallel.blocks",
+    "hdbscan_tpu_torch.parallel.distributed",
     "hdbscan_tpu_torch.parallel.mesh",
     "hdbscan_tpu_torch.parallel.ring",
     "hdbscan_tpu_torch.parallel.shard",
@@ -140,7 +141,8 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "fit_bench.py",
+                                             "handover_bench.py", "kernel_bench.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
