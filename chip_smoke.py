@@ -192,7 +192,7 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    builds the kernels and runs phases 3 and 3k alone;
 3l. the rest of the MR pipeline: first the 6,000-point card-vs-CPU checks
    of phase 3d gain ``variant=rs``, ``dedup_points`` (every third row
-   repeated 1-6 more times), ``consensus_draws=3``, ``compat_cf_int_math``,
+   repeated 1-6 more times), ``consensus_draws=2``, ``compat_cf_int_math``,
    the unpruned boundary (``boundary_block_pruning=False``, at cosine, over
    the rp-forest) and a checkpoint interrupted after level 0 then resumed,
    each bitwise (``mr_variants_card_vs_cpu``); then the cells, each with the
@@ -204,7 +204,7 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    ``dedup`` event's counts, two levels or more, ARI against the full-row
    exact fit and the MR fit without dedup, both timed), and on 3e's data
    ``3e_rs`` (``variant=rs``: K2, B1; ARI against the truth and 3e's db
-   fit), ``3e_consensus`` (three draws: K2, B1; three ``consensus_draw``
+   fit), ``3e_consensus`` (two draws: K2, B1; two ``consensus_draw``
    events, the reference's provenance keys, labels equal
    ``consensus_labels`` of the draws' labels), ``3e_checkpoint`` (stopped
    by ``max_levels=1`` after K2, resumed with B1 and no K2: labels, cores,
@@ -363,12 +363,23 @@ K3 is then held bit for bit to its plain version on the fits' own pools:
    ``3r_cli_mr_2proc``: 3j's ``cli_mr`` flags with ``fit_sharding=sharded``,
    the same layout and twin; ``3r_ring_4proc``: ``scan_backend=ring`` on
    the first 4,096 rows as 4 ranks x ``--device cuda:0``, equal to the same
-   command's 4 ranks x ``--device cpu``, run beside it. Each leg prints
+   command's 4 ranks x ``--device cpu``, run beside it;
+   ``3r_cli_forest_2proc``: ``3r_cli_exact_2proc``'s flags with
+   ``knn_index=rpforest`` (the sharded forest: each rank builds its own
+   shards' trees, the visiting panels of rows, leaf members and thresholds
+   cross ranks by ``ring_shift``), the same layout and twin;
+   ``3r_ring_forest_4proc``: ``3r_ring_4proc``'s flags with
+   ``knn_index=rpforest`` (the forest over the mesh: every rank builds the
+   same forest, the leaf lists and the rescans' id lists are all-gathered)
+   as 4 ranks x ``--device cuda:0``, against one process over four
+   ``cuda:0`` shards. Each leg prints
    the ranks' fit walls, each rank's launches and hand-overs (bytes, calls, wall; its
    trace's ``rank_summary``), the backend and rank 0's mesh line; every
-   rank must launch the rectangular B2 and B9 (and K3 on the exact leg),
-   every trace pass ``check_trace.py`` and the report name every rank. The
-   kernels line gains ``launches_3r``. ``python3 chip_smoke.py 3r`` builds
+   rank must launch the rectangular B2 and B9 (and K3 on the exact leg; on
+   the forest legs B7, B9 and K3, and B5, B6 and B7), every trace pass
+   ``check_trace.py`` and the report name every rank. The kernels line
+   gains ``launches_3r``: each rank's launches of the kernel beside its
+   hand-overs (bytes, calls, wall s by helper). ``python3 chip_smoke.py 3r`` builds
    the kernels and runs phases 3 and 3r alone; ``python3 chip_smoke.py
    3r4``, on four cards, builds them and runs 3r's legs over the cards
    instead: 2 ranks x 2 cards (gloo) and 4 ranks x 1 card (NCCL), each
@@ -477,12 +488,15 @@ CLI_DEDUP_LEG = ("cli_dedup_sharded", N_SKIN,
                  ["minPts=16", "minClSize=3000", "dedup=true", "fit_sharding=sharded",
                   f"processing_units={N_SKIN}"], 4096,
                  ("knn_kbest_panel", "segmin_panel", "uf_scan"), False, ", exact-sharded, ")
-#: Phase 3l, the rest of the MR pipeline. The 6,000-point card-vs-CPU
+#: Phase 3l, the rest of the MR pipeline. The consensus fits' draws (two,
+#: to keep the whole script inside its time limit: the 6,000-point CPU
+#: twin takes ~10 s a draw), then the 6,000-point card-vs-CPU
 #: configurations (label, parameters beyond phase 3d's):
+CONSENSUS_DRAWS = 2
 MR_VARIANTS = (
     ("variant=rs", {"variant": "rs"}),
     ("dedup_points", {"dedup_points": True}),
-    ("consensus_draws=3", {"consensus_draws": 3}),
+    (f"consensus_draws={CONSENSUS_DRAWS}", {"consensus_draws": CONSENSUS_DRAWS}),
     ("compat_cf_int_math", {"compat_cf_int_math": True}),
     ("boundary unpruned", {"boundary_quality": 0.05, "boundary_block_pruning": False}),
     ("boundary cosine", {"boundary_quality": 0.05, "dist_function": "cosine"}),
@@ -593,6 +607,8 @@ FIT_SERVICE_BASE_S = 3.0
 #: (ranks, ``--device``; one rank: in this process), the kernels every rank
 #: must launch, the route rank 0 names, the backend the rule must choose).
 _CARDS4 = ",".join(f"cuda:{i}" for i in range(4))
+RANK_LEGS_RING_FLAGS = ["minPts=16", "minClSize=50", "processing_units=1024", "k=0.01", "seed=0",
+                        "scan_backend=ring"]
 RANK_LEGS = (
     ("3r_cli_exact_2proc", N_SKIN, CLI_LEGS[1][2], 2, "cuda:0,cuda:0",
      (1, ",".join(["cuda:0"] * N_SHARDS)), ("knn_kbest_panel", "segmin_panel", "uf_scan"),
@@ -600,9 +616,17 @@ RANK_LEGS = (
     ("3r_cli_mr_2proc", N_SKIN, [*CLI_LEGS[0][2], "fit_sharding=sharded"], 2, "cuda:0,cuda:0",
      (1, ",".join(["cuda:0"] * N_SHARDS)), ("knn_kbest_panel", "segmin_panel"),
      ", mr-sharded (", "gloo"),
-    ("3r_ring_4proc", CLI_SUB_ROWS, ["minPts=16", "minClSize=50", "processing_units=1024",
-                                     "k=0.01", "seed=0", "scan_backend=ring"], 4, "cuda:0",
+    ("3r_ring_4proc", CLI_SUB_ROWS, RANK_LEGS_RING_FLAGS, 4, "cuda:0",
      (4, "cpu"), ("knn_kbest_panel", "segmin_panel"), ", mr (", "gloo"),
+    # The forest over ranks: the sharded forest's panels through ring_shift
+    # (B7 a visit), then B9 and K3; the ring forest's leaf scans (B5), folds
+    # (B6) and rescans (B7) with the leaf and id lists all-gathered.
+    ("3r_cli_forest_2proc", N_SKIN, [*CLI_LEGS[1][2], "knn_index=rpforest"], 2,
+     "cuda:0,cuda:0", (1, ",".join(["cuda:0"] * N_SHARDS)),
+     ("forest_rescan_topk", "segmin_panel", "uf_scan"), ", exact-sharded, ", "gloo"),
+    ("3r_ring_forest_4proc", CLI_SUB_ROWS, [*RANK_LEGS_RING_FLAGS, "knn_index=rpforest"], 4,
+     "cuda:0", (1, ",".join(["cuda:0"] * N_SHARDS)),
+     ("forest_leaf_topk", "forest_merge", "forest_rescan_topk"), ", mr (", "gloo"),
 )
 #: ``python3 chip_smoke.py 3r4`` on four cards: ranks over two cards each
 #: (gloo, the rule for a rank over several cards) and one card a rank
@@ -618,7 +642,19 @@ RANK_LEGS_4CARDS = (
     # multi-device rule), so this leg's route is named mr-sharded.
     ("3r4_ring_4x1card", CLI_SUB_ROWS, RANK_LEGS[2][2], 4, tuple(_CARDS4.split(",")),
      (1, _CARDS4), RANK_LEGS[2][6], RANK_LEGS[1][7], "nccl"),
+    ("3r4_forest_2x2cards", N_SKIN, RANK_LEGS[3][2], 2, ("cuda:0,cuda:1", "cuda:2,cuda:3"),
+     (1, _CARDS4), RANK_LEGS[3][6], RANK_LEGS[3][7], "gloo"),
+    ("3r4_forest_4x1card", N_SKIN, RANK_LEGS[3][2], 4, tuple(_CARDS4.split(",")),
+     (1, _CARDS4), RANK_LEGS[3][6], RANK_LEGS[3][7], "nccl"),
+    # ``fit_sharding=replicated`` keeps the ring forest over distinct cards.
+    ("3r4_ring_forest_2x2cards", CLI_SUB_ROWS, [*RANK_LEGS[4][2], "fit_sharding=replicated"], 2,
+     ("cuda:0,cuda:1", "cuda:2,cuda:3"), (1, _CARDS4), RANK_LEGS[4][6], RANK_LEGS[4][7], "gloo"),
+    ("3r4_ring_forest_4x1card", CLI_SUB_ROWS, [*RANK_LEGS[4][2], "fit_sharding=replicated"], 4,
+     tuple(_CARDS4.split(",")), (1, _CARDS4), RANK_LEGS[4][6], RANK_LEGS[4][7], "nccl"),
 )
+#: The key of a rank's hand-overs (bytes, calls, wall s by helper) in its
+#: 3r launch counts, carried into ``launches_3r`` on the kernels line.
+HANDOVER_KEY = "handovers"
 #: Five-file digests of one-process command runs an earlier phase already
 #: made, by (rows, flags, ``--device``): 3p's exact fit over four shards is
 #: 3r's exact twin, so the whole script does not run it twice.
@@ -1354,7 +1390,7 @@ def report_forest_fit(label, data, params, res, launches, ev, wall, exact_core,
                                                  k=q["k"], return_indices=True, **opts)
     final, rows = rpforest._sampled_recall(
         torch.as_tensor(data.astype(np.float32), device="cuda"),
-        torch.as_tensor(idx, device="cuda"), q["k"], params.dist_function, 256)
+        idx[rpforest.recall_rows(len(data), 256)], q["k"], params.dist_function, 256)
     print(f"{label} recall@{q['k']} of the final lists {final} over {rows} rows")
     same = float(np.mean(res.core_distances == exact_core))
     near = float(np.mean(np.isclose(res.core_distances, exact_core, rtol=1e-4, atol=0)))
@@ -3473,7 +3509,7 @@ def mr_variants_card_vs_cpu() -> list[str]:
     """The MR fit's variants on phase 3d's 6,000 points
     (processing_units=1,024), each fit on the card equal to the same fit on
     the CPU, bitwise: ``variant=rs``, ``dedup_points`` (every third row
-    repeated 1-6 more times), ``consensus_draws=3``, ``compat_cf_int_math``,
+    repeated 1-6 more times), ``consensus_draws=2``, ``compat_cf_int_math``,
     the unpruned boundary (``boundary_block_pruning=False``, at cosine, and
     over the rp-forest), and a checkpoint interrupted after the first level
     then resumed on the card; returns failure messages."""
@@ -3607,14 +3643,15 @@ def mr_variant_phase(card) -> tuple[list[str], dict]:
 
     with ResultRecorder(mr_hdbscan, "fit") as draws:
         e, cres, launches["3e_consensus"], cev, _ = mr_cell(
-            "3e_consensus", fdata, dataclasses.replace(fq, consensus_draws=3),
+            "3e_consensus", fdata, dataclasses.replace(fq, consensus_draws=CONSENSUS_DRAWS),
             ("knn_kbest", "segmin"), card)
     errors += e
     labs = [r.labels for r in draws.calls if r.consensus_info is None]
-    want = consensus.consensus_labels(np.stack(labs)) if len(labs) == 3 else None
+    want = (consensus.consensus_labels(np.stack(labs)) if len(labs) == CONSENSUS_DRAWS
+            else None)
     keys = {"draws", "cells", "clusters", "representative_draw", "representative_seed",
             "representative_agreement_ari", "labels", "outlier_scores", "tree_and_hierarchy"}
-    ok = (len(cev.get("consensus_draw", [])) == 3 and want is not None
+    ok = (len(cev.get("consensus_draw", [])) == CONSENSUS_DRAWS and want is not None
           and np.array_equal(cres.labels, want) and set(cres.consensus_info or {}) == keys)
     print(f"3l 3e_consensus: {len(cev.get('consensus_draw', []))} draws, info "
           f"{cres.consensus_info}; labels equal consensus_labels of the draws: {ok}; ARI vs "
@@ -5711,13 +5748,21 @@ def rank_check(here, root, tag, n_ranks, ranks, mode, backend) -> tuple[list[str
         if summ is None:
             errors.append(f"{tag} rank {r}: no rank_summary event")
             continue
-        launches[r] = {k.removeprefix("launches_"): v for k, v in summ.items()
-                       if k.startswith("launches_")}
+        counts = {k.removeprefix("launches_"): v for k, v in summ.items()
+                  if k.startswith("launches_")}
         moved = {k: (summ[f"handover_{k}_bytes"], summ[f"handover_{k}_calls"],
                      summ[f"handover_{k}_wall_s"]) for k in ("ring", "all_reduce", "gather")}
         print(f"3r {tag} rank {r}: fit wall {fit} s, {summ['shards']} shards, backend "
-              f"{summ['backend']}; launches {launches[r]}; hand-overs (bytes, calls, wall s) "
+              f"{summ['backend']}; launches {counts}; hand-overs (bytes, calls, wall s) "
               f"{moved}")
+        walls = {}
+        for e in events:
+            if e["stage"] not in ("fit", "ring_device_wall", "heartbeat", "rank_summary"):
+                walls[e["stage"]] = walls.get(e["stage"], 0.0) + e.get("wall_s", 0.0)
+        top = sorted(walls.items(), key=lambda kv: -kv[1])[:8]
+        print(f"3r {tag} rank {r} stages (wall s): "
+              f"{', '.join(f'{k} {v:.3f}' for k, v in top)}")
+        launches[r] = {**counts, HANDOVER_KEY: moved}
         if summ["backend"] != backend:
             errors.append(f"{tag} rank {r}: backend {summ['backend']}, not {backend}")
     with open(f"{root}/{tag}.json") as f:
@@ -5818,7 +5863,10 @@ def add_launches(rows, phases) -> None:
         for key, cells in phases.items():
             name = (row["name"].removesuffix("_predict") if key in ("launches_3o", "launches_3q")
                     else row["name"])
-            hits = {cell: n for cell, got in cells.items() if (n := got.get(name))}
+            # A rank's cell carries its hand-overs beside its launches.
+            hits = {cell: ({"launches": n, "handovers": got[HANDOVER_KEY]}
+                           if HANDOVER_KEY in got else n)
+                    for cell, got in cells.items() if (n := got.get(name))}
             if hits and key not in row:
                 row[key] = hits
 

@@ -175,8 +175,9 @@ own, else gloo: ranks on the CPU, sharing a card or over several cards;
 no fallback), and rank 0
 alone writes the five files, the model, the report (with every rank's
 phases under ``per_host``) and prints; ``--trace-out PATH`` writes
-``PATH.<rank>`` per rank (``trace.0.jsonl``). ``knn_index=rpforest`` over
-ranks exits 2 (ROADMAP A9c).
+``PATH.<rank>`` per rank (``trace.0.jsonl``). Every route runs over ranks,
+the rp-forest tier (``knn_index=rpforest``, or ``auto`` past its threshold)
+included.
 """
 
 from __future__ import annotations
@@ -219,11 +220,6 @@ def _pop_bool_flag(argv: list[str], flag: str) -> bool:
         argv.remove(flag)
         present = True
     return present
-
-
-def _not_ported(what: str, item: str) -> int:
-    print(f"error: {what} is not ported yet (ROADMAP {item})", file=sys.stderr)
-    return 2
 
 
 def _device(flag):
@@ -356,9 +352,6 @@ def _main_fit(argv: list[str]) -> int:
     teardown = distributed.shutdown if wired and not already else (lambda: None)
     n_proc, rank = distributed.process_count(), distributed.process_index()
     is_main = rank == 0
-    if n_proc > 1 and params.knn_index == "rpforest":
-        teardown()
-        return _not_ported("knn_index=rpforest over several processes", "A9c")
 
     from hdbscan_tpu_torch import obs
     from hdbscan_tpu_torch.models import exact, hdbscan, mr_hdbscan

@@ -48,7 +48,7 @@ from hdbscan_tpu_torch.core.distances import METRICS, euclidean_form, pairwise_d
 from hdbscan_tpu_torch.ops import cuda_build
 from hdbscan_tpu_torch.ops import cuda_forest as cf
 from hdbscan_tpu_torch.ops.lexmerge import dedup_lex_merge, lex_kbest
-from hdbscan_tpu_torch.parallel.mesh import block_shards, fetch
+from hdbscan_tpu_torch.parallel.mesh import all_reduce, block_shards, fetch, fetch_many
 
 #: The ``knn_index`` vocabulary (``HDBSCANParams.knn_index``).
 KNN_INDEXES = ("auto", "exact", "rpforest")
@@ -271,38 +271,39 @@ def build_forest(data, trees: int = 4, leaf_size: int = 1024, seed: int = 0,
 # Leaf scans and the candidate merge.
 
 
-def _leaf_plan(forest: RPForest, devices) -> list:
+def _leaf_plan(forest: RPForest, devices, local=None) -> list:
     """One tree's leaf scans: the leaf batches that keep the (B, Lmax, Lmax)
     block within ``_LEAF_ELEM_BUDGET``, each batch's leaves cut into one
     contiguous slice a shard of ``devices`` (``mesh.block_shards``; one
-    device keeps the whole batch). Returns ``(start, stop, device, real)``
-    a non-empty slice: leaves [start, stop) and ``real``, the slice's
-    flattened real slots on the device (padded slots repeat a member and
-    are dropped)."""
+    device keeps the whole batch). Returns ``(start, stop, shard, device,
+    real)`` a non-empty slice of a shard in ``local`` (default: every
+    shard): leaves [start, stop) and ``real``, the slice's flattened real
+    slots on the device (padded slots repeat a member and are dropped)."""
     lmax = forest.max_leaf
     batch = max(1, _LEAF_ELEM_BUDGET // (lmax * lmax))
     out = []
     for a in range(0, forest.num_leaves, batch):
         b = min(a + batch, forest.num_leaves)
-        for la, lb, dev in block_shards(devices, b - a):
-            if la < lb:
+        for s, (la, lb, dev) in enumerate(block_shards(devices, b - a)):
+            if la < lb and (local is None or s in local):
                 real = np.flatnonzero(forest.leaf_mask[a + la : a + lb].reshape(-1))
-                out.append((a + la, a + lb, dev, torch.as_tensor(real, device=dev)))
+                out.append((a + la, a + lb, s, dev, torch.as_tensor(real, device=dev)))
     return out
 
 
 def leaf_batches(forest: RPForest, device):
     """The leaf batches of one tree's scan on one device, ``(start, stop,
     real)`` (:func:`_leaf_plan`)."""
-    return [(a, b, real) for a, b, _, real in _leaf_plan(forest, [torch.device(device)])]
+    return [(a, b, real) for a, b, _, _, real in _leaf_plan(forest, [torch.device(device)])]
 
 
-def trace_query(trace, data_dev, forest: RPForest, best_i, kk: int, metric: str,
+def trace_query(trace, data_dev, forest: RPForest, sample_i, kk: int, metric: str,
                 recall_sample: int, t0: float) -> None:
-    """The ``knn_index_query`` event of the forest query."""
+    """The ``knn_index_query`` event of the forest query; ``sample_i`` holds
+    the lists' ids at the sampled rows (:func:`recall_rows`)."""
     fields = dict(n=forest.n, k=kk, trees=forest.trees, candidates=forest.trees * kk)
     if recall_sample:
-        recall, rows = _sampled_recall(data_dev[: forest.n], best_i, kk, metric, recall_sample)
+        recall, rows = _sampled_recall(data_dev[: forest.n], sample_i, kk, metric, recall_sample)
         fields["recall_at_k"] = recall
         fields["recall_rows"] = rows
     trace("knn_index_query", wall_s=time.monotonic() - t0, **fields)
@@ -327,23 +328,28 @@ def forest_knn(data_dev, forest: RPForest, k: int, metric: str = "euclidean", tr
 
 
 def forest_knn_shards(data_on: dict, rows, forest: RPForest, k: int, metric: str = "euclidean",
-                      *, trace=None, recall_sample: int = 256, backend: str = "xla",
+                      *, mesh=None, trace=None, recall_sample: int = 256, backend: str = "xla",
                       precision: str = "f32"):
     """The forest query over row shards: ``rows`` lists each shard's
     ``(lo, hi, device)`` (``mesh.block_shards`` of n; one device is
-    ``[(0, n, device)]``), ``data_on`` maps each distinct device to the
-    data on it. Returns each row shard's (hi - lo, kk) lists, ascending
-    (distance, id), kk = min(k, max leaf).
+    ``[(0, n, device)]``), ``data_on`` maps each distinct device of this
+    process to the whole data on it. Returns each row shard's (hi - lo, kk)
+    lists, ascending (distance, id), kk = min(k, max leaf); None for a
+    shard another rank of ``mesh`` owns.
 
     Per tree, each leaf batch's leaves are cut into one slice a shard
     (:func:`_leaf_plan`) and scanned on the shard's device by B5
     (``cuda_forest.forest_leaf_topk``; its plain version for CPU tensors),
     the real slots copied into the per-tree lists of the row shard that
-    owns them. Each row shard then folds its T lists: B6
-    (``cuda_forest.forest_merge``) on the kernels' route (:func:`_fused`),
-    else one dedup lex merge. Every op is per leaf or per row, so the lists
-    equal the one-device query's bitwise. Emits ``knn_index_query`` with a
-    sampled ``recall_at_k``.
+    owns them. Over a multi-process mesh a rank scans only its own shards'
+    slices, and since a slot's row shard may live on another rank, every
+    slice's (tree and row, distances, ids) go through one
+    ``parallel/mesh.fetch_many`` (each entry once, where an all-reduce of
+    the whole (T, n, kk) stacks would hand each over once a rank). Each row
+    shard then folds its T lists: B6 (``cuda_forest.forest_merge``) on the
+    kernels' route (:func:`_fused`), else one dedup lex merge. Every op is
+    per leaf or per row, so the lists equal the one-device query's
+    bitwise. Emits ``knn_index_query`` with a sampled ``recall_at_k``.
     """
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
@@ -355,18 +361,25 @@ def forest_knn_shards(data_on: dict, rows, forest: RPForest, k: int, metric: str
     members = {dev: torch.as_tensor(forest.members, device=dev) for dev in data_on}
     mask = {dev: torch.as_tensor(forest.leaf_mask, device=dev) for dev in data_on}
     dtype = next(iter(data_on.values())).dtype
-    stacks = [(torch.full((trees, hi - lo, kk), float("inf"), dtype=dtype, device=dev),
-               torch.full((trees, hi - lo, kk), sentinel, dtype=torch.int32, device=dev))
-              for lo, hi, dev in rows]
-    plan = _leaf_plan(forest, [dev for _, _, dev in rows])
+    local = [s for s in range(len(rows)) if mesh is None or mesh.is_local(s)]
+    multi = mesh is not None and mesh.multiprocess
+    stacks = {s: (torch.full((trees, hi - lo, kk), float("inf"), dtype=dtype, device=dev),
+                  torch.full((trees, hi - lo, kk), sentinel, dtype=torch.int32, device=dev))
+              for s, (lo, hi, dev) in enumerate(rows) if s in local}
+    plan = _leaf_plan(forest, [dev for _, _, dev in rows], set(local))
+    scanned = {s: [] for s in local}  # over ranks: each slice's (t * n + row, d, i)
     for t in range(trees):
-        for a, b, dev, real in plan:
+        for a, b, s, dev, real in plan:
             mem = members[dev][t, a:b]
             nd, ni = cf.forest_leaf_topk(data_on[dev], mem, mask[dev][a:b], kk, metric=metric,
                                          form=form, precision=precision, sentinel=sentinel)
             ids = mem.reshape(-1)[real].long()
             nd, ni = nd.reshape(-1, kk)[real], ni.reshape(-1, kk)[real]
-            for (lo, hi, rdev), (sd, si) in zip(rows, stacks):
+            if multi:
+                scanned[s].append((ids + t * n, nd, ni))
+                continue
+            for r in local:
+                (lo, hi, rdev), (sd, si) = rows[r], stacks[r]
                 at, vd, vi = ids, nd, ni
                 if (lo, hi) != (0, n):  # the rows this shard owns
                     sel = torch.nonzero((ids >= lo) & (ids < hi)).squeeze(1)
@@ -374,32 +387,55 @@ def forest_knn_shards(data_on: dict, rows, forest: RPForest, k: int, metric: str
                 at = at.to(rdev)
                 sd[t].index_copy_(0, at, vd.to(rdev))
                 si[t].index_copy_(0, at, vi.to(rdev))
-    lists = []
-    for (lo, hi, dev), (sd, si) in zip(rows, stacks):
+    if multi:
+        at, vd, vi = fetch_many({s: tuple([torch.cat(c) for c in zip(*scanned[s])])
+                                 if scanned[s] else None for s in local}, mesh)
+        tree, row = at // n, at % n
+        for r in local:
+            (lo, hi, rdev), (sd, si) = rows[r], stacks[r]
+            sel = (row >= lo) & (row < hi)
+            where = (torch.as_tensor(tree[sel], device=rdev),
+                     torch.as_tensor(row[sel] - lo, device=rdev))
+            sd[where] = torch.as_tensor(vd[sel], device=rdev)
+            si[where] = torch.as_tensor(vi[sel], device=rdev)
+    lists = [None] * len(rows)
+    for r in local:
+        (lo, hi, dev), (sd, si) = rows[r], stacks[r]
         if hi == lo:
-            lists.append((sd[0], si[0]))
+            lists[r] = (sd[0], si[0])
         elif _fused(backend, dev):
-            lists.append(cf.forest_merge(sd, si, kk, sentinel))
+            lists[r] = cf.forest_merge(sd, si, kk, sentinel)
         else:
             m = hi - lo
-            lists.append(dedup_lex_merge(sd.permute(1, 0, 2).reshape(m, trees * kk),
-                                         si.permute(1, 0, 2).reshape(m, trees * kk),
-                                         kk, sentinel))
+            lists[r] = dedup_lex_merge(sd.permute(1, 0, 2).reshape(m, trees * kk),
+                                       si.permute(1, 0, 2).reshape(m, trees * kk),
+                                       kk, sentinel)
     for dev in data_on:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     if trace is not None:
-        root = rows[0][2]
-        best_i = _gather([bi for _, bi in lists], root)
-        trace_query(trace, data_on[root], forest, best_i, kk, metric, recall_sample, t0)
+        # Every rank of a fit passes a trace or none, so every rank joins
+        # the fetch of the sampled rows' ids or none does.
+        root = rows[local[0]][2]
+        sample_i = None
+        if recall_sample:
+            at = recall_rows(n, recall_sample)
+            sample_i = fetch({r: lists[r][1][torch.as_tensor(
+                at[(at >= rows[r][0]) & (at < rows[r][1])] - rows[r][0], device=rows[r][2])]
+                for r in local}, mesh)
+        trace_query(trace, data_on[root], forest, sample_i, kk, metric, recall_sample, t0)
     return lists
 
 
-def _gather(parts, device):
-    """Row shards' tensors concatenated on ``device`` (one shard as is)."""
+def _whole(parts: dict, device, mesh=None):
+    """Row shards' tensors ({shard: tensor} over this process's shards)
+    concatenated in shard order on ``device``; over a multi-process mesh
+    every rank's, through ``parallel/mesh.fetch``."""
+    if mesh is not None and mesh.multiprocess:
+        return torch.as_tensor(fetch(parts, mesh), device=device)
     if len(parts) == 1:
-        return parts[0].to(device)
-    return torch.cat([p.to(device) for p in parts])
+        return next(iter(parts.values())).to(device)
+    return torch.cat([parts[s].to(device) for s in sorted(parts)])
 
 
 def _expand(best_i, bi, k: int, sentinel: int):
@@ -442,24 +478,27 @@ def rescan_round(data_dev, best_d, best_i, k: int, metric: str, rnd: int,
 
 
 def rescan_round_shards(data_on: dict, rows, lists, k: int, metric: str, rnd: int,
-                        rescan_rounds: int, sentinel: int, *, trace=None, backend: str = "xla",
-                        precision: str = "f32"):
-    """One neighbor-of-neighbor round over row shards (``rows`` and
-    ``data_on`` as for :func:`forest_knn_shards`, ``lists`` each shard's):
-    every row's candidates are its neighbors' lists, gathered from every
-    shard, merged into its own by :func:`_rescan_chunk` (B7 on the
-    kernels' route) in chunks of the reference's size
+                        rescan_rounds: int, sentinel: int, *, mesh=None, trace=None,
+                        backend: str = "xla", precision: str = "f32"):
+    """One neighbor-of-neighbor round over row shards (``rows``,
+    ``data_on`` and ``mesh`` as for :func:`forest_knn_shards`, ``lists``
+    each shard's, None for another rank's): every row's candidates are its
+    neighbors' lists, gathered from every shard (over ranks through
+    ``parallel/mesh.fetch``), merged into its own by :func:`_rescan_chunk`
+    (B7 on the kernels' route) in chunks of the reference's size
     (``_RESCAN_ELEM_BUDGET``). The count of rows whose k-th distance
-    improved stays on the device and is read once, for the
-    ``knn_index_rescan`` event. Returns each shard's new lists."""
+    improved stays on the device and is read once, summed over the ranks,
+    for the ``knn_index_rescan`` event. Returns each shard's new lists."""
     t0 = time.monotonic()
-    root = rows[0][2]
-    all_i = _gather([bi for _, bi in lists], root)
+    local = [s for s, got in enumerate(lists) if got is not None]
+    root = rows[local[0]][2]
+    all_i = _whole({s: lists[s][1] for s in local}, root, mesh)
     all_on = {dev: all_i.to(dev) for dev in data_on}
     d = next(iter(data_on.values())).shape[1]
     chunk = max(64, _RESCAN_ELEM_BUDGET // max(1, k * k * d))
-    out, improved = [], torch.zeros((), dtype=torch.int64, device=root)
-    for (lo, hi, dev), (bd, bi) in zip(rows, lists):
+    out, improved = [None] * len(rows), torch.zeros((), dtype=torch.int64, device=root)
+    for s in local:
+        (lo, hi, dev), (bd, bi) = rows[s], lists[s]
         data, fused = data_on[dev], _fused(backend, dev)
         parts_d, parts_i = [], []
         for a in range(0, hi - lo, chunk):
@@ -471,19 +510,26 @@ def rescan_round_shards(data_on: dict, rows, lists, k: int, metric: str, rnd: in
             improved += (nd[:, k - 1] < cd[:, k - 1]).sum().to(root)
             parts_d.append(nd)
             parts_i.append(ni)
-        out.append((torch.cat(parts_d), torch.cat(parts_i)) if parts_d else (bd, bi))
-    if trace is not None:
+        out[s] = (torch.cat(parts_d), torch.cat(parts_i)) if parts_d else (bd, bi)
+    if trace is not None:  # every rank of a fit passes a trace or none
+        improved = all_reduce(improved, mesh, op="sum")
         trace("knn_index_rescan", wall_s=time.monotonic() - t0, round=rnd,
               rescan_rounds=rescan_rounds, improved=int(improved), n=sentinel, k=k)
     return out
 
 
-def _sampled_recall(data_dev, best_i, k: int, metric: str, sample: int):
-    """Mean per-row recall@k of ``best_i`` against an exact scan of
-    ``sample`` evenly spaced rows (ids by the (distance, id) order, in the
-    euclidean form the reference takes for the whole (rows, n) block)."""
+def recall_rows(n: int, sample: int) -> np.ndarray:
+    """The ``sample`` evenly spaced rows of a sampled recall, ascending."""
+    return np.unique(np.linspace(0, n - 1, num=min(sample, n), dtype=np.int64))
+
+
+def _sampled_recall(data_dev, sample_i, k: int, metric: str, sample: int):
+    """Mean per-row recall@k of the lists ``sample_i`` (host ids of the
+    ``sample`` evenly spaced rows of :func:`recall_rows`) against an exact
+    scan of those rows (ids by the (distance, id) order, in the euclidean
+    form the reference takes for the whole (rows, n) block)."""
     n, d = data_dev.shape
-    rows = np.unique(np.linspace(0, n - 1, num=min(sample, n), dtype=np.int64))
+    rows = recall_rows(n, sample)
     form = euclidean_form(len(rows), n, d) if metric == "euclidean" else None
     exact = []
     for a in range(0, len(rows), _RECALL_BLOCK):
@@ -491,8 +537,7 @@ def _sampled_recall(data_dev, best_i, k: int, metric: str, sample: int):
         dist = pairwise_distance(data_dev[blk], data_dev, metric, form)
         exact.append(lex_kbest(dist, k)[1].cpu().numpy())
     exact = np.concatenate(exact)
-    approx = best_i[torch.as_tensor(rows, device=best_i.device)].cpu().numpy()
-    hits = sum(len(np.intersect1d(exact[r], approx[r])) for r in range(len(rows)))
+    hits = sum(len(np.intersect1d(exact[r], sample_i[r])) for r in range(len(rows)))
     return float(hits) / float(len(rows) * k), int(len(rows))
 
 
@@ -613,9 +658,14 @@ def rpforest_core_distances(
     device, the data lies on every distinct device, the leaf scans are cut
     over the shards and the rows fold and rescan on their row shard
     (:func:`forest_knn_shards`, rows split as ``mesh.block_shards`` splits
-    n), equal to the one-device run bitwise. Over two or more shards the
-    query runs at f32 whatever ``knn_precision`` asks, as the reference's,
-    whose fused route is single-device.
+    n), equal to the one-device run bitwise. Over a multi-process mesh
+    every rank holds the whole set and builds the same forest (stable sorts
+    and elementwise ops only) on its first device, scans and folds only its
+    own shards, and the hand-overs go through ``parallel/mesh``'s
+    ``fetch_many``, ``fetch`` and ``all_reduce``; every rank returns the
+    whole result. Over two or more shards the query runs at f32 whatever
+    ``knn_precision`` asks, as the reference's, whose fused route is
+    single-device.
     """
     data = np.asarray(data)
     n, d = data.shape
@@ -625,11 +675,8 @@ def rpforest_core_distances(
         raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
     if knn_precision == "bf16" and metric != "euclidean":
         raise ValueError("knn_precision='bf16' supports euclidean only (bf16 distance tiles)")
-    from hdbscan_tpu_torch.parallel.mesh import refuse_multiprocess
-
-    refuse_multiprocess(mesh, "the rp-forest (knn_index=rpforest)")
     devices = mesh.devices if mesh is not None else (cuda_build.resolve_device(device),)
-    root = devices[0]
+    root = mesh.root if mesh is not None else devices[0]
     on_card = root.type == "cuda"  # a mesh never mixes the CPU and cards
     eligible = cf.fused_forest_eligible(n, d, k_eff, metric, dtype)
     # bf16 tiles only inside the fused gate and on one device; past it the
@@ -645,7 +692,7 @@ def rpforest_core_distances(
         forest = build_forest(data, trees=trees, leaf_size=leaf_size, seed=seed, dtype=dtype,
                               trace=trace, device=root)
     data_on, run_metric = {}, metric
-    for dev in dict.fromkeys(devices):
+    for dev in (mesh.distinct() if mesh is not None else devices):
         x = torch.as_tensor(data.astype(dtype), device=dev)
         # The kernels take pearson's rows centred once; the forest was
         # built on the raw rows.
@@ -656,11 +703,12 @@ def rpforest_core_distances(
     rows = block_shards(devices, n)
     k_run = min(2 * k_eff, cf.LANES, n) if precision == "bf16" else k_eff
     t_fused = time.monotonic()
-    lists = forest_knn_shards(data_on, rows, forest, k_run, metric, trace=trace,
+    lists = forest_knn_shards(data_on, rows, forest, k_run, metric, mesh=mesh, trace=trace,
                               recall_sample=recall_sample, backend=backend, precision=precision)
     for rnd in range(rescan_rounds):
         lists = rescan_round_shards(data_on, rows, lists, k_run, metric, rnd, rescan_rounds, n,
-                                    trace=trace, backend=backend, precision=precision)
+                                    mesh=mesh, trace=trace, backend=backend,
+                                    precision=precision)
     refine_rows = 0
     if precision == "bf16":  # one device
         best_d, best_i = cf.refine_f32(data_on[root], *lists[0], metric, n)
@@ -674,14 +722,15 @@ def rpforest_core_distances(
               trees=forest.trees, leaf_tiles=forest.trees * forest.num_leaves,
               refine_rows=refine_rows, precision=precision, interpret=not on_card)
     col = min(min_pts - 1, n) - 1
+    mine = {s: got for s, got in enumerate(lists) if got is not None}
     if not fetch_knn and not return_indices:
         if min_pts <= 1:
             return np.zeros(n, np.float64), None
-        return fetch([bd[:, col] for bd, _ in lists]).astype(np.float64), None
-    knn = fetch([bd for bd, _ in lists]).astype(np.float64)
+        return fetch({s: bd[:, col] for s, (bd, _) in mine.items()}, mesh).astype(np.float64), None
+    knn = fetch({s: bd for s, (bd, _) in mine.items()}, mesh).astype(np.float64)
     core = np.zeros(n, np.float64) if min_pts <= 1 else knn[:, col].copy()
     if return_indices:
-        return core, knn, fetch([bi for _, bi in lists]).astype(np.int64)
+        return core, knn, fetch({s: bi for s, (_, bi) in mine.items()}, mesh).astype(np.int64)
     return core, knn
 
 

@@ -145,14 +145,6 @@ def _check_platform(devices) -> None:
                          f"{[str(d) for d in devices]}")
 
 
-def refuse_multiprocess(mesh: Mesh | None, what: str) -> None:
-    """Raise NotImplementedError for a path that does not run over a
-    multi-process mesh yet (ROADMAP A9c), before it does any work."""
-    if mesh is not None and mesh.multiprocess:
-        raise NotImplementedError(f"{what} over a multi-process mesh is not ported yet "
-                                  "(ROADMAP A9c)")
-
-
 def spans_cards(mesh: Mesh | None) -> bool:
     """A mesh of two or more distinct CUDA devices (by identity, across
     ranks): where ``auto`` takes the sharded and ring engines (the
@@ -242,12 +234,13 @@ def ring_shift(mesh: Mesh, panels: dict, step: int, rows) -> dict:
     """One ring step of panel hand-overs: ``panels`` maps every local shard
     to its tuple of tensors; returns, for every local shard ``me``, the
     tuple of shard ``(me - step) % D`` on ``me``'s device. ``rows[s]`` is
-    shard ``s``'s leading length (every tensor of a panel shares it; the
-    trailing shapes and types are the local panels'), so a receiver sizes
-    its buffers without asking. A panel of a local shard moves with
-    ``Tensor.to`` (nothing moves on a shared card); one of another rank's
-    shard arrives by a send/receive pair, every pair of the step batched
-    together. Every rank takes every step, so the pairs always match."""
+    shard ``s``'s leading length, shared by every tensor of its panel, or a
+    tuple of one leading length a tensor (the trailing shapes and types are
+    the local panels'), so a receiver sizes its buffers without asking. A
+    panel of a local shard moves with ``Tensor.to`` (nothing moves on a
+    shared card); one of another rank's shard arrives by a send/receive
+    pair a non-empty tensor, every pair of the step batched together.
+    Every rank takes every step, so the pairs always match."""
     n_dev = len(mesh.devices)
     # Tuples here are built from lists: the CPU memory auditor's sampler
     # thread walks ``gc.get_objects()``, and a tuple a generator is still
@@ -268,22 +261,26 @@ def ring_shift(mesh: Mesh, panels: dict, step: int, rows) -> dict:
     t0 = time.monotonic()
     like = next(iter(panels.values()))
     n_t = len(like)
+
+    def lengths(s):
+        return rows[s] if isinstance(rows[s], tuple) else (rows[s],) * n_t
+
     ops, sent, bufs = [], 0, {}
     for src, dst in send:
-        if not rows[src]:  # an empty panel travels as its receiver's empty buffer
-            continue
-        for i, t in enumerate(panels[src]):
+        for i, (t, m) in enumerate(zip(panels[src], lengths(src))):
+            if not m:  # an empty tensor travels as its receiver's empty buffer
+                continue
             w = _wire(t, mesh)
             sent += w.numel() * w.element_size()
             ops.append(dist.P2POp(dist.isend, w, mesh.owners[dst], group=mesh.group,
                                   tag=src * n_t + i))
     for me, src in recv:
         bufs[me] = []
-        for i, t in enumerate(like):
+        for i, (t, m) in enumerate(zip(like, lengths(src))):
             dtype = torch.uint8 if t.dtype == torch.bool else t.dtype
-            b = torch.empty((rows[src], *t.shape[1:]), dtype=dtype, device=_wire_device(mesh))
+            b = torch.empty((m, *t.shape[1:]), dtype=dtype, device=_wire_device(mesh))
             bufs[me].append(b)
-            if rows[src]:
+            if m:
                 ops.append(dist.P2POp(dist.irecv, b, mesh.owners[src], group=mesh.group,
                                       tag=src * n_t + i))
     if ops:

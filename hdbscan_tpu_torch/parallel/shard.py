@@ -33,7 +33,7 @@ RingBoruvkaScanner`` runs steps 1 and 2 over the dense component labels.
 
 The forest tier's sharded twin is :func:`shard_forest_core_distances`:
 per-shard tree builds and a ring exchange of candidate panels through the
-rescan top-k kernel (B7), with no full data copy on any shard;
+rescan top-k kernel (B7), with no full data copy on any shard or rank;
 :func:`shard_core_distances_rows` is the MR boundary rescan's entry. The
 reference pins its sharded state with JAX partition rules; the port's
 tensors simply lie where :data:`PARTITION_RULES` says, the table the run
@@ -56,7 +56,6 @@ from hdbscan_tpu_torch.parallel.mesh import (
     fetch,
     fetch_many,
     get_mesh,
-    refuse_multiprocess,
     ring_shift,
     spans_cards,
 )
@@ -172,19 +171,19 @@ def _shard_geometry(n: int, n_dev: int) -> tuple[int, int]:
     return shard, shard * n_dev
 
 
-def _host_recall(data: np.ndarray, best_i: np.ndarray, k: int, sample: int):
-    """Sampled recall@k against a host numpy brute-force scan (euclidean),
-    the reference's oracle: evenly spaced rows, exact ids by (distance,
-    id). The k-th distance comes from a partition and only the rows at or
-    under it are sorted: the reference's ids, without sorting all n."""
+def _host_recall(data: np.ndarray, rows: np.ndarray, sample_i: np.ndarray, k: int):
+    """Sampled recall@k of the lists ``sample_i`` of ``rows`` (evenly
+    spaced, ``ops/rpforest.recall_rows``) against a host numpy brute-force
+    scan (euclidean), the reference's oracle: exact ids by (distance, id).
+    The k-th distance comes from a partition and only the rows at or under
+    it are sorted: the reference's ids, without sorting all n."""
     n = len(data)
-    rows = np.unique(np.linspace(0, n - 1, num=min(sample, n), dtype=np.int64))
     hits = 0
-    for r in rows:
+    for r, got in zip(rows, sample_i):
         dist = np.linalg.norm(data - data[r], axis=1)
         near = np.flatnonzero(dist <= np.partition(dist, k - 1)[k - 1])
         exact = near[np.lexsort((near, dist[near]))][:k]
-        hits += len(np.intersect1d(exact, best_i[r][best_i[r] < n]))
+        hits += len(np.intersect1d(exact, got[got < n]))
     return float(hits) / float(len(rows) * k), int(len(rows))
 
 
@@ -230,6 +229,13 @@ def shard_forest_core_distances(
     neighbour-of-neighbour rescan: this tier is its own approximation,
     held to the reference's own sharded run, and to recall.
 
+    Over a multi-process mesh a rank uploads and builds only its own
+    shards (every rank knows each shard's geometry without asking); each
+    ring step hands the visiting panels over together through
+    ``parallel/mesh.ring_shift`` (rows, leaf members and thresholds, whose
+    leading lengths differ), and the k-th column and the recall ids come
+    back through ``fetch``, so every rank returns the one-process cores.
+
     ``knn_precision="bf16"`` (euclidean) runs B7's bf16 tiles, centred on
     8-row query tiles where the reference centres each shard's block: held
     to recall and ARI only. ``**_ignored`` takes the replicated tier's
@@ -253,9 +259,10 @@ def shard_forest_core_distances(
         _leaf_layout,
         _normals,
         forest_depth,
+        recall_rows,
         route_queries,
     )
-    from hdbscan_tpu_torch.parallel.ring import _emit_ring_trace, _per_device_walls
+    from hdbscan_tpu_torch.parallel.ring import _emit_ring_trace, _handover, _per_device_walls
 
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
@@ -266,9 +273,8 @@ def shard_forest_core_distances(
     data = np.asarray(data)
     n, d = data.shape
     mesh = mesh if mesh is not None else get_mesh()
-    refuse_multiprocess(mesh, "the sharded rp-forest (knn_index=rpforest)")
     n_dev = device_count(mesh)
-    devs = mesh.devices
+    devs, local = mesh.devices, mesh.local_shards()
     k_eff = min(max(k or 0, max(min_pts - 1, 1)), n)
     shard, n_pad = _shard_geometry(n, n_dev)
     leaf_size = min(max(leaf_size, 2 * k_eff + 2, 8), max(shard, 2))
@@ -280,9 +286,10 @@ def shard_forest_core_distances(
     x = np.zeros((n_pad, d), dtype)
     x[:n] = data
 
+    # Every rank knows each shard's geometry; it uploads and builds only its
+    # own shards.
     t_up = time.monotonic()
-    rows = [torch.as_tensor(x[s * shard : (s + 1) * shard], device=dev)
-            for s, dev in enumerate(devs)]
+    rows = {s: torch.as_tensor(x[s * shard : (s + 1) * shard], device=devs[s]) for s in local}
     normals_on = {dev: torch.as_tensor(normals, device=dev) for dev in mesh.distinct()}
     upload_s = time.monotonic() - t_up
 
@@ -291,16 +298,17 @@ def shard_forest_core_distances(
     t0 = time.monotonic()
     geom_on = {dev: _geometry(shard, depth, dev) for dev in mesh.distinct()}
     pos_on = {dev: torch.as_tensor(pos_idx, device=dev) for dev in mesh.distinct()}
-    members, thresholds = [], []
-    for s, dev in enumerate(devs):
+    members, thresholds = {}, {}
+    for s in local:
+        dev = devs[s]
         mem = torch.empty((trees, n_leaves, lmax), dtype=torch.int32, device=dev)
         thr = torch.zeros((trees, max(num_nodes, 1)), dtype=rows[s].dtype, device=dev)
         for t in range(trees):
             perm, th = _build_one_tree(rows[s], normals_on[dev][t], geom_on[dev])
             mem[t] = perm[pos_on[dev]].to(torch.int32)
             thr[t, :num_nodes] = th
-        members.append(mem)
-        thresholds.append(thr)
+        members[s] = mem
+        thresholds[s] = thr
     if trace is not None:
         trace("shard_knn_build", wall_s=round(time.monotonic() - t0, 6), fused=False,
               devices=n_dev, trees=trees, depth=depth, leaf_size=leaf_size, max_leaf=lmax,
@@ -316,12 +324,13 @@ def shard_forest_core_distances(
     same_form = (metric != "euclidean"
                  or euclid_form(1, trees * lmax, d) == euclid_form(1, lmax, d))
     groups = [list(range(trees))] if same_form else [[t] for t in range(trees)]
-    with obs.mem_phase("shard_knn_scan"), obs.task("shard_knn_scan", total=n_dev) as hb:
+    snap = comm_snapshot()
+    with obs.mem_phase("shard_knn_scan"), obs.task("shard_knn_scan", total=len(local)) as hb:
         t0 = time.monotonic()
         real = [max(0, min(shard, n - s * shard)) for s in range(n_dev)]
         lists = {}
-        for me, dev in enumerate(devs):
-            m = real[me]
+        for me in local:
+            m, dev = real[me], devs[me]
             if m == 0:
                 continue
             bd = torch.full((m, k_eff), float("inf"), dtype=rows[me].dtype, device=dev)
@@ -335,18 +344,22 @@ def shard_forest_core_distances(
         # x T x max-leaf ids on the card (B7 gathers no rows), times d where the
         # plain version gathers the candidates' coordinates. Every step is per
         # row, so the chunking does not change the lists.
-        per_row = trees * lmax * (d if rows[0].device.type == "cpu" else 1)
+        per_row = trees * lmax * (d if devs[0].type == "cpu" else 1)
         cap = max(RESCAN_ROW_TILE, _RESCAN_ELEM_BUDGET // per_row)
         n_chunks = -(-max(real) // cap)
         chunk = -(-max(real) // max(n_chunks, 1) // RESCAN_ROW_TILE) * RESCAN_ROW_TILE
+        # Step-outer: one ring step hands every visiting panel over at once
+        # (its rows, its trees' leaf members and heap thresholds; a padding
+        # shard's too), so every rank takes every step, in the same order.
+        panels = {s: (rows[s], members[s], thresholds[s]) for s in local}
+        lengths = [(shard, trees, trees)] * n_dev
         for step in range(n_dev):
-            for me, dev in enumerate(devs):
-                if me not in lists:
-                    continue
+            visiting = ring_shift(mesh, panels, step, lengths)
+            for me in lists:
+                dev = devs[me]
                 src = (me - step) % n_dev
                 off = src * shard
-                panel, mem_src = rows[src].to(dev), members[src].to(dev)
-                thr_src = thresholds[src].to(dev)
+                panel, mem_src, thr_src = visiting[me]
                 parts_d, parts_i = [], []
                 for a in range(0, real[me], chunk):
                     q = rows[me][a : min(a + chunk, real[me])]
@@ -373,19 +386,23 @@ def shard_forest_core_distances(
                    + trees * num_nodes * itemsize)
     _emit_ring_trace(
         trace, "shard_panel_sweep", wall, walls, n_dev, 0, rows=n, trees=trees, shard=shard,
-        upload_s=upload_s, comm_bytes=(n_dev - 1) * panel_bytes,
-        flops=2.0 * n_pad * trees * n_dev * lmax * d,
+        upload_s=upload_s, flops=2.0 * n_pad * trees * n_dev * lmax * d,
+        **_handover(mesh, snap, (n_dev - 1) * panel_bytes),
     )
     kth_col = min(max(min_pts - 1, 1), n) - 1
     t0 = time.monotonic()
-    live = sorted(lists)
-    kth = fetch([lists[s][0][:, kth_col] for s in live]).astype(np.float64)
+    kth = fetch({s: bd[:, kth_col] for s, (bd, _) in lists.items()}, mesh).astype(np.float64)
     if trace is not None:
         fields = dict(n=n, k=k_eff, trees=trees, devices=n_dev,
                       candidates=trees * n_dev * lmax)
+        # Every rank of a fit passes a trace or none, so every rank joins
+        # this fetch of the sampled rows' ids or none does.
         if recall_sample and metric == "euclidean":
-            ids = fetch([lists[s][1] for s in live]).astype(np.int64)
-            recall, rows_used = _host_recall(data, ids, k_eff, recall_sample)
+            at = recall_rows(n, recall_sample)
+            ids = fetch({s: bi[torch.as_tensor(at[(at >= s * shard) & (at < s * shard + real[s])]
+                                               - s * shard, device=bi.device)]
+                         for s, (_, bi) in lists.items()}, mesh).astype(np.int64)
+            recall, rows_used = _host_recall(data, at, ids, k_eff)
             fields["recall_at_k"] = recall
             fields["recall_rows"] = rows_used
         trace("shard_knn_exchange", wall_s=round(time.monotonic() - t0, 6), **fields)

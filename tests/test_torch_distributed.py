@@ -161,12 +161,23 @@ def test_one_process_helpers_are_plain():
     assert mesh_mod.comm_snapshot()[0] == before
 
 
-def test_multiprocess_forest_is_refused_not_run():
-    """The rp-forest over ranks (ROADMAP A9c) refuses before any work."""
-    two_ranks = mesh_mod.Mesh((torch.device("cpu"),) * 2, owners=(0, 1))
-    with pytest.raises(NotImplementedError, match="A9c"):
-        mesh_mod.refuse_multiprocess(two_ranks, "the rp-forest")
-    mesh_mod.refuse_multiprocess(mesh_mod.get_mesh(["cpu"] * 2), "the rp-forest")
+def test_one_process_ring_shift_takes_a_length_per_tensor():
+    """A panel whose tensors differ in leading length (the sharded forest's
+    rows, leaf members and thresholds): ``rows[s]`` as one length a tensor,
+    each shard handed the panel ``(me - step) % D`` whole, nothing counted."""
+    mesh = mesh_mod.get_mesh(["cpu"] * 3)
+    before = mesh_mod.comm_snapshot()[0]
+    panels = {s: (torch.full((5, 2), float(s)), torch.arange(3 * 4 * 2).reshape(3, 4, 2) + s,
+                  torch.zeros((3, 0)))
+              for s in range(3)}
+    for step in range(3):
+        out = mesh_mod.ring_shift(mesh, panels, step, [(5, 3, 3)] * 3)
+        for me in range(3):
+            src = (me - step) % 3
+            assert len(out[me]) == 3
+            for got, want in zip(out[me], panels[src]):
+                assert got.shape == want.shape and torch.equal(got, want)
+    assert mesh_mod.comm_snapshot()[0] == before
 
 
 def test_no_card_and_no_cpu_flag_fails_before_wiring(tmp_path, capsys):

@@ -183,14 +183,3 @@ def test_ring_over_ranks_equals_one_process_and_hands_over(blobs_file, tmp_path)
                     moved += ev.get("comm_bytes", 0)
                     stages.add(ev["stage"])
     assert stages == {"ring_knn_scan", "ring_boruvka_scan"} and moved > 0
-
-
-def test_forest_over_ranks_exits_2_before_reading_data(tmp_path):
-    """``knn_index=rpforest`` over ranks (ROADMAP A9c) exits 2 on every
-    rank before any data is read, never runs wrong."""
-    ranks = _run_ranks(2, "cpu", ["fit", f"file={tmp_path / 'absent.tsv'}", *MR_FLAGS,
-                                  "knn_index=rpforest", f"out_dir={tmp_path / 'out'}"],
-                       tmp_path)
-    for rc, so, se in ranks:
-        assert rc == 2 and "(ROADMAP A9c)" in se and "hdbscan-tpu:" not in so
-    assert not os.path.exists(tmp_path / "out")
