@@ -112,7 +112,13 @@ semantics): with ``--trace-out`` or ``--report`` the trace's events carry
 per-phase kernel build counts (``jit_compiles``, ``cache_hits``), and
 ``--report PATH`` writes the ``hdbscan-tpu-report/3`` run report (manifest,
 per-phase aggregates, memory samples and watermarks, timeline and roofline
-sections; ``predict``/``serve``: ``predict_latency``). Either flag, or
+sections; ``predict``/``serve``: ``predict_latency``). Either flag also puts
+the command's tracer in place for the program's spans
+(``utils/tracing.install``: the fit's root and phases, the batcher's and the
+predictor's, from every thread); the report's phase table leaves the
+span-only lines out, and the serving commands keep them out of the
+in-memory list too. Spans cost the serving path host time on the batcher's
+worker (README "Observability"). Either flag, or
 ``--assert-not-replicated``, installs the memory auditor (the card's
 allocator, or the live tensors on the CPU), the heartbeat hub (``heartbeat``
 seconds between beats, a hang watchdog after ``watchdog`` seconds without
@@ -182,6 +188,7 @@ included.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -265,14 +272,30 @@ def _telemetry_counters():
 def _serving_tracer(trace_out: str | None, report_out: str | None, max_events: int):
     """Tracer of the serving commands: ``--trace-out`` as JSON lines,
     ``HDBSCAN_TPU_TRACE=1`` as logfmt on stderr, the in-memory list bounded
-    by ``trace_max_events``; the build counters ride the events when
-    either file was asked for."""
+    by ``trace_max_events`` and kept free of span-only events (the report's
+    ``predict_latency`` reads the ``predict_batch`` events there); the build
+    counters ride the events when either file was asked for."""
     from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
 
     sinks = [JsonlSink(trace_out, static={"process": 0})] if trace_out is not None else []
     counters = _telemetry_counters() if trace_out is not None or report_out is not None else None
     return Tracer(stream=sys.stderr if os.environ.get("HDBSCAN_TPU_TRACE") else None,
-                  sinks=sinks, counters=counters, max_events=max_events)
+                  sinks=sinks, counters=counters, max_events=max_events, ring_spans=False)
+
+
+@contextlib.contextmanager
+def _serving_spans(tracer, trace_out: str | None, report_out: str | None):
+    """The serving command's tracer in place for the program's spans while
+    either file was asked for; the tracer closes on the way out."""
+    from hdbscan_tpu_torch.utils import tracing
+
+    spans = tracing.install(tracer) if trace_out is not None or report_out is not None else None
+    try:
+        yield
+    finally:
+        if spans is not None:
+            spans.remove()
+        tracer.close()
 
 
 def _write_serving_report(report_out: str, tracer, params, argv_full) -> None:
@@ -358,6 +381,7 @@ def _main_fit(argv: list[str]) -> int:
     from hdbscan_tpu_torch.parallel.shard import resolve_fit_sharding
     from hdbscan_tpu_torch.utils import telemetry
     from hdbscan_tpu_torch.utils.cache import enable_persistent_compilation_cache
+    from hdbscan_tpu_torch.utils import tracing
     from hdbscan_tpu_torch.utils.io import load_points
     from hdbscan_tpu_torch.utils.tracing import JsonlSink, Tracer
 
@@ -386,6 +410,7 @@ def _main_fit(argv: list[str]) -> int:
         counters=_telemetry_counters() if telemetry_on else None,
         max_events=params.trace_max_events,
     )
+    spans = tracing.install(tracer) if telemetry_on else None
     # The observability layer installs once per fit when telemetry is on or
     # the replication gate was asked for (it needs audited watermarks).
     # Uninstalled, every fit-path obs call is a no-op attribute check.
@@ -448,6 +473,8 @@ def _main_fit(argv: list[str]) -> int:
             obs.clear()
         if restore_term is not None:
             restore_term()
+        if spans is not None:
+            spans.remove()
         tracer.close()
 
     try:
@@ -632,7 +659,7 @@ def _main_predict(argv: list[str], argv_full: list[str]) -> int:
 
     enable_persistent_compilation_cache(params.compile_cache)
     tracer = _serving_tracer(trace_out, report_out, params.trace_max_events)
-    try:
+    with _serving_spans(tracer, trace_out, report_out):
         t0 = time.monotonic()
         try:
             model = ClusterModel.load(model_path)
@@ -667,8 +694,6 @@ def _main_predict(argv: list[str], argv_full: list[str]) -> int:
               f"{n_noise} noise ({predictor.backend} backend)")
         if out_path is not None:
             print(f"  predictions: {out_path}")
-    finally:
-        tracer.close()
     if report_out is not None:
         _write_serving_report(report_out, tracer, params, argv_full)
     return 0
@@ -704,7 +729,7 @@ def _main_serve(argv: list[str], argv_full: list[str]) -> int:
 
     enable_persistent_compilation_cache(params.compile_cache)
     tracer = _serving_tracer(trace_out, report_out, params.trace_max_events)
-    try:
+    with _serving_spans(tracer, trace_out, report_out):
         try:
             model = ClusterModel.load(model_path)
         except (OSError, ValueError, KeyError) as e:
@@ -736,8 +761,6 @@ def _main_serve(argv: list[str], argv_full: list[str]) -> int:
             file=sys.stderr, flush=True,
         )
         server.serve_forever()
-    finally:
-        tracer.close()
     if report_out is not None:
         _write_serving_report(report_out, tracer, params, argv_full)
     return 0

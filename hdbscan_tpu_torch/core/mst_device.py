@@ -30,6 +30,7 @@ import torch
 
 from hdbscan_tpu_torch.core.tree import TIE_RTOL, MergeForest
 from hdbscan_tpu_torch.ops import cuda_build
+from hdbscan_tpu_torch.utils import tracing
 
 __all__ = [
     "supports_inputs",
@@ -553,7 +554,9 @@ def boruvka_mst_device(
     :func:`forest_events_device` as inert self-loops). Returns a dict of
     device tensors {"u", "v", "w"} plus host values "count", "rounds",
     "round_syncs" and the per-round (max_rounds,) "stat_comp"/"stat_edges".
-    ``trace`` receives one ``mst_round`` event per round.
+    Each round is a ``boruvka.round`` span (``utils/tracing.span``),
+    device-timed up to the round's one read; ``trace`` receives it as an
+    ``mst_round`` event (round, components, edges_added, its wall).
     """
     from hdbscan_tpu_torch import obs
     from hdbscan_tpu_torch.ops.cuda_segmin import min_outgoing_all_rows
@@ -578,28 +581,30 @@ def boruvka_mst_device(
         syncs = 0
         progress = True
         while rounds < max_rounds and n_comp > 1 and progress:
-            bw, bj = min_outgoing_all_rows(
-                data_t, core_t, comp, valid, metric, row_tile, col_tile
-            )
-            emit_mask, win_row, rep, n_comp_t, added_t = _contract_round(
-                comp, bw, bj, valid, n
-            )
-            pos = count + torch.cumsum(emit_mask.to(torch.int32), 0) - 1
-            slot = torch.where(emit_mask, pos, buf).to(torch.int64)
-            wr = torch.clamp(win_row, 0, n - 1)
-            eu[slot] = wr
-            ev[slot] = torch.clamp(bj[wr], 0, n - 1)
-            ew[slot] = bw[wr]
-            comp = rep[comp]
-            # The round's one device->host read: it drives the loop.
-            n_comp, added = torch.stack([n_comp_t, added_t]).tolist()
+            with tracing.span("boruvka.round", hook=trace, stage="mst_round", device=dev,
+                              round=rounds) as sp:
+                bw, bj = min_outgoing_all_rows(
+                    data_t, core_t, comp, valid, metric, row_tile, col_tile
+                )
+                emit_mask, win_row, rep, n_comp_t, added_t = _contract_round(
+                    comp, bw, bj, valid, n
+                )
+                pos = count + torch.cumsum(emit_mask.to(torch.int32), 0) - 1
+                slot = torch.where(emit_mask, pos, buf).to(torch.int64)
+                wr = torch.clamp(win_row, 0, n - 1)
+                eu[slot] = wr
+                ev[slot] = torch.clamp(bj[wr], 0, n - 1)
+                ew[slot] = bw[wr]
+                comp = rep[comp]
+                sp.device_stop()
+                # The round's one device->host read: it drives the loop.
+                n_comp, added = torch.stack([n_comp_t, added_t]).tolist()
+                sp.set(components=n_comp, edges_added=added)
             syncs += 1
             stat_comp[rounds] = n_comp
             stat_edges[rounds] = added
             count += added
             progress = added > 0
-            if trace is not None:
-                trace("mst_round", round=rounds, components=n_comp, edges_added=added)
             rounds += 1
         return {
             "u": eu[:buf],

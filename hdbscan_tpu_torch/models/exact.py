@@ -58,6 +58,7 @@ from hdbscan_tpu_torch import obs
 from hdbscan_tpu_torch.config import HDBSCANParams
 from hdbscan_tpu_torch.models.hdbscan import HDBSCANResult
 from hdbscan_tpu_torch.ops import cuda_build
+from hdbscan_tpu_torch.utils import tracing
 
 
 def _engine(fit_sharding: str, scan_backend: str, mesh, device):
@@ -436,6 +437,13 @@ def fit(
     route (:func:`mst_edges`, ``boruvka_round`` events; the ring and
     sharded scanners add ``ring_boruvka_scan`` / ``shard_boruvka_scan``).
     A non-sharded mesh with the host scanner runs it on ``mesh.root``.
+
+    Spans (``utils/tracing.span``): the fit is a root ``fit.root`` span; on the
+    device route its ``core_distances`` (device-timed on one card),
+    ``boruvka.round`` spans, ``forest_events`` (device-timed),
+    ``fetch``, ``host_forest`` and ``finalize`` are its children. The
+    spans give ``trace`` its ``core_distances``, ``mst_round``,
+    ``forest_events``, ``host_sync`` and ``tree_build_device`` events.
     """
     from hdbscan_tpu_torch.core.mst_device import resolve_mst_backend
     from hdbscan_tpu_torch.ops.tiled import check_dtype
@@ -450,35 +458,36 @@ def fit(
     device = cuda_build.resolve_device(device)
     check_dtype(dtype, device)
     engine, mesh, _ = _engine(params.fit_sharding, params.scan_backend, mesh, device)
-    kw = dict(row_tile=row_tile, col_tile=col_tile, dtype=dtype,
-              num_constraints_satisfied=num_constraints_satisfied, trace=trace)
-    if params.dedup_points:
-        return _fit_dedup(data, params, engine, device=device, mesh=mesh, **kw)
-    sharded = engine == "sharded"
-    if resolve_mst_backend(params, n) == "device" and engine != "ring":
-        return _fit_device(data, params, device=mesh.root if sharded else device,
-                           mesh=mesh if sharded else None, **kw)
-    from hdbscan_tpu_torch.core.knn import resolve_index_for
-    from hdbscan_tpu_torch.models._finalize import finalize_clustering
+    with tracing.span("fit.root", rows=n, dims=int(data.shape[1]), engine=engine):
+        kw = dict(row_tile=row_tile, col_tile=col_tile, dtype=dtype,
+                  num_constraints_satisfied=num_constraints_satisfied, trace=trace)
+        if params.dedup_points:
+            return _fit_dedup(data, params, engine, device=device, mesh=mesh, **kw)
+        sharded = engine == "sharded"
+        if resolve_mst_backend(params, n) == "device" and engine != "ring":
+            return _fit_device(data, params, device=mesh.root if sharded else device,
+                               mesh=mesh if sharded else None, **kw)
+        from hdbscan_tpu_torch.core.knn import resolve_index_for
+        from hdbscan_tpu_torch.models._finalize import finalize_clustering
 
-    index, index_opts = resolve_index_for(params, n)
-    u, v, w, core = mst_edges(
-        data, params.min_points, params.dist_function, row_tile=row_tile,
-        col_tile=col_tile, dtype=dtype, mesh=mesh, trace=trace,
-        knn_backend=params.knn_backend, index=index, index_opts=index_opts,
-        device=device, **_KNOBS[engine],
-    )
-    tree, labels, scores, infinite = finalize_clustering(
-        n, u, v, w, core, params, num_constraints_satisfied, trace=trace, device=device,
-    )
-    return HDBSCANResult(
-        labels=labels,
-        tree=tree,
-        core_distances=core,
-        mst=(u, v, w),
-        outlier_scores=scores,
-        infinite_stability=infinite,
-    )
+        index, index_opts = resolve_index_for(params, n)
+        u, v, w, core = mst_edges(
+            data, params.min_points, params.dist_function, row_tile=row_tile,
+            col_tile=col_tile, dtype=dtype, mesh=mesh, trace=trace,
+            knn_backend=params.knn_backend, index=index, index_opts=index_opts,
+            device=device, **_KNOBS[engine],
+        )
+        tree, labels, scores, infinite = finalize_clustering(
+            n, u, v, w, core, params, num_constraints_satisfied, trace=trace, device=device,
+        )
+        return HDBSCANResult(
+            labels=labels,
+            tree=tree,
+            core_distances=core,
+            mst=(u, v, w),
+            outlier_scores=scores,
+            infinite_stability=infinite,
+        )
 
 
 def _fit_dedup(
@@ -602,9 +611,10 @@ def _fit_device(
 
     n = len(data)
     index, index_opts = resolve_index_for(params, n)
-    t0 = time.monotonic()
     fsnap = _flops.snapshot()
-    with obs.mem_phase("core_distances"):
+    # Device-timed on one card; a mesh's shards run on several.
+    with tracing.span("core_distances", hook=trace, device=None if mesh is not None else device,
+                      n=n) as sp, obs.mem_phase("core_distances"):
         if mesh is not None:
             from hdbscan_tpu_torch.parallel.shard import shard_core_distances
 
@@ -620,9 +630,8 @@ def _fit_device(
                 backend=params.knn_backend, index=index, index_opts=index_opts,
                 trace=trace, device=device,
             )
-    if trace is not None:
-        wall = time.monotonic() - t0
-        trace("core_distances", n=n, wall_s=round(wall, 6), **phase_stats(fsnap, wall))
+        if sp:
+            sp.set(**phase_stats(fsnap, sp.elapsed_s()))
 
     t0 = time.monotonic()
     from hdbscan_tpu_torch.parallel.mesh import comm_snapshot
@@ -650,21 +659,19 @@ def _fit_device(
                 col_tile=col_tile, dtype=dtype, device=device, trace=trace,
             )
         rounds_wall = time.monotonic() - t0
-        t1 = time.monotonic()
         # Padded (+inf, self-loop) tail rows pass through the scan as
         # non-merges.
-        events = forest_events_device(res["u"], res["v"], res["w"], n)
-        if trace is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)  # an honest phase wall when tracing
-            trace("forest_events", edges=int(res["u"].shape[0]),
-                  wall_s=round(time.monotonic() - t1, 6))
+        with tracing.span("forest_events", hook=trace, device=device,
+                          edges=int(res["u"].shape[0])):
+            events = forest_events_device(res["u"], res["v"], res["w"], n)
         t1 = time.monotonic()
-        fetched = _fetch({
-            "sw": events["sw"], "ra": events["ra"], "rb": events["rb"],
-            "u": res["u"], "v": res["v"], "w": res["w"],
-        })
-        sync_wall = time.monotonic() - t1
+        with tracing.span("fetch", hook=trace, stage="host_sync") as sp:
+            fetched = _fetch({
+                "sw": events["sw"], "ra": events["ra"], "rb": events["rb"],
+                "u": res["u"], "v": res["v"], "w": res["w"],
+            })
+            sp.set(arrays=len(fetched), bytes=int(sum(a.nbytes for a in fetched.values())))
+        sync_wall = time.monotonic() - t1  # the sharded timeline's fetch segment
     rounds, count = res["rounds"], res["count"]
     assert_rounds_converged(
         rounds, count, n, stat_comp=res["stat_comp"], stat_edges=res["stat_edges"],
@@ -687,12 +694,6 @@ def _fit_device(
         )
     if trace is not None:
         trace(
-            "host_sync",
-            arrays=len(fetched),
-            bytes=int(sum(a.nbytes for a in fetched.values())),
-            wall_s=round(sync_wall, 6),
-        )
-        trace(
             "boruvka_mst",
             rounds=rounds,
             edges=count,
@@ -704,28 +705,21 @@ def _fit_device(
     v = np.asarray(fetched["v"][:count], np.int64)
     w = np.asarray(fetched["w"][:count], np.float64)
 
-    t1 = time.monotonic()
     tree_backend = resolve_tree_backend(params, None)
-    forest = assemble_merge_forest(
-        n,
-        {"sw": fetched["sw"], "ra": fetched["ra"], "rb": fetched["rb"]},
-        build_children=(tree_backend == "reference"),
-    )
-    if trace is not None:
-        trace(
-            "tree_build_device",
-            n=n,
-            edges=count,
-            nodes=-1 if forest is None else len(forest.dist),
-            backend="device",
-            fallback=forest is None,
-            wall_s=round(time.monotonic() - t1, 6),
+    with tracing.span("host_forest", hook=trace, stage="tree_build_device", n=n, edges=count,
+                      backend="device") as sp:
+        forest = assemble_merge_forest(
+            n,
+            {"sw": fetched["sw"], "ra": fetched["ra"], "rb": fetched["rb"]},
+            build_children=(tree_backend == "reference"),
         )
+        sp.set(nodes=-1 if forest is None else len(forest.dist), fallback=forest is None)
     # forest=None (near-tied unequal weights): finalize builds it on the host.
-    tree, labels, scores, infinite = finalize_clustering(
-        n, u, v, w, core, params, num_constraints_satisfied, trace=trace,
-        forest=forest, device=device,
-    )
+    with tracing.span("finalize"):
+        tree, labels, scores, infinite = finalize_clustering(
+            n, u, v, w, core, params, num_constraints_satisfied, trace=trace,
+            forest=forest, device=device,
+        )
     return HDBSCANResult(
         labels=labels,
         tree=tree,

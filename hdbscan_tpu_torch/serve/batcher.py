@@ -11,6 +11,15 @@ Stdlib only (``threading`` + ``queue`` + ``concurrent.futures.Future``), one
 worker thread feeding the device — a single dispatcher keeps
 ``predict_batch`` trace events (``batch_seq``) strictly ordered; the
 predictor's own lock covers the callers that bypass the batcher.
+
+Spans (``utils/tracing.span``, only while a tracer is installed): a
+``batcher.request`` from ``submit`` to its Future's result (its id the
+caller's ``meta["request_id"]``, else a fresh one); on the worker thread
+``batcher.wait`` (blocked on an empty queue for a batch's first request),
+``batcher.linger`` (the rest of the batch's collection) and
+``batcher.dispatch`` (deadline check through fan-out, with the ids of the
+requests it carried, ``rows`` and ``coalesced``), whose children are the
+predictor's ``predict.stage``/``predict.bucket`` and ``batcher.fanout``.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import numpy as np
 
 from hdbscan_tpu_torch.fault import inject
 from hdbscan_tpu_torch.fault.policy import DeadlineExceeded, ShedRequest
+from hdbscan_tpu_torch.utils import tracing
 
 
 class MicroBatcher:
@@ -78,6 +88,10 @@ class MicroBatcher:
         :class:`DeadlineExceeded` here, and one that expires while queued
         fails the future the same way before dispatch — an expired request
         never occupies a batch slot.
+
+        ``meta['request_id']`` names the request's ``batcher.request`` span
+        while a tracer is installed; without one the span's fresh id is put
+        there (a ``meta`` is made when none was given).
         """
         X = np.asarray(X, np.float64)
         if X.ndim == 1:
@@ -88,6 +102,12 @@ class MicroBatcher:
         if deadline is not None and time.perf_counter() > deadline:
             raise DeadlineExceeded("request deadline passed before enqueue")
         fut: Future = Future()
+        req = tracing.begin("batcher.request", rows=len(X),
+                            span_id=meta.get("request_id") if meta else None)
+        if req is not None:
+            meta = {} if meta is None else meta
+            meta.setdefault("request_id", req.span_id)
+            fut.add_done_callback(req.end)
         # The close lock orders this put against close()'s sentinel: every
         # accepted future lands ahead of the sentinel in the FIFO queue, so
         # the worker's drain-until-sentinel loop resolves all of them —
@@ -145,70 +165,77 @@ class MicroBatcher:
         return batch, False
 
     def _dispatch(self, batch) -> None:
-        t_assembled = time.perf_counter()  # linger window closed; batch fixed
-        # Deadline fail-fast: a request whose deadline already passed gets a
-        # DeadlineExceeded (the server maps it to 504) instead of a batch
-        # slot — under overload, expired work must not displace live work.
-        live = []
-        for item in batch:
-            m = item[2]
-            dl = m.get("deadline") if m else None
-            if dl is not None and t_assembled > dl:
-                self._deadline_drops += 1
-                item[1].set_exception(
-                    DeadlineExceeded("request deadline passed before dispatch")
-                )
-            else:
-                live.append(item)
-        if not live:
-            return
-        batch = live
-        xs = [x for x, _, _ in batch]
-        futs = [f for _, f, _ in batch]
-        try:
-            x_all = np.concatenate(xs)
-        except ValueError as e:  # mixed dims inside one window
-            for f in futs:
-                f.set_exception(ValueError(f"incompatible request shapes: {e}"))
-            return
-        t_dispatch = time.perf_counter()
-        try:
-            labels, prob, score = self.predictor.predict(x_all)
-        except Exception as e:  # noqa: BLE001 - fan the failure out
-            for f in futs:
-                f.set_exception(e)
-            return
-        t_done = time.perf_counter()
-        self._batches += 1
-        self._rows += len(x_all)
-        bucket = self.predictor.bucket_for(
-            min(len(x_all), self.predictor.max_bucket)
-        )
-        # Fill every caller's meta BEFORE resolving any future: the waiting
-        # handler thread reads its meta only after .result() returns, so
-        # resolution order is the publication barrier.
-        for _, _, m in batch:
-            if m is not None:
-                m.update(
-                    t_assembled=t_assembled,
-                    t_dispatch=t_dispatch,
-                    t_done=t_done,
-                    bucket=bucket,
-                    coalesced=len(batch),
-                    batch_rows=len(x_all),
-                )
-        a = 0
-        for x, f in zip(xs, futs):
-            b = a + len(x)
-            f.set_result((labels[a:b], prob[a:b], score[a:b]))
-            a = b
+        with tracing.span("batcher.dispatch") as sp:
+            t_assembled = time.perf_counter()  # linger window closed; batch fixed
+            # Deadline fail-fast: a request whose deadline already passed gets a
+            # DeadlineExceeded (the server maps it to 504) instead of a batch
+            # slot — under overload, expired work must not displace live work.
+            live = []
+            for item in batch:
+                m = item[2]
+                dl = m.get("deadline") if m else None
+                if dl is not None and t_assembled > dl:
+                    self._deadline_drops += 1
+                    item[1].set_exception(
+                        DeadlineExceeded("request deadline passed before dispatch")
+                    )
+                else:
+                    live.append(item)
+            if not live:
+                return
+            batch = live
+            xs = [x for x, _, _ in batch]
+            futs = [f for _, f, _ in batch]
+            if sp:
+                sp.set(requests=[m.get("request_id") if m else None for _, _, m in batch],
+                       rows=sum(len(x) for x in xs), coalesced=len(batch))
+            try:
+                x_all = np.concatenate(xs)
+            except ValueError as e:  # mixed dims inside one window
+                for f in futs:
+                    f.set_exception(ValueError(f"incompatible request shapes: {e}"))
+                return
+            t_dispatch = time.perf_counter()
+            try:
+                labels, prob, score = self.predictor.predict(x_all)
+            except Exception as e:  # noqa: BLE001 - fan the failure out
+                for f in futs:
+                    f.set_exception(e)
+                return
+            t_done = time.perf_counter()
+            self._batches += 1
+            self._rows += len(x_all)
+            bucket = self.predictor.bucket_for(
+                min(len(x_all), self.predictor.max_bucket)
+            )
+            with tracing.span("batcher.fanout"):
+                # Fill every caller's meta BEFORE resolving any future: the
+                # waiting handler thread reads its meta only after .result()
+                # returns, so resolution order is the publication barrier.
+                for _, _, m in batch:
+                    if m is not None:
+                        m.update(
+                            t_assembled=t_assembled,
+                            t_dispatch=t_dispatch,
+                            t_done=t_done,
+                            bucket=bucket,
+                            coalesced=len(batch),
+                            batch_rows=len(x_all),
+                        )
+                a = 0
+                for x, f in zip(xs, futs):
+                    b = a + len(x)
+                    f.set_result((labels[a:b], prob[a:b], score[a:b]))
+                    a = b
 
     def _run(self) -> None:
         while True:
-            item = self._q.get()
+            with tracing.span("batcher.wait"):
+                item = self._q.get()
             if item is None:
                 break
-            batch, stop = self._collect(item)
+            with tracing.span("batcher.linger"):
+                batch, stop = self._collect(item)
             self._dispatch(batch)
             if stop:
                 break

@@ -38,7 +38,11 @@ bitwise; the membership row sum may sum in another order.
 
 Batching: queries pad into power-of-two buckets (floor 8, ceiling
 ``max_batch``), larger requests chunk. The training tables stay on the
-device; each chunk's padded rows go up with one copy.
+device; each chunk's padded rows go up with one copy. Each bucket is a
+``predict.bucket`` span (``utils/tracing.span``: ``bucket``, real ``rows``,
+``pad_rows``, ``backend``; device-timed on the card) over its
+``predict.stage`` child (pad and copy up), the k-NN kernel and ``_attach``
+through the fetch; it gives the ``tracer`` its ``predict_batch`` event.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from hdbscan_tpu_torch.core.distances import euclidean_form
 from hdbscan_tpu_torch.fault import inject
 from hdbscan_tpu_torch.ops import cuda_build
 from hdbscan_tpu_torch.ops.tiled import _next_pow2, _round_up, _tile_sizes
+from hdbscan_tpu_torch.utils import tracing
 
 #: Smallest bucket: requests of 1..8 rows share one shape.
 _MIN_BUCKET = 8
@@ -200,9 +205,10 @@ class Predictor:
       max_batch: bucket ceiling; requests above it chunk. Rounded up to a
         power of two, floor ``_MIN_BUCKET``.
       tracer: optional ``utils/tracing.Tracer`` — every dispatched bucket
-        emits a ``predict_batch`` event (bucket, rows, batch_seq, wall_s).
+        emits a ``predict_batch`` event (bucket, rows, batch_seq, wall_s,
+        and the ``predict.bucket`` span's fields).
       metrics: optional ``utils/metrics.MetricsRegistry`` — every dispatched
-        bucket observes the batch-size and device-wall histograms served by
+        bucket observes the batch-size and per-batch host-wall histograms served by
         ``GET /metrics`` (warmup dispatches are excluded).
       device: where the tables live and the kernels run.
     """
@@ -225,7 +231,7 @@ class Predictor:
             )
             self._m_device_s = metrics.histogram(
                 "hdbscan_tpu_predict_device_seconds",
-                "Device wall per dispatched batch (H2D + compute + D2H).",
+                "Host wall per dispatched batch: staging and H2D copy, compute, D2H fetch.",
             )
         self.backend = _resolve_backend(backend, model, self.device)
         n = model.n_train
@@ -353,24 +359,22 @@ class Predictor:
         for a in range(0, max(len(X), 1), self.max_bucket):
             b = min(len(X) - a, self.max_bucket)
             bucket = self.bucket_for(b)
-            t0 = time.perf_counter()
-            out = self._dispatch(self._stage(X[a : a + b], bucket), bucket, with_membership)
-            fetched = [o[:b].cpu().numpy() for o in out]
-            wall = time.perf_counter() - t0
-            if self.tracer is not None:
-                self.tracer(
-                    "predict_batch",
-                    bucket=int(bucket),
-                    rows=int(b),
-                    batch_seq=self._batch_seq,
-                    backend=self.backend,
-                    pred=self._pred_id,
-                    wall_s=round(wall, 6),
-                )
+            # The histogram keeps its own host wall: without a tracer the
+            # span is a no-op.
+            t0 = time.perf_counter() if self._m_device_s is not None else 0.0
+            with tracing.span("predict.bucket", hook=self.tracer, stage="predict_batch",
+                              device=self.device, bucket=bucket, rows=b, pad_rows=bucket - b,
+                              batch_seq=self._batch_seq, backend=self.backend,
+                              pred=self._pred_id) as sp:
+                with tracing.span("predict.stage"):
+                    staged = self._stage(X[a : a + b], bucket)
+                out = self._dispatch(staged, bucket, with_membership)
+                sp.device_stop()  # before the fetch, which waits for the card
+                fetched = [o[:b].cpu().numpy() for o in out]
             self._batch_seq += 1
             if self._m_batch_rows is not None:
                 self._m_batch_rows.observe(b)
-                self._m_device_s.observe(wall)
+                self._m_device_s.observe(time.perf_counter() - t0)
             outs.append(fetched)
         label = np.concatenate([o[0] for o in outs]).astype(np.int64)
         prob = np.concatenate([o[1] for o in outs]).astype(np.float64)

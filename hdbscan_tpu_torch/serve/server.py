@@ -204,8 +204,9 @@ class _Handler(BaseHTTPRequestHandler):
         rid = self.headers.get("X-Request-Id") or srv.next_request_id()
         # meta is filled across threads (batcher worker) with the span
         # timestamps; the Future resolution inside predict is the
-        # happens-before edge that publishes it back to this thread.
-        meta: dict = {}
+        # happens-before edge that publishes it back to this thread. The
+        # id names the batcher's request span.
+        meta: dict = {"request_id": rid}
         rows = 0
         generation = int(srv.generation)
         shed_reason = None  # set when the request was load-shed (503)

@@ -29,7 +29,7 @@ from __future__ import annotations
 import json
 import os
 
-from hdbscan_tpu_torch.utils.tracing import Tracer
+from hdbscan_tpu_torch.utils.tracing import Tracer, is_span_only
 
 #: Version tag carried by the run report (the reference's). /2: ``memory``
 #: gained the per-phase ``watermarks`` table; /3: the ``timeline`` and
@@ -244,7 +244,8 @@ def phase_aggregates(events) -> dict:
     Wall totals are plain float sums of the events' ``wall_s`` — exactly
     ``Tracer.total(stage)``. Rates re-derive from the SUMMED figures (a
     phase's aggregate MFU over its total wall, not a mean of per-event
-    rates)."""
+    rates). Span-only events (``utils/tracing.is_span_only``) are not
+    phases and are left out."""
     from hdbscan_tpu_torch.utils import flops
 
     agg: dict[str, dict] = {}
@@ -253,6 +254,8 @@ def phase_aggregates(events) -> dict:
             name, wall, fields = ev.get("stage"), ev.get("wall_s", 0.0), ev
         else:
             name, wall, fields = ev.name, ev.wall_s, ev.fields
+        if is_span_only(fields):
+            continue
         row = agg.setdefault(name, {"count": 0, "wall_s": 0.0})
         row["count"] += 1
         row["wall_s"] += float(wall)

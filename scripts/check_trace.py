@@ -187,6 +187,16 @@ against the replicas' ``request_span``/``request_shed`` events on
 event (100% causal-chain reconstruction), and a duplicate match (the same
 id answered by two replicas) is a violation.
 
+Spans (``utils/tracing.span`` in the PyTorch port, README "Observability")
+are added fields on any line under the same schema: a line carrying
+``t0_ns`` must carry integer ``t0_ns <= t1_ns`` (``time.perf_counter_ns``),
+a ``wall_s`` equal to their difference within 1e-6 s, a ``span_id`` (an
+integer or a non-empty string: a request's id), a ``parent_id`` and a
+``root_id`` of the same kinds (``parent_id`` null at a root), a string
+``thread`` and, where the span was device-timed, a finite non-negative
+``device_ms``. A line with ``span`` true is a span alone (not a stage of a
+``trace`` hook): the report's phase table leaves it out.
+
 Given
 a report (``utils/telemetry.REPORT_SCHEMA``), additionally cross-checks
 that the report's per-phase wall totals equal the trace's per-stage wall
@@ -239,6 +249,39 @@ TREE_STAGES = frozenset(
 #: built the merge forest (core/mst_device.py).
 TREE_STAGES_OPTIONAL = frozenset({"tree_build_device"})
 TREE_STAGES_ALL = TREE_STAGES | TREE_STAGES_OPTIONAL
+
+
+def _span_id(v, null_ok: bool = False) -> bool:
+    if v is None:
+        return null_ok
+    if isinstance(v, str):
+        return bool(v)
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _check_span(path: str, lineno: int, ev: dict) -> list[str]:
+    """A span's added fields (utils/tracing.span)."""
+    where = f"{path}:{lineno}: span {ev.get('stage')!r}"
+    errors = []
+    t0, t1 = ev.get("t0_ns"), ev.get("t1_ns")
+    if not all(isinstance(t, int) and not isinstance(t, bool) for t in (t0, t1)) or t1 < t0:
+        errors.append(f"{where} t0_ns={t0!r} t1_ns={t1!r} not ordered integers")
+    else:
+        wall = ev.get("wall_s")
+        if isinstance(wall, (int, float)) and abs(wall - (t1 - t0) / 1e9) > WALL_TOLERANCE:
+            errors.append(f"{where} wall_s={wall!r} != (t1_ns - t0_ns) / 1e9")
+    if not _span_id(ev.get("span_id")):
+        errors.append(f"{where} span_id={ev.get('span_id')!r} not an id")
+    if not _span_id(ev.get("parent_id"), null_ok=True) or not _span_id(ev.get("root_id")):
+        errors.append(f"{where} parent_id/root_id not ids")
+    if not isinstance(ev.get("thread"), str):
+        errors.append(f"{where} thread={ev.get('thread')!r} not a string")
+    if "device_ms" in ev:
+        d = ev["device_ms"]
+        if not isinstance(d, (int, float)) or isinstance(d, bool) or not math.isfinite(d) \
+                or d < 0:
+            errors.append(f"{where} device_ms={d!r} not a finite non-negative number")
+    return errors
 
 
 def validate_trace(path: str) -> tuple[list[dict], list[str]]:
@@ -339,6 +382,8 @@ def validate_trace(path: str) -> tuple[list[dict], list[str]]:
                             f"{path}:{lineno}: seq {seq} not increasing (prev {prev})"
                         )
                     last_seq[proc] = seq
+                if "t0_ns" in ev:
+                    errors += _check_span(path, lineno, ev)
                 # Ring-scan invariants (parallel/ring.py). Summary events carry
                 # devices + ppermute_steps: one full panel rotation is exactly
                 # devices - 1 permutes (the final panel is scanned in place).
@@ -1574,11 +1619,12 @@ def validate_report(
         ):
             errors.append(f"{path}: phase {stage!r} lacks numeric wall_s")
     if trace_events is not None:
-        # Round-trip: report per-phase walls == trace per-stage wall sums.
+        # Round-trip: report per-phase walls == trace per-stage wall sums
+        # (span-only lines, ``span`` true, are not phases).
         sums: dict[str, float] = {}
         for ev in trace_events:
             stage = ev.get("stage")
-            if isinstance(stage, str):
+            if isinstance(stage, str) and ev.get("span") is not True:
                 sums[stage] = sums.get(stage, 0.0) + float(ev.get("wall_s") or 0.0)
         for stage, want in sums.items():
             row = phases.get(stage)

@@ -160,6 +160,18 @@ def test_exact_sharded_route_equals_reference_exact_fit(tmp_path, grid_file, cap
     for name in ref_files:
         assert port_files[name] == ref_files[name], name
     _check_trace(trace)
+    # --trace-out puts the tracer in place for the program's spans: the
+    # fit's root, and its phases under it (as their hook events); the
+    # command's own ``fit`` stage stays one event.
+    import json
+
+    with open(trace) as f:
+        recs = [json.loads(line) for line in f]
+    (root,) = [r for r in recs if r["stage"] == "fit.root"]
+    assert root["span"] is True and len([r for r in recs if r["stage"] == "fit"]) == 1
+    phases = {r["stage"] for r in recs if r.get("parent_id") == root["span_id"]}
+    assert phases >= {"core_distances", "forest_events", "host_sync", "tree_build_device",
+                      "finalize"}
 
 
 @pytest.mark.parametrize(
